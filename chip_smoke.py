@@ -12,8 +12,20 @@ Phases, in order; any failure exits non-zero:
      encryption of BATCH random bit pairs, one warm and ITERS timed
      batched NAND calls, decryption checked against ~(a & b);
   5. the kernel at the main path's inputs: timed, held against its plain
-     version, with its bound; printed as one ``{"kernels": [...]}`` line.
-The last line is {"ok": true, "device": {...}}.  Imports nothing of JAX.
+     version, with its bound;
+  6. the compact-key kernel against its plain version on the card, bit for
+     bit, at ``test_params()`` (B=63) and at 128-bit B=4 over all 630 steps
+     with the exact and the rounded (limbs=3) stored key;
+  7. the circuit path: ``FrameworkConfig(eval_key_form="fused")`` over phase
+     4's keyset, 8-bit ripple add and subtract (mode fast) over B=CIRCUIT_BATCH
+     random byte pairs and the classic add over B=CLASSIC_BATCH, every output
+     decrypted and checked; one profiled fast add splits its device time;
+  8. NAND through the compact key at B=BATCH, decrypted and checked;
+  9. the compact-key kernel at the circuit path's inputs (one MAJ call,
+     B=CIRCUIT_BATCH) and at phase 8's (B=BATCH): timed, held against its
+     plain version, with its bound.
+Both kernels are printed as one ``{"kernels": [...]}`` line.  The last line
+is {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -33,6 +45,9 @@ HBM_BYTES_PER_S = 3.35e12
 #: The main path's batch (the reference's default gate batch) and timed calls.
 BATCH = 8192
 ITERS = 2
+#: The circuit path's batch ("batches of 1k ciphertexts") and the classic adder's.
+CIRCUIT_BATCH = 1024
+CLASSIC_BATCH = 32
 
 
 class SmokeFailure(RuntimeError):
@@ -67,22 +82,77 @@ def random_rotation_inputs(gen, p, n_steps, B, dev):
     return i32((n_steps, tg.kpl, U, N)), i32((B, U, N)), bara
 
 
-def rotation_bound(B: int, n: int, key: torch.Tensor, ctx, params) -> tuple[float, str]:
-    """Least time (ms) for a blind rotation on an H100 and what bounds it.
+def ntt_macs(P: int, F: int, K: int, M: int, dl: int) -> int:
+    """int8 limb MACs per sample and step of the CRT-NTT blind rotation (2
+    primes; forward NTT K*F*F with 2 matrix limbs and dl digit limbs,
+    pointwise F*K*M and inverse M*F*F with 2x2 limbs): the fewest-operation
+    exact dataflow for a blind rotation that the repo has."""
+    return P * (K * F * F * 2 * dl + F * K * M * 4 + M * F * F * 4)
 
-    Operations: the int8 limb MACs of the CRT-NTT dataflow per sample and step
-    (2 primes; forward NTT K*F*F with 2 matrix limbs and 1 or 2 digit limbs,
-    pointwise F*K*M and inverse M*F*F with 2x2 limbs), 2 ops per MAC.
+
+def bound_ms(macs: int, nbytes: int) -> tuple[float, str]:
+    """The larger of the operation time (2 ops per MAC at the int8 peak) and
+    the byte time (at the HBM rate), and which one it is."""
+    t_ops = 2 * macs / INT8_OPS_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def rotation_bound(B: int, n: int, key: torch.Tensor, params) -> tuple[float, str]:
+    """Least time (ms) for a blind rotation over the NTT-domain key on an H100
+    and what bounds it.  Operations: :func:`ntt_macs` per sample and step.
     Bytes: the key, acc0, bara and the output, each moved once.
     """
     _, P, F, K, M = key.shape
     dl = 1 if params.tgsw_params.halfBg <= 128 else 2
-    macs = P * (K * F * F * 2 * dl + F * K * M * 4 + M * F * F * 4) * B * n
     acc_bytes = B * (params.k + 1) * params.N * 4
     nbytes = key.numel() * key.element_size() + 2 * acc_bytes + n * B * 4
-    t_ops = 2 * macs / INT8_OPS_PER_S * 1e3
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+    return bound_ms(ntt_macs(P, F, K, M, dl) * B * n, nbytes)
+
+
+def compact_bound(B: int, n: int, key: torch.Tensor, ctx, params) -> tuple[float, str]:
+    """Least time (ms) for a blind rotation over the stored compact key on an
+    H100: the same function, exact mod 2^32, computed by the cheapest exact
+    dataflow the repo has.  Operations: :func:`ntt_macs` per sample and step,
+    plus the stored key's forward transform into the NTT domain once per step,
+    shared by the batch (P*L*kpl*U*R*F*F MACs with 2x2 limbs; ``ctx`` gives
+    the plan).  Bytes: the stored key, acc0, bara and the output, each moved
+    once.
+    """
+    U, J = params.k + 1, params.tgsw_params.kpl
+    P, F, R, L = len(ctx.primes), ctx.F, ctx.R, ctx.key_limbs
+    dl = 1 if params.tgsw_params.halfBg <= 128 else 2
+    key_macs = P * L * J * U * R * F * F * 4
+    macs = (ntt_macs(P, F, J * R, L * U * R, dl) * B + key_macs) * n
+    nbytes = key.numel() * key.element_size() + 2 * B * U * params.N * 4 + n * B * 4
+    return bound_ms(macs, nbytes)
+
+
+def timed(fn) -> tuple[float, object]:
+    """Host seconds of one call of ``fn`` that ends in a synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def device_breakdown(fn) -> str:
+    """Device time by kernel over one call of ``fn`` (torch.profiler).  Only
+    the kernels' own rows count: a CPU op's row repeats its kernels' time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        wall_s, _ = timed(fn)
+    rows = [(e.self_device_time_total, e.key) for e in prof.key_averages()
+            if e.device_type != DeviceType.CPU and e.self_device_time_total > 0]
+    total = sum(t for t, _ in rows)
+    if not total:
+        return f"profiled wall {wall_s:.3f} s; the profiler saw no device time (not measured)"
+    rows.sort(reverse=True)
+    top = "; ".join(f"{k[:60]} {t / 1e3:.1f} ms ({100 * t / total:.1f}%)" for t, k in rows[:6])
+    return (f"profiled wall {wall_s:.3f} s, device busy {total / 1e6:.3f} s "
+            f"(idle share {max(0.0, 1 - total / 1e6 / wall_s):.3f}); by kernel: {top}")
 
 
 def main() -> int:
@@ -93,13 +163,24 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
-    from eoc_tfhe_tpu_torch.core import bootstrap, gates, keys, params
+    from eoc_tfhe_tpu_torch.circuits import adder
+    from eoc_tfhe_tpu_torch.config import FrameworkConfig
+    from eoc_tfhe_tpu_torch.core import bootstrap, gates, keys, lwe, params
     from eoc_tfhe_tpu_torch.core.numeric import mod_switch_to_torus32_np
     from eoc_tfhe_tpu_torch.kernels import build
-    from eoc_tfhe_tpu_torch.ops import blind_rotate, ntt
+    from eoc_tfhe_tpu_torch.ops import blind_rotate, blind_rotate_compact, ntt
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(args.seed)
+
+    def encrypt_bytes(vals: torch.Tensor, ks, p):
+        """(B,) integers in [0, 256) -> LWE bits (8, B), LSB first."""
+        bits = torch.stack([(vals >> i) & 1 for i in range(8)]).bool()
+        return gates.encrypt_bit(gen, bits, ks.lwe_key, p)
+
+    def decrypt_word(ct, ks) -> torch.Tensor:
+        bits = gates.decrypt_bit(ct, ks.lwe_key).to(torch.int64)
+        return sum(bits[i] << i for i in range(bits.shape[0]))
 
     # 1. the card
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -172,16 +253,117 @@ def main() -> int:
                              1)
     err = int((kout.to(torch.int64) - pout.to(torch.int64)).abs().max())
     check(err == 0, f"blind_rotate_ntt differs from plain at the main path (max {err})")
-    bound_ms, bound_by = rotation_bound(B, p.n, key, ctx, p)
-    print(f"blind_rotate_ntt: {kernel_ms:.2f} ms (bound {bound_ms:.2f} ms, {bound_by}; "
+    k_bound_ms, bound_by = rotation_bound(B, p.n, key, p)
+    print(f"blind_rotate_ntt: {kernel_ms:.2f} ms (bound {k_bound_ms:.2f} ms, {bound_by}; "
           f"plain {plain_ms:.2f} ms)", flush=True)
-    print(json.dumps({"kernels": [{
+    kernels = [{
         "name": "blind_rotate_ntt", "route": "cuda",
         "source": "eoc_tfhe_tpu_torch/csrc/blind_rotate_ntt.cu",
         "replaces": "eoc_tfhe_tpu/ops/pallas_ntt_blindrot2.py:648",
         "launches": launches["blind_rotate_ntt"], "max_abs_err": err,
-        "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": None}]}), flush=True)
+        "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": k_bound_ms,
+        "bound_by": bound_by, "library_ms": None}]
+    nand_ntt_ms = call_ms
+    del kout, pout
+
+    # 6. compact-key kernel against plain on the card
+    for label, pc, B6, limbs in (("test_params", params.test_params(), 63, 4),
+                                 ("128-bit", params.default_128bit_params(), 4, 4),
+                                 ("128-bit rounded", params.default_128bit_params(), 4, 3)):
+        rows, acc6, bara6 = random_rotation_inputs(gen, pc, pc.n, B6, dev)
+        key6 = blind_rotate_compact.prepare_compact_bk(rows, limbs)
+        out6 = blind_rotate_compact.blind_rotate_compact(acc6, bara6, key6, pc)
+        plain6 = blind_rotate_compact.blind_rotate_compact_plain(acc6, bara6, key6, pc)
+        torch.cuda.synchronize()
+        check(torch.equal(out6, plain6), f"blind_rotate_compact differs from plain at {label}")
+        print(f"compact kernel == plain at {label}: B={B6}, n={pc.n}, limbs={limbs}, "
+              f"bit-identical", flush=True)
+        del rows, key6, out6, plain6
+
+    # 7. the circuit path: 8-bit add and subtract over the compact key
+    api = FrameworkConfig(param_set="128", eval_key_form="fused").make_gate_api(ks, p)
+    eck = api.eval_key
+    check(eck.form == "compact", f"fused config gave form {eck.form}")
+    Bc = CIRCUIT_BATCH
+    av = torch.randint(0, 256, (Bc,), generator=gen, device=dev)
+    bv = torch.randint(0, 256, (Bc,), generator=gen, device=dev)
+    ca8, cb8 = encrypt_bytes(av, ks, p), encrypt_bytes(bv, ks, p)
+    torch.cuda.synchronize()
+    blind_rotate.launches = blind_rotate_compact.launches = 0
+    add_s, (s_bits, carry) = timed(lambda: adder.ripple_carry_add(ca8, cb8, eck, p))
+    sub_s, (d_bits, borrow) = timed(lambda: adder.ripple_borrow_sub(ca8, cb8, eck, p))
+    Bk = CLASSIC_BATCH
+    cla8, clb8 = (lwe.lwe_index(c, (slice(None), slice(0, Bk))) for c in (ca8, cb8))
+    classic_s, (k_bits, k_carry) = timed(
+        lambda: adder.ripple_carry_add(cla8, clb8, eck, p, mode="classic"))
+    breakdown = device_breakdown(lambda: adder.ripple_carry_add(ca8, cb8, eck, p))
+    torch.cuda.synchronize()
+    circuit_launches = {"blind_rotate_ntt": blind_rotate.launches,
+                        "blind_rotate_compact": blind_rotate_compact.launches}
+    for what, got, want in (
+            ("add", decrypt_word(s_bits, ks), (av + bv) % 256),
+            ("carry", gates.decrypt_bit(carry, ks.lwe_key), av + bv >= 256),
+            ("sub", decrypt_word(d_bits, ks), (av - bv) % 256),
+            ("borrow", gates.decrypt_bit(borrow, ks.lwe_key), av < bv),
+            ("classic add", decrypt_word(k_bits, ks), (av[:Bk] + bv[:Bk]) % 256),
+            ("classic carry", gates.decrypt_bit(k_carry, ks.lwe_key), av[:Bk] + bv[:Bk] >= 256)):
+        n_wrong = int((got != want).sum())
+        check(n_wrong == 0, f"{n_wrong} of {want.numel()} {what} outputs decrypt wrong")
+    check(circuit_launches["blind_rotate_compact"] > 0,
+          f"the compact kernel never launched on the circuit path: {circuit_launches}")
+    check(circuit_launches["blind_rotate_ntt"] == 0,
+          f"the NTT kernel launched on the compact circuit path: {circuit_launches}")
+    fast_rot = 16 * Bc                  # 8 MAJ calls at B plus one refresh at 8*B
+    classic_rot = 8 * 4 * Bk            # per bit: two XOR, MUX's two woKS rotations
+    print(f"8-bit add (fast) B={Bc}: {add_s:.3f} s/op, {fast_rot / add_s:.1f} bootstraps/s; "
+          f"sub (fast): {sub_s:.3f} s/op, {fast_rot / sub_s:.1f} bootstraps/s; "
+          f"add (classic) B={Bk}: {classic_s:.3f} s/op, {classic_rot / classic_s:.1f} "
+          f"bootstraps/s; all outputs decrypt correctly; launches {circuit_launches}",
+          flush=True)
+    print(f"8-bit add (fast) B={Bc}, {breakdown}", flush=True)
+
+    # 8. NAND through the compact key at the main path's batch
+    blind_rotate.launches = blind_rotate_compact.launches = 0
+    api.nand(ca, cb)                                       # warm
+    torch.cuda.synchronize()
+    nand_c_ms, outc = cuda_ms(lambda: api.nand(ca, cb), ITERS)
+    n_wrong = int((gates.decrypt_bit(outc, ks.lwe_key) != ~(a & b)).sum())
+    nand_launches = {"blind_rotate_ntt": blind_rotate.launches,
+                     "blind_rotate_compact": blind_rotate_compact.launches}
+    check(n_wrong == 0, f"{n_wrong} of {B} compact-key NAND outputs decrypt wrong")
+    check(nand_launches["blind_rotate_compact"] == ITERS + 1 and
+          nand_launches["blind_rotate_ntt"] == 0, f"compact NAND launches {nand_launches}")
+    print(f"nand (compact key) B={B}: {nand_c_ms:.2f} ms/call, "
+          f"{B / nand_c_ms * 1e3:.1f} bootstraps/s (ntt_kernel key: {nand_ntt_ms:.2f} ms/call); "
+          f"{B} of {B} decrypt correctly; launches {nand_launches}", flush=True)
+
+    # 9. the compact kernel at the circuit path's inputs (the first MAJ call)
+    carry0 = gates.constant(torch.zeros(Bc, dtype=torch.bool), p, device=dev)
+    maj_in = lwe.lwe_add(lwe.lwe_add(lwe.lwe_index(ca8, 0), lwe.lwe_index(cb8, 0)), carry0)
+    entry = None
+    for label, (acc9, bara9) in (("circuit MAJ", bootstrap.blind_rotate_inputs(
+            gates.MU_BOOL, maj_in, p)), ("NAND", (acc0, bara))):
+        B9 = acc9.shape[0]
+        k_ms, k_out = cuda_ms(lambda: blind_rotate_compact.blind_rotate_compact(
+            acc9, bara9, eck.bk_compact, p), ITERS)
+        p_ms, p_out = cuda_ms(lambda: blind_rotate_compact.blind_rotate_compact_plain(
+            acc9, bara9, eck.bk_compact, p), 1)
+        err9 = int((k_out.to(torch.int64) - p_out.to(torch.int64)).abs().max())
+        check(err9 == 0, f"blind_rotate_compact differs from plain at {label} (max {err9})")
+        b_ms, b_by = compact_bound(B9, p.n, eck.bk_compact, ek.ntt_ctx, p)
+        print(f"blind_rotate_compact at {label} B={B9}: {k_ms:.2f} ms (bound {b_ms:.2f} ms, "
+              f"{b_by}; plain {p_ms:.2f} ms)", flush=True)
+        if entry is None:
+            entry = {"name": "blind_rotate_compact", "route": "cuda",
+                     "source": "eoc_tfhe_tpu_torch/csrc/blind_rotate_compact.cu",
+                     "replaces": "eoc_tfhe_tpu/ops/pallas_blindrot.py:208",
+                     "launches": circuit_launches["blind_rotate_compact"],
+                     "max_abs_err": err9, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                     "bound_by": b_by, "library_ms": None}
+        del k_out, p_out
+    kernels.append(entry)
+
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -7,8 +7,11 @@ reference's module layout and names:
   core.lwe / tlwe / tgsw           batched ciphertext algebra
   ops.polymul / rotate / keyswitch exact polynomial products, rotations, key switching
   ops.ntt                          CRT-NTT context and the NTT-domain bootstrapping key
-  ops.blind_rotate                 the blind rotation: CUDA kernel + plain version
-  core.keys / bootstrap / gates    keygen, gate bootstrapping, boolean gates
+  ops.blind_rotate                 blind rotation over the NTT key: CUDA kernel + plain version
+  ops.blind_rotate_compact         blind rotation over the stored key: CUDA kernel + plain version
+  core.keys / bootstrap / gates    keygen, gate bootstrapping, boolean gates, MUX/MAJ/refresh
+  circuits.adder                   integer circuits: add, sub, mul, compare, equals, select
+  config                           FrameworkConfig: parameter set and eval-key form
   kernels.build                    builds ``csrc/*.cu`` with nvcc at first use
 
 Entry points that create tensors take ``device=`` and default to the card;

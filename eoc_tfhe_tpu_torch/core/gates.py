@@ -1,8 +1,8 @@
 """Boolean gate API: batched bootstrapped gates.
 
 Port of ``eoc_tfhe_tpu/core/gates.py`` (upstream ``boot-gates.cpp``): the
-two-input gates, NOT, COPY and CONSTANT.  Booleans are mu = +-1/8 on the
-torus (Torus32 +-2^29).  MUX, MAJ and refresh are not ported yet.
+two-input gates, NOT, COPY, CONSTANT, MUX, MAJ and refresh.  Booleans are
+mu = +-1/8 on the torus (Torus32 +-2^29).
 """
 
 from __future__ import annotations
@@ -15,9 +15,10 @@ import torch
 from ..device import resolve_device
 from .params import GateBootstrappingParams
 from .numeric import mod_switch_to_torus32_np, double_to_t32
-from .lwe import (LweCiphertext, LweKey, lwe_add_mul, lwe_negate,
+from .lwe import (LweCiphertext, LweKey, lwe_add, lwe_add_mul, lwe_negate,
                   lwe_noiseless_trivial, lwe_phase, lwe_sym_encrypt)
-from .bootstrap import EvalKey, bootstrap, predicted_bootstrap_variance
+from .bootstrap import EvalKey, bootstrap, bootstrap_woKS, predicted_bootstrap_variance
+from ..ops.keyswitch import keyswitch_apply
 
 #: mu for "true"/"false": 1/8 and -1/8 (upstream _1s8).
 MU_BOOL = double_to_t32(0.125)          # == 2**29
@@ -153,3 +154,33 @@ def orny(ca, cb, ek, params):
 def oryn(ca, cb, ek, params):
     """ORYN = a or (not b) = bootstrap((0,1/8) + ca - cb)."""
     return _gate(_t32(1, 8), ca, cb, 1, -1, ek, params)
+
+
+def mux(c, a, b, ek, params):
+    """MUX(c, a, b) = c ? a : b: two woKS bootstraps, a sum and one keyswitch
+    (upstream ``bootsMUX``)."""
+    check_noise_budget(params, 1, 1)
+    mu = _t32(1, 8)
+    u1 = bootstrap_woKS(mu, linear_input(_t32(-1, 8), c, a, 1, 1), ek, params)
+    u2 = bootstrap_woKS(mu, linear_input(_t32(-1, 8), b, c, 1, -1), ek, params)
+    return keyswitch_apply(linear_input(mu, u1, u2, 1, 1), ek.ks, t=params.ks.t,
+                           basebit=params.ks.basebit, prepared=ek.ks_prepared)
+
+
+def maj(ca, cb, cc, ek, params):
+    """MAJ(a, b, c) = bootstrap((0, 0) + ca + cb + cc): 3-input majority.
+
+    The phase of a + b + c on the +-1/8 encoding is (2t-3)/8 for t ones; its
+    sign is the majority.  No upstream analog; the primitive behind the
+    one-bootstrap full adder (``circuits/adder.py``).
+    """
+    check_noise_budget(params, 1, 1, 1)
+    return bootstrap(MU_BOOL, lwe_add(lwe_add(ca, cb), cc), ek, params)
+
+
+def refresh(ct, ek, params):
+    """Noise refresh: bootstrap(mu=1/8, ct) re-encrypts sign(phase) at the
+    fresh gate-output noise level.  The static rail models the worst input
+    it is fed, a fast-adder raw sum with coefficients (2, 1, 1, 1)."""
+    check_noise_budget(params, 2, 1, 1, 1)
+    return bootstrap(MU_BOOL, ct, ek, params)

@@ -3,7 +3,8 @@
 Port of ``eoc_tfhe_tpu/core/lwe.py``.  A ciphertext is a batched tensor pair
 ``a: (..., n) int32``, ``b: (...) int32`` with a float32 variance per sample.
 CUDA has no int32 matmul, so <a, s> is a masked int64 sum wrapped to int32.
-The seeded (threefry mask) ciphertexts are not ported yet.
+The seeded (threefry mask) ciphertexts and ``lwe_sym_decrypt`` are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -95,3 +96,38 @@ def lwe_add_mul(x: LweCiphertext, p: int, y: LweCiphertext) -> LweCiphertext:
         a=wrap32(x.a.to(torch.int64) + p * y.a.to(torch.int64)),
         b=wrap32(x.b.to(torch.int64) + p * y.b.to(torch.int64)),
         current_variance=x.current_variance + float(p) ** 2 * y.current_variance)
+
+
+def lwe_clear(template: LweCiphertext) -> LweCiphertext:
+    """``lweClear``: the (0, 0) sample with the same shape."""
+    return LweCiphertext(a=torch.zeros_like(template.a), b=torch.zeros_like(template.b),
+                         current_variance=torch.zeros_like(template.current_variance))
+
+
+def lwe_copy(ct: LweCiphertext) -> LweCiphertext:
+    """``lweCopy`` (functional: the same tensors; kept for API parity)."""
+    return LweCiphertext(a=ct.a, b=ct.b, current_variance=ct.current_variance)
+
+
+def lwe_sub(x: LweCiphertext, y: LweCiphertext) -> LweCiphertext:
+    """``lweSubTo`` semantics, functional: x - y."""
+    return lwe_sub_mul(x, 1, y)
+
+
+def lwe_sub_mul(x: LweCiphertext, p: int, y: LweCiphertext) -> LweCiphertext:
+    """``lweSubMulTo``: x - p*y."""
+    return LweCiphertext(
+        a=wrap32(x.a.to(torch.int64) - p * y.a.to(torch.int64)),
+        b=wrap32(x.b.to(torch.int64) - p * y.b.to(torch.int64)),
+        current_variance=x.current_variance + float(p) ** 2 * y.current_variance)
+
+
+def lwe_stack(cts: list[LweCiphertext]) -> LweCiphertext:
+    """Stack samples into a batch along a new leading axis."""
+    return LweCiphertext(a=torch.stack([c.a for c in cts]), b=torch.stack([c.b for c in cts]),
+                         current_variance=torch.stack([c.current_variance for c in cts]))
+
+
+def lwe_index(ct: LweCiphertext, idx) -> LweCiphertext:
+    """Select a sub-batch (leading-axis indexing; the result may be a view)."""
+    return LweCiphertext(a=ct.a[idx], b=ct.b[idx], current_variance=ct.current_variance[idx])

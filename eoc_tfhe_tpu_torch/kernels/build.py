@@ -28,6 +28,8 @@ SIGNATURES = {
     # acc0, bara, key, W, Winv, out; B, n, U, N, R, l, Bgbit, L, kbits, p0, p1,
     # crt_inv; stream
     "blind_rotate_ntt": ("blind_rotate_ntt_launch", [_P] * 6 + [_I] * 12 + [_P]),
+    # acc0, bara, key, out; B, n, U, N, l, Bgbit; stream
+    "blind_rotate_compact": ("blind_rotate_compact_launch", [_P] * 4 + [_I] * 6 + [_P]),
 }
 
 

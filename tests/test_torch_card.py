@@ -9,7 +9,7 @@ import pytest
 import torch
 
 from eoc_tfhe_tpu_torch.core import bootstrap, gates, keys, params
-from eoc_tfhe_tpu_torch.ops import blind_rotate, ntt
+from eoc_tfhe_tpu_torch.ops import blind_rotate, blind_rotate_compact, ntt
 
 CASES = {
     "toy": lambda: params.test_params(n=16, N=64, k=1, l=3, Bgbit=7),
@@ -63,3 +63,54 @@ def test_nand_on_the_card_goes_through_the_kernel(cuda_device):
     out = gates.nand(ca, cb, ek, p)
     assert blind_rotate.launches == before + 1
     assert torch.equal(gates.decrypt_bit(out, ks.lwe_key), ~(a & b))
+
+
+COMPACT_CASES = {
+    "toy": lambda: params.test_params(n=16, N=64, k=1, l=3, Bgbit=7),
+    "bgbit8": lambda: params.test_params(n=8, N=64, k=1, l=2, Bgbit=8),
+    "full_width_8_steps": lambda: params.default_128bit_params(),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("limbs", [4, 3])
+@pytest.mark.parametrize("case", list(COMPACT_CASES))
+def test_compact_kernel_matches_plain_on_the_card(case, limbs, cuda_device):
+    p = COMPACT_CASES[case]()
+    n_steps, B = min(p.n, 8), 5                # odd B: a block with one live sample
+    tg = p.tgsw_params
+    N, U = tg.tlwe_params.N, tg.tlwe_params.k + 1
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+
+    def i32(shape):
+        return torch.randint(-2**31, 2**31, shape, generator=gen, dtype=torch.int64,
+                             device=cuda_device).to(torch.int32)
+    rows, acc0 = i32((n_steps, tg.kpl, U, N)), i32((B, U, N))
+    bara = torch.randint(0, 2 * N, (n_steps, B), generator=gen, dtype=torch.int32,
+                         device=cuda_device)
+    key = blind_rotate_compact.prepare_compact_bk(rows, limbs)
+    before = blind_rotate_compact.launches
+    out = blind_rotate_compact.blind_rotate_compact(acc0, bara, key, p)
+    torch.cuda.synchronize()
+    assert blind_rotate_compact.launches == before + 1
+    assert torch.equal(out, blind_rotate_compact.blind_rotate_compact_plain(acc0, bara, key, p))
+    if limbs == 4:          # tfhe_blindRotate over the true rows takes the same kernel
+        assert torch.equal(bootstrap.blind_rotate(acc0, bara.t(), rows, p), out)
+        assert blind_rotate_compact.launches == before + 2
+
+
+@pytest.mark.gpu
+def test_maj_and_refresh_on_the_card_go_through_the_compact_kernel(cuda_device):
+    p = params.test_params()
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    ks = keys.new_random_gate_bootstrapping_secret_keyset(gen, p)
+    ek = bootstrap.prepare_eval_key_fused(ks.cloud, p)
+    bits = torch.randint(0, 2, (3, 9), generator=gen, device=cuda_device).bool()
+    ca, cb, cc = (gates.encrypt_bit(gen, x, ks.lwe_key, p) for x in bits)
+    before = blind_rotate_compact.launches
+    out = gates.maj(ca, cb, cc, ek, p)
+    assert blind_rotate_compact.launches == before + 1
+    assert torch.equal(gates.decrypt_bit(out, ks.lwe_key), bits.sum(0) >= 2)
+    out = gates.refresh(gates.not_(ca), ek, p)
+    assert blind_rotate_compact.launches == before + 2
+    assert torch.equal(gates.decrypt_bit(out, ks.lwe_key), ~bits[0])
