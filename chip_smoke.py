@@ -23,9 +23,25 @@ Phases, in order; any failure exits non-zero:
   8. NAND through the compact key at B=BATCH, decrypted and checked;
   9. the compact-key kernel at the circuit path's inputs (one MAJ call,
      B=CIRCUIT_BATCH) and at phase 8's (B=BATCH): timed, held against its
-     plain version, with its bound.
-Both kernels are printed as one ``{"kernels": [...]}`` line.  The last line
-is {"ok": true, "device": {...}}.  Imports nothing of JAX.
+     plain version, with its bound;
+ 10. the "ntt_scan" form's kernel against its plain version on the card, bit
+     for bit, at ``test_params()`` (B=63), at 128-bit B=4 over all 630 steps
+     over either prime pair, and at the 80-bit set (halfBg = 512) B=4 over
+     all its steps;
+ 11. NAND through the "ntt_scan" key (``prepare_eval_key_ntt(kernel=False)``)
+     at B=BATCH on phase 4's keyset, decrypted and checked;
+ 12. the 8-bit fast add and subtract over the "ntt_scan" key on phase 7's
+     ciphertexts, every output decrypted and checked;
+ 13. the "ntt_scan" kernel at phase 11's NAND inputs (B=BATCH) and at the
+     first MAJ call of phase 12 (B=CIRCUIT_BATCH): timed, held against its
+     plain version, with its bound;
+ 14. the ``Tfhe.*`` string API at 128-bit with the default config: keys,
+     the reference's vectors, the JWT gate, and uint8 add, subtract,
+     less-than, equals, select and multiply on seeded and full uploads, one
+     value per call (batch 1), each decrypted and checked, with the host
+     seconds of each call.
+The three kernels are printed as one ``{"kernels": [...]}`` line.  The last
+line is {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -100,10 +116,12 @@ def bound_ms(macs: int, nbytes: int) -> tuple[float, str]:
 
 def rotation_bound(B: int, n: int, key: torch.Tensor, params) -> tuple[float, str]:
     """Least time (ms) for a blind rotation over the NTT-domain key on an H100
-    and what bounds it.  Operations: :func:`ntt_macs` per sample and step.
-    Bytes: the key, acc0, bara and the output, each moved once.
+    and what bounds it.  Operations: :func:`ntt_macs` per sample and step,
+    with M the key's last axis (int16 residues) or half of it (int8 byte
+    pairs).  Bytes: the key, acc0, bara and the output, each moved once.
     """
     _, P, F, K, M = key.shape
+    M //= 2 if key.dtype == torch.int8 else 1
     dl = 1 if params.tgsw_params.halfBg <= 128 else 2
     acc_bytes = B * (params.k + 1) * params.N * 4
     nbytes = key.numel() * key.element_size() + 2 * acc_bytes + n * B * 4
@@ -155,6 +173,64 @@ def device_breakdown(fn) -> str:
             f"(idle share {max(0.0, 1 - total / 1e6 / wall_s):.3f}); by kernel: {top}")
 
 
+def api_smoke(seed: int, gen: torch.Generator) -> None:
+    """Phase 14: ``Tfhe(seed=seed)`` at 128-bit with the default config on
+    the card; every result decrypted and checked; host seconds per call."""
+    from eoc_tfhe_tpu_torch.api.tfhe import Tfhe
+    from eoc_tfhe_tpu_torch.ops import blind_rotate
+
+    t = Tfhe(seed=seed)
+    keygen_s, sk = timed(lambda: t.generateSecretKey("header.payload", ""))
+    pk_s, pk = timed(t.generatePublicKey)
+    print(f"api: generateSecretKey {keygen_s:.3f} s ({len(sk)} base64 chars); "
+          f"generatePublicKey {pk_s:.3f} s ({len(pk)} base64 chars)", flush=True)
+    tok = "e30.e30"
+    check(t.decryptInteger(t.encryptInteger(42), "", tok) == 42, "api: 42 round trip")
+    msg = "Hello TFHE!"
+    check(t.decryptASCIIString(t.encryptASCIIString(msg, len(msg)), len(msg), "", tok) == msg,
+          "api: string round trip")
+    c15, c27 = t.encryptInteger(15), t.encryptInteger(27)
+    check(t.decryptInteger(t.addCiphertexts(c15, c27), "", tok) == 42, "api: 15 + 27")
+    c50, c8 = t.encryptInteger(50), t.encryptInteger(8)
+    check(t.decryptInteger(t.subtractCiphertexts(c50, c8), "", tok) == 42, "api: 50 - 8")
+    check(t.decryptInteger(t.addCiphertexts(c50, c8), "", tok) == 58, "api: 50 + 8")
+    check(t.generateSecretKey("", "") is None and t.decryptInteger(c50, "", "", "") == -1,
+          "api: the JWT gate let an empty token through")
+    print("api: reference vectors 42, 'Hello TFHE!', 15+27, 50-8 (and 58) correct; "
+          "empty token refused", flush=True)
+
+    setup_s, api = timed(t._s.gate_api)
+    print(f"api: gate API set-up ({api.eval_key.form} key) {setup_s:.3f} s", flush=True)
+    blind_rotate.launches = 0
+    pairs = torch.randint(0, 256, (2, 2), generator=gen, device=gen.device).tolist()
+    secs: dict[str, list[float]] = {}
+
+    def call(name, fn, *args):
+        s, out = timed(lambda: fn(*args))
+        secs.setdefault(name, []).append(s)
+        return t.decryptUint8(out, "", tok)
+
+    for x, y in pairs:
+        cx, cy = t.encryptUint8Seeded(x), t.encryptUint8(y)
+        got = {"addUint8": call("addUint8", t.addUint8, cx, cy),
+               "subtractUint8": call("subtractUint8", t.subtractUint8, cx, cy),
+               "lessThanUint8": call("lessThanUint8", t.lessThanUint8, cx, cy),
+               "equalsUint8": call("equalsUint8", t.equalsUint8, cx, cy)}
+        lt = t.lessThanUint8(cx, cy)
+        got["selectUint8"] = call("selectUint8", t.selectUint8, lt, cx, cy)
+        want = {"addUint8": (x + y) % 256, "subtractUint8": (x - y) % 256,
+                "lessThanUint8": int(x < y), "equalsUint8": int(x == y),
+                "selectUint8": min(x, y)}
+        check(got == want, f"api: uint8 ops on ({x}, {y}) gave {got}, want {want}")
+    x, y = pairs[0]
+    prod = call("multiplyUint8", t.multiplyUint8, t.encryptUint8Seeded(x), t.encryptUint8(y))
+    check(prod == x * y % 256, f"api: {x} * {y} gave {prod}")
+    check(blind_rotate.launches > 0, "api: the uint8 ops never launched the NTT kernel")
+    print(f"api: uint8 ops on {pairs} (seeded and full uploads) decrypt correctly; "
+          f"{blind_rotate.launches} blind_rotate_ntt launches; host s per call (batch 1): " +
+          ", ".join(f"{k} {sum(v) / len(v):.3f}" for k, v in secs.items()), flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of keys and data")
@@ -168,7 +244,7 @@ def main() -> int:
     from eoc_tfhe_tpu_torch.core import bootstrap, gates, keys, lwe, params
     from eoc_tfhe_tpu_torch.core.numeric import mod_switch_to_torus32_np
     from eoc_tfhe_tpu_torch.kernels import build
-    from eoc_tfhe_tpu_torch.ops import blind_rotate, blind_rotate_compact, ntt
+    from eoc_tfhe_tpu_torch.ops import blind_rotate, blind_rotate_compact, blind_rotate_v1, ntt
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(args.seed)
@@ -362,6 +438,102 @@ def main() -> int:
                      "bound_by": b_by, "library_ms": None}
         del k_out, p_out
     kernels.append(entry)
+
+    # 10. the "ntt_scan" form's kernel against plain on the card
+    for label, pv, B10, primes in (
+            ("test_params", params.test_params(), 63, ntt.DEFAULT_PRIMES),
+            ("128-bit", params.default_128bit_params(), 4, ntt.DEFAULT_PRIMES),
+            ("128-bit KERNEL_PRIMES", params.default_128bit_params(), 4, ntt.KERNEL_PRIMES),
+            ("80-bit", params.default_80bit_params(), 4, ntt.DEFAULT_PRIMES)):
+        tg = pv.tgsw_params
+        rows, acc10, bara10 = random_rotation_inputs(gen, pv, pv.n, B10, dev)
+        ctx10 = ntt.make_context(tg.tlwe_params.N, tg.kpl, tg.halfBg, primes, device=dev)
+        key10 = ntt.prepare_key_ntt(rows, ctx10)
+        out10 = blind_rotate_v1.blind_rotate_ntt_v1(acc10, bara10, key10, ctx10, pv)
+        plain10 = blind_rotate_v1.blind_rotate_ntt_v1_plain(acc10, bara10, key10, ctx10, pv)
+        torch.cuda.synchronize()
+        check(torch.equal(out10, plain10), f"blind_rotate_ntt_v1 differs from plain at {label}")
+        print(f"v1 kernel == plain at {label}: B={B10}, n={pv.n}, halfBg={tg.halfBg}, "
+              f"primes={primes}, key limbs {ctx10.key_limbs}x{ctx10.key_limb_bits}, "
+              f"bit-identical", flush=True)
+        del rows, key10, out10, plain10
+
+    # 11. NAND through the "ntt_scan" key at the main path's batch
+    t0 = time.perf_counter()
+    eks = bootstrap.prepare_eval_key_ntt(ks.cloud, p, kernel=False)
+    torch.cuda.synchronize()
+    scan_prep_s = time.perf_counter() - t0
+    check(eks.form == "ntt_scan", f"kernel=False gave form {eks.form}")
+
+    def counts():
+        return {"blind_rotate_ntt": blind_rotate.launches,
+                "blind_rotate_compact": blind_rotate_compact.launches,
+                "blind_rotate_ntt_v1": blind_rotate_v1.launches}
+
+    blind_rotate.launches = blind_rotate_compact.launches = blind_rotate_v1.launches = 0
+    gates.nand(ca, cb, eks, p)                             # warm
+    torch.cuda.synchronize()
+    nand_s_ms, outs = cuda_ms(lambda: gates.nand(ca, cb, eks, p), ITERS)
+    n_wrong = int((gates.decrypt_bit(outs, ks.lwe_key) != ~(a & b)).sum())
+    scan_nand_launches = counts()
+    check(n_wrong == 0, f"{n_wrong} of {B} ntt_scan NAND outputs decrypt wrong")
+    check(scan_nand_launches == {"blind_rotate_ntt": 0, "blind_rotate_compact": 0,
+                                 "blind_rotate_ntt_v1": ITERS + 1},
+          f"ntt_scan NAND launches {scan_nand_launches}")
+    print(f"ntt_scan key_prep_s: {scan_prep_s:.3f}  eval_key_GB: {eks.bk_ntt.numel() / 1e9:.3f}",
+          flush=True)
+    print(f"nand (ntt_scan key) B={B}: {nand_s_ms:.2f} ms/call, "
+          f"{B / nand_s_ms * 1e3:.1f} bootstraps/s; {B} of {B} decrypt correctly; "
+          f"launches {scan_nand_launches}", flush=True)
+    del outs
+
+    # 12. the 8-bit fast add and subtract over the "ntt_scan" key
+    blind_rotate.launches = blind_rotate_compact.launches = blind_rotate_v1.launches = 0
+    sadd_s, (ss_bits, s_carry) = timed(lambda: adder.ripple_carry_add(ca8, cb8, eks, p))
+    ssub_s, (sd_bits, s_borrow) = timed(lambda: adder.ripple_borrow_sub(ca8, cb8, eks, p))
+    scan_circuit_launches = counts()
+    for what, got, want in (
+            ("add", decrypt_word(ss_bits, ks), (av + bv) % 256),
+            ("carry", gates.decrypt_bit(s_carry, ks.lwe_key), av + bv >= 256),
+            ("sub", decrypt_word(sd_bits, ks), (av - bv) % 256),
+            ("borrow", gates.decrypt_bit(s_borrow, ks.lwe_key), av < bv)):
+        n_wrong = int((got != want).sum())
+        check(n_wrong == 0, f"{n_wrong} of {want.numel()} ntt_scan {what} outputs decrypt wrong")
+    check(scan_circuit_launches == {"blind_rotate_ntt": 0, "blind_rotate_compact": 0,
+                                    "blind_rotate_ntt_v1": 18},
+          f"ntt_scan circuit launches {scan_circuit_launches}")
+    print(f"8-bit add (fast, ntt_scan key) B={Bc}: {sadd_s:.3f} s/op, "
+          f"{fast_rot / sadd_s:.1f} bootstraps/s; sub: {ssub_s:.3f} s/op, "
+          f"{fast_rot / ssub_s:.1f} bootstraps/s; all outputs decrypt correctly; "
+          f"launches {scan_circuit_launches}", flush=True)
+
+    # 13. the "ntt_scan" kernel at the NAND's and the first MAJ call's inputs
+    entry = None
+    for label, (acc13, bara13) in (("NAND", (acc0, bara)), ("circuit MAJ",
+                                   bootstrap.blind_rotate_inputs(gates.MU_BOOL, maj_in, p))):
+        B13 = acc13.shape[0]
+        k_ms, k_out = cuda_ms(lambda: blind_rotate_v1.blind_rotate_ntt_v1(
+            acc13, bara13, eks.bk_ntt, eks.ntt_ctx, p), ITERS)
+        p_ms, p_out = cuda_ms(lambda: blind_rotate_v1.blind_rotate_ntt_v1_plain(
+            acc13, bara13, eks.bk_ntt, eks.ntt_ctx, p), 1)
+        err13 = int((k_out.to(torch.int64) - p_out.to(torch.int64)).abs().max())
+        check(err13 == 0, f"blind_rotate_ntt_v1 differs from plain at {label} (max {err13})")
+        b_ms, b_by = rotation_bound(B13, p.n, eks.bk_ntt, p)
+        print(f"blind_rotate_ntt_v1 at {label} B={B13}: {k_ms:.2f} ms (bound {b_ms:.2f} ms, "
+              f"{b_by}; plain {p_ms:.2f} ms)", flush=True)
+        if entry is None:
+            entry = {"name": "blind_rotate_ntt_v1", "route": "cuda",
+                     "source": "eoc_tfhe_tpu_torch/csrc/blind_rotate_ntt_v1.cu",
+                     "replaces": "eoc_tfhe_tpu/ops/pallas_ntt_blindrot.py:321",
+                     "launches": scan_nand_launches["blind_rotate_ntt_v1"],
+                     "max_abs_err": err13, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                     "bound_by": b_by, "library_ms": None}
+        del k_out, p_out
+    kernels.append(entry)
+    del eks
+
+    # 14. the Tfhe.* string API, one value per call
+    api_smoke(args.seed, gen)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -10,12 +10,15 @@ Port of ``eoc_tfhe_tpu/config.py``: the same fields, choices and JSON form.  Wha
     rows and bits as the reference's "rows" form)
   * ``rotation_impl`` selects the TPU's rotation code in the reference and
     changes no bits; every choice gives the port's one rotation.
+  * ``enable_jwt`` / ``jwt_rs256`` -> the JWT gate of ``api.tfhe.Tfhe``
+  * ``profile_echo`` -> ``utils.profiling.PROFILER.echo``
+    (:meth:`FrameworkConfig.apply_profiling`, run by ``TfheSession``)
 
-The consumers of the remaining fields (``make_gate_server``, ``make_mesh``,
-``apply_profiling`` and the benchmark's batch: serving, the parallel paths,
-profiling) are not ported yet.  Those fields keep the reference's defaults,
-so the JSON form matches the reference's, and a config that sets any of them
-to another value is refused rather than silently ignored.
+The consumers of the remaining fields (``make_gate_server``, ``make_mesh``
+and the benchmark's batch: serving and the parallel paths) are not ported
+yet.  Those fields keep the reference's defaults, so the JSON form matches
+the reference's, and a config that sets any of them to another value is
+refused rather than silently ignored.
 """
 
 from __future__ import annotations
@@ -36,12 +39,9 @@ ROTATION_IMPL_CHOICES = ("auto", "gather", "onehot", "barrel")
 
 #: Fields whose consumer is not ported yet -> what it waits for.
 NOT_PORTED = {
-    "enable_jwt": "the API's JWT gate (api.tfhe)",
-    "jwt_rs256": "the API's JWT gate (api.tfhe)",
     "mesh_dp": "make_mesh (parallel)",
     "mesh_tp": "make_mesh (parallel)",
     "batch_size": "the benchmark's default batch",
-    "profile_echo": "apply_profiling (profiling)",
     "serving_max_batch": "make_gate_server (serving)",
     "serving_max_delay_s": "make_gate_server (serving)",
     "serving_pipeline_chunk": "make_gate_server (serving)",
@@ -111,6 +111,11 @@ class FrameworkConfig:
         ns.constant = functools.partial(gates.constant, params=params,
                                         device=ek.bk_rows.device)
         return ns
+
+    def apply_profiling(self) -> None:
+        """Apply the profiling echo flag to the process profiler."""
+        from .utils.profiling import PROFILER
+        PROFILER.echo = self.profile_echo
 
     def to_json(self) -> str:
         return json.dumps(dataclasses.asdict(self))

@@ -15,8 +15,9 @@ import torch
 from ..device import resolve_device
 from .params import GateBootstrappingParams
 from .numeric import mod_switch_to_torus32_np, double_to_t32
-from .lwe import (LweCiphertext, LweKey, lwe_add, lwe_add_mul, lwe_negate,
-                  lwe_noiseless_trivial, lwe_phase, lwe_sym_encrypt)
+from .lwe import (LweCiphertext, LweKey, SeededLweCiphertext, lwe_add, lwe_add_mul,
+                  lwe_negate, lwe_noiseless_trivial, lwe_phase, lwe_sym_encrypt,
+                  lwe_sym_encrypt_seeded)
 from .bootstrap import EvalKey, bootstrap, bootstrap_woKS, predicted_bootstrap_variance
 from ..ops.keyswitch import keyswitch_apply
 
@@ -40,6 +41,13 @@ def encrypt_bit(generator: torch.Generator, bits, sk_lwe: LweKey,
     on the key's device."""
     return lwe_sym_encrypt(generator, _mu(bits, sk_lwe.s.device),
                            params.in_out_params.alpha_min, sk_lwe)
+
+
+def encrypt_bit_seeded(generator: torch.Generator, bits, sk_lwe: LweKey,
+                       params: GateBootstrappingParams) -> SeededLweCiphertext:
+    """``bootsSymEncrypt`` emitting seeded (mask-compressed) ciphertexts."""
+    return lwe_sym_encrypt_seeded(generator, _mu(bits, sk_lwe.s.device),
+                                  params.in_out_params.alpha_min, sk_lwe)
 
 
 def decrypt_bit(ct: LweCiphertext, sk_lwe: LweKey) -> torch.Tensor:

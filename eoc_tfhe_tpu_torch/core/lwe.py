@@ -1,10 +1,13 @@
-"""Batched LWE layer: keygen, encrypt, phase, linear ops.
+"""Batched LWE layer: keygen, encrypt, phase, decrypt, linear ops.
 
 Port of ``eoc_tfhe_tpu/core/lwe.py``.  A ciphertext is a batched tensor pair
 ``a: (..., n) int32``, ``b: (...) int32`` with a float32 variance per sample.
 CUDA has no int32 matmul, so <a, s> is a masked int64 sum wrapped to int32.
-The seeded (threefry mask) ciphertexts and ``lwe_sym_decrypt`` are not
-ported yet.
+
+Seeded ciphertexts carry their mask as a 128-bit seed.  Its expansion is a
+wire format, so it is fixed: the reference's two threefry2x32 streams in the
+counter layout that JAX gives with ``jax_threefry_partitionable`` at its
+default (on); see :func:`threefry2x32`.
 """
 
 from __future__ import annotations
@@ -15,7 +18,8 @@ import numpy as np
 import torch
 
 from .params import LweParams
-from .numeric import gaussian32, uniform_binary, uniform_torus32, wrap32
+from .numeric import (approx_phase_np, gaussian32, uniform_binary, uniform_torus32,
+                      wrap32)
 
 
 @dataclasses.dataclass
@@ -52,11 +56,10 @@ def lwe_key_gen(generator: torch.Generator, params: LweParams) -> LweKey:
     return LweKey(s=uniform_binary(generator, (params.n,)))
 
 
-def lwe_sym_encrypt(generator: torch.Generator, message: torch.Tensor,
-                    alpha: float, lwe_key: LweKey) -> LweCiphertext:
-    """``lweSymEncrypt``: b = gaussian32(mu, alpha) + <a, s>, a uniform."""
+def _encrypt_under_mask(generator: torch.Generator, message: torch.Tensor, alpha: float,
+                        lwe_key: LweKey, a: torch.Tensor) -> LweCiphertext:
+    """b = gaussian32(mu, alpha) + <a, s> for the given mask ``a``."""
     shape = tuple(message.shape)
-    a = uniform_torus32(generator, shape + (lwe_key.n,))
     noisy_mu = gaussian32(message, alpha, generator, shape)
     b = wrap32(noisy_mu.to(torch.int64) + _dot_key(a, lwe_key.s).to(torch.int64))
     var = torch.full(shape, float(np.float32(alpha) ** 2), dtype=torch.float32,
@@ -64,9 +67,88 @@ def lwe_sym_encrypt(generator: torch.Generator, message: torch.Tensor,
     return LweCiphertext(a=a, b=b, current_variance=var)
 
 
+def lwe_sym_encrypt(generator: torch.Generator, message: torch.Tensor,
+                    alpha: float, lwe_key: LweKey) -> LweCiphertext:
+    """``lweSymEncrypt``: b = gaussian32(mu, alpha) + <a, s>, a uniform."""
+    a = uniform_torus32(generator, tuple(message.shape) + (lwe_key.n,))
+    return _encrypt_under_mask(generator, message, alpha, lwe_key, a)
+
+
+@dataclasses.dataclass
+class SeededLweCiphertext:
+    """LWE sample with the public mask ``a`` stored as its 128-bit seed
+    (the reference's mask-compressed upload format, wire UID 242)."""
+
+    seed: torch.Tensor  # (..., 4) int64 holding uint32 words
+    b: torch.Tensor     # (...)    int32
+    current_variance: torch.Tensor  # (...) float32
+
+
+_M32 = 0xFFFFFFFF
+_THREEFRY_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def threefry2x32(key: torch.Tensor, n: int) -> torch.Tensor:
+    """``jax.random.bits(wrap_key_data(key, impl="threefry2x32"), (n,), uint32)``
+    with ``jax_threefry_partitionable`` on: word i is x0 ^ x1 of the 20-round
+    threefry2x32 block of counter (hi, lo) = (0, i) under (key0, key1).
+
+    Args:
+      key: (..., 2) int64 uint32 words.  Returns (..., n) int64 uint32 words.
+    The CPU build has no uint32 shift, so the words live in int64 and every
+    sum and rotation is masked to 32 bits.
+    """
+    k0, k1 = key[..., 0:1], key[..., 1:2]
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+    x0 = torch.zeros(n, dtype=torch.int64, device=key.device) + k0
+    x1 = (torch.arange(n, dtype=torch.int64, device=key.device) + k1) & _M32
+    for block in range(5):
+        for r in _THREEFRY_ROTATIONS[block % 2]:
+            x0 = (x0 + x1) & _M32
+            x1 = ((x1 << r) & _M32) | (x1 >> (32 - r))
+            x1 = x0 ^ x1
+        x0 = (x0 + ks[(block + 1) % 3]) & _M32
+        x1 = (x1 + ks[(block + 2) % 3] + block + 1) & _M32
+    return x0 ^ x1
+
+
+def _expand_mask(seed: torch.Tensor, n: int) -> torch.Tensor:
+    """(..., 4) uint32 seed words -> (..., n) int32 masks: the XOR of the
+    threefry2x32 streams of the two keys (words 0-1 and 2-3)."""
+    flat = seed.reshape(-1, 4).to(torch.int64)
+    a = threefry2x32(flat[:, :2], n) ^ threefry2x32(flat[:, 2:], n)
+    return wrap32(a).reshape(tuple(seed.shape[:-1]) + (n,))
+
+
+def lwe_sym_encrypt_seeded(generator: torch.Generator, message: torch.Tensor,
+                           alpha: float, lwe_key: LweKey) -> SeededLweCiphertext:
+    """``lweSymEncrypt`` emitting a seeded ciphertext: one 128-bit mask seed
+    per element, drawn from ``generator``; :func:`lwe_seeded_expand` of the
+    result decrypts like :func:`lwe_sym_encrypt` output at the same noise."""
+    shape = tuple(message.shape)
+    B = int(np.prod(shape)) if shape else 1
+    seeds = torch.randint(0, 1 << 32, (B, 4), generator=generator, dtype=torch.int64,
+                          device=generator.device)
+    a = _expand_mask(seeds, lwe_key.n).reshape(shape + (lwe_key.n,))
+    ct = _encrypt_under_mask(generator, message, alpha, lwe_key, a)
+    return SeededLweCiphertext(seed=seeds.reshape(shape + (4,)), b=ct.b,
+                               current_variance=ct.current_variance)
+
+
+def lwe_seeded_expand(ct: SeededLweCiphertext, n: int) -> LweCiphertext:
+    """The full ciphertext of a seeded one (the mask expanded on its device)."""
+    return LweCiphertext(a=_expand_mask(ct.seed, n), b=ct.b,
+                         current_variance=ct.current_variance)
+
+
 def lwe_phase(ct: LweCiphertext, lwe_key: LweKey) -> torch.Tensor:
     """``lwePhase``: b - <a, s> (exact int32 wraparound)."""
     return wrap32(ct.b.to(torch.int64) - _dot_key(ct.a, lwe_key.s).to(torch.int64))
+
+
+def lwe_sym_decrypt(ct: LweCiphertext, lwe_key: LweKey, Msize: int) -> np.ndarray:
+    """``lweSymDecrypt`` = approxPhase(lwePhase(ct), Msize), on the host."""
+    return approx_phase_np(lwe_phase(ct, lwe_key).cpu().numpy(), Msize)
 
 
 def lwe_noiseless_trivial(mu: torch.Tensor, n: int) -> LweCiphertext:

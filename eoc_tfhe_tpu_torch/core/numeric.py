@@ -43,6 +43,27 @@ def mod_switch_to_torus32_np(mu, Msize: int) -> np.ndarray:
     return (phase64 >> np.uint64(32)).astype(np.uint32).astype(np.int32)
 
 
+def mod_switch_from_torus32_np(phase, Msize: int) -> np.ndarray:
+    """Exact ``modSwitchFromTorus32``: Torus32 phase -> nearest message in Z_Msize."""
+    interv = np.uint64(_interv(Msize))
+    half = interv // np.uint64(2)
+    phase_u = np.asarray(phase, dtype=np.int32).astype(np.uint32).astype(np.uint64)
+    with np.errstate(over="ignore"):
+        phase64 = (phase_u << np.uint64(32)) + half
+    return (phase64 // interv).astype(np.int64)
+
+
+def approx_phase_np(phase, Msize: int) -> np.ndarray:
+    """Exact ``approxPhase``: round a torus phase to the nearest of Msize slots."""
+    interv = np.uint64(_interv(Msize))
+    half = interv // np.uint64(2)
+    phase_u = np.asarray(phase, dtype=np.int32).astype(np.uint32).astype(np.uint64)
+    with np.errstate(over="ignore"):
+        phase64 = (phase_u << np.uint64(32)) + half
+        phase64 -= phase64 % interv
+    return (phase64 >> np.uint64(32)).astype(np.uint32).astype(np.int32)
+
+
 def double_to_t32(d: float) -> int:
     """Host-side exact dtot32 for a Python float (used for gate constants)."""
     frac = d - int(d)

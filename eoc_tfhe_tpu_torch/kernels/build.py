@@ -1,8 +1,9 @@
 """Builds the port's CUDA sources with nvcc and loads them with ctypes.
 
 Each ``csrc/<name>.cu`` exposes a plain C launch function; it is compiled for
-``sm_90a`` into ``_build/lib<name>-<hash>.so`` (the hash is of the source, so
-an edited source is rebuilt) at first use and loaded once per process.
+``sm_90a`` into ``_build/lib<name>-<hash>.so`` (the hash is of the source and
+of every ``csrc/`` header it includes, so an edited source or header is
+rebuilt) at first use and loaded once per process.
 Nothing is built when a module is imported.
 """
 
@@ -12,6 +13,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -28,6 +30,8 @@ SIGNATURES = {
     # acc0, bara, key, W, Winv, out; B, n, U, N, R, l, Bgbit, L, kbits, p0, p1,
     # crt_inv; stream
     "blind_rotate_ntt": ("blind_rotate_ntt_launch", [_P] * 6 + [_I] * 12 + [_P]),
+    # the same arguments; key (n, 2, F, K, 2M) int8
+    "blind_rotate_ntt_v1": ("blind_rotate_ntt_v1_launch", [_P] * 6 + [_I] * 12 + [_P]),
     # acc0, bara, key, out; B, n, U, N, l, Bgbit; stream
     "blind_rotate_compact": ("blind_rotate_compact_launch", [_P] * 4 + [_I] * 6 + [_P]),
 }
@@ -45,9 +49,26 @@ def nvcc() -> str:
     return found
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _sources(name: str) -> list[Path]:
+    """``<name>.cu`` and every ``csrc/`` header it includes, transitively."""
+    todo, seen = [SRC_DIR / f"{name}.cu"], []
+    while todo:
+        path = todo.pop()
+        if path in seen:
+            continue
+        seen.append(path)
+        todo += [SRC_DIR / inc.decode() for inc in _INCLUDE.findall(path.read_bytes())]
+    return seen
+
+
 def _target(name: str) -> Path:
-    digest = hashlib.sha256((SRC_DIR / f"{name}.cu").read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256()
+    for path in _sources(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def _command(name: str, out: Path) -> list[str]:

@@ -9,7 +9,9 @@ dataflow gives the same bits.
 :func:`blind_rotate_ntt` is the wrapper.  For a tensor on the CPU it runs
 :func:`blind_rotate_ntt_plain`; for a CUDA tensor it launches the
 hand-written kernel in ``csrc/blind_rotate_ntt.cu`` or raises.  ``launches``
-counts kernel launches and nothing else.
+counts kernel launches and nothing else.  :func:`launch_kernel` also launches
+the "ntt_scan" form's kernel (``ops/blind_rotate_v1.py``), which shares the
+dataflow and its arguments.
 """
 
 from __future__ import annotations
@@ -25,12 +27,16 @@ from .ntt import NttContext, balanced_mod
 launches = 0
 
 
-def _shapes(acc0: torch.Tensor, bara: torch.Tensor, key: torch.Tensor,
-            ctx: NttContext, params):
+def check_shapes(acc0: torch.Tensor, bara: torch.Tensor, key: torch.Tensor,
+                 ctx: NttContext, params, key_cols: int = 1):
+    """Check a rotation's shapes against the plan; returns (B, U, N, n).
+    ``key_cols`` is 1 for an int16 key (n, P, F, K, M) and 2 for a byte-pair
+    key (n, P, F, K, 2M)."""
     B, U, N = acc0.shape
-    n, P, F, K, M = key.shape
+    n, P, F, K, MC = key.shape
+    M = MC // key_cols
     tg = params.tgsw_params
-    ok = (N == ctx.N and F == ctx.F and P == len(ctx.primes) == 2
+    ok = (N == ctx.N and F == ctx.F and P == len(ctx.primes) == 2 and MC == M * key_cols
           and K == tg.kpl * ctx.R and tg.kpl == U * tg.l and U == tg.tlwe_params.k + 1
           and M == ctx.key_limbs * U * ctx.R and tuple(bara.shape) == (n, B))
     if not ok:
@@ -74,6 +80,19 @@ def external_product_plain(digits: torch.Tensor, key_step: torch.Tensor,
     return wrap32(out).transpose(-1, -2).reshape(B, U, N)    # index m = t*R + s
 
 
+def cmux_ntt_step(acc: torch.Tensor, key_step: torch.Tensor, bara_i: torch.Tensor,
+                  ctx: NttContext, params) -> torch.Tensor:
+    """One CMux step over the NTT-domain key: acc + bk_i (.) ((X^a - 1) acc).
+
+    Args:
+      acc: (B, k+1, N) int32; key_step: (P, F, K, M) int16; bara_i: (B,) int32.
+    """
+    rot = rotate.mul_by_xai(acc, bara_i[:, None])
+    d = wrap32(rot.to(torch.int64) - acc.to(torch.int64))
+    delta = external_product_plain(decompose_h(d, params.tgsw_params), key_step, ctx)
+    return wrap32(acc.to(torch.int64) + delta.to(torch.int64))
+
+
 def blind_rotate_ntt_plain(acc0: torch.Tensor, bara: torch.Tensor, key: torch.Tensor,
                            ctx: NttContext, params) -> torch.Tensor:
     """Plain PyTorch blind rotation (``ops/ntt.blind_rotate_ntt`` of the reference).
@@ -83,43 +102,44 @@ def blind_rotate_ntt_plain(acc0: torch.Tensor, bara: torch.Tensor, key: torch.Te
       key: (n, P, F, K, M) int16 from ``ntt.prepare_kernel_key``.
     Returns (B, k+1, N) int32.
     """
-    _, _, _, n = _shapes(acc0, bara, key, ctx, params)
+    n = check_shapes(acc0, bara, key, ctx, params)[3]
     acc = acc0
     for i in range(n):
-        rot = rotate.mul_by_xai(acc, bara[i][:, None])
-        d = wrap32(rot.to(torch.int64) - acc.to(torch.int64))
-        delta = external_product_plain(decompose_h(d, params.tgsw_params), key[i], ctx)
-        acc = wrap32(acc.to(torch.int64) + delta.to(torch.int64))
+        acc = cmux_ntt_step(acc, key[i], bara[i], ctx, params)
     return acc
 
 
-def _launch(acc0: torch.Tensor, bara: torch.Tensor, key: torch.Tensor,
-            ctx: NttContext, params) -> torch.Tensor:
-    global launches
+def launch_kernel(name: str, acc0: torch.Tensor, bara: torch.Tensor, key: torch.Tensor,
+                  ctx: NttContext, params, key_dtype: torch.dtype) -> torch.Tensor:
+    """Launch the CRT-NTT kernel of ``csrc/<name>.cu`` on CUDA tensors and
+    return its output; raises on a bad operand or a refused launch.  The
+    caller counts the launch.  ``key_dtype`` is int16 for a key of residues
+    (n, P, F, K, M) and int8 for one of byte pairs (n, P, F, K, 2M).
+    """
     from ..kernels import build
 
-    B, U, N, n = _shapes(acc0, bara, key, ctx, params)
-    for name, x, dt in (("acc0", acc0, torch.int32), ("bara", bara, torch.int32),
-                        ("key", key, torch.int16), ("W", ctx.W, torch.int16),
-                        ("Winv", ctx.Winv, torch.int16)):
+    B, U, N, n = check_shapes(acc0, bara, key, ctx, params,
+                              key_cols=1 if key_dtype == torch.int16 else 2)
+    for arg, x, dt in (("acc0", acc0, torch.int32), ("bara", bara, torch.int32),
+                       ("key", key, key_dtype), ("W", ctx.W, torch.int16),
+                       ("Winv", ctx.Winv, torch.int16)):
         if (x.device != acc0.device or x.dtype != dt or not x.is_contiguous()
                 or x.data_ptr() % 8):
-            raise ValueError(f"{name} must be a contiguous, 8-byte aligned {dt} "
+            raise ValueError(f"{arg} must be a contiguous, 8-byte aligned {dt} "
                              f"tensor on {acc0.device}, got {x.dtype} on {x.device}")
     out = torch.empty_like(acc0)
     tg = params.tgsw_params
-    lib = build.load("blind_rotate_ntt")
+    lib = build.load(name)
     stream = torch.cuda.current_stream(acc0.device).cuda_stream
     with torch.cuda.device(acc0.device):
-        err = lib.blind_rotate_ntt_launch(
+        err = getattr(lib, build.SIGNATURES[name][0])(
             acc0.data_ptr(), bara.data_ptr(), key.data_ptr(), ctx.W.data_ptr(),
             ctx.Winv.data_ptr(), out.data_ptr(), B, n, U, N, ctx.R, tg.l, tg.Bgbit,
             ctx.key_limbs, ctx.key_limb_bits, ctx.primes[0], ctx.primes[1],
             ctx.crt_inv, stream)
     if err != 0:
-        raise RuntimeError(f"blind_rotate_ntt launch failed: CUDA error {err} "
+        raise RuntimeError(f"{name} launch failed: CUDA error {err} "
                            f"({lib.kernel_error_string(err).decode()})")
-    launches += 1
     return out
 
 
@@ -127,8 +147,11 @@ def blind_rotate_ntt(acc0: torch.Tensor, bara: torch.Tensor, key: torch.Tensor,
                      ctx: NttContext, params) -> torch.Tensor:
     """All n CMux steps of the blind rotation.  CPU tensors take the plain
     version; CUDA tensors launch the kernel (no fallback)."""
+    global launches
     if acc0.device.type == "cpu":
         return blind_rotate_ntt_plain(acc0, bara, key, ctx, params)
     if acc0.device.type != "cuda":
         raise ValueError(f"unsupported device {acc0.device}")
-    return _launch(acc0, bara, key, ctx, params)
+    out = launch_kernel("blind_rotate_ntt", acc0, bara, key, ctx, params, torch.int16)
+    launches += 1
+    return out

@@ -13,9 +13,14 @@ computed as in the reference:
 4. The 32-bit key split into signed limbs of ``key_limb_bits`` bits so that
    the bound in 3 holds; limb results are recombined with shifts mod 2^32.
 
-The port stores the key as balanced int16 residues ``(n, P, F, K, M)`` with
-K = J*R rows (j, r1) and M = L*U*R columns (limb, u, s): the TPU's int8
-lo/hi limb pairs and its DMA padding serve the MXU and have no use here.
+Two key layouts, one per kernel.  The "ntt_kernel" form stores balanced
+int16 residues ``(n, P, F, K, M)`` over ``KERNEL_PRIMES``, with K = J*R rows
+(j, r1) and M = L*U*R columns (limb, u, s); the TPU's DMA padding has no use
+here.  The "ntt_scan" form stores the same residues over ``DEFAULT_PRIMES`` as
+the reference's v1 kernel key ``(n, P, F, K, 2M)`` int8, the last axis the
+[lo | hi] bytes of each residue (:func:`prepare_key_ntt`), and
+:func:`scan_to_v1_key` / :func:`v1_key_to_scan` carry it to and from the
+reference's scan layout ``T8 (n, P, L, 2, F, J*R, U*R)``.
 Only the exact plans are ported; the rounded-key plans stay demoted.
 """
 
@@ -29,8 +34,11 @@ import torch
 
 from ..device import resolve_device
 
-#: The kernel's prime pair (the reference's ``KERNEL_PRIMES``).
+#: The "ntt_kernel" form's prime pair (the reference's ``KERNEL_PRIMES``).
 KERNEL_PRIMES = (64513, 32257)
+
+#: The "ntt_scan" form's prime pair (the reference's ``DEFAULT_PRIMES``).
+DEFAULT_PRIMES = (40961, 61441)
 
 #: Outer split width; 8 keeps the inner NTT length at 128 for N=1024.
 DEFAULT_R = 8
@@ -176,6 +184,14 @@ def kernel_context_for_params(params, device=None) -> NttContext:
                           device=device)
 
 
+def context_for_params(params, device=None) -> NttContext:
+    """The "ntt_scan" form's context for a GateBootstrappingParams: the exact
+    plan over ``DEFAULT_PRIMES`` (the reference's ``context_for_params``)."""
+    tg = params.tgsw_params
+    return make_context(N=tg.tlwe_params.N, J=tg.kpl, halfBg=tg.halfBg,
+                        primes=DEFAULT_PRIMES, device=device)
+
+
 # --------------------------------------------------------------------------
 # Exact modular arithmetic on tensors
 # --------------------------------------------------------------------------
@@ -232,3 +248,53 @@ def prepare_kernel_key(bk_rows: torch.Tensor, ctx: NttContext) -> torch.Tensor:
         V = ext[..., win, :].reshape(L, n, J, U, R, R, F)      # (L,n,J,U,r1,s,F)
         keys.append(V.permute(1, 6, 2, 4, 0, 3, 5).reshape(n, F, J * R, L * U * R))
     return torch.stack(keys, dim=1).contiguous()
+
+
+# --------------------------------------------------------------------------
+# The "ntt_scan" form's key: int8 byte pairs in the v1 kernel's layout
+# --------------------------------------------------------------------------
+
+def split_key_bytes(key: torch.Tensor) -> torch.Tensor:
+    """(..., M) int16 balanced residues -> (..., 2M) int8 [lo | hi] with
+    x = lo + 256 * hi and lo in [-128, 127] (the reference's ``split_i8``)."""
+    x = key.to(torch.int32)
+    lo = ((x + 128) & 255) - 128
+    hi = (x - lo) >> 8
+    return torch.cat([lo, hi], dim=-1).to(torch.int8)
+
+
+def join_key_bytes(key8: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`split_key_bytes`: (..., 2M) int8 -> (..., M) int16."""
+    M = key8.shape[-1] // 2
+    return key8[..., :M].to(torch.int16) + 256 * key8[..., M:].to(torch.int16)
+
+
+def prepare_key_ntt(bk_rows: torch.Tensor, ctx: NttContext) -> torch.Tensor:
+    """(n, J, U, N) int32 TGSW rows -> the "ntt_scan" key (n, P, F, K, 2M) int8.
+
+    The bits of ``pallas_ntt_blindrot.prepare_kernel_key(ntt.prepare_key_ntt_np(
+    rows, ctx).T8)`` of the reference: :func:`prepare_kernel_key`'s residues,
+    each split into its two bytes.  Runs on the rows' device.
+    """
+    return split_key_bytes(prepare_kernel_key(bk_rows, ctx)).contiguous()
+
+
+def scan_to_v1_key(T8: torch.Tensor) -> torch.Tensor:
+    """The reference's scan key ``T8`` (n, P, L, 2, F, J*R, U*R) int8 -> the
+    v1 layout (n, P, F, J*R, 2*L*U*R) (its ``prepare_kernel_key_np``)."""
+    n, P, L, two, F, JR, UR = T8.shape
+    if two != 2:
+        raise ValueError(f"T8 must hold [lo, hi] byte pairs on axis 3, got {tuple(T8.shape)}")
+    return T8.permute(0, 1, 4, 5, 3, 2, 6).reshape(n, P, F, JR, 2 * L * UR).contiguous()
+
+
+def v1_key_to_scan(key8: torch.Tensor, ctx: NttContext) -> torch.Tensor:
+    """Inverse of :func:`scan_to_v1_key`: (n, P, F, J*R, 2*L*U*R) int8 ->
+    ``T8`` (n, P, L, 2, F, J*R, U*R) (the reference's ``kernel_key_to_scan``
+    without the padding of its later kernel)."""
+    n, P, F, JR, M2 = key8.shape
+    L = ctx.key_limbs
+    if M2 % (2 * L * ctx.R):
+        raise ValueError(f"key last axis {M2} is not a multiple of 2 * {L} * {ctx.R}")
+    x = key8.reshape(n, P, F, JR, 2, L, M2 // (2 * L))
+    return x.permute(0, 1, 5, 4, 2, 3, 6).contiguous()

@@ -197,7 +197,7 @@ def test_eval_key_forms(shared):
     with pytest.raises(ValueError, match="unknown EvalKey form"):
         bootstrap._check_eval_key(bootstrap.EvalKey(
             bk_rows=rows.bk_rows, bk_variance=rows.bk_variance,
-            ks_prepared=rows.ks_prepared, ks=rows.ks, form="ntt_scan"))
+            ks_prepared=rows.ks_prepared, ks=rows.ks, form="rows"))
     p80 = jparams.default_80bit_params()
     for prepare in (bootstrap.prepare_eval_key, bootstrap.prepare_eval_key_fused):
         with pytest.raises(ValueError, match="halfBg"):
@@ -267,14 +267,17 @@ def test_config_fields_validate_and_roundtrip_like_reference():
     assert config.FrameworkConfig.from_json(cfg.to_json()) == cfg
     assert jconfig.FrameworkConfig.from_json(cfg.to_json()).to_json() == cfg.to_json()
     # fields whose consumer is not ported yet keep their default or are refused
-    changed = dict(enable_jwt=False, jwt_rs256=True, mesh_dp=4, mesh_tp=4, batch_size=512,
-                   profile_echo=True, serving_max_batch=64, serving_max_delay_s=0.1,
-                   serving_pipeline_chunk=32)
+    changed = dict(mesh_dp=4, mesh_tp=4, batch_size=512, serving_max_batch=64,
+                   serving_max_delay_s=0.1, serving_pipeline_chunk=32)
     assert changed.keys() == config.NOT_PORTED.keys()
     for name, value in changed.items():
         jconfig.FrameworkConfig(**{name: value})
         with pytest.raises(ValueError, match=f"{name}=.*not ported yet"):
             config.FrameworkConfig(**{name: value})
+    # the API's fields have their consumers (api.tfhe, utils.profiling)
+    cfg = config.FrameworkConfig(enable_jwt=False, jwt_rs256=True, profile_echo=True)
+    assert cfg.to_json() == jconfig.FrameworkConfig(
+        enable_jwt=False, jwt_rs256=True, profile_echo=True).to_json()
     for name in ("128", "80", "test"):
         assert (dataclasses.asdict(config.FrameworkConfig(param_set=name).params())
                 == dataclasses.asdict(jconfig.FrameworkConfig(param_set=name).params()))
