@@ -5,14 +5,17 @@
 
 Phases, in order; any failure exits non-zero:
   1. the card's name and power limit (nvidia-smi);
-  2. build of every CUDA kernel from ``eoc_tfhe_tpu_torch/csrc`` (nvcc);
+  2. build of every CUDA kernel from ``eoc_tfhe_tpu_torch/csrc`` (nvcc), and
+     the count of tensor-core MMA instructions in each library's SASS
+     (``cuobjdump``: IMMA for ``mma.sync``, the GMMA family for ``wgmma``);
   3. each kernel against its plain PyTorch version on the card, bit for bit,
-     at ``test_params()`` and at the 128-bit shapes (B=4, all 630 steps);
+     at ``test_params()`` (B=63) and at the 128-bit (B=4) and 80-bit (B=4)
+     shapes over all their steps;
   4. the main path: 128-bit keygen on the card, ``prepare_eval_key_ntt``,
      encryption of BATCH random bit pairs, one warm and ITERS timed
      batched NAND calls, decryption checked against ~(a & b);
-  5. the kernel at the main path's inputs: timed, held against its plain
-     version, with its bound;
+  5. the kernel at the main path's inputs (B=BATCH) and at batch 1 (the
+     API's): timed, held against its plain version, with its bound;
   6. the compact-key kernel against its plain version on the card, bit for
      bit, at ``test_params()`` (B=63) and at 128-bit B=4 over all 630 steps
      with the exact and the rounded (limbs=3) stored key;
@@ -48,6 +51,8 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
+import re
 import subprocess
 import sys
 import time
@@ -117,11 +122,16 @@ def bound_ms(macs: int, nbytes: int) -> tuple[float, str]:
 def rotation_bound(B: int, n: int, key: torch.Tensor, params) -> tuple[float, str]:
     """Least time (ms) for a blind rotation over the NTT-domain key on an H100
     and what bounds it.  Operations: :func:`ntt_macs` per sample and step,
-    with M the key's last axis (int16 residues) or half of it (int8 byte
-    pairs).  Bytes: the key, acc0, bara and the output, each moved once.
+    with K and M read from the key: the "ntt_kernel" byte planes (n, P, F,
+    M/16, K/16, 32, 16) or the "ntt_scan" byte pairs (n, P, F, K, 2M).
+    Bytes: the key, acc0, bara and the output, each moved once.
     """
-    _, P, F, K, M = key.shape
-    M //= 2 if key.dtype == torch.int8 else 1
+    if key.dim() == 7:
+        _, P, F, MT, KT = key.shape[:5]
+        K, M = 16 * KT, 16 * MT
+    else:
+        _, P, F, K, M2 = key.shape
+        M = M2 // 2
     dl = 1 if params.tgsw_params.halfBg <= 128 else 2
     acc_bytes = B * (params.k + 1) * params.N * 4
     nbytes = key.numel() * key.element_size() + 2 * acc_bytes + n * B * 4
@@ -144,6 +154,17 @@ def compact_bound(B: int, n: int, key: torch.Tensor, ctx, params) -> tuple[float
     macs = (ntt_macs(P, F, J * R, L * U * R, dl) * B + key_macs) * n
     nbytes = key.numel() * key.element_size() + 2 * B * U * params.N * 4 + n * B * 4
     return bound_ms(macs, nbytes)
+
+
+def mma_instructions(lib_path, nvcc: str) -> dict[str, int]:
+    """Tensor-core MMA instructions in a library's SASS (cuobjdump beside
+    nvcc): IMMA (integer mma.sync) and the GMMA family (wgmma)."""
+    cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "--dump-sass", str(lib_path)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    lines = sass.splitlines()
+    return {"IMMA": sum(bool(re.search(r"\bIMMA\.", line)) for line in lines),
+            "GMMA": sum(bool(re.search(r"\b[A-Z]*GMMA\.", line)) for line in lines)}
 
 
 def timed(fn) -> tuple[float, object]:
@@ -272,10 +293,17 @@ def main() -> int:
         print(f"nvcc {name} ({secs:.2f} s):\n{log.strip()}", flush=True)
     for name in build.SIGNATURES:
         build.load(name)
+    sass = {name: mma_instructions(build._target(name), build.nvcc())
+            for name in build.SIGNATURES}
+    print(f"sass tensor-core MMA instructions per library: {json.dumps(sass)}", flush=True)
+    for name in ("blind_rotate_ntt", "blind_rotate_compact"):
+        check(sass[name]["IMMA"] + sass[name]["GMMA"] > 0,
+              f"{name} has no tensor-core MMA instruction in its SASS")
 
     # 3. kernel against plain on the card
     for label, p, n_steps, B in (("test_params", params.test_params(), None, 63),
-                                 ("128-bit", params.default_128bit_params(), None, 4)):
+                                 ("128-bit", params.default_128bit_params(), None, 4),
+                                 ("80-bit", params.default_80bit_params(), None, 4)):
         n_steps = p.n if n_steps is None else n_steps
         rows, acc0, bara = random_rotation_inputs(gen, p, n_steps, B, dev)
         ctx = ntt.kernel_context_for_params(p, device=dev)
@@ -315,7 +343,7 @@ def main() -> int:
     check(n_wrong == 0, f"{n_wrong} of {B} NAND outputs decrypt wrong")
     check(all(v > 0 for v in launches.values()), f"a kernel never launched: {launches}")
     print(f"keygen_s: {keygen_s:.3f}  key_prep_s: {prep_s:.3f}  "
-          f"eval_key_GB: {ek.bk_ntt_kernel.numel() * 2 / 1e9:.3f}", flush=True)
+          f"eval_key_GB: {ek.bk_ntt_kernel.numel() / 1e9:.3f}", flush=True)   # int8
     print(f"nand B={B}: {call_ms:.2f} ms/call, {B / call_ms * 1e3:.1f} bootstraps/s, "
           f"{B} of {B} decrypt correctly; launches {launches}", flush=True)
 
@@ -339,6 +367,15 @@ def main() -> int:
         "launches": launches["blind_rotate_ntt"], "max_abs_err": err,
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": k_bound_ms,
         "bound_by": bound_by, "library_ms": None}]
+    del kout, pout
+    # the API's batch: one sample
+    acc1, bara1 = acc0[:1].contiguous(), bara[:, :1].contiguous()
+    one_ms, kout = cuda_ms(lambda: blind_rotate.blind_rotate_ntt(acc1, bara1, key, ctx, p), 5)
+    _, pout = cuda_ms(lambda: blind_rotate.blind_rotate_ntt_plain(acc1, bara1, key, ctx, p), 1)
+    check(torch.equal(kout, pout), "blind_rotate_ntt differs from plain at B=1")
+    one_bound_ms, one_by = rotation_bound(1, p.n, key, p)
+    print(f"blind_rotate_ntt at B=1: {one_ms:.2f} ms (bound {one_bound_ms:.2f} ms, {one_by}); "
+          f"bit-identical to plain", flush=True)
     nand_ntt_ms = call_ms
     del kout, pout
 

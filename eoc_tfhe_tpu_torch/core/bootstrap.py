@@ -57,7 +57,7 @@ class EvalKey:
     #: rows rounded to a multiple of 2^(8*(4-compact_limbs)).
     bk_compact: torch.Tensor | None = None
     compact_limbs: int = polymul.LIMBS
-    bk_ntt_kernel: torch.Tensor | None = None  # (n, P, F, K, M) int16 NTT-domain key
+    bk_ntt_kernel: torch.Tensor | None = None  # (n, P, F, M/16, K/16, 32, 16) int8 byte planes
     bk_ntt: torch.Tensor | None = None  # (n, P, F, K, 2M) int8 byte pairs, "ntt_scan"
     ntt_ctx: ntt.NttContext | None = None
 
@@ -121,7 +121,8 @@ def prepare_eval_key_ntt(cloud: CloudKeySet, params: GateBootstrappingParams,
     analog of upstream's FFT-converted ``LweBootstrappingKeyFFT``).
 
     ``kernel`` is the reference's argument.  ``"auto"`` and ``True`` give the
-    "ntt_kernel" form (int16 residues over ``KERNEL_PRIMES``, kernel K1): the
+    "ntt_kernel" form (residues over ``KERNEL_PRIMES`` as the byte planes
+    of kernel K1's tensor-core fragments): the
     card is the kernel's device.  ``False`` gives the "ntt_scan" form (the
     v1 byte-pair key over ``DEFAULT_PRIMES``, kernel K3).  Both are exact.
     """

@@ -1,186 +1,289 @@
-// Blind rotation over the stored ("compact") bootstrapping key, for Hopper (sm_90a).
+// Blind rotation over the stored ("compact") bootstrapping key on the int8
+// tensor cores, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel eoc_tfhe_tpu/ops/pallas_blindrot.py,
-// blind_rotate_pallas (its pallas_call at line 208): all n CMux steps of the
-// blind rotation in one launch, each step
+// blind_rotate_pallas (line 109, its pallas_call at line 208): all n CMux
+// steps of the blind rotation in one launch, each step
 //   acc += sum_j digits_j(X^a acc - acc) (negacyclic*) key[i, j, u]   mod 2^32
 // against the stored key (the true TGSW rows, or the rows rounded to a
 // multiple of 2^(8*drop) for the reference's rounded form), with the
-// reference's signed gadget digits (offset trick).  This is ring arithmetic
-// mod 2^32, so direct uint32 multiply-adds give the reference's bits in any
-// order. The TPU kernel's int8 limbs, in-kernel Toeplitz blocks and 2N
-// overlap-add buffer exist for its matrix unit and are not carried over.
+// reference's signed gadget digits (offset trick). The product is the direct
+// negacyclic one as a Toeplitz matrix times the digits, on the int8 tensor
+// cores (mma.sync m16n8k32), as the TPU kernel does on its matrix unit.
 //
-// Bound on an H100 at the 128-bit set (n=630, kpl=6, N=1024), as chip_smoke.py
-// computes it: the same function by the cheapest exact dataflow in this
-// package, the CRT-NTT one of blind_rotate_ntt.cu (1.18e7 int8 limb MACs per
-// sample and step), plus the stored key's transform into the NTT domain once
-// per step, shared by the batch; 2 operations per MAC at the 1,979 TOP/s int8
-// peak: about 7.7 ms for B=1024. The key (31 MB as int32 rows) is read once
-// in 0.01 ms at 3.35 TB/s, so the work is bound by operations. This kernel
-// does the direct product instead, kpl*U*N^2 = 1.26e7 uint32 multiply-adds
-// per sample and step on the CUDA cores (64 per clock per SM, an architecture
-// figure), which cannot go below about 0.5 ms per sample.
+// Limbs and exactness. Each key word v is split into balanced signed bytes,
+// v = b0 + 2^8 b1 + 2^16 b2 + 2^24 b3 mod 2^32 with every b in [-128, 127],
+// and so is -v (the Toeplitz block's wrapped entries), so every entry of the
+// negacyclic matrix is a byte. Digits are int8 (|d| <= halfBg <= 128; the
+// form refuses halfBg > 128, ROADMAP C1). For each limb t the MMA sums
+// J*N products into int32, |sum| <= J*N*halfBg*128 < 2^31 (5.0e7 at the
+// 128-bit set; the launcher checks the bound); the limbs are combined as
+// acc += sum_t << 8t in uint32, mod 2^32. A limb that is zero in every word
+// of a step (the low limb of the rounded limbs=3 key) is skipped, so that
+// form costs 3/4 of the MACs and still gives the plain version's bits.
 //
-// Design. A block holds kSamples samples for all n steps: their accumulators
-// (U*N uint32 each) and gadget digits (kpl*N int32 each) stay in shared
-// memory. Each step the block stages the key slice, negacyclically extended
-// as [-k, k] (kpl*U*2N uint32, 96 KB at 128-bit) so that the sign of the
-// wrapped index needs no branch. A thread owns kTile consecutive output
-// coefficients of one output polynomial for all kSamples samples; it walks
-// the input coefficients r in groups of kTile, holding a sliding window of
-// 2*kTile key values (four 16-byte loads) and kTile digits per sample
-// (broadcast loads), so each group does kSamples*kTile*kTile multiply-adds
-// for six shared-memory loads. Later work, not done here: int8 mma.sync or
-// wgmma over key limbs (the tensor cores), a TMA ring for the key steps, and
-// filling the 132 SMs at small batch (one block per four samples).
+// Design. A block holds kSamples = 8 samples (the MMA's N) for all n steps:
+// their accumulators (U*N uint32) and int8 digits (J*N) stay in shared
+// memory. Each step the block converts the key step (J*U*N int32 from L2;
+// by instruction count about 2% of a step, which is why the stored key stays
+// int32 rows) into byte rows rev[t][j][u][y] =
+// limb_t(T[c][r]) at y = N-1-c+r, that is [k reversed | -k reversed], so the
+// Toeplitz block is read along increasing addresses and never leaves the SM.
+// Warp w owns CT = U*N/128 output tiles of 16 coefficients of one output
+// polynomial. A fragment row of 4 consecutive input coefficients is 4 bytes
+// at an offset that is fixed per lane mod 4: two aligned 32-bit loads and a
+// __byte_perm. The A fragment depends only on the diagonal d = c0 - r0, so
+// the warp walks the diagonals: for each d it builds A once (two new words
+// of the sliding window, four loads) and runs every (c-tile, r-tile) pair
+// on that diagonal, with the digit fragments of all N/32 r-tiles and the
+// accumulators of its CT tiles in registers (64 + 64 at N = 1024): about 0.7
+// shared-memory loads per MMA. The walk is unrolled at compile time, so the
+// kernel is instantiated per N (64 and 1024; U = 2).
+//
+// Bound on an H100 at the 128-bit set (chip_smoke.py compact_bound): the
+// same function by the cheapest exact dataflow the repo has, the CRT-NTT one
+// of blind_rotate_ntt.cu plus the stored key's transform once per step,
+// shared by the batch: 7.7 ms at B=1024, bound by operations. This design
+// does 4*J*U*N^2 = 5.03e7 int8 MACs per sample and step instead, so it cannot
+// go below about 33 ms at B=1024 and 262 ms at B=8192 at the 1,979 TOP/s
+// peak, 4.3x that bound (PERF.md has the measured times).
+//
+// Shared memory at the 128-bit set: acc 65,664 + digits 49,280 + byte rows
+// 98,320 = 213,264 of the 232,448 bytes a block may use, one block per SM. B = 1024 is 128 blocks
+// on the 132 SMs; B = 8192 is 1024 blocks, 7.8 waves. The key step is read
+// once per block and step (48 KB from L2) and converted in place; there is
+// no room for a second buffer, and the conversion is not on the critical
+// path.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kSamples = 4;     // samples per block: every key load serves each
-constexpr int kTile = 8;        // consecutive output coefficients per thread
-constexpr int kMaxThreads = 256;
+constexpr int kSamples = 8;   // samples per block: the MMA's N
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kLimbs = 4;
 
 struct Shape {
   int B, n, U, N, l, J, Bgbit, halfBg;
   uint32_t offset, mask;
+  int acc_s;   // words per sample of acc: U*N + 4 (bank spread of the flush)
+  int dig_s;   // bytes per sample of dig: J*N + 16 (bank spread of the B loads)
+  int dig_off, rev_off;
 };
 
-__global__ void __launch_bounds__(kMaxThreads, 1) blind_rotate_compact_kernel(
+__device__ __forceinline__ void mma_k32(int (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                        uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t lds32(const int8_t* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// The balanced byte limbs of v: v == sum_t 2^(8t) b_t mod 2^32, b_t in [-128, 127].
+__device__ __forceinline__ void limbs(uint32_t v, int (&b)[kLimbs]) {
+#pragma unroll
+  for (int t = 0; t < kLimbs; ++t) {
+    b[t] = static_cast<int8_t>(v);
+    v = (v - static_cast<uint32_t>(b[t])) >> 8;
+  }
+}
+
+template <int N, int U>
+__global__ void __launch_bounds__(kThreads, 1) blind_rotate_compact_kernel(
     const int32_t* __restrict__ acc0, const int32_t* __restrict__ bara,
     const int32_t* __restrict__ key, int32_t* __restrict__ out, const Shape S) {
+  constexpr int UN = U * N, twoN = 2 * N;
+  constexpr int TPP = N / 16;                 // 16-coefficient tiles per polynomial
+  constexpr int CT = U * TPP / kWarps;        // tiles per warp
+  constexpr int RT = N / 32;                  // 32-coefficient input tiles
+  static_assert(CT >= 1 && TPP % CT == 0, "a warp's tiles lie in one polynomial");
+  constexpr int E0 = -(2 * RT - 2), E1 = CT - 1;   // diagonals e = i - 2q
+
   extern __shared__ __align__(16) unsigned char smem[];
-  const int N = S.N, UN = S.U * N, JN = S.J * N, twoN = 2 * N;
-  uint32_t* acc = reinterpret_cast<uint32_t*>(smem);                 // [s][u][N]
-  int32_t* dig = reinterpret_cast<int32_t*>(acc + kSamples * UN);    // [s][j][N]
-  uint32_t* ext = reinterpret_cast<uint32_t*>(dig + kSamples * JN);  // [j][u][2N]
-  const int tid = threadIdx.x, nthreads = blockDim.x;
+  uint32_t* acc = reinterpret_cast<uint32_t*>(smem);          // [s][acc_s]
+  int8_t* dig = reinterpret_cast<int8_t*>(smem + S.dig_off);  // [s][j][N] + pad
+  int8_t* rev = reinterpret_cast<int8_t*>(smem + S.rev_off);  // [t][j][u][2N]
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tig = lane & 3;
+  const int J = S.J;
   const int b0 = blockIdx.x * kSamples;
   const int nvalid = min(kSamples, S.B - b0);
-  const int tiles_per_poly = N / kTile;
-  const size_t step_size = static_cast<size_t>(S.J) * UN;
 
-  for (int x = tid; x < kSamples * UN; x += nthreads) {
-    const int s = x / UN;
-    acc[x] = s < nvalid ? static_cast<uint32_t>(acc0[static_cast<size_t>(b0) * UN + x]) : 0u;
+  for (int x = tid; x < kSamples * UN; x += kThreads) {
+    const int s = x / UN, y = x - s * UN;
+    acc[s * S.acc_s + y] =
+        s < nvalid ? static_cast<uint32_t>(acc0[static_cast<size_t>(b0) * UN + x]) : 0u;
   }
 
-  for (int i = 0; i < S.n; ++i) {
-    __syncthreads();   // the previous step no longer reads dig or ext; acc is updated
-    // Key slice i as [-k, k] along each polynomial.
-    const int32_t* key_i = key + static_cast<size_t>(i) * step_size;
-    for (int x = tid; x < S.J * UN; x += nthreads) {
-      const int ju = x / N, c = x - ju * N;
-      const uint32_t v = static_cast<uint32_t>(key_i[x]);
-      ext[ju * twoN + c] = 0u - v;
-      ext[ju * twoN + N + c] = v;
-    }
-    // d = X^a * acc - acc, then its signed gadget digits (offset trick).
-    for (int x = tid; x < kSamples * UN; x += nthreads) {
-      const int s = x / UN, y = x - s * UN;
-      const int a = s < nvalid ? bara[static_cast<size_t>(i) * S.B + b0 + s] : 0;
-      const uint32_t* as = acc + s * UN;
-      const int u = y / N, c = y - u * N;
-      const int src = (c - a + twoN) & (twoN - 1);    // a in [0, 2N)
-      const uint32_t v = src < N ? as[u * N + src] : 0u - as[u * N + src - N];
-      const uint32_t du = v - as[y] + S.offset;
-      int32_t* ds = dig + s * JN;
-      for (int li = 0; li < S.l; ++li) {
-        const int shift = 32 - (li + 1) * S.Bgbit;
-        ds[(u * S.l + li) * N + c] = static_cast<int>((du >> shift) & S.mask) - S.halfBg;
-      }
-    }
-    __syncthreads();
+  // This warp's output tiles and its lane's fixed byte offset into rev.
+  const int tile0 = warp * CT, u_out = tile0 / TPP, cb = (tile0 % TPP) * 16;
+  const int base = N - 1 - cb - g + 4 * tig;      // y of row cb+g, column 4 tig, at d = cb
+  const int sh = base & 3;
+  const uint32_t sel = 0x3210u + 0x1111u * sh;
+  const int pb = base - sh;
 
-    // out[u][c] = sum_j sum_r dig[j][r] * ext[j][u][c - r + N], for the
-    // thread's c = c0 .. c0 + kTile - 1.  With r = r0 + q the key index is
-    // (c0 + N - kTile - r0) + (kTile + t - q): one 2*kTile window per r0.
-    for (int tile = tid; tile < S.U * tiles_per_poly; tile += nthreads) {
-      const int u = tile / tiles_per_poly;
-      const int c0 = (tile - u * tiles_per_poly) * kTile;
-      uint32_t sum[kSamples][kTile] = {};
-      for (int j = 0; j < S.J; ++j) {
-        const uint32_t* e = ext + (j * S.U + u) * twoN + c0 + N - kTile;
-        const int32_t* dj = dig + j * N;
-#pragma unroll 2
-        for (int r0 = 0; r0 < N; r0 += kTile) {
-          uint32_t w[2 * kTile];
+  for (int i = 0; i < S.n; ++i) {
+    __syncthreads();   // the previous step no longer reads dig or rev; acc is updated
+    // Key step i as byte rows: rev[t][j][u][N-1-m] = limb_t(k[m]),
+    // rev[t][j][u][2N-1-m] = limb_t(-k[m]); four words of k a thread.
+    const int32_t* key_i = key + static_cast<size_t>(i) * J * UN;
+    int nz = 0;
+    for (int x = tid; x < J * UN / 4; x += kThreads) {
+      const int ju = x / (N / 4), m0 = (x - ju * (N / 4)) * 4;
+      const int4 kv = *reinterpret_cast<const int4*>(key_i + ju * N + m0);
+      const uint32_t v[4] = {static_cast<uint32_t>(kv.x), static_cast<uint32_t>(kv.y),
+                             static_cast<uint32_t>(kv.z), static_cast<uint32_t>(kv.w)};
+      uint32_t pos[kLimbs] = {}, neg[kLimbs] = {};
 #pragma unroll
-          for (int v = 0; v < 2 * kTile / 4; ++v) {
-            const uint4 x = *reinterpret_cast<const uint4*>(e - r0 + 4 * v);
-            w[4 * v] = x.x; w[4 * v + 1] = x.y; w[4 * v + 2] = x.z; w[4 * v + 3] = x.w;
-          }
+      for (int e = 0; e < 4; ++e) {
+        int bp[kLimbs], bn[kLimbs];
+        limbs(v[e], bp);
+        limbs(0u - v[e], bn);
 #pragma unroll
-          for (int s = 0; s < kSamples; ++s) {
-            uint32_t d[kTile];
-#pragma unroll
-            for (int v = 0; v < kTile / 4; ++v) {
-              const int4 x = *reinterpret_cast<const int4*>(dj + s * JN + r0 + 4 * v);
-              d[4 * v] = x.x; d[4 * v + 1] = x.y; d[4 * v + 2] = x.z; d[4 * v + 3] = x.w;
-            }
-#pragma unroll
-            for (int q = 0; q < kTile; ++q)
-#pragma unroll
-              for (int t = 0; t < kTile; ++t)
-                sum[s][t] += d[q] * w[kTile + t - q];
-          }
+        for (int t = 0; t < kLimbs; ++t) {
+          pos[t] |= static_cast<uint32_t>(bp[t] & 255) << (8 * (3 - e));
+          neg[t] |= static_cast<uint32_t>(bn[t] & 255) << (8 * (3 - e));
         }
       }
-      // Only the step's digit pass reads acc, and it is behind the barrier above.
 #pragma unroll
-      for (int s = 0; s < kSamples; ++s)
+      for (int t = 0; t < kLimbs; ++t) {
+        int8_t* row = rev + static_cast<size_t>(t * J * U + ju) * twoN;
+        *reinterpret_cast<uint32_t*>(row + N - 4 - m0) = pos[t];
+        *reinterpret_cast<uint32_t*>(row + twoN - 4 - m0) = neg[t];
+        nz |= (pos[t] | neg[t]) != 0u ? 1 << t : 0;
+      }
+    }
+    // d = X^a * acc - acc, then its signed gadget digits (offset trick).
+    for (int x = tid; x < kSamples * UN; x += kThreads) {
+      const int s = x / UN, y = x - s * UN;
+      const int u = y / N, c = y - u * N;
+      uint32_t du = S.offset;
+      if (s < nvalid) {
+        const uint32_t* as = acc + s * S.acc_s + u * N;
+        const int a = bara[static_cast<size_t>(i) * S.B + b0 + s];
+        const int src = (c - a + twoN) & (twoN - 1);    // a in [0, 2N)
+        const uint32_t v = src < N ? as[src] : 0u - as[src - N];
+        du = v - as[c] + S.offset;
+      }
+      int8_t* ds = dig + s * S.dig_s + c;
+      for (int li = 0; li < S.l; ++li) {
+        const int shift = 32 - (li + 1) * S.Bgbit;
+        ds[(u * S.l + li) * N] = static_cast<int8_t>(static_cast<int>((du >> shift) & S.mask) -
+                                                     S.halfBg);
+      }
+    }
+    // Barriers that also tell every thread which limbs are nonzero this step.
+    int live[kLimbs];
 #pragma unroll
-        for (int t = 0; t < kTile; ++t)
-          acc[s * UN + u * N + c0 + t] += sum[s][t];
+    for (int t = 0; t < kLimbs; ++t) live[t] = __syncthreads_or(nz & (1 << t));
+
+    const int8_t* dg = dig + g * S.dig_s + 4 * tig;
+#pragma unroll 1
+    for (int t = 0; t < kLimbs; ++t) {
+      if (!live[t]) continue;
+      int c[CT][4] = {};
+#pragma unroll 1
+      for (int j = 0; j < J; ++j) {
+        uint32_t bf[RT][2];
+#pragma unroll
+        for (int q = 0; q < RT; ++q) {
+          bf[q][0] = lds32(dg + j * N + 32 * q);
+          bf[q][1] = lds32(dg + j * N + 32 * q + 16);
+        }
+        const int8_t* rv = rev + static_cast<size_t>((t * J + j) * U + u_out) * twoN + pb;
+        // U_m = the 4 bytes at base - 8m; A(e) = (U_2e, U_2e+1, U_2e-2, U_2e-1).
+        auto word = [&](int m) {
+          return __byte_perm(lds32(rv - 8 * m), lds32(rv - 8 * m + 4), sel);
+        };
+        uint32_t um2 = word(2 * E0 - 2), um1 = word(2 * E0 - 1);
+#pragma unroll
+        for (int e = E0; e <= E1; ++e) {
+          const uint32_t u0 = word(2 * e), u1 = word(2 * e + 1);
+#pragma unroll
+          for (int q = 0; q < RT; ++q) {
+            const int ii = e + 2 * q;
+            if (ii >= 0 && ii < CT) mma_k32(c[ii], u0, u1, um2, um1, bf[q][0], bf[q][1]);
+          }
+          um2 = u0;
+          um1 = u1;
+        }
+      }
+      // acc += limb sum << 8t (mod 2^32): rows cb + 16 ii + g (+8), samples 2 tig (+1).
+#pragma unroll
+      for (int ii = 0; ii < CT; ++ii) {
+        uint32_t* a = acc + 2 * tig * S.acc_s + u_out * N + cb + 16 * ii + g;
+        a[0] += static_cast<uint32_t>(c[ii][0]) << (8 * t);
+        a[S.acc_s] += static_cast<uint32_t>(c[ii][1]) << (8 * t);
+        a[8] += static_cast<uint32_t>(c[ii][2]) << (8 * t);
+        a[S.acc_s + 8] += static_cast<uint32_t>(c[ii][3]) << (8 * t);
+      }
     }
   }
   __syncthreads();
 
-  for (int x = tid; x < nvalid * UN; x += nthreads)
-    out[static_cast<size_t>(b0) * UN + x] = static_cast<int32_t>(acc[x]);
+  for (int x = tid; x < nvalid * UN; x += kThreads) {
+    const int s = x / UN, y = x - s * UN;
+    out[static_cast<size_t>(b0) * UN + x] = static_cast<int32_t>(acc[s * S.acc_s + y]);
+  }
+}
+
+template <int N, int U>
+int launch_n(const Shape& S, size_t smem, const void* acc0, const void* bara, const void* key,
+             void* out, cudaStream_t stream) {
+  auto kernel = blind_rotate_compact_kernel<N, U>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int grid = (S.B + kSamples - 1) / kSamples;
+  kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const int32_t*>(acc0), static_cast<const int32_t*>(bara),
+      static_cast<const int32_t*>(key), static_cast<int32_t*>(out), S);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // Launches the blind rotation on `stream`.  acc0, out: (B, U, N) int32;
 // bara: (n, B) int32 in [0, 2N); key: (n, U*l, U, N) int32, the stored key.
-// Returns a cudaError_t (0 on success); allocates nothing and does not sync.
+// Supported: U = 2 and N = 64 or 1024.  Returns a cudaError_t (0 on
+// success); allocates nothing and does not sync.
 extern "C" int blind_rotate_compact_launch(const void* acc0, const void* bara, const void* key,
                                            void* out, int B, int n, int U, int N, int l,
                                            int Bgbit, void* stream) {
   Shape S;
   S.B = B; S.n = n; S.U = U; S.N = N; S.l = l; S.J = U * l; S.Bgbit = Bgbit;
-  if (B <= 0 || n < 0 || U <= 0 || l <= 0 || Bgbit <= 0 || Bgbit > 8 || l * Bgbit > 32 ||
-      N < 2 * kTile || (N & (N - 1)) != 0)
+  if (B <= 0 || n < 0 || U != 2 || (N != 64 && N != 1024) || l <= 0 || Bgbit <= 0 ||
+      Bgbit > 8 || l * Bgbit > 32)
     return static_cast<int>(cudaErrorInvalidValue);
-  S.halfBg = 1 << (Bgbit - 1);   // <= 128: the digits of the reference's exact domain
+  S.halfBg = 1 << (Bgbit - 1);   // <= 128: int8 digits, the reference's exact domain
+  // Each limb's MMA sum: J*N products |digit| * |byte| <= halfBg * 128.
+  if (static_cast<long long>(S.J) * N * S.halfBg * 128 >= (1LL << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
   S.mask = (1u << Bgbit) - 1u;
   S.offset = 0;
   for (int p = 0; p < l; ++p)
     S.offset += static_cast<uint32_t>(S.halfBg) << (32 - (p + 1) * Bgbit);
-  const size_t smem = sizeof(uint32_t) * (static_cast<size_t>(kSamples) * U * N +
-                                          static_cast<size_t>(kSamples) * S.J * N +
-                                          static_cast<size_t>(S.J) * U * 2 * N);
+  S.acc_s = U * N + 4;
+  S.dig_s = S.J * N + 16;
+  S.dig_off = kSamples * S.acc_s * 4;
+  S.rev_off = S.dig_off + kSamples * S.dig_s;
+  const size_t smem = static_cast<size_t>(S.rev_off) + static_cast<size_t>(kLimbs) * S.J * U *
+                      2 * N + 16;
   int device = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (smem > static_cast<size_t>(optin)) return static_cast<int>(cudaErrorInvalidValue);
-  err = cudaFuncSetAttribute(blind_rotate_compact_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int tiles = U * N / kTile;
-  const int threads = tiles >= kMaxThreads ? kMaxThreads : (tiles + 31) / 32 * 32;
-  const int grid = (B + kSamples - 1) / kSamples;
-  blind_rotate_compact_kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(acc0), static_cast<const int32_t*>(bara),
-      static_cast<const int32_t*>(key), static_cast<int32_t*>(out), S);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return N == 64 ? launch_n<64, 2>(S, smem, acc0, bara, key, out, st)
+                 : launch_n<1024, 2>(S, smem, acc0, bara, key, out, st);
 }
 
 extern "C" const char* kernel_error_string(int err) {

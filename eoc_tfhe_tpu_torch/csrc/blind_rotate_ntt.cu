@@ -1,45 +1,63 @@
-// Blind rotation over the CRT-NTT bootstrapping key in int16 residues, for
-// Hopper (sm_90a).
+// Blind rotation over the CRT-NTT bootstrapping key on the int8 tensor cores,
+// for Hopper (sm_90a): the kernel of the "ntt_kernel" eval-key form.
 //
 // Replaces the TPU kernel eoc_tfhe_tpu/ops/pallas_ntt_blindrot2.py,
-// blind_rotate_ntt_pallas2 (its pallas_call at line 648): all n CMux steps of
-// the blind rotation in one launch, over the same primes and key. The
-// dataflow and its design are in crt_ntt_rotate.cuh; this file gives the key
-// layout, (n, P, F, K, M) int16 balanced residues, one 8-byte load per four
-// residues.
+// blind_rotate_ntt_pallas2 (line 241, its pallas_call at line 648): all n
+// CMux steps of the blind rotation in one launch, over the same primes
+// (64513, 32257). The dataflow, its limbs, bounds and shared-memory budget
+// are in crt_ntt_mma.cuh; this file gives the key's layout and load. The key
+// is stored as the pointwise stage's A operand: per step, prime, frequency,
+// m16 tile of M and k16 tile of K, 32 lanes x 16 bytes (lo a0, lo a1, hi a0,
+// hi a1 of the m16n8k16 fragment of T^T, T the (K, M) balanced residues), so
+// each lane loads one tile with one 16-byte load, and a warp 512 contiguous
+// bytes. It is the same 743 MB as the int16 residues
+// (ntt.prepare_kernel_key, ntt.unpack_kernel_key).
 //
-// Bound on an H100 at the 128-bit set (B=8192, n=630): the dataflow needs
-// about 1.2e7 int8 limb MACs per sample and step, 1.2e14 operations in all,
-// about 62 ms at the 1,979 TOP/s int8 peak, against about 0.9 GB of key and
-// accumulator traffic (0.27 ms at 3.35 TB/s): the work is bound by operations.
-// The kernel runs on the CUDA cores; the tensor cores are later work.
+// Bound on an H100 at the 128-bit set (B=8192, n=630; chip_smoke.py
+// rotation_bound): ntt_macs = 1.18e7 int8 limb MACs per sample and step, 2
+// operations each at the 1,979 TOP/s int8 peak: 61.5 ms, against 0.27 ms for
+// the key and accumulator bytes at 3.35 TB/s, so bound by operations. This
+// design runs exactly those MACs (plus the zero padding of F to 32 at small
+// N) on the tensor cores with mma.sync; the reductions between stages run on
+// the CUDA cores, and latency, not the MMAs, is its critical path
+// (crt_ntt_mma.cuh).
 
-#include "crt_ntt_rotate.cuh"
+#include "crt_ntt_mma.cuh"
 
 namespace {
 
-struct Int16Key {
-  using Elem = int16_t;
-  __host__ __device__ static int row_stride(int M) { return M; }
-  __device__ static int4 load4(const int16_t* row, int m0, int) {
-    const short4 w = crt_ntt::load4(row + m0);
-    return make_int4(w.x, w.y, w.z, w.w);
+struct PackedKey {
+  using Elem = int8_t;
+  __device__ static uint4 load(const int8_t* key, const crt_mma::Shape& S, int i, int pi,
+                               int f, int mt, int kt, int lane) {
+    const size_t tile = ((static_cast<size_t>(i * 2 + pi) * S.F + f) * (S.M / 16) + mt) *
+                            (S.K / 16) + kt;
+    return __ldg(reinterpret_cast<const uint4*>(key + tile * 512) + lane);
   }
 };
 
 }  // namespace
 
 // Launches the blind rotation on `stream`.  acc0, out: (B, U, N) int32;
-// bara: (n, B) int32 in [0, 2N); key: (n, 2, F, K, M) int16 balanced residues;
-// W: (2, F, F) int16 [t][f]; Winv: (2, F, F) int16 [f][t]; F = N / R.
-// Returns a cudaError_t (0 on success); allocates nothing and does not sync.
+// bara: (n, B) int32 in [0, 2N); key: (n, 2, F, M/16, K/16, 32, 16) int8;
+// Wf, Wi: (2, FP/8, FP/32, 32, 4, 8) int8 B fragments; scratch:
+// scratch_bytes of device memory (see crt_mma::launch).  Returns a
+// cudaError_t (0 on success); allocates nothing and does not sync.
 extern "C" int blind_rotate_ntt_launch(const void* acc0, const void* bara, const void* key,
-                                       const void* W, const void* Winv, void* out, int B,
-                                       int n, int U, int N, int R, int l, int Bgbit, int L,
-                                       int kbits, int p0, int p1, int crt_inv, void* stream) {
-  return crt_ntt::launch<Int16Key>(acc0, bara, key, W, Winv, out, B, n, U, N, R, l, Bgbit, L,
-                                   kbits, p0, p1, crt_inv, stream);
+                                       const void* Wf, const void* Wi, void* scratch,
+                                       long long scratch_bytes, void* out, int B, int n, int U,
+                                       int N, int R, int l, int Bgbit, int L, int kbits, int p0,
+                                       int p1, int crt_inv, void* stream) {
+  return crt_mma::launch<PackedKey>(acc0, bara, key, Wf, Wi, scratch, scratch_bytes, out, B,
+                                    n, U, N, R, l, Bgbit, L, kbits, p0, p1, crt_inv, stream);
 }
+
+#ifdef CRT_MMA_PROFILE
+extern "C" int blind_rotate_ntt_phase_clocks(unsigned long long* host) {
+  return static_cast<int>(cudaMemcpyFromSymbol(host, crt_mma::phase_clocks,
+                                               sizeof(crt_mma::phase_clocks)));
+}
+#endif
 
 extern "C" const char* kernel_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -1,0 +1,599 @@
+// The CRT-NTT blind rotation on the int8 tensor cores (mma.sync, sm_90a).
+//
+// Used by blind_rotate_ntt.cu, which replaces the TPU kernel
+// eoc_tfhe_tpu/ops/pallas_ntt_blindrot2.py, blind_rotate_ntt_pallas2 (line
+// 241, its pallas_call at line 648). All n CMux steps in one launch, each step
+//   acc += sum_j digits_j(X^a acc - acc) (negacyclic*) bk[i, j, u]   mod 2^32
+// by the reference's CRT-NTT dataflow: R-way Nussbaumer split, a length-F
+// negacyclic NTT per prime as an F x F matrix product, the pointwise
+// contraction over K = J*R rows against the NTT-domain key, the inverse NTT,
+// CRT over the two primes and the recombination of the L key limbs. Every
+// step is an exact integer sum followed by an exact reduction, so the output
+// has the reference's bits.
+//
+// Limbs and exactness. Each residue r (|r| <= (p-1)/2 <= 32639) is split as
+// r = lo + 256 hi, lo in [-128, 127], |hi| <= 127; a digit d with |d| <= 128
+// is one int8 limb (DL = 1), a wider one (the 80-bit set, halfBg = 512) is
+// d = lo + 256 hi with |hi| <= 2 (DL = 2). Every MMA sums int8 x int8
+// products into int32; the stages combine their partial sums as follows.
+//   forward  dhat = dig W: C0 = sum d_lo W_lo + d_hi V_lo, C1 = sum d_lo W_hi
+//            + d_hi V_hi, with V = 256 W mod p (d_hi terms only for DL = 2),
+//            so dhat == C0 + 256 C1 (mod p); |C0 + 256 C1| <= 257 FP 128
+//            (128 + |d_hi|) < 2^31, checked by the launcher.
+//   pointwise chat = T dhat: three int32 sums C0 = lo.lo, C1 = lo.hi + hi.lo,
+//            C2 = hi.hi, combined as C0 + 256 C1 + c16 C2 with c16 = 2^16 mod
+//            p balanced (the reference's choice of primes makes |c16| ~ 2^10):
+//            |.| <= K 2^14 (1 + 512 + |c16|) = 1.2e9 < 2^31 at K = 48,
+//            checked by the launcher. The reference's [A; 256A] key
+//            (expand_kernel_key_256) would drop the c16 term, but it doubles
+//            the key bytes that every block reads, and bytes are what this
+//            stage costs; so the key stays [lo | hi] planes of A.
+//   inverse  res = chat Winv with V = 256 Winv mod p: C0 = sum c_lo Wi_lo +
+//            c_hi V_lo, C1 = sum c_lo Wi_hi + c_hi V_hi; |C0 + 256 C1| <=
+//            257 FP 2^15 < 2^31 (FP <= 128), checked by the launcher.
+// Each stage ends in one reduction of an int32 sum to a balanced residue on
+// the CUDA cores (a float quotient corrected by one conditional step),
+// followed by the byte split for the next stage. CRT, key-limb
+// recombination and the accumulator update are uint32 work on the CUDA
+// cores.
+//
+// Shapes. A block holds kSamples = 8 samples and kWarps = 16 warps. The
+// forward and inverse stages are m16n8k32 products: rows k or m of one
+// sample, columns f or t, contraction t or f over FP = max(F, 32) (the
+// matrices are zero-padded, so stale padding columns contribute nothing).
+// Warp w owns n8 tile w of the columns for every live sample: it loads its B
+// fragments (W, Winv and their 256-multiples, byte planes in fragment order,
+// NttContext.W_mma / Winv_mma, 32 bytes a lane per tile) once per prime into
+// registers and walks the samples, so at batch 1 the warps share the one
+// sample. The pointwise stage is m16n8k16 per frequency: A is the key (M x K,
+// byte planes in fragment order, one 16-byte load a lane per tile), the
+// eight samples are N; warps take four frequencies at a time. Requires
+// U*R = 16, so the rows of one m-tile of the inverse are the U*R (u, r) pairs
+// of one key limb and a thread recombines the limbs of its outputs in
+// registers.
+//
+// Shared memory (128-bit set: F = 128, K = M = 48): dig [DL][s][k][t] and
+// chat [2][s][m][f] share one buffer, rows padded to FP + 16 bytes so that
+// fragment loads hit 32 banks: 110,592 bytes; dhat [f][2][s][k], each
+// frequency padded by 16 bytes against bank conflicts of the forward's
+// stores: 100,352 bytes; 210,944 of the 232,448 bytes a block may use
+// (80-bit set: 215,040). The accumulators
+// live in the output tensor (global memory, L2-resident, each word read once
+// and updated once a step); a per-block scratch tensor holds the first
+// prime's inverse residues (in a thread-private order) and a copy of the
+// digits, which the second prime reads back instead of recomputing them.
+//
+// L2 key traffic and occupancy. Every key byte a block reads serves its 8
+// samples (the CUDA-core kernel served 2): 1.18 MB per step and block at the
+// 128-bit set, B/8 * n * 1.18 MB per launch. More samples per key read need a
+// thread-block cluster with the key multicast into each block (later work).
+// One block per SM; B = 8192 is 1024 blocks, 7.8 waves of 132. The
+// stages are bound by latency more than by instruction rate or by the
+// tensor cores (stubbing out the MMAs does not change the time), hence 16
+// warps at 128 registers each, and every load of a stage is started before
+// the values it feeds are needed (B fragments per prime, digit-pass loads in
+// groups of 8, the CRT's res0 and acc words before the sample's MMAs).
+// -DCRT_MMA_PROFILE builds a diagnostic library that counts block 0's clock
+// cycles by stage (kernel_times.py --stages).
+
+#pragma once
+
+#include <cstddef>
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace crt_mma {
+
+constexpr int kSamples = 8;   // samples per block: the pointwise MMA's N
+constexpr int kWarps = 16;    // warps per block: 128 registers each
+constexpr int kThreads = 32 * kWarps;
+constexpr int kMaxMTK = 3;    // m16 tiles of K (K <= 48)
+constexpr int kMaxKT = 4;     // k32 tiles of FP (FP <= 128)
+constexpr int kNJ = (16 + kWarps - 1) / kWarps;   // n8 tiles of F a warp owns (F <= 128)
+
+struct Shape {
+  int B, n, U, N, R, F, FP, l, J, K, M, L, Bgbit, kbits, halfBg, crt_inv;
+  int log_n, log_r;   // log2 N, log2 R
+  int p0, p1, half0, half1;
+  int c16_0, c16_1;   // balanced 2^16 mod p
+  float finv0, finv1;
+  uint32_t offset, mask;
+  int DS;        // byte stride of a dig or chat row: FP + 16
+  int dig_plane; // bytes of one digit plane: kSamples * K * DS
+  int y_plane;   // bytes of one chat plane: kSamples * M * DS
+  int buf2;      // byte offset of dhat
+  int xs;        // bytes per frequency of dhat: 2 * kSamples * K + 16 (bank spread)
+  int res0_16, dig16, scratch16;   // 16-byte words of a block's scratch: res0, digits, all
+};
+
+
+__device__ __forceinline__ void mma_k32(int (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                        uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void mma_k16(int (&c)[4], uint32_t a0, uint32_t a1, uint32_t b0) {
+  asm("mma.sync.aligned.m16n8k16.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5}, {%6}, "
+      "{%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a0), "r"(a1), "r"(b0));
+}
+
+// Balanced z mod p for |z| < 2^31: q is the float quotient rounded to an
+// integer by adding 1.5 * 2^23 (|z / p| < 2^22), the nearest integer or off
+// by one, so one conditional step corrects it.
+__device__ __forceinline__ int reduce32(int z, int p, int half, float inv_p) {
+  const int q = __float_as_int(__fmaf_rn(__int2float_rn(z), inv_p, 12582912.0f)) - 0x4B400000;
+  int r = static_cast<int>(static_cast<uint32_t>(z) - static_cast<uint32_t>(q * p));
+  r -= r > half ? p : 0;
+  r += r < -half ? p : 0;
+  return r;
+}
+
+// r = lo + 256 hi with lo in [-128, 127].
+__device__ __forceinline__ void split8(int r, int& lo, int& hi) {
+  lo = ((r + 128) & 255) - 128;
+  hi = (r - lo) >> 8;
+}
+
+__device__ __forceinline__ uint32_t lds32(const int8_t* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// Gadget digits of d = X^a acc - acc (offset trick) into dig [DL][s][k][t],
+// k = (u*l + li)*R + r for coefficient c = t*R + r. Dead samples get digit 0.
+template <int DL>
+__device__ __forceinline__ void digit_pass(const Shape& S, int i, const uint32_t* acc,
+                                           const int32_t* __restrict__ bara, int b0, int nvalid,
+                                           int8_t* dig, int tid) {
+  constexpr int kItems = 8;   // coefficients a thread loads before it computes
+  const int lun = S.log_n + (S.U == 2 ? 1 : 0);
+  const int UN = S.U * S.N, twoN = 2 * S.N, total = kSamples * UN;
+  for (int x0 = tid; x0 < total; x0 += kItems * kThreads) {
+    uint32_t du[kItems];
+#pragma unroll
+    for (int q = 0; q < kItems; ++q) {
+      const int x = x0 + q * kThreads;
+      const int s = S.U == 2 ? x >> lun : x / UN, y = x - s * UN;
+      const int u = y >> S.log_n, c = y & (S.N - 1);
+      du[q] = S.offset;
+      if (x < total && s < nvalid) {
+        const uint32_t* as = acc + static_cast<size_t>(s) * UN + u * S.N;
+        const int a = bara[static_cast<size_t>(i) * S.B + b0 + s];
+        const int src = (c - a + twoN) & (twoN - 1);    // a in [0, 2N)
+        const uint32_t v = src < S.N ? as[src] : 0u - as[src - S.N];
+        du[q] = v - as[c] + S.offset;
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < kItems; ++q) {
+      const int x = x0 + q * kThreads;
+      if (x >= total) continue;
+      const int s = S.U == 2 ? x >> lun : x / UN, y = x - s * UN;
+      const int u = y >> S.log_n, c = y & (S.N - 1);
+      const int t = c >> S.log_r, r = c & (S.R - 1);
+      for (int li = 0; li < S.l; ++li) {
+        const int shift = 32 - (li + 1) * S.Bgbit;
+        const int d = static_cast<int>((du[q] >> shift) & S.mask) - S.halfBg;
+        const size_t row = static_cast<size_t>(s * S.K + (u * S.l + li) * S.R + r) * S.DS + t;
+        if (DL == 1) {
+          dig[row] = static_cast<int8_t>(d);
+        } else {
+          int lo, hi;
+          split8(d, lo, hi);
+          dig[row] = static_cast<int8_t>(lo);
+          dig[S.dig_plane + row] = static_cast<int8_t>(hi);
+        }
+      }
+    }
+  }
+}
+
+// Forward NTT: dhat[f][plane][s][k] = balanced residue (byte planes) of
+// sum_t dig[s][k][t] W[t][f]. Warp w owns the n8 tiles nt = w + 8 jj of f for
+// every live sample: it loads their W fragments once per prime and reuses
+// them for each sample, and at batch 1 the eight warps share the one sample.
+template <int DL, int PI>
+__device__ __forceinline__ void forward(const Shape& S, const int8_t* dig, int8_t* X,
+                                        const uint4* __restrict__ Wf, int nvalid, int warp,
+                                        int lane) {
+  const int g = lane >> 2, tig = lane & 3;
+  const int p = PI ? S.p1 : S.p0, half = PI ? S.half1 : S.half0;
+  const float inv_p = PI ? S.finv1 : S.finv0;
+  const int MT = S.K / 16, FN = S.F / 8, NT = S.FP / 8, KT = S.FP / 32;
+  if (warp >= FN) return;
+  uint4 w[kNJ][kMaxKT][DL];
+#pragma unroll
+  for (int jj = 0; jj < kNJ; ++jj)
+#pragma unroll
+    for (int kt = 0; kt < kMaxKT; ++kt) {
+      const int nt = warp + kWarps * jj;
+      if (nt >= FN || kt >= KT) continue;
+      const uint4* wp = Wf + ((static_cast<size_t>(PI * NT + nt) * KT + kt) * 32 + lane) * 2;
+#pragma unroll
+      for (int q = 0; q < DL; ++q) w[jj][kt][q] = __ldg(wp + q);
+    }
+  for (int s = 0; s < nvalid; ++s) {
+    const int8_t* ds = dig + static_cast<size_t>(s) * S.K * S.DS;
+    int c0[kMaxMTK][kNJ][4] = {}, c1[kMaxMTK][kNJ][4] = {};
+#pragma unroll
+    for (int kt = 0; kt < kMaxKT; ++kt) {
+      if (kt >= KT) continue;
+      uint32_t a[DL][kMaxMTK][4];
+#pragma unroll
+      for (int q = 0; q < DL; ++q)
+#pragma unroll
+        for (int mt = 0; mt < kMaxMTK; ++mt) {
+          if (mt >= MT) continue;
+          const int8_t* base = ds + q * S.dig_plane + (mt * 16 + g) * S.DS + kt * 32 + 4 * tig;
+          a[q][mt][0] = lds32(base);
+          a[q][mt][1] = lds32(base + 8 * S.DS);
+          a[q][mt][2] = lds32(base + 16);
+          a[q][mt][3] = lds32(base + 8 * S.DS + 16);
+        }
+#pragma unroll
+      for (int jj = 0; jj < kNJ; ++jj) {
+        if (warp + kWarps * jj >= FN) continue;
+#pragma unroll
+        for (int mt = 0; mt < kMaxMTK; ++mt) {
+          if (mt >= MT) continue;
+          mma_k32(c0[mt][jj], a[0][mt], w[jj][kt][0].x, w[jj][kt][0].y);
+          mma_k32(c1[mt][jj], a[0][mt], w[jj][kt][0].z, w[jj][kt][0].w);
+          if (DL == 2) {
+            mma_k32(c0[mt][jj], a[DL - 1][mt], w[jj][kt][DL - 1].x, w[jj][kt][DL - 1].y);
+            mma_k32(c1[mt][jj], a[DL - 1][mt], w[jj][kt][DL - 1].z, w[jj][kt][DL - 1].w);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int jj = 0; jj < kNJ; ++jj) {
+      const int nt = warp + kWarps * jj;
+      if (nt >= FN) continue;
+#pragma unroll
+      for (int mt = 0; mt < kMaxMTK; ++mt) {
+        if (mt >= MT) continue;
+#pragma unroll
+        for (int r4 = 0; r4 < 4; ++r4) {
+          const int k = mt * 16 + g + 8 * (r4 >> 1), f = nt * 8 + 2 * tig + (r4 & 1);
+          const int res = reduce32(c0[mt][jj][r4] + c1[mt][jj][r4] * 256, p, half, inv_p);
+          int lo, hi;
+          split8(res, lo, hi);
+          int8_t* xf = X + static_cast<size_t>(f) * S.xs + s * S.K + k;
+          xf[0] = static_cast<int8_t>(lo);
+          xf[kSamples * S.K] = static_cast<int8_t>(hi);
+        }
+      }
+    }
+  }
+}
+
+// Pointwise product for the frequencies of this warp: chat[plane][s][m][f] =
+// balanced residue of sum_k T[f][k][m] dhat[f][s][k]. Four frequencies a
+// pass, so that each thread stores whole 32-bit words of chat.
+template <class Key, int PI>
+__device__ __forceinline__ void pointwise(const Shape& S, int i, const typename Key::Elem* key,
+                                          const int8_t* X, int8_t* Y, int warp, int lane) {
+  const int g = lane >> 2, tig = lane & 3;
+  const int p = PI ? S.p1 : S.p0, half = PI ? S.half1 : S.half0;
+  const int c16 = PI ? S.c16_1 : S.c16_0;
+  const float inv_p = PI ? S.finv1 : S.finv0;
+  const int MT = S.M / 16, KT = S.K / 16;
+  for (int f0 = 4 * warp; f0 < S.F; f0 += 4 * kWarps) {
+    for (int mt = 0; mt < MT; ++mt) {
+      int c[4][3][4] = {};
+#pragma unroll
+      for (int fi = 0; fi < 4; ++fi) {
+        const int f = f0 + fi;
+        const int8_t* xf = X + static_cast<size_t>(f) * S.xs + g * S.K + 4 * tig;
+#pragma unroll
+        for (int kt = 0; kt < kMaxMTK; ++kt) {
+          if (kt >= KT) continue;
+          const uint4 a = Key::load(key, S, i, PI, f, mt, kt, lane);   // lo a0 a1, hi a0 a1
+          const uint32_t blo = lds32(xf + kt * 16), bhi = lds32(xf + kSamples * S.K + kt * 16);
+          mma_k16(c[fi][0], a.x, a.y, blo);
+          mma_k16(c[fi][1], a.x, a.y, bhi);
+          mma_k16(c[fi][1], a.z, a.w, blo);
+          mma_k16(c[fi][2], a.z, a.w, bhi);
+        }
+      }
+#pragma unroll
+      for (int r4 = 0; r4 < 4; ++r4) {
+        const int m = mt * 16 + g + 8 * (r4 >> 1), s = 2 * tig + (r4 & 1);
+        uint32_t wlo = 0, whi = 0;
+#pragma unroll
+        for (int fi = 0; fi < 4; ++fi) {
+          // 2^16 == c16 (mod p): the sum stays in int32 (bound checked at launch)
+          const int z = c[fi][0][r4] + c[fi][1][r4] * 256 + c[fi][2][r4] * c16;
+          int lo, hi;
+          split8(reduce32(z, p, half, inv_p), lo, hi);
+          wlo |= static_cast<uint32_t>(lo & 255) << (8 * fi);
+          whi |= static_cast<uint32_t>(hi & 255) << (8 * fi);
+        }
+        int8_t* y = Y + static_cast<size_t>(s * S.M + m) * S.DS + f0;
+        *reinterpret_cast<uint32_t*>(y) = wlo;
+        *reinterpret_cast<uint32_t*>(y + S.y_plane) = whi;
+      }
+    }
+  }
+}
+
+// Copies n16 16-byte words from src to dst, all threads of the block.
+__device__ __forceinline__ void copy16(uint4* dst, const uint4* src, int n16, int tid) {
+  for (int x = tid; x < n16; x += kThreads) dst[x] = src[x];
+}
+
+// Inverse NTT, with the n8 tiles of t shared out as in forward(). First
+// prime: the balanced residues go to res0 (slots of this thread alone).
+// Second prime: CRT with res0, key-limb recombination and acc[s][u][t*R + r]
+// += update, mod 2^32.
+template <int PI, int MTM>
+__device__ __forceinline__ void inverse(const Shape& S, const int8_t* Y,
+                                        const uint4* __restrict__ Wi, int16_t* res0,
+                                        uint32_t* acc, int nvalid, int warp, int lane) {
+  const int g = lane >> 2, tig = lane & 3;
+  const int p = PI ? S.p1 : S.p0, half = PI ? S.half1 : S.half0;
+  const float inv_p = PI ? S.finv1 : S.finv0;
+  const int MT = S.M / 16, TN = S.F / 8, NT = S.FP / 8, KT = S.FP / 32;
+  const int UN = S.U * S.N;
+  if (warp >= TN) return;
+  uint4 w[kNJ][kMaxKT][2];
+#pragma unroll
+  for (int jj = 0; jj < kNJ; ++jj)
+#pragma unroll
+    for (int kt = 0; kt < kMaxKT; ++kt) {
+      const int nt = warp + kWarps * jj;
+      if (nt >= TN || kt >= KT) continue;
+      const uint4* wp = Wi + ((static_cast<size_t>(PI * NT + nt) * KT + kt) * 32 + lane) * 2;
+      w[jj][kt][0] = __ldg(wp);
+      w[jj][kt][1] = __ldg(wp + 1);
+    }
+  for (int s = 0; s < nvalid; ++s) {
+    const int8_t* ys = Y + static_cast<size_t>(s) * S.M * S.DS;
+    int16_t* slots = res0 + static_cast<size_t>(s) * S.M * S.F + lane;
+    uint32_t* acc_s = acc + static_cast<size_t>(s) * UN;
+    // Second prime: this sample's res0 slots and acc words, loaded before the
+    // MMAs so that their latency overlaps them.
+    int v0[kNJ][MTM][4];
+    uint32_t* dst[kNJ][4];
+    uint32_t old[kNJ][4];
+    if (PI == 1) {
+#pragma unroll
+      for (int jj = 0; jj < kNJ; ++jj) {
+        const int nt = warp + kWarps * jj;
+        if (nt >= TN) continue;
+#pragma unroll
+        for (int mt = 0; mt < MTM; ++mt)
+#pragma unroll
+          for (int r4 = 0; r4 < 4; ++r4)
+            if (mt < MT) v0[jj][mt][r4] = slots[((nt * MT + mt) * 4 + r4) * 32];
+#pragma unroll
+        for (int r4 = 0; r4 < 4; ++r4) {
+          const int ur = g + 8 * (r4 >> 1), u = ur / S.R, r = ur - u * S.R;
+          dst[jj][r4] = acc_s + u * S.N + (nt * 8 + 2 * tig + (r4 & 1)) * S.R + r;
+          old[jj][r4] = *dst[jj][r4];
+        }
+      }
+    }
+    int c0[MTM][kNJ][4] = {}, c1[MTM][kNJ][4] = {};
+#pragma unroll
+    for (int kt = 0; kt < kMaxKT; ++kt) {
+      if (kt >= KT) continue;
+      uint32_t a[2][MTM][4];
+#pragma unroll
+      for (int q = 0; q < 2; ++q)
+#pragma unroll
+        for (int mt = 0; mt < MTM; ++mt) {
+          if (mt >= MT) continue;
+          const int8_t* base = ys + q * S.y_plane + (mt * 16 + g) * S.DS + kt * 32 + 4 * tig;
+          a[q][mt][0] = lds32(base);
+          a[q][mt][1] = lds32(base + 8 * S.DS);
+          a[q][mt][2] = lds32(base + 16);
+          a[q][mt][3] = lds32(base + 8 * S.DS + 16);
+        }
+#pragma unroll
+      for (int jj = 0; jj < kNJ; ++jj) {
+        if (warp + kWarps * jj >= TN) continue;
+#pragma unroll
+        for (int mt = 0; mt < MTM; ++mt) {
+          if (mt >= MT) continue;
+          mma_k32(c0[mt][jj], a[0][mt], w[jj][kt][0].x, w[jj][kt][0].y);
+          mma_k32(c1[mt][jj], a[0][mt], w[jj][kt][0].z, w[jj][kt][0].w);
+          mma_k32(c0[mt][jj], a[1][mt], w[jj][kt][1].x, w[jj][kt][1].y);
+          mma_k32(c1[mt][jj], a[1][mt], w[jj][kt][1].z, w[jj][kt][1].w);
+        }
+      }
+    }
+#pragma unroll
+    for (int jj = 0; jj < kNJ; ++jj) {
+      const int nt = warp + kWarps * jj;
+      if (nt >= TN) continue;
+#pragma unroll
+      for (int r4 = 0; r4 < 4; ++r4) {
+        uint32_t upd = 0;
+#pragma unroll
+        for (int mt = 0; mt < MTM; ++mt) {
+          if (mt >= MT) continue;
+          const int v = reduce32(c0[mt][jj][r4] + c1[mt][jj][r4] * 256, p, half, inv_p);
+          if (PI == 0) {
+            slots[((nt * MT + mt) * 4 + r4) * 32] = static_cast<int16_t>(v);
+          } else {
+            const int q = reduce32((v - v0[jj][mt][r4]) * S.crt_inv, S.p1, S.half1, S.finv1);
+            const int V = v0[jj][mt][r4] + q * S.p0;   // |V| < p0 p1 / 2 < 2^31
+            upd += static_cast<uint32_t>(V) << (S.kbits * mt);
+          }
+        }
+        if (PI == 1) *dst[jj][r4] = old[jj][r4] + upd;
+      }
+    }
+  }
+}
+
+#ifdef CRT_MMA_PROFILE
+// Diagnostic build only (-DCRT_MMA_PROFILE): clock cycles of block 0 per stage.
+__device__ unsigned long long phase_clocks[8];
+#define CRT_MMA_PHASE(k)                                   \
+  if (blockIdx.x == 0 && tid == 0) {                       \
+    const long long now = clock64();                       \
+    phase_clocks[k] += static_cast<unsigned long long>(now - t0); \
+    t0 = now;                                              \
+  }
+#else
+#define CRT_MMA_PHASE(k)
+#endif
+
+template <class Key, int DL, int MTM>
+__global__ void __launch_bounds__(kThreads, 1) rotate_kernel(
+    const int32_t* __restrict__ acc0, const int32_t* __restrict__ bara,
+    const typename Key::Elem* __restrict__ key, const uint4* __restrict__ Wf,
+    const uint4* __restrict__ Wi, uint4* __restrict__ scratch, int32_t* __restrict__ out,
+    const Shape S) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  int8_t* buf1 = reinterpret_cast<int8_t*>(smem);          // dig, then chat
+  int8_t* X = reinterpret_cast<int8_t*>(smem + S.buf2);     // dhat
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int UN = S.U * S.N;
+  const int b0 = blockIdx.x * kSamples;
+  const int nvalid = min(kSamples, S.B - b0);
+  uint32_t* acc = reinterpret_cast<uint32_t*>(out) + static_cast<size_t>(b0) * UN;
+  // This block's scratch: the first prime's inverse residues, then the digits.
+  uint4* scratch_b = scratch + static_cast<size_t>(blockIdx.x) * S.scratch16;
+  int16_t* res0_b = reinterpret_cast<int16_t*>(scratch_b);
+  uint4* dig_g = scratch_b + S.res0_16;
+  const int dig16 = S.dig16;
+
+  for (int x = tid; x < nvalid * UN; x += kThreads)
+    acc[x] = static_cast<uint32_t>(acc0[static_cast<size_t>(b0) * UN + x]);
+  __syncthreads();
+#ifdef CRT_MMA_PROFILE
+  long long t0 = clock64();
+#endif
+
+  for (int i = 0; i < S.n; ++i) {
+    // first prime
+    digit_pass<DL>(S, i, acc, bara, b0, nvalid, buf1, tid);
+    __syncthreads();
+    CRT_MMA_PHASE(0);
+    copy16(dig_g, reinterpret_cast<const uint4*>(buf1), dig16, tid);   // kept for the second
+    forward<DL, 0>(S, buf1, X, Wf, nvalid, warp, lane);
+    __syncthreads();
+    CRT_MMA_PHASE(1);
+    pointwise<Key, 0>(S, i, key, X, buf1, warp, lane);
+    __syncthreads();
+    CRT_MMA_PHASE(2);
+    inverse<0, MTM>(S, buf1, Wi, res0_b, acc, nvalid, warp, lane);
+    __syncthreads();
+    CRT_MMA_PHASE(3);
+    // second prime, then the accumulator update
+    copy16(reinterpret_cast<uint4*>(buf1), dig_g, dig16, tid);
+    __syncthreads();
+    CRT_MMA_PHASE(4);
+    forward<DL, 1>(S, buf1, X, Wf, nvalid, warp, lane);
+    __syncthreads();
+    CRT_MMA_PHASE(5);
+    pointwise<Key, 1>(S, i, key, X, buf1, warp, lane);
+    __syncthreads();
+    CRT_MMA_PHASE(6);
+    inverse<1, MTM>(S, buf1, Wi, res0_b, acc, nvalid, warp, lane);
+    __syncthreads();
+    CRT_MMA_PHASE(7);
+  }
+}
+
+// Checks the shape and the stated bounds, sizes shared memory and launches
+// rotate_kernel<Key, DL> on `stream`. acc0, out: (B, U, N) int32; bara:
+// (n, B) int32 in [0, 2N); key: the NTT-domain key as Key reads it; Wf, Wi:
+// (2, FP/8, FP/32, 32, 4, 8) int8 B fragments of W [t][f] and Winv [f][t]
+// (ntt.NttContext.W_mma / Winv_mma); scratch: scratch_bytes of device
+// memory, 16-byte aligned, at least ceil(B/8) * (2*8*M*F + DL*8*K*(FP+16))
+// rounded up per part to 16 bytes. Returns a cudaError_t (0 on success); allocates nothing and does
+// not sync.
+template <class Key>
+int launch(const void* acc0, const void* bara, const void* key, const void* Wf,
+           const void* Wi, void* scratch, long long scratch_bytes, void* out, int B, int n,
+           int U, int N, int R, int l, int Bgbit, int L, int kbits, int p0, int p1,
+           int crt_inv, void* stream) {
+  Shape S;
+  S.B = B; S.n = n; S.U = U; S.N = N; S.R = R; S.F = R > 0 ? N / R : 0; S.l = l;
+  S.FP = S.F > 32 ? S.F : 32;
+  S.J = U * l; S.K = S.J * R; S.L = L; S.M = L * U * R; S.Bgbit = Bgbit; S.kbits = kbits;
+  S.crt_inv = crt_inv; S.p0 = p0; S.p1 = p1;
+  S.half0 = (p0 - 1) / 2; S.half1 = (p1 - 1) / 2;
+  S.finv0 = 1.0f / p0; S.finv1 = 1.0f / p1;
+  S.log_n = 0;
+  while ((1 << S.log_n) < N) ++S.log_n;
+  S.log_r = 0;
+  while ((1 << S.log_r) < R) ++S.log_r;
+  auto bal16 = [](int p) { const int r = 65536 % p; return r > p / 2 ? r - p : r; };
+  S.c16_0 = bal16(p0); S.c16_1 = bal16(p1);
+  if (B <= 0 || n < 0 || U <= 0 || l <= 0 || Bgbit <= 0 || Bgbit > 15 || l * Bgbit > 32 ||
+      R <= 0 || N % R != 0 || (N & (N - 1)) != 0 || (R & (R - 1)) != 0 ||
+      S.F % 8 != 0 || S.FP % 32 != 0 || S.FP > 32 * kMaxKT || S.F > 8 * kWarps * kNJ ||
+      U * R != 16 || S.K % 16 != 0 || S.K > 16 * kMaxMTK || S.M % 16 != 0 ||
+      S.M > 16 * 4 || L * kbits < 32 || kbits * (L - 1) >= 32 ||
+      p0 < 1024 || p1 < 1024 || (p0 & 1) == 0 || (p1 & 1) == 0)   // reduce32: |z/p| < 2^22
+    return static_cast<int>(cudaErrorInvalidValue);
+  S.halfBg = 1 << (Bgbit - 1);
+  S.mask = (1u << Bgbit) - 1u;
+  S.offset = 0;
+  for (int p = 0; p < l; ++p)
+    S.offset += static_cast<uint32_t>(S.halfBg) << (32 - (p + 1) * Bgbit);
+  const int DL = S.halfBg <= 128 ? 1 : 2;
+  const long long dhi = DL == 1 ? 0 : (S.halfBg + 255) / 256;
+  // Residues split into bytes with |hi| <= 127; the forward and inverse
+  // int32 sums stay below 2^31 (see the note at the head of this file); the
+  // CRT product (v1 - v0) * crt_inv and V = v0 + q p0 fit int32.
+  const int hmax = S.half0 > S.half1 ? S.half0 : S.half1;
+  const int c16 = abs(S.c16_0) > abs(S.c16_1) ? abs(S.c16_0) : abs(S.c16_1);
+  if (hmax > 127 * 256 + 127 || dhi > 127 ||
+      static_cast<long long>(S.K) * 128 * 128 * (1 + 2 * 256 + c16) >= (1LL << 31) ||
+      257LL * S.FP * 128 * (128 + dhi) >= (1LL << 31) ||
+      257LL * S.FP * 2 * 128 * 128 >= (1LL << 31) ||
+      static_cast<long long>(S.half0 + S.half1) * abs(crt_inv) >= (1LL << 31) ||
+      static_cast<long long>(S.half1) * p0 + S.half0 >= (1LL << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  S.DS = S.FP + 16;
+  S.dig_plane = kSamples * S.K * S.DS;
+  S.y_plane = kSamples * S.M * S.DS;
+  const int buf1 = DL * S.dig_plane > 2 * S.y_plane ? DL * S.dig_plane : 2 * S.y_plane;
+  S.buf2 = (buf1 + 15) / 16 * 16;
+  S.xs = 2 * kSamples * S.K + 16;
+  const int grid = (B + kSamples - 1) / kSamples;
+  S.res0_16 = (kSamples * S.M * S.F * 2 + 15) / 16;
+  S.dig16 = (DL * S.dig_plane + 15) / 16;
+  S.scratch16 = S.res0_16 + S.dig16;
+  if (scratch_bytes < static_cast<long long>(grid) * S.scratch16 * 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = static_cast<size_t>(S.buf2) + static_cast<size_t>(S.F) * S.xs;
+  int device = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (smem > static_cast<size_t>(optin)) return static_cast<int>(cudaErrorInvalidValue);
+  auto args = [&](auto kernel) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return;
+    kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int32_t*>(acc0), static_cast<const int32_t*>(bara),
+        static_cast<const typename Key::Elem*>(key), static_cast<const uint4*>(Wf),
+        static_cast<const uint4*>(Wi), static_cast<uint4*>(scratch),
+        static_cast<int32_t*>(out), S);
+    err = cudaGetLastError();
+  };
+  // M/16 m-tiles of the inverse as a compile-time bound: 3 (M <= 48) or 4.
+  if (S.M <= 48) {
+    if (DL == 1) args(rotate_kernel<Key, 1, 3>);
+    else args(rotate_kernel<Key, 2, 3>);
+  } else {
+    if (DL == 1) args(rotate_kernel<Key, 1, 4>);
+    else args(rotate_kernel<Key, 2, 4>);
+  }
+  return static_cast<int>(err);
+}
+
+}  // namespace crt_mma

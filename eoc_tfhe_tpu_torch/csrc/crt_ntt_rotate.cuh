@@ -1,8 +1,8 @@
-// The CRT-NTT blind rotation shared by the two kernels that read an
-// NTT-domain key: blind_rotate_ntt.cu (int16 residues) and
-// blind_rotate_ntt_v1.cu (int8 [lo | hi] byte pairs). Each includes this file
-// once and instantiates rotate_kernel and launch with its own key layout, so
-// each library has its own __global__ function.
+// The CRT-NTT blind rotation on the CUDA cores, templated over the key's
+// load: the dataflow of blind_rotate_ntt_v1.cu (int8 [lo | hi] byte pairs),
+// which instantiates rotate_kernel and launch with its key layout.
+// blind_rotate_ntt.cu runs the same dataflow on the int8 tensor cores
+// (crt_ntt_mma.cuh).
 //
 // All n CMux steps of the blind rotation in one launch, each step
 //   acc += sum_j digits_j(X^a acc - acc) (negacyclic*) bk[i, j, u]   mod 2^32

@@ -8,10 +8,10 @@ dataflow gives the same bits.
 
 :func:`blind_rotate_ntt` is the wrapper.  For a tensor on the CPU it runs
 :func:`blind_rotate_ntt_plain`; for a CUDA tensor it launches the
-hand-written kernel in ``csrc/blind_rotate_ntt.cu`` or raises.  ``launches``
-counts kernel launches and nothing else.  :func:`launch_kernel` also launches
-the "ntt_scan" form's kernel (``ops/blind_rotate_v1.py``), which shares the
-dataflow and its arguments.
+hand-written int8 tensor-core kernel in ``csrc/blind_rotate_ntt.cu`` or
+raises.  ``launches`` counts kernel launches and nothing else.  The key is
+``ntt.prepare_kernel_key``'s byte planes; the plain version reads the same
+key.
 """
 
 from __future__ import annotations
@@ -21,28 +21,10 @@ import torch
 from ..core.numeric import wrap32
 from ..core.tgsw import decompose_h
 from . import rotate
-from .ntt import NttContext, balanced_mod
+from .ntt import NttContext, balanced_mod, unpack_kernel_key
 
 #: Number of launches of the CUDA kernel in this process.
 launches = 0
-
-
-def check_shapes(acc0: torch.Tensor, bara: torch.Tensor, key: torch.Tensor,
-                 ctx: NttContext, params, key_cols: int = 1):
-    """Check a rotation's shapes against the plan; returns (B, U, N, n).
-    ``key_cols`` is 1 for an int16 key (n, P, F, K, M) and 2 for a byte-pair
-    key (n, P, F, K, 2M)."""
-    B, U, N = acc0.shape
-    n, P, F, K, MC = key.shape
-    M = MC // key_cols
-    tg = params.tgsw_params
-    ok = (N == ctx.N and F == ctx.F and P == len(ctx.primes) == 2 and MC == M * key_cols
-          and K == tg.kpl * ctx.R and tg.kpl == U * tg.l and U == tg.tlwe_params.k + 1
-          and M == ctx.key_limbs * U * ctx.R and tuple(bara.shape) == (n, B))
-    if not ok:
-        raise ValueError(f"shape mismatch: acc0 {tuple(acc0.shape)}, bara "
-                         f"{tuple(bara.shape)}, key {tuple(key.shape)}")
-    return B, U, N, n
 
 
 def external_product_plain(digits: torch.Tensor, key_step: torch.Tensor,
@@ -93,53 +75,91 @@ def cmux_ntt_step(acc: torch.Tensor, key_step: torch.Tensor, bara_i: torch.Tenso
     return wrap32(acc.to(torch.int64) + delta.to(torch.int64))
 
 
+def kernel_key_shapes(acc0: torch.Tensor, bara: torch.Tensor, key: torch.Tensor,
+                      ctx: NttContext, params):
+    """Check a rotation's shapes against the plan for the packed key
+    (n, P, F, M/16, K/16, 32, 16); returns (B, U, N, n)."""
+    B, U, N = acc0.shape
+    tg = params.tgsw_params
+    K, M = tg.kpl * ctx.R, ctx.key_limbs * U * ctx.R
+    n = key.shape[0]
+    ok = (key.dim() == 7 and N == ctx.N and K % 16 == 0 and M % 16 == 0
+          and tuple(key.shape[1:]) == (2, ctx.F, M // 16, K // 16, 32, 16)
+          and len(ctx.primes) == 2 and tg.kpl == U * tg.l and U == tg.tlwe_params.k + 1
+          and tuple(bara.shape) == (n, B))
+    if not ok:
+        raise ValueError(f"shape mismatch: acc0 {tuple(acc0.shape)}, bara "
+                         f"{tuple(bara.shape)}, key {tuple(key.shape)}")
+    return B, U, N, n
+
+
 def blind_rotate_ntt_plain(acc0: torch.Tensor, bara: torch.Tensor, key: torch.Tensor,
                            ctx: NttContext, params) -> torch.Tensor:
-    """Plain PyTorch blind rotation (``ops/ntt.blind_rotate_ntt`` of the reference).
+    """Plain PyTorch blind rotation (``ops/ntt.blind_rotate_ntt`` of the
+    reference): each step's int16 residues are rebuilt from the key's byte
+    planes.
 
     Args:
       acc0: (B, k+1, N) int32; bara: (n, B) int32 in [0, 2N);
-      key: (n, P, F, K, M) int16 from ``ntt.prepare_kernel_key``.
+      key: (n, P, F, M/16, K/16, 32, 16) int8 from ``ntt.prepare_kernel_key``.
     Returns (B, k+1, N) int32.
     """
-    n = check_shapes(acc0, bara, key, ctx, params)[3]
+    n = kernel_key_shapes(acc0, bara, key, ctx, params)[3]
     acc = acc0
     for i in range(n):
-        acc = cmux_ntt_step(acc, key[i], bara[i], ctx, params)
+        acc = cmux_ntt_step(acc, unpack_kernel_key(key[i]), bara[i], ctx, params)
     return acc
 
 
-def launch_kernel(name: str, acc0: torch.Tensor, bara: torch.Tensor, key: torch.Tensor,
-                  ctx: NttContext, params, key_dtype: torch.dtype) -> torch.Tensor:
-    """Launch the CRT-NTT kernel of ``csrc/<name>.cu`` on CUDA tensors and
-    return its output; raises on a bad operand or a refused launch.  The
-    caller counts the launch.  ``key_dtype`` is int16 for a key of residues
-    (n, P, F, K, M) and int8 for one of byte pairs (n, P, F, K, 2M).
-    """
+def check_operands(acc0: torch.Tensor, operands) -> None:
+    """Raise unless each (name, tensor, dtype) is a contiguous, 16-byte
+    aligned tensor of that dtype on acc0's device."""
+    for arg, x, dt in operands:
+        if (x.device != acc0.device or x.dtype != dt or not x.is_contiguous()
+                or x.data_ptr() % 16):
+            raise ValueError(f"{arg} must be a contiguous, 16-byte aligned {dt} "
+                             f"tensor on {acc0.device}, got {x.dtype} on {x.device}")
+
+
+def launch_error(name: str, lib, err: int) -> RuntimeError:
+    return RuntimeError(f"{name} launch failed: CUDA error {err} "
+                        f"({lib.kernel_error_string(err).decode()})")
+
+
+def kernel_scratch_bytes(B: int, U: int, ctx: NttContext, tg) -> int:
+    """Device scratch of the kernel: per block of 8 samples, the first
+    prime's inverse residues (8, M, F) int16 and the digits (DL, 8, K, FP + 16)
+    int8, each rounded up to 16 bytes (``crt_ntt_mma.cuh``)."""
+    K, M, F = tg.kpl * ctx.R, ctx.key_limbs * U * ctx.R, ctx.F
+    DL = 1 if tg.halfBg <= 128 else 2
+    per_block = -(-8 * M * F * 2 // 16) * 16 + -(-DL * 8 * K * (max(F, 32) + 16) // 16) * 16
+    return -(-B // 8) * per_block
+
+
+def _launch(acc0: torch.Tensor, bara: torch.Tensor, key: torch.Tensor,
+            ctx: NttContext, params) -> torch.Tensor:
+    """Launch ``csrc/blind_rotate_ntt.cu`` on CUDA tensors and return its
+    output; raises on a bad operand or a refused launch."""
     from ..kernels import build
 
-    B, U, N, n = check_shapes(acc0, bara, key, ctx, params,
-                              key_cols=1 if key_dtype == torch.int16 else 2)
-    for arg, x, dt in (("acc0", acc0, torch.int32), ("bara", bara, torch.int32),
-                       ("key", key, key_dtype), ("W", ctx.W, torch.int16),
-                       ("Winv", ctx.Winv, torch.int16)):
-        if (x.device != acc0.device or x.dtype != dt or not x.is_contiguous()
-                or x.data_ptr() % 8):
-            raise ValueError(f"{arg} must be a contiguous, 8-byte aligned {dt} "
-                             f"tensor on {acc0.device}, got {x.dtype} on {x.device}")
+    B, U, N, n = kernel_key_shapes(acc0, bara, key, ctx, params)
+    check_operands(acc0, (("acc0", acc0, torch.int32), ("bara", bara, torch.int32),
+                           ("key", key, torch.int8), ("W_mma", ctx.W_mma, torch.int8),
+                           ("Winv_mma", ctx.Winv_mma, torch.int8)))
     out = torch.empty_like(acc0)
     tg = params.tgsw_params
-    lib = build.load(name)
+    scratch = torch.empty(kernel_scratch_bytes(B, U, ctx, tg), dtype=torch.uint8,
+                          device=acc0.device)
+    lib = build.load("blind_rotate_ntt")
     stream = torch.cuda.current_stream(acc0.device).cuda_stream
     with torch.cuda.device(acc0.device):
-        err = getattr(lib, build.SIGNATURES[name][0])(
-            acc0.data_ptr(), bara.data_ptr(), key.data_ptr(), ctx.W.data_ptr(),
-            ctx.Winv.data_ptr(), out.data_ptr(), B, n, U, N, ctx.R, tg.l, tg.Bgbit,
-            ctx.key_limbs, ctx.key_limb_bits, ctx.primes[0], ctx.primes[1],
-            ctx.crt_inv, stream)
+        err = lib.blind_rotate_ntt_launch(
+            acc0.data_ptr(), bara.data_ptr(), key.data_ptr(), ctx.W_mma.data_ptr(),
+            ctx.Winv_mma.data_ptr(), scratch.data_ptr(), scratch.numel(), out.data_ptr(),
+            B, n, U, N, ctx.R, tg.l, tg.Bgbit, ctx.key_limbs, ctx.key_limb_bits,
+            ctx.primes[0], ctx.primes[1], ctx.crt_inv, stream)
     if err != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err} "
-                           f"({lib.kernel_error_string(err).decode()})")
+        raise launch_error("blind_rotate_ntt", lib, err)
     return out
 
 
@@ -152,6 +172,6 @@ def blind_rotate_ntt(acc0: torch.Tensor, bara: torch.Tensor, key: torch.Tensor,
         return blind_rotate_ntt_plain(acc0, bara, key, ctx, params)
     if acc0.device.type != "cuda":
         raise ValueError(f"unsupported device {acc0.device}")
-    out = launch_kernel("blind_rotate_ntt", acc0, bara, key, ctx, params, torch.int16)
+    out = _launch(acc0, bara, key, ctx, params)
     launches += 1
     return out

@@ -5,14 +5,16 @@ Replaces the TPU kernel ``eoc_tfhe_tpu/ops/pallas_blindrot.py``
 bits: each CMux step adds the exact negacyclic product
 sum_j digits_j (*) key[i, j, u] mod 2^32 against the *stored* key, which is
 the true key or, for ``limbs < 4``, the key rounded to a multiple of
-2^(8*(4-limbs)).  The TPU kernel's int8 limbs, in-kernel Toeplitz blocks and
-overlap-add buffer exist for its matrix unit; the port stores the key as
-int32 rows and the kernel multiplies in uint32, which gives the same bits.
+2^(8*(4-limbs)).  The port stores the key as int32 rows; the kernel splits
+each step into balanced byte limbs and multiplies Toeplitz blocks of them by
+the int8 digits on the tensor cores, as the TPU kernel does on its matrix
+unit, which gives the same bits.
 
 :func:`blind_rotate_compact` is the wrapper.  For a tensor on the CPU it
 runs :func:`blind_rotate_compact_plain` (the rows scan); for a CUDA tensor it
 launches the hand-written kernel in ``csrc/blind_rotate_compact.cu`` or
-raises.  ``launches`` counts kernel launches and nothing else.
+raises (the kernel takes U = 2 and N = 64 or 1024).  ``launches`` counts
+kernel launches and nothing else.
 """
 
 from __future__ import annotations

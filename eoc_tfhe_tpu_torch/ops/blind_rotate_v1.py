@@ -19,11 +19,27 @@ from __future__ import annotations
 
 import torch
 
-from .blind_rotate import check_shapes, cmux_ntt_step, launch_kernel
+from .blind_rotate import check_operands, cmux_ntt_step, launch_error
 from .ntt import NttContext, join_key_bytes
 
 #: Number of launches of the CUDA kernel in this process.
 launches = 0
+
+
+def check_shapes(acc0: torch.Tensor, bara: torch.Tensor, key: torch.Tensor,
+                 ctx: NttContext, params):
+    """Check a rotation's shapes against the plan for the byte-pair key
+    (n, P, F, K, 2M); returns (B, U, N, n)."""
+    B, U, N = acc0.shape
+    n, P, F, K, M2 = key.shape
+    tg = params.tgsw_params
+    ok = (N == ctx.N and F == ctx.F and P == len(ctx.primes) == 2
+          and K == tg.kpl * ctx.R and tg.kpl == U * tg.l and U == tg.tlwe_params.k + 1
+          and M2 == 2 * ctx.key_limbs * U * ctx.R and tuple(bara.shape) == (n, B))
+    if not ok:
+        raise ValueError(f"shape mismatch: acc0 {tuple(acc0.shape)}, bara "
+                         f"{tuple(bara.shape)}, key {tuple(key.shape)}")
+    return B, U, N, n
 
 
 def blind_rotate_ntt_v1_plain(acc0: torch.Tensor, bara: torch.Tensor, key: torch.Tensor,
@@ -37,7 +53,7 @@ def blind_rotate_ntt_v1_plain(acc0: torch.Tensor, bara: torch.Tensor, key: torch
       key: (n, P, F, K, 2M) int8 from ``ntt.prepare_key_ntt``.
     Returns (B, k+1, N) int32.
     """
-    n = check_shapes(acc0, bara, key, ctx, params, key_cols=2)[3]
+    n = check_shapes(acc0, bara, key, ctx, params)[3]
     acc = acc0
     for i in range(n):
         acc = cmux_ntt_step(acc, join_key_bytes(key[i]), bara[i], ctx, params)
@@ -53,6 +69,31 @@ def blind_rotate_ntt_v1(acc0: torch.Tensor, bara: torch.Tensor, key: torch.Tenso
         return blind_rotate_ntt_v1_plain(acc0, bara, key, ctx, params)
     if acc0.device.type != "cuda":
         raise ValueError(f"unsupported device {acc0.device}")
-    out = launch_kernel("blind_rotate_ntt_v1", acc0, bara, key, ctx, params, torch.int8)
+    out = _launch(acc0, bara, key, ctx, params)
     launches += 1
+    return out
+
+
+def _launch(acc0: torch.Tensor, bara: torch.Tensor, key: torch.Tensor,
+            ctx: NttContext, params) -> torch.Tensor:
+    """Launch ``csrc/blind_rotate_ntt_v1.cu`` on CUDA tensors and return its
+    output; raises on a bad operand or a refused launch."""
+    from ..kernels import build
+
+    B, U, N, n = check_shapes(acc0, bara, key, ctx, params)
+    check_operands(acc0, (("acc0", acc0, torch.int32), ("bara", bara, torch.int32),
+                          ("key", key, torch.int8), ("W", ctx.W, torch.int16),
+                          ("Winv", ctx.Winv, torch.int16)))
+    out = torch.empty_like(acc0)
+    tg = params.tgsw_params
+    lib = build.load("blind_rotate_ntt_v1")
+    stream = torch.cuda.current_stream(acc0.device).cuda_stream
+    with torch.cuda.device(acc0.device):
+        err = lib.blind_rotate_ntt_v1_launch(
+            acc0.data_ptr(), bara.data_ptr(), key.data_ptr(), ctx.W.data_ptr(),
+            ctx.Winv.data_ptr(), out.data_ptr(), B, n, U, N, ctx.R, tg.l, tg.Bgbit,
+            ctx.key_limbs, ctx.key_limb_bits, ctx.primes[0], ctx.primes[1],
+            ctx.crt_inv, stream)
+    if err != 0:
+        raise launch_error("blind_rotate_ntt_v1", lib, err)
     return out

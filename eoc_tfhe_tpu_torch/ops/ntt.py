@@ -13,13 +13,15 @@ computed as in the reference:
 4. The 32-bit key split into signed limbs of ``key_limb_bits`` bits so that
    the bound in 3 holds; limb results are recombined with shifts mod 2^32.
 
-Two key layouts, one per kernel.  The "ntt_kernel" form stores balanced
-int16 residues ``(n, P, F, K, M)`` over ``KERNEL_PRIMES``, with K = J*R rows
-(j, r1) and M = L*U*R columns (limb, u, s); the TPU's DMA padding has no use
-here.  The "ntt_scan" form stores the same residues over ``DEFAULT_PRIMES`` as
-the reference's v1 kernel key ``(n, P, F, K, 2M)`` int8, the last axis the
-[lo | hi] bytes of each residue (:func:`prepare_key_ntt`), and
-:func:`scan_to_v1_key` / :func:`v1_key_to_scan` carry it to and from the
+Two key layouts, one per kernel.  The "ntt_kernel" form stores the balanced
+residues ``(n, P, F, K, M)`` over ``KERNEL_PRIMES`` (:func:`kernel_key_residues`),
+with K = J*R rows (j, r1) and M = L*U*R columns (limb, u, s), as the byte
+planes of the int8 tensor-core fragments its kernel reads
+(:func:`prepare_kernel_key`, :func:`unpack_kernel_key`); the TPU's DMA
+padding has no use here.  The "ntt_scan" form stores the same residues over
+``DEFAULT_PRIMES`` as the reference's v1 kernel key ``(n, P, F, K, 2M)`` int8,
+the last axis the [lo | hi] bytes of each residue (:func:`prepare_key_ntt`),
+and :func:`scan_to_v1_key` / :func:`v1_key_to_scan` carry it to and from the
 reference's scan layout ``T8 (n, P, L, 2, F, J*R, U*R)``.
 Only the exact plans are ported; the rounded-key plans stay demoted.
 """
@@ -127,6 +129,8 @@ class NttContext:
     W: torch.Tensor      # (P, F, F) int16, W[p, t, f]
     Winv: torch.Tensor   # (P, F, F) int16, Winv[p, f, t]
     omega: torch.Tensor  # (P, F) int32, psi^{2f+1} balanced
+    W_mma: torch.Tensor      # (P, FP/8, FP/32, 32, 4, 8) int8, mma_b_fragments of W
+    Winv_mma: torch.Tensor   # the same of Winv
     N: int
     R: int
     F: int
@@ -166,8 +170,13 @@ def make_context(N: int, J: int, halfBg: int, primes: tuple[int, int],
     def t16(x):
         return torch.from_numpy(np.stack(x).astype(np.int16)).to(dev)
 
+    def frags(i):
+        return torch.stack([mma_b_fragments(torch.from_numpy(m[i]), p)
+                            for m, p in zip(mats, primes)]).to(dev)
+
     return NttContext(W=t16([W for W, _ in mats]), Winv=t16([Wi for _, Wi in mats]),
                       omega=torch.from_numpy(np.stack(omegas).astype(np.int32)).to(dev),
+                      W_mma=frags(0), Winv_mma=frags(1),
                       N=N, R=R, F=F, primes=primes, key_limbs=limbs,
                       key_limb_bits=bits, halfBg=halfBg, J=J)
 
@@ -209,7 +218,7 @@ def _bal_f64(z: torch.Tensor, p: int) -> torch.Tensor:
     return z - torch.round(z * (1.0 / p)) * p
 
 
-def prepare_kernel_key(bk_rows: torch.Tensor, ctx: NttContext) -> torch.Tensor:
+def kernel_key_residues(bk_rows: torch.Tensor, ctx: NttContext) -> torch.Tensor:
     """(n, J, U, N) int32 TGSW rows -> (n, P, F, K=J*R, M=L*U*R) int16 NTT key.
 
     key[i, p, f, (j, r1), (l, u, s)] is the NTT (prime p, frequency f) of
@@ -251,16 +260,69 @@ def prepare_kernel_key(bk_rows: torch.Tensor, ctx: NttContext) -> torch.Tensor:
 
 
 # --------------------------------------------------------------------------
+# The "ntt_kernel" form's key and matrices: byte planes of int8 MMA fragments
+# --------------------------------------------------------------------------
+
+def split_bytes(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """x = lo + 256 * hi with lo in [-128, 127], in x's integer dtype."""
+    lo = ((x + 128) & 255) - 128
+    return lo, (x - lo) >> 8
+
+
+def mma_b_fragments(B: torch.Tensor, p: int) -> torch.Tensor:
+    """The m16n8k32 B operand fragments of a (Kd, Nd) matrix of balanced
+    residues mod p, zero-padded to multiples of 32 rows and 8 columns (at
+    least 32): (Nd/8, Kd/32, 32, 4, 8) int8.  Lane 4g + tig of tile (nt, kt)
+    holds, per plane (lo(B), hi(B), lo(V), hi(V)) with V = 256 B mod p,
+    b0 = rows 32kt + 4tig + e and b1 = rows 32kt + 16 + 4tig + e (e < 4) of
+    column 8nt + g."""
+    Kd, Nd = B.shape
+    KP, NP = max(32, -(-Kd // 32) * 32), max(32, -(-Nd // 8) * 8)
+    Bp = torch.zeros((KP, NP), dtype=torch.int64)
+    Bp[:Kd, :Nd] = B.to(torch.int64)
+    planes = torch.stack([*split_bytes(Bp), *split_bytes(balanced_mod(256 * Bp, p))])
+    x = planes.reshape(4, KP // 32, 2, 4, 4, NP // 8, 8)    # q, kt, half, tig, e, nt, g
+    return x.permute(5, 1, 6, 3, 0, 2, 4).reshape(NP // 8, KP // 32, 32, 4, 8).to(
+        torch.int8).contiguous()
+
+
+def pack_kernel_key(res: torch.Tensor) -> torch.Tensor:
+    """(n, P, F, K, M) int16 residues -> (n, P, F, M/16, K/16, 32, 16) int8:
+    per m16 x k16 tile of T^T (T = the (K, M) residues of one frequency), lane
+    4g + tig holds lo(a0), lo(a1), hi(a0), hi(a1), a0 = T^T[16mt + g, 16kt +
+    4tig + e], a1 = the same 8 rows on (e < 4): the m16n8k16 A fragments."""
+    n, P, F, K, M = res.shape
+    lo, hi = split_bytes(res.to(torch.int16))
+    x = torch.stack([lo, hi]).to(torch.int8).reshape(2, n, P, F, K // 16, 4, 4, M // 16, 2, 8)
+    # (q, n, P, F, kt, tig, e, mt, half, g) -> (n, P, F, mt, kt, g, tig, q, half, e)
+    return x.permute(1, 2, 3, 7, 4, 9, 5, 0, 8, 6).reshape(
+        n, P, F, M // 16, K // 16, 32, 16).contiguous()
+
+
+def unpack_kernel_key(key: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`pack_kernel_key`: (..., F, M/16, K/16, 32, 16) int8 ->
+    (..., F, K, M) int16 residues."""
+    *lead, F, MT, KT, _, _ = key.shape
+    x = key.reshape(-1, F, MT, KT, 8, 4, 2, 2, 4)      # (b, F, mt, kt, g, tig, q, half, e)
+    x = x.permute(6, 0, 1, 3, 5, 8, 2, 7, 4).to(torch.int16)   # (q, b, F, kt, tig, e, mt, half, g)
+    return (x[0] + 256 * x[1]).reshape(*lead, F, 16 * KT, 16 * MT)
+
+
+def prepare_kernel_key(bk_rows: torch.Tensor, ctx: NttContext) -> torch.Tensor:
+    """(n, J, U, N) int32 TGSW rows -> the "ntt_kernel" form's key: the
+    residues of :func:`kernel_key_residues` as :func:`pack_kernel_key`'s byte
+    planes, (n, P, F, M/16, K/16, 32, 16) int8 (the same bytes as int16)."""
+    return pack_kernel_key(kernel_key_residues(bk_rows, ctx))
+
+
+# --------------------------------------------------------------------------
 # The "ntt_scan" form's key: int8 byte pairs in the v1 kernel's layout
 # --------------------------------------------------------------------------
 
 def split_key_bytes(key: torch.Tensor) -> torch.Tensor:
     """(..., M) int16 balanced residues -> (..., 2M) int8 [lo | hi] with
     x = lo + 256 * hi and lo in [-128, 127] (the reference's ``split_i8``)."""
-    x = key.to(torch.int32)
-    lo = ((x + 128) & 255) - 128
-    hi = (x - lo) >> 8
-    return torch.cat([lo, hi], dim=-1).to(torch.int8)
+    return torch.cat(split_bytes(key.to(torch.int32)), dim=-1).to(torch.int8)
 
 
 def join_key_bytes(key8: torch.Tensor) -> torch.Tensor:
@@ -273,10 +335,10 @@ def prepare_key_ntt(bk_rows: torch.Tensor, ctx: NttContext) -> torch.Tensor:
     """(n, J, U, N) int32 TGSW rows -> the "ntt_scan" key (n, P, F, K, 2M) int8.
 
     The bits of ``pallas_ntt_blindrot.prepare_kernel_key(ntt.prepare_key_ntt_np(
-    rows, ctx).T8)`` of the reference: :func:`prepare_kernel_key`'s residues,
-    each split into its two bytes.  Runs on the rows' device.
+    rows, ctx).T8)`` of the reference: :func:`kernel_key_residues`, each
+    split into its two bytes.  Runs on the rows' device.
     """
-    return split_key_bytes(prepare_kernel_key(bk_rows, ctx)).contiguous()
+    return split_key_bytes(kernel_key_residues(bk_rows, ctx)).contiguous()
 
 
 def scan_to_v1_key(T8: torch.Tensor) -> torch.Tensor:

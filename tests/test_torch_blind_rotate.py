@@ -59,8 +59,9 @@ def test_prepared_key_matches_reference(case):
     M = T8k.shape[-1] // 2
     key = ntt.prepare_kernel_key(torch.from_numpy(rows),
                                  ntt.kernel_context_for_params(p, device="cpu"))
-    assert key.dtype == torch.int16
-    np.testing.assert_array_equal(key.numpy(), T8k[..., :M] + 256 * T8k[..., M:])
+    assert key.dtype == torch.int8 and key.numel() == 2 * T8k[..., :M].size
+    np.testing.assert_array_equal(ntt.unpack_kernel_key(key).numpy(),
+                                  T8k[..., :M] + 256 * T8k[..., M:])
 
 
 @pytest.mark.parametrize("case", list(CASES))

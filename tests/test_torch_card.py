@@ -141,6 +141,54 @@ def test_compact_kernel_matches_plain_on_the_card(case, limbs, cuda_device):
         assert blind_rotate_compact.launches == before + 2
 
 
+#: Batches that do not fill a block (8 samples), and the circuit path's batch.
+RAGGED = [1, 7, 63, 1024]
+K1_CASES = {**CASES, "80bit_8_steps": lambda: params.default_80bit_params()}
+
+
+def _rotation_inputs(p, B, seed, device):
+    n_steps = min(p.n, 8)
+    tg = p.tgsw_params
+    N, U = tg.tlwe_params.N, tg.tlwe_params.k + 1
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def i32(shape):
+        return torch.randint(-2**31, 2**31, shape, generator=gen, dtype=torch.int64,
+                             device=device).to(torch.int32)
+    bara = torch.randint(0, 2 * N, (n_steps, B), generator=gen, dtype=torch.int32, device=device)
+    return i32((n_steps, tg.kpl, U, N)), i32((B, U, N)), bara
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", RAGGED)
+@pytest.mark.parametrize("case", list(K1_CASES))
+def test_ntt_kernel_matches_plain_at_ragged_batches(case, B, cuda_device):
+    p = K1_CASES[case]()
+    rows, acc0, bara = _rotation_inputs(p, B, 10 + B, cuda_device)
+    ctx = ntt.kernel_context_for_params(p, device=cuda_device)
+    key = ntt.prepare_kernel_key(rows, ctx)
+    before = blind_rotate.launches
+    out = blind_rotate.blind_rotate_ntt(acc0, bara, key, ctx, p)
+    torch.cuda.synchronize()
+    assert blind_rotate.launches == before + 1
+    assert torch.equal(out, blind_rotate.blind_rotate_ntt_plain(acc0, bara, key, ctx, p))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", RAGGED)
+@pytest.mark.parametrize("limbs", [4, 3])
+@pytest.mark.parametrize("case", list(COMPACT_CASES))
+def test_compact_kernel_matches_plain_at_ragged_batches(case, limbs, B, cuda_device):
+    p = COMPACT_CASES[case]()
+    rows, acc0, bara = _rotation_inputs(p, B, 20 + B, cuda_device)
+    key = blind_rotate_compact.prepare_compact_bk(rows, limbs)
+    before = blind_rotate_compact.launches
+    out = blind_rotate_compact.blind_rotate_compact(acc0, bara, key, p)
+    torch.cuda.synchronize()
+    assert blind_rotate_compact.launches == before + 1
+    assert torch.equal(out, blind_rotate_compact.blind_rotate_compact_plain(acc0, bara, key, p))
+
+
 @pytest.mark.gpu
 def test_maj_and_refresh_on_the_card_go_through_the_compact_kernel(cuda_device):
     p = params.test_params()

@@ -81,7 +81,7 @@ def test_scan_key_and_relayouts_match_reference(case, primes):
     np.testing.assert_array_equal(ntt.v1_key_to_scan(key, ctx).numpy(), T8)
     # the byte pairs rebuild the int16 residues of the other form's layout
     np.testing.assert_array_equal(ntt.join_key_bytes(key).numpy(),
-                                  ntt.prepare_kernel_key(torch.from_numpy(rows), ctx).numpy())
+                                  ntt.kernel_key_residues(torch.from_numpy(rows), ctx).numpy())
 
 
 @pytest.mark.parametrize("primes", list(PRIMES))
@@ -152,13 +152,13 @@ def test_kernel_build_hashes_included_headers(tmp_path, monkeypatch):
     for src in build.SRC_DIR.iterdir():
         (tmp_path / src.name).write_bytes(src.read_bytes())
     monkeypatch.setattr(build, "SRC_DIR", tmp_path)
-    before = {name: build._target(name) for name in build.SIGNATURES}
-    header = tmp_path / "crt_ntt_rotate.cuh"
-    header.write_bytes(header.read_bytes() + b"\n// edited\n")
-    after = {name: build._target(name) for name in build.SIGNATURES}
-    assert after["blind_rotate_compact"] == before["blind_rotate_compact"]
-    for name in ("blind_rotate_ntt", "blind_rotate_ntt_v1"):
-        assert after[name] != before[name]
+    for header_name, users in (("crt_ntt_rotate.cuh", {"blind_rotate_ntt_v1"}),
+                               ("crt_ntt_mma.cuh", {"blind_rotate_ntt"})):
+        before = {name: build._target(name) for name in build.SIGNATURES}
+        header = tmp_path / header_name
+        header.write_bytes(header.read_bytes() + b"\n// edited\n")
+        after = {name: build._target(name) for name in build.SIGNATURES}
+        assert {name for name in build.SIGNATURES if after[name] != before[name]} == users
 
 
 # --- the eval-key form and the gates over it --------------------------------
