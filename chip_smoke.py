@@ -5,12 +5,14 @@
 
 Phases, in order; any failure exits non-zero:
   1. the card's name and power limit (nvidia-smi);
-  2. build of every CUDA kernel from ``eoc_tfhe_tpu_torch/csrc`` (nvcc), and
-     the count of tensor-core MMA instructions in each library's SASS
-     (``cuobjdump``: IMMA for ``mma.sync``, the GMMA family for ``wgmma``);
+  2. build of every CUDA kernel from ``eoc_tfhe_tpu_torch/csrc`` (nvcc, the
+     seconds of each source), and the count of tensor-core MMA instructions
+     in each library's SASS (``cuobjdump``: IMMA for ``mma.sync``, the GMMA
+     family for ``wgmma``), which must be nonzero for all three;
   3. each kernel against its plain PyTorch version on the card, bit for bit,
-     at ``test_params()`` (B=63) and at the 128-bit (B=4) and 80-bit (B=4)
-     shapes over all their steps;
+     at ``test_params()`` (B=63), at the 128-bit (B=4) and 80-bit (B=4)
+     shapes over all their steps, and at the three shapes of ROADMAP C5
+     (k=2 l=2 N=64, k=1 l=4 N=64, k=1 l=2 N=128) and at k=1 l=2 N=32 (B=7);
   4. the main path: 128-bit keygen on the card, ``prepare_eval_key_ntt``,
      encryption of BATCH random bit pairs, one warm and ITERS timed
      batched NAND calls, decryption checked against ~(a & b);
@@ -18,7 +20,8 @@ Phases, in order; any failure exits non-zero:
      API's): timed, held against its plain version, with its bound;
   6. the compact-key kernel against its plain version on the card, bit for
      bit, at ``test_params()`` (B=63) and at 128-bit B=4 over all 630 steps
-     with the exact and the rounded (limbs=3) stored key;
+     with the exact and the rounded (limbs=3) stored key, and at the C5
+     shapes (B=7);
   7. the circuit path: ``FrameworkConfig(eval_key_form="fused")`` over phase
      4's keyset, 8-bit ripple add and subtract (mode fast) over B=CIRCUIT_BATCH
      random byte pairs and the classic add over B=CLASSIC_BATCH, every output
@@ -29,8 +32,8 @@ Phases, in order; any failure exits non-zero:
      plain version, with its bound;
  10. the "ntt_scan" form's kernel against its plain version on the card, bit
      for bit, at ``test_params()`` (B=63), at 128-bit B=4 over all 630 steps
-     over either prime pair, and at the 80-bit set (halfBg = 512) B=4 over
-     all its steps;
+     over either prime pair, at the 80-bit set (halfBg = 512) B=4 over all
+     its steps, and at the C5 shapes (B=7) over either prime pair;
  11. NAND through the "ntt_scan" key (``prepare_eval_key_ntt(kernel=False)``)
      at B=BATCH on phase 4's keyset, decrypted and checked;
  12. the 8-bit fast add and subtract over the "ntt_scan" key on phase 7's
@@ -69,6 +72,17 @@ ITERS = 2
 #: The circuit path's batch ("batches of 1k ciphertexts") and the classic adder's.
 CIRCUIT_BATCH = 1024
 CLASSIC_BATCH = 32
+#: Batch of the ROADMAP C5 shape cases (not a multiple of a block's 8 samples).
+C5_BATCH = 7
+
+
+def c5_params(params):
+    """The shapes of ROADMAP C5 (M = 72 with U*R = 24, K = 64, and N = 128)
+    and N = 32 (U*R = 8)."""
+    return (("C5 k=2 l=2 N=64", params.test_params(k=2, l=2, N=64, n=4)),
+            ("C5 k=1 l=4 N=64", params.test_params(k=1, l=4, N=64)),
+            ("C5 k=1 l=2 N=128", params.test_params(k=1, l=2, N=128)),
+            ("k=1 l=2 N=32", params.test_params(k=1, l=2, N=32)))
 
 
 class SmokeFailure(RuntimeError):
@@ -296,14 +310,15 @@ def main() -> int:
     sass = {name: mma_instructions(build._target(name), build.nvcc())
             for name in build.SIGNATURES}
     print(f"sass tensor-core MMA instructions per library: {json.dumps(sass)}", flush=True)
-    for name in ("blind_rotate_ntt", "blind_rotate_compact"):
+    for name in build.SIGNATURES:
         check(sass[name]["IMMA"] + sass[name]["GMMA"] > 0,
               f"{name} has no tensor-core MMA instruction in its SASS")
 
     # 3. kernel against plain on the card
     for label, p, n_steps, B in (("test_params", params.test_params(), None, 63),
                                  ("128-bit", params.default_128bit_params(), None, 4),
-                                 ("80-bit", params.default_80bit_params(), None, 4)):
+                                 ("80-bit", params.default_80bit_params(), None, 4),
+                                 *((lb, pc, None, C5_BATCH) for lb, pc in c5_params(params))):
         n_steps = p.n if n_steps is None else n_steps
         rows, acc0, bara = random_rotation_inputs(gen, p, n_steps, B, dev)
         ctx = ntt.kernel_context_for_params(p, device=dev)
@@ -382,7 +397,8 @@ def main() -> int:
     # 6. compact-key kernel against plain on the card
     for label, pc, B6, limbs in (("test_params", params.test_params(), 63, 4),
                                  ("128-bit", params.default_128bit_params(), 4, 4),
-                                 ("128-bit rounded", params.default_128bit_params(), 4, 3)):
+                                 ("128-bit rounded", params.default_128bit_params(), 4, 3),
+                                 *((lb, pc, C5_BATCH, 4) for lb, pc in c5_params(params))):
         rows, acc6, bara6 = random_rotation_inputs(gen, pc, pc.n, B6, dev)
         key6 = blind_rotate_compact.prepare_compact_bk(rows, limbs)
         out6 = blind_rotate_compact.blind_rotate_compact(acc6, bara6, key6, pc)
@@ -481,7 +497,10 @@ def main() -> int:
             ("test_params", params.test_params(), 63, ntt.DEFAULT_PRIMES),
             ("128-bit", params.default_128bit_params(), 4, ntt.DEFAULT_PRIMES),
             ("128-bit KERNEL_PRIMES", params.default_128bit_params(), 4, ntt.KERNEL_PRIMES),
-            ("80-bit", params.default_80bit_params(), 4, ntt.DEFAULT_PRIMES)):
+            ("80-bit", params.default_80bit_params(), 4, ntt.DEFAULT_PRIMES),
+            *((f"{lb} {tag}", pc, C5_BATCH, pr) for lb, pc in c5_params(params)
+              for tag, pr in (("DEFAULT_PRIMES", ntt.DEFAULT_PRIMES),
+                              ("KERNEL_PRIMES", ntt.KERNEL_PRIMES)))):
         tg = pv.tgsw_params
         rows, acc10, bara10 = random_rotation_inputs(gen, pv, pv.n, B10, dev)
         ctx10 = ntt.make_context(tg.tlwe_params.N, tg.kpl, tg.halfBg, primes, device=dev)

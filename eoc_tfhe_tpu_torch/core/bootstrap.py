@@ -33,8 +33,8 @@ from .lwe import LweCiphertext
 from .tlwe import TLweCiphertext, tlwe_noiseless_trivial, tlwe_extract_lwe_sample
 from .keys import CloudKeySet, KeySwitchKey
 from ..ops import blind_rotate_compact, ntt, polymul, rotate
-from ..ops.blind_rotate import blind_rotate_ntt
-from ..ops.blind_rotate_v1 import blind_rotate_ntt_v1
+from ..ops.blind_rotate import blind_rotate_ntt, check_kernel_domain as check_k1_domain
+from ..ops.blind_rotate_v1 import blind_rotate_ntt_v1, check_kernel_domain as check_k3_domain
 from ..ops.blind_rotate_compact import cmux_rotate_step  # noqa: F401  (the reference's name)
 from ..ops.keyswitch import keyswitch_apply, prepare_keyswitch_matmul
 
@@ -57,7 +57,7 @@ class EvalKey:
     #: rows rounded to a multiple of 2^(8*(4-compact_limbs)).
     bk_compact: torch.Tensor | None = None
     compact_limbs: int = polymul.LIMBS
-    bk_ntt_kernel: torch.Tensor | None = None  # (n, P, F, M/16, K/16, 32, 16) int8 byte planes
+    bk_ntt_kernel: torch.Tensor | None = None  # (n, P, F, Mp/16, Kp/16, 32, 16) int8 byte planes
     bk_ntt: torch.Tensor | None = None  # (n, P, F, K, 2M) int8 byte pairs, "ntt_scan"
     ntt_ctx: ntt.NttContext | None = None
 
@@ -96,6 +96,8 @@ def prepare_eval_key_fused(cloud: CloudKeySet, params: GateBootstrappingParams,
     """
     blind_rotate_compact.check_digit_domain(params)
     bk = cloud.bk
+    if bk.bk.device.type == "cuda":     # the card's kernel must take the shape
+        blind_rotate_compact.check_kernel_domain(params)
     limbs = polymul.LIMBS if limbs is None else limbs
     return _check_eval_key(EvalKey(
         bk_rows=bk.bk, bk_variance=bk.bk_variance,
@@ -125,6 +127,8 @@ def prepare_eval_key_ntt(cloud: CloudKeySet, params: GateBootstrappingParams,
     of kernel K1's tensor-core fragments): the
     card is the kernel's device.  ``False`` gives the "ntt_scan" form (the
     v1 byte-pair key over ``DEFAULT_PRIMES``, kernel K3).  Both are exact.
+    On a CUDA device a shape the form's kernel does not take is refused here
+    with a ``ValueError`` that names the limit.
     """
     if kernel not in ("auto", True, False):
         raise ValueError(f"kernel must be 'auto', True or False, got {kernel!r}")
@@ -132,11 +136,16 @@ def prepare_eval_key_ntt(cloud: CloudKeySet, params: GateBootstrappingParams,
     dev = bk.bk.device
     common = dict(bk_rows=bk.bk, bk_variance=bk.bk_variance,
                   ks_prepared=prepare_keyswitch_matmul(bk.ks), ks=bk.ks)
+    tg, U = params.tgsw_params, params.tgsw_params.tlwe_params.k + 1
     if kernel is False:
         ctx = ntt.context_for_params(params, device=dev)
+        if dev.type == "cuda":
+            check_k3_domain(U, ctx, tg)
         return _check_eval_key(EvalKey(**common, form="ntt_scan", ntt_ctx=ctx,
                                        bk_ntt=ntt.prepare_key_ntt(bk.bk, ctx)))
     ctx = ntt.kernel_context_for_params(params, device=dev)
+    if dev.type == "cuda":
+        check_k1_domain(U, ctx, tg)
     return _check_eval_key(EvalKey(**common, form="ntt_kernel", ntt_ctx=ctx,
                                    bk_ntt_kernel=ntt.prepare_kernel_key(bk.bk, ctx)))
 

@@ -29,8 +29,9 @@
 // int32 rows) into byte rows rev[t][j][u][y] =
 // limb_t(T[c][r]) at y = N-1-c+r, that is [k reversed | -k reversed], so the
 // Toeplitz block is read along increasing addresses and never leaves the SM.
-// Warp w owns CT = U*N/128 output tiles of 16 coefficients of one output
-// polynomial. A fragment row of 4 consecutive input coefficients is 4 bytes
+// Warp w owns CT = max(1, N/64) output tiles of 16 coefficients of one
+// output polynomial, so a block has U*N/(16*CT) warps: 8 at U = 2 and N >= 64,
+// 12 at U = 3, U*2 at N = 32. A fragment row of 4 consecutive input coefficients is 4 bytes
 // at an offset that is fixed per lane mod 4: two aligned 32-bit loads and a
 // __byte_perm. The A fragment depends only on the diagonal d = c0 - r0, so
 // the warp walks the diagonals: for each d it builds A once (two new words
@@ -38,7 +39,9 @@
 // on that diagonal, with the digit fragments of all N/32 r-tiles and the
 // accumulators of its CT tiles in registers (64 + 64 at N = 1024): about 0.7
 // shared-memory loads per MMA. The walk is unrolled at compile time, so the
-// kernel is instantiated per N (64 and 1024; U = 2).
+// kernel is instantiated per (N, U): every power of two N from 32 to 1024 at
+// U = 2 and U = 3 (k = 1, 2); a shape whose shared memory does not fit is
+// refused (U = 3, N = 1024 needs 393,488 bytes at l = 3).
 //
 // Bound on an H100 at the 128-bit set (chip_smoke.py compact_bound): the
 // same function by the cheapest exact dataflow the repo has, the CRT-NTT one
@@ -56,14 +59,22 @@
 // path.
 
 #include <cstdint>
+#include <type_traits>
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kSamples = 8;   // samples per block: the MMA's N
-constexpr int kWarps = 8;
-constexpr int kThreads = 32 * kWarps;
 constexpr int kLimbs = 4;
+
+// Output tiles of 16 coefficients per warp, and warps per block, at (N, U).
+template <int N, int U>
+struct Tiling {
+  static constexpr int kTPP = N / 16;                        // tiles per polynomial
+  static constexpr int kCT = kTPP >= 4 ? kTPP / 4 : 1;       // tiles per warp
+  static constexpr int kWarps = U * kTPP / kCT;
+  static constexpr int kThreads = 32 * kWarps;
+};
 
 struct Shape {
   int B, n, U, N, l, J, Bgbit, halfBg;
@@ -95,14 +106,15 @@ __device__ __forceinline__ void limbs(uint32_t v, int (&b)[kLimbs]) {
 }
 
 template <int N, int U>
-__global__ void __launch_bounds__(kThreads, 1) blind_rotate_compact_kernel(
+__global__ void __launch_bounds__(Tiling<N, U>::kThreads, 1) blind_rotate_compact_kernel(
     const int32_t* __restrict__ acc0, const int32_t* __restrict__ bara,
     const int32_t* __restrict__ key, int32_t* __restrict__ out, const Shape S) {
   constexpr int UN = U * N, twoN = 2 * N;
-  constexpr int TPP = N / 16;                 // 16-coefficient tiles per polynomial
-  constexpr int CT = U * TPP / kWarps;        // tiles per warp
+  constexpr int TPP = Tiling<N, U>::kTPP;     // 16-coefficient tiles per polynomial
+  constexpr int CT = Tiling<N, U>::kCT;       // tiles per warp
+  constexpr int kThreads = Tiling<N, U>::kThreads;
   constexpr int RT = N / 32;                  // 32-coefficient input tiles
-  static_assert(CT >= 1 && TPP % CT == 0, "a warp's tiles lie in one polynomial");
+  static_assert(CT >= 1 && TPP % CT == 0 && RT >= 1, "a warp's tiles lie in one polynomial");
   constexpr int E0 = -(2 * RT - 2), E1 = CT - 1;   // diagonals e = i - 2q
 
   extern __shared__ __align__(16) unsigned char smem[];
@@ -241,7 +253,7 @@ int launch_n(const Shape& S, size_t smem, const void* acc0, const void* bara, co
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int grid = (S.B + kSamples - 1) / kSamples;
-  kernel<<<grid, kThreads, smem, stream>>>(
+  kernel<<<grid, Tiling<N, U>::kThreads, smem, stream>>>(
       static_cast<const int32_t*>(acc0), static_cast<const int32_t*>(bara),
       static_cast<const int32_t*>(key), static_cast<int32_t*>(out), S);
   return static_cast<int>(cudaGetLastError());
@@ -251,15 +263,17 @@ int launch_n(const Shape& S, size_t smem, const void* acc0, const void* bara, co
 
 // Launches the blind rotation on `stream`.  acc0, out: (B, U, N) int32;
 // bara: (n, B) int32 in [0, 2N); key: (n, U*l, U, N) int32, the stored key.
-// Supported: U = 2 and N = 64 or 1024.  Returns a cudaError_t (0 on
-// success); allocates nothing and does not sync.
+// Supported: U = 2 or 3 and N a power of two from 32 to 1024, with the
+// shared memory below the card's limit (the Python wrapper refuses the rest
+// first, by name: ops/blind_rotate_compact.check_kernel_domain).  Returns a
+// cudaError_t (0 on success); allocates nothing and does not sync.
 extern "C" int blind_rotate_compact_launch(const void* acc0, const void* bara, const void* key,
                                            void* out, int B, int n, int U, int N, int l,
                                            int Bgbit, void* stream) {
   Shape S;
   S.B = B; S.n = n; S.U = U; S.N = N; S.l = l; S.J = U * l; S.Bgbit = Bgbit;
-  if (B <= 0 || n < 0 || U != 2 || (N != 64 && N != 1024) || l <= 0 || Bgbit <= 0 ||
-      Bgbit > 8 || l * Bgbit > 32)
+  if (B <= 0 || n < 0 || (U != 2 && U != 3) || N < 32 || N > 1024 || (N & (N - 1)) != 0 ||
+      l <= 0 || Bgbit <= 0 || Bgbit > 8 || l * Bgbit > 32)
     return static_cast<int>(cudaErrorInvalidValue);
   S.halfBg = 1 << (Bgbit - 1);   // <= 128: int8 digits, the reference's exact domain
   // Each limb's MMA sum: J*N products |digit| * |byte| <= halfBg * 128.
@@ -282,8 +296,18 @@ extern "C" int blind_rotate_compact_launch(const void* acc0, const void* bara, c
   if (err != cudaSuccess) return static_cast<int>(err);
   if (smem > static_cast<size_t>(optin)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return N == 64 ? launch_n<64, 2>(S, smem, acc0, bara, key, out, st)
-                 : launch_n<1024, 2>(S, smem, acc0, bara, key, out, st);
+  auto at_u = [&](auto u) {
+    constexpr int kU = decltype(u)::value;
+    switch (N) {
+      case 32: return launch_n<32, kU>(S, smem, acc0, bara, key, out, st);
+      case 64: return launch_n<64, kU>(S, smem, acc0, bara, key, out, st);
+      case 128: return launch_n<128, kU>(S, smem, acc0, bara, key, out, st);
+      case 256: return launch_n<256, kU>(S, smem, acc0, bara, key, out, st);
+      case 512: return launch_n<512, kU>(S, smem, acc0, bara, key, out, st);
+      default: return launch_n<1024, kU>(S, smem, acc0, bara, key, out, st);
+    }
+  };
+  return U == 2 ? at_u(std::integral_constant<int, 2>{}) : at_u(std::integral_constant<int, 3>{});
 }
 
 extern "C" const char* kernel_error_string(int err) {

@@ -8,10 +8,10 @@
 // are in crt_ntt_mma.cuh; this file gives the key's layout and load. The key
 // is stored as the pointwise stage's A operand: per step, prime, frequency,
 // m16 tile of M and k16 tile of K, 32 lanes x 16 bytes (lo a0, lo a1, hi a0,
-// hi a1 of the m16n8k16 fragment of T^T, T the (K, M) balanced residues), so
-// each lane loads one tile with one 16-byte load, and a warp 512 contiguous
-// bytes. It is the same 743 MB as the int16 residues
-// (ntt.prepare_kernel_key, ntt.unpack_kernel_key).
+// hi a1 of the m16n8k16 fragment of T^T, T the (K, M) balanced residues
+// zero-padded to multiples of 16), so each lane loads one tile with one
+// 16-byte load, and a warp 512 contiguous bytes. It is the same 743 MB as the
+// int16 residues (ntt.prepare_kernel_key, ntt.unpack_kernel_key).
 //
 // Bound on an H100 at the 128-bit set (B=8192, n=630; chip_smoke.py
 // rotation_bound): ntt_macs = 1.18e7 int8 limb MACs per sample and step, 2
@@ -28,10 +28,12 @@ namespace {
 
 struct PackedKey {
   using Elem = int8_t;
+  static constexpr int kStageBytes = 0;     // read in fragment order: no staging
+  static constexpr bool kReduceC2 = false;  // KERNEL_PRIMES: |c16| = 1023
   __device__ static uint4 load(const int8_t* key, const crt_mma::Shape& S, int i, int pi,
-                               int f, int mt, int kt, int lane) {
-    const size_t tile = ((static_cast<size_t>(i * 2 + pi) * S.F + f) * (S.M / 16) + mt) *
-                            (S.K / 16) + kt;
+                               int f, int mt, int kt, int lane, int8_t*) {
+    const size_t tile = ((static_cast<size_t>(i * 2 + pi) * S.F + f) * (S.Mp / 16) + mt) *
+                            (S.Kp / 16) + kt;
     return __ldg(reinterpret_cast<const uint4*>(key + tile * 512) + lane);
   }
 };
@@ -39,7 +41,7 @@ struct PackedKey {
 }  // namespace
 
 // Launches the blind rotation on `stream`.  acc0, out: (B, U, N) int32;
-// bara: (n, B) int32 in [0, 2N); key: (n, 2, F, M/16, K/16, 32, 16) int8;
+// bara: (n, B) int32 in [0, 2N); key: (n, 2, F, Mp/16, Kp/16, 32, 16) int8;
 // Wf, Wi: (2, FP/8, FP/32, 32, 4, 8) int8 B fragments; scratch:
 // scratch_bytes of device memory (see crt_mma::launch).  Returns a
 // cudaError_t (0 on success); allocates nothing and does not sync.

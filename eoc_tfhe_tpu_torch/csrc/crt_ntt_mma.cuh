@@ -1,8 +1,11 @@
 // The CRT-NTT blind rotation on the int8 tensor cores (mma.sync, sm_90a).
 //
-// Used by blind_rotate_ntt.cu, which replaces the TPU kernel
-// eoc_tfhe_tpu/ops/pallas_ntt_blindrot2.py, blind_rotate_ntt_pallas2 (line
-// 241, its pallas_call at line 648). All n CMux steps in one launch, each step
+// Used by blind_rotate_ntt.cu (kernel K1, which replaces the TPU kernel
+// eoc_tfhe_tpu/ops/pallas_ntt_blindrot2.py, blind_rotate_ntt_pallas2, line
+// 241, its pallas_call at line 648) and by blind_rotate_ntt_v1.cu (kernel K3,
+// which replaces eoc_tfhe_tpu/ops/pallas_ntt_blindrot.py,
+// blind_rotate_ntt_pallas, line 146, its pallas_call at line 321); each gives
+// its key's layout and load. All n CMux steps in one launch, each step
 //   acc += sum_j digits_j(X^a acc - acc) (negacyclic*) bk[i, j, u]   mod 2^32
 // by the reference's CRT-NTT dataflow: R-way Nussbaumer split, a length-F
 // negacyclic NTT per prime as an F x F matrix product, the pointwise
@@ -21,10 +24,15 @@
 //            so dhat == C0 + 256 C1 (mod p); |C0 + 256 C1| <= 257 FP 128
 //            (128 + |d_hi|) < 2^31, checked by the launcher.
 //   pointwise chat = T dhat: three int32 sums C0 = lo.lo, C1 = lo.hi + hi.lo,
-//            C2 = hi.hi, combined as C0 + 256 C1 + c16 C2 with c16 = 2^16 mod
-//            p balanced (the reference's choice of primes makes |c16| ~ 2^10):
-//            |.| <= K 2^14 (1 + 512 + |c16|) = 1.2e9 < 2^31 at K = 48,
-//            checked by the launcher. The reference's [A; 256A] key
+//            C2 = hi.hi, combined with c16 = 2^16 mod p balanced. A key
+//            without Key::kReduceC2 (K1, over KERNEL_PRIMES, |c16| = 1023)
+//            takes C0 + 256 C1 + c16 C2: |.| <= Kp 2^14 (1 + 512 + |c16|),
+//            1.21e9 at Kp = 48. A key with it (K3, either prime pair) first
+//            reduces C2 to a balanced residue: |.| <= Kp 2^14 513 +
+//            max_p |c16_p| (p-1)/2, 7.4e8 at Kp = 48 over DEFAULT_PRIMES
+//            (c16 = -16386 mod 40961), where the plain sum would be 1.33e10.
+//            The launcher checks the bound of the key's kind against the
+//            primes it is given. The reference's [A; 256A] key
 //            (expand_kernel_key_256) would drop the c16 term, but it doubles
 //            the key bytes that every block reads, and bytes are what this
 //            stage costs; so the key stays [lo | hi] planes of A.
@@ -37,31 +45,42 @@
 // recombination and the accumulator update are uint32 work on the CUDA
 // cores.
 //
-// Shapes. A block holds kSamples = 8 samples and kWarps = 16 warps. The
-// forward and inverse stages are m16n8k32 products: rows k or m of one
-// sample, columns f or t, contraction t or f over FP = max(F, 32) (the
-// matrices are zero-padded, so stale padding columns contribute nothing).
-// Warp w owns n8 tile w of the columns for every live sample: it loads its B
-// fragments (W, Winv and their 256-multiples, byte planes in fragment order,
+// Shapes. K = J*R and M = L*U*R are padded to Kp, Mp, multiples of 16; the
+// key reads as zero in the padding, so padded rows and columns add nothing.
+// A block holds kSamples = 8 samples and kWarps = 16 warps. The forward and
+// inverse stages are m16n8k32 products: rows k or m of one sample, columns f
+// or t, contraction t or f over FP = max(F, 32) (the matrices are
+// zero-padded, so stale padding columns contribute nothing). Warp w owns n8
+// tile w of the columns for every live sample: it loads its B fragments (W,
+// Winv and their 256-multiples, byte planes in fragment order,
 // NttContext.W_mma / Winv_mma, 32 bytes a lane per tile) once per prime into
 // registers and walks the samples, so at batch 1 the warps share the one
-// sample. The pointwise stage is m16n8k16 per frequency: A is the key (M x K,
-// byte planes in fragment order, one 16-byte load a lane per tile), the
-// eight samples are N; warps take four frequencies at a time. Requires
-// U*R = 16, so the rows of one m-tile of the inverse are the U*R (u, r) pairs
-// of one key limb and a thread recombines the limbs of its outputs in
+// sample. The pointwise stage is m16n8k16 per frequency: A is the key (Mp x
+// Kp, Key::load gives a lane's fragment of one tile, through a per-warp
+// staging tile where the key is transposed on the chip), the eight samples
+// are N; warps take four frequencies at a time. Where U*R = 16 (k = 1,
+// N >= 64: the shipped sets) the rows of one m-tile of the inverse are the (u, r)
+// pairs of one key limb and a thread recombines the limbs of its outputs in
+// registers (MTM = Mp/16 m-tiles, a template parameter). Other shapes (k >=
+// 2, or N = 32 where R = 4) take the scatter path (MTM = 0): each m-tile in
+// turn, and the second prime's CRT'd value of row m = (limb, u, r) is added
+// into acc[u][t*R + r] shifted by its limb with a uint32 atomicAdd (mod 2^32,
+// so the order of the limbs does not matter). The m-tile count of Kp (MTK, 3
+// or 4) is a template parameter too, so the shipped sets keep their
 // registers.
 //
 // Shared memory (128-bit set: F = 128, K = M = 48): dig [DL][s][k][t] and
 // chat [2][s][m][f] share one buffer, rows padded to FP + 16 bytes so that
 // fragment loads hit 32 banks: 110,592 bytes; dhat [f][2][s][k], each
 // frequency padded by 16 bytes against bank conflicts of the forward's
-// stores: 100,352 bytes; 210,944 of the 232,448 bytes a block may use
-// (80-bit set: 215,040). The accumulators
-// live in the output tensor (global memory, L2-resident, each word read once
-// and updated once a step); a per-block scratch tensor holds the first
-// prime's inverse residues (in a thread-private order) and a copy of the
-// digits, which the second prime reads back instead of recomputing them.
+// stores: 100,352 bytes; then Key::kStageBytes per warp for a key that is
+// transposed on the chip (K3: 8,704); 210,944 (K1) or 219,648 (K3) of the
+// 232,448 bytes a block may use (80-bit set: 215,040, 223,744). A shape
+// that needs more is refused. The accumulators live in the output tensor
+// (global memory, L2-resident, each word read once and updated once a
+// step); a per-block scratch tensor holds the first prime's inverse
+// residues (in a thread-private order) and a copy of the digits, which the
+// second prime reads back instead of recomputing them.
 //
 // L2 key traffic and occupancy. Every key byte a block reads serves its 8
 // samples (the CUDA-core kernel served 2): 1.18 MB per step and block at the
@@ -80,6 +99,7 @@
 
 #include <cstddef>
 #include <cstdint>
+#include <cstdlib>
 #include <cuda_runtime.h>
 
 namespace crt_mma {
@@ -87,22 +107,23 @@ namespace crt_mma {
 constexpr int kSamples = 8;   // samples per block: the pointwise MMA's N
 constexpr int kWarps = 16;    // warps per block: 128 registers each
 constexpr int kThreads = 32 * kWarps;
-constexpr int kMaxMTK = 3;    // m16 tiles of K (K <= 48)
 constexpr int kMaxKT = 4;     // k32 tiles of FP (FP <= 128)
 constexpr int kNJ = (16 + kWarps - 1) / kWarps;   // n8 tiles of F a warp owns (F <= 128)
 
 struct Shape {
   int B, n, U, N, R, F, FP, l, J, K, M, L, Bgbit, kbits, halfBg, crt_inv;
+  int Kp, Mp, UR;     // K and M padded to multiples of 16; U*R
   int log_n, log_r;   // log2 N, log2 R
   int p0, p1, half0, half1;
   int c16_0, c16_1;   // balanced 2^16 mod p
   float finv0, finv1;
   uint32_t offset, mask;
   int DS;        // byte stride of a dig or chat row: FP + 16
-  int dig_plane; // bytes of one digit plane: kSamples * K * DS
-  int y_plane;   // bytes of one chat plane: kSamples * M * DS
+  int dig_plane; // bytes of one digit plane: kSamples * Kp * DS
+  int y_plane;   // bytes of one chat plane: kSamples * Mp * DS
   int buf2;      // byte offset of dhat
-  int xs;        // bytes per frequency of dhat: 2 * kSamples * K + 16 (bank spread)
+  int xs;        // bytes per frequency of dhat: 2 * kSamples * Kp + 16 (bank spread)
+  int stage;     // byte offset of the per-warp key staging tiles
   int res0_16, dig16, scratch16;   // 16-byte words of a block's scratch: res0, digits, all
 };
 
@@ -144,7 +165,8 @@ __device__ __forceinline__ uint32_t lds32(const int8_t* p) {
 }
 
 // Gadget digits of d = X^a acc - acc (offset trick) into dig [DL][s][k][t],
-// k = (u*l + li)*R + r for coefficient c = t*R + r. Dead samples get digit 0.
+// k = (u*l + li)*R + r for coefficient c = t*R + r. Dead samples get digit 0;
+// the padding rows K <= k < Kp are zeroed.
 template <int DL>
 __device__ __forceinline__ void digit_pass(const Shape& S, int i, const uint32_t* acc,
                                            const int32_t* __restrict__ bara, int b0, int nvalid,
@@ -178,7 +200,7 @@ __device__ __forceinline__ void digit_pass(const Shape& S, int i, const uint32_t
       for (int li = 0; li < S.l; ++li) {
         const int shift = 32 - (li + 1) * S.Bgbit;
         const int d = static_cast<int>((du[q] >> shift) & S.mask) - S.halfBg;
-        const size_t row = static_cast<size_t>(s * S.K + (u * S.l + li) * S.R + r) * S.DS + t;
+        const size_t row = static_cast<size_t>(s * S.Kp + (u * S.l + li) * S.R + r) * S.DS + t;
         if (DL == 1) {
           dig[row] = static_cast<int8_t>(d);
         } else {
@@ -190,20 +212,29 @@ __device__ __forceinline__ void digit_pass(const Shape& S, int i, const uint32_t
       }
     }
   }
+  if (S.Kp > S.K) {
+    const int pad = S.Kp - S.K, w16 = S.FP / 16;
+    for (int x = tid; x < DL * kSamples * pad * w16; x += kThreads) {
+      const int row = x / w16, q = row / (kSamples * pad), sr = row - q * kSamples * pad;
+      const int s = sr / pad, k = S.K + sr - s * pad;
+      *reinterpret_cast<uint4*>(dig + q * S.dig_plane + (s * S.Kp + k) * S.DS +
+                                16 * (x - row * w16)) = make_uint4(0, 0, 0, 0);
+    }
+  }
 }
 
 // Forward NTT: dhat[f][plane][s][k] = balanced residue (byte planes) of
 // sum_t dig[s][k][t] W[t][f]. Warp w owns the n8 tiles nt = w + 8 jj of f for
 // every live sample: it loads their W fragments once per prime and reuses
 // them for each sample, and at batch 1 the eight warps share the one sample.
-template <int DL, int PI>
+template <int DL, int PI, int MTK>
 __device__ __forceinline__ void forward(const Shape& S, const int8_t* dig, int8_t* X,
                                         const uint4* __restrict__ Wf, int nvalid, int warp,
                                         int lane) {
   const int g = lane >> 2, tig = lane & 3;
   const int p = PI ? S.p1 : S.p0, half = PI ? S.half1 : S.half0;
   const float inv_p = PI ? S.finv1 : S.finv0;
-  const int MT = S.K / 16, FN = S.F / 8, NT = S.FP / 8, KT = S.FP / 32;
+  const int MT = S.Kp / 16, FN = S.F / 8, NT = S.FP / 8, KT = S.FP / 32;
   if (warp >= FN) return;
   uint4 w[kNJ][kMaxKT][DL];
 #pragma unroll
@@ -217,16 +248,16 @@ __device__ __forceinline__ void forward(const Shape& S, const int8_t* dig, int8_
       for (int q = 0; q < DL; ++q) w[jj][kt][q] = __ldg(wp + q);
     }
   for (int s = 0; s < nvalid; ++s) {
-    const int8_t* ds = dig + static_cast<size_t>(s) * S.K * S.DS;
-    int c0[kMaxMTK][kNJ][4] = {}, c1[kMaxMTK][kNJ][4] = {};
+    const int8_t* ds = dig + static_cast<size_t>(s) * S.Kp * S.DS;
+    int c0[MTK][kNJ][4] = {}, c1[MTK][kNJ][4] = {};
 #pragma unroll
     for (int kt = 0; kt < kMaxKT; ++kt) {
       if (kt >= KT) continue;
-      uint32_t a[DL][kMaxMTK][4];
+      uint32_t a[DL][MTK][4];
 #pragma unroll
       for (int q = 0; q < DL; ++q)
 #pragma unroll
-        for (int mt = 0; mt < kMaxMTK; ++mt) {
+        for (int mt = 0; mt < MTK; ++mt) {
           if (mt >= MT) continue;
           const int8_t* base = ds + q * S.dig_plane + (mt * 16 + g) * S.DS + kt * 32 + 4 * tig;
           a[q][mt][0] = lds32(base);
@@ -238,7 +269,7 @@ __device__ __forceinline__ void forward(const Shape& S, const int8_t* dig, int8_
       for (int jj = 0; jj < kNJ; ++jj) {
         if (warp + kWarps * jj >= FN) continue;
 #pragma unroll
-        for (int mt = 0; mt < kMaxMTK; ++mt) {
+        for (int mt = 0; mt < MTK; ++mt) {
           if (mt >= MT) continue;
           mma_k32(c0[mt][jj], a[0][mt], w[jj][kt][0].x, w[jj][kt][0].y);
           mma_k32(c1[mt][jj], a[0][mt], w[jj][kt][0].z, w[jj][kt][0].w);
@@ -254,7 +285,7 @@ __device__ __forceinline__ void forward(const Shape& S, const int8_t* dig, int8_
       const int nt = warp + kWarps * jj;
       if (nt >= FN) continue;
 #pragma unroll
-      for (int mt = 0; mt < kMaxMTK; ++mt) {
+      for (int mt = 0; mt < MTK; ++mt) {
         if (mt >= MT) continue;
 #pragma unroll
         for (int r4 = 0; r4 < 4; ++r4) {
@@ -262,9 +293,9 @@ __device__ __forceinline__ void forward(const Shape& S, const int8_t* dig, int8_
           const int res = reduce32(c0[mt][jj][r4] + c1[mt][jj][r4] * 256, p, half, inv_p);
           int lo, hi;
           split8(res, lo, hi);
-          int8_t* xf = X + static_cast<size_t>(f) * S.xs + s * S.K + k;
+          int8_t* xf = X + static_cast<size_t>(f) * S.xs + s * S.Kp + k;
           xf[0] = static_cast<int8_t>(lo);
-          xf[kSamples * S.K] = static_cast<int8_t>(hi);
+          xf[kSamples * S.Kp] = static_cast<int8_t>(hi);
         }
       }
     }
@@ -273,27 +304,30 @@ __device__ __forceinline__ void forward(const Shape& S, const int8_t* dig, int8_
 
 // Pointwise product for the frequencies of this warp: chat[plane][s][m][f] =
 // balanced residue of sum_k T[f][k][m] dhat[f][s][k]. Four frequencies a
-// pass, so that each thread stores whole 32-bit words of chat.
-template <class Key, int PI>
+// pass, so that each thread stores whole 32-bit words of chat. `stage` is
+// this warp's Key::kStageBytes of shared memory.
+template <class Key, int PI, int MTK>
 __device__ __forceinline__ void pointwise(const Shape& S, int i, const typename Key::Elem* key,
-                                          const int8_t* X, int8_t* Y, int warp, int lane) {
+                                          const int8_t* X, int8_t* Y, int8_t* stage, int warp,
+                                          int lane) {
   const int g = lane >> 2, tig = lane & 3;
   const int p = PI ? S.p1 : S.p0, half = PI ? S.half1 : S.half0;
   const int c16 = PI ? S.c16_1 : S.c16_0;
   const float inv_p = PI ? S.finv1 : S.finv0;
-  const int MT = S.M / 16, KT = S.K / 16;
+  const int MT = S.Mp / 16, KT = S.Kp / 16;
   for (int f0 = 4 * warp; f0 < S.F; f0 += 4 * kWarps) {
     for (int mt = 0; mt < MT; ++mt) {
       int c[4][3][4] = {};
 #pragma unroll
       for (int fi = 0; fi < 4; ++fi) {
         const int f = f0 + fi;
-        const int8_t* xf = X + static_cast<size_t>(f) * S.xs + g * S.K + 4 * tig;
+        const int8_t* xf = X + static_cast<size_t>(f) * S.xs + g * S.Kp + 4 * tig;
 #pragma unroll
-        for (int kt = 0; kt < kMaxMTK; ++kt) {
+        for (int kt = 0; kt < MTK; ++kt) {
           if (kt >= KT) continue;
-          const uint4 a = Key::load(key, S, i, PI, f, mt, kt, lane);   // lo a0 a1, hi a0 a1
-          const uint32_t blo = lds32(xf + kt * 16), bhi = lds32(xf + kSamples * S.K + kt * 16);
+          // lo a0 a1, hi a0 a1
+          const uint4 a = Key::load(key, S, i, PI, f, mt, kt, lane, stage);
+          const uint32_t blo = lds32(xf + kt * 16), bhi = lds32(xf + kSamples * S.Kp + kt * 16);
           mma_k16(c[fi][0], a.x, a.y, blo);
           mma_k16(c[fi][1], a.x, a.y, bhi);
           mma_k16(c[fi][1], a.z, a.w, blo);
@@ -307,13 +341,14 @@ __device__ __forceinline__ void pointwise(const Shape& S, int i, const typename 
 #pragma unroll
         for (int fi = 0; fi < 4; ++fi) {
           // 2^16 == c16 (mod p): the sum stays in int32 (bound checked at launch)
-          const int z = c[fi][0][r4] + c[fi][1][r4] * 256 + c[fi][2][r4] * c16;
+          const int c2 = Key::kReduceC2 ? reduce32(c[fi][2][r4], p, half, inv_p) : c[fi][2][r4];
+          const int z = c[fi][0][r4] + c[fi][1][r4] * 256 + c2 * c16;
           int lo, hi;
           split8(reduce32(z, p, half, inv_p), lo, hi);
           wlo |= static_cast<uint32_t>(lo & 255) << (8 * fi);
           whi |= static_cast<uint32_t>(hi & 255) << (8 * fi);
         }
-        int8_t* y = Y + static_cast<size_t>(s * S.M + m) * S.DS + f0;
+        int8_t* y = Y + static_cast<size_t>(s * S.Mp + m) * S.DS + f0;
         *reinterpret_cast<uint32_t*>(y) = wlo;
         *reinterpret_cast<uint32_t*>(y + S.y_plane) = whi;
       }
@@ -326,21 +361,11 @@ __device__ __forceinline__ void copy16(uint4* dst, const uint4* src, int n16, in
   for (int x = tid; x < n16; x += kThreads) dst[x] = src[x];
 }
 
-// Inverse NTT, with the n8 tiles of t shared out as in forward(). First
-// prime: the balanced residues go to res0 (slots of this thread alone).
-// Second prime: CRT with res0, key-limb recombination and acc[s][u][t*R + r]
-// += update, mod 2^32.
-template <int PI, int MTM>
-__device__ __forceinline__ void inverse(const Shape& S, const int8_t* Y,
-                                        const uint4* __restrict__ Wi, int16_t* res0,
-                                        uint32_t* acc, int nvalid, int warp, int lane) {
-  const int g = lane >> 2, tig = lane & 3;
-  const int p = PI ? S.p1 : S.p0, half = PI ? S.half1 : S.half0;
-  const float inv_p = PI ? S.finv1 : S.finv0;
-  const int MT = S.M / 16, TN = S.F / 8, NT = S.FP / 8, KT = S.FP / 32;
-  const int UN = S.U * S.N;
-  if (warp >= TN) return;
-  uint4 w[kNJ][kMaxKT][2];
+// This warp's B fragments of Winv for prime PI: n8 tiles warp + kWarps jj.
+template <int PI>
+__device__ __forceinline__ void load_winv(const Shape& S, const uint4* __restrict__ Wi,
+                                          uint4 (&w)[kNJ][kMaxKT][2], int warp, int lane) {
+  const int TN = S.F / 8, NT = S.FP / 8, KT = S.FP / 32;
 #pragma unroll
   for (int jj = 0; jj < kNJ; ++jj)
 #pragma unroll
@@ -351,9 +376,27 @@ __device__ __forceinline__ void inverse(const Shape& S, const int8_t* Y,
       w[jj][kt][0] = __ldg(wp);
       w[jj][kt][1] = __ldg(wp + 1);
     }
+}
+
+// Inverse NTT, with the n8 tiles of t shared out as in forward(). First
+// prime: the balanced residues go to res0 (slots of this thread alone).
+// Second prime: CRT with res0, key-limb recombination and acc[s][u][t*R + r]
+// += update, mod 2^32. The register path (U*R = 16, MTM = Mp/16 m-tiles).
+template <int PI, int MTM>
+__device__ __forceinline__ void inverse(const Shape& S, const int8_t* Y,
+                                        const uint4* __restrict__ Wi, int16_t* res0,
+                                        uint32_t* acc, int nvalid, int warp, int lane) {
+  const int g = lane >> 2, tig = lane & 3;
+  const int p = PI ? S.p1 : S.p0, half = PI ? S.half1 : S.half0;
+  const float inv_p = PI ? S.finv1 : S.finv0;
+  const int MT = S.Mp / 16, TN = S.F / 8, KT = S.FP / 32;
+  const int UN = S.U * S.N;
+  if (warp >= TN) return;
+  uint4 w[kNJ][kMaxKT][2];
+  load_winv<PI>(S, Wi, w, warp, lane);
   for (int s = 0; s < nvalid; ++s) {
-    const int8_t* ys = Y + static_cast<size_t>(s) * S.M * S.DS;
-    int16_t* slots = res0 + static_cast<size_t>(s) * S.M * S.F + lane;
+    const int8_t* ys = Y + static_cast<size_t>(s) * S.Mp * S.DS;
+    int16_t* slots = res0 + static_cast<size_t>(s) * S.Mp * S.F + lane;
     uint32_t* acc_s = acc + static_cast<size_t>(s) * UN;
     // Second prime: this sample's res0 slots and acc words, loaded before the
     // MMAs so that their latency overlaps them.
@@ -432,6 +475,73 @@ __device__ __forceinline__ void inverse(const Shape& S, const int8_t* Y,
   }
 }
 
+// The inverse NTT of the scatter path (U*R != 16): one m-tile at a time; the
+// second prime adds V << (kbits * limb) of row m = (limb, u, r) into
+// acc[s][u][t*R + r] with a uint32 atomicAdd. Padding rows m >= M are skipped.
+template <int PI>
+__device__ __forceinline__ void inverse_scatter(const Shape& S, const int8_t* Y,
+                                                const uint4* __restrict__ Wi, int16_t* res0,
+                                                uint32_t* acc, int nvalid, int warp, int lane) {
+  const int g = lane >> 2, tig = lane & 3;
+  const int p = PI ? S.p1 : S.p0, half = PI ? S.half1 : S.half0;
+  const float inv_p = PI ? S.finv1 : S.finv0;
+  const int MT = S.Mp / 16, TN = S.F / 8, KT = S.FP / 32;
+  if (warp >= TN) return;
+  uint4 w[kNJ][kMaxKT][2];
+  load_winv<PI>(S, Wi, w, warp, lane);
+  for (int s = 0; s < nvalid; ++s) {
+    const int8_t* ys = Y + static_cast<size_t>(s) * S.Mp * S.DS;
+    int16_t* slots = res0 + static_cast<size_t>(s) * S.Mp * S.F + lane;
+    uint32_t* acc_s = acc + static_cast<size_t>(s) * S.U * S.N;
+    for (int mt = 0; mt < MT; ++mt) {
+      int c0[kNJ][4] = {}, c1[kNJ][4] = {};
+#pragma unroll
+      for (int kt = 0; kt < kMaxKT; ++kt) {
+        if (kt >= KT) continue;
+        uint32_t a[2][4];
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const int8_t* base = ys + q * S.y_plane + (mt * 16 + g) * S.DS + kt * 32 + 4 * tig;
+          a[q][0] = lds32(base);
+          a[q][1] = lds32(base + 8 * S.DS);
+          a[q][2] = lds32(base + 16);
+          a[q][3] = lds32(base + 8 * S.DS + 16);
+        }
+#pragma unroll
+        for (int jj = 0; jj < kNJ; ++jj) {
+          if (warp + kWarps * jj >= TN) continue;
+          mma_k32(c0[jj], a[0], w[jj][kt][0].x, w[jj][kt][0].y);
+          mma_k32(c1[jj], a[0], w[jj][kt][0].z, w[jj][kt][0].w);
+          mma_k32(c0[jj], a[1], w[jj][kt][1].x, w[jj][kt][1].y);
+          mma_k32(c1[jj], a[1], w[jj][kt][1].z, w[jj][kt][1].w);
+        }
+      }
+#pragma unroll
+      for (int jj = 0; jj < kNJ; ++jj) {
+        const int nt = warp + kWarps * jj;
+        if (nt >= TN) continue;
+#pragma unroll
+        for (int r4 = 0; r4 < 4; ++r4) {
+          const int v = reduce32(c0[jj][r4] + c1[jj][r4] * 256, p, half, inv_p);
+          int16_t* slot = slots + ((nt * MT + mt) * 4 + r4) * 32;
+          if (PI == 0) {
+            *slot = static_cast<int16_t>(v);
+            continue;
+          }
+          const int m = mt * 16 + g + 8 * (r4 >> 1);
+          if (m >= S.M) continue;
+          const int v0 = *slot;
+          const int q = reduce32((v - v0) * S.crt_inv, S.p1, S.half1, S.finv1);
+          const int V = v0 + q * S.p0;   // |V| < p0 p1 / 2 < 2^31
+          const int limb = m / S.UR, ur = m - limb * S.UR, u = ur / S.R, r = ur - u * S.R;
+          const int t = nt * 8 + 2 * tig + (r4 & 1);
+          atomicAdd(acc_s + u * S.N + t * S.R + r, static_cast<uint32_t>(V) << (S.kbits * limb));
+        }
+      }
+    }
+  }
+}
+
 #ifdef CRT_MMA_PROFILE
 // Diagnostic build only (-DCRT_MMA_PROFILE): clock cycles of block 0 per stage.
 __device__ unsigned long long phase_clocks[8];
@@ -445,7 +555,9 @@ __device__ unsigned long long phase_clocks[8];
 #define CRT_MMA_PHASE(k)
 #endif
 
-template <class Key, int DL, int MTM>
+// MTK: m16 tiles of Kp (3 or 4); MTM: m16 tiles of Mp on the register path
+// (3 or 4), or 0 for the scatter path.
+template <class Key, int DL, int MTK, int MTM>
 __global__ void __launch_bounds__(kThreads, 1) rotate_kernel(
     const int32_t* __restrict__ acc0, const int32_t* __restrict__ bara,
     const typename Key::Elem* __restrict__ key, const uint4* __restrict__ Wf,
@@ -455,6 +567,7 @@ __global__ void __launch_bounds__(kThreads, 1) rotate_kernel(
   int8_t* buf1 = reinterpret_cast<int8_t*>(smem);          // dig, then chat
   int8_t* X = reinterpret_cast<int8_t*>(smem + S.buf2);     // dhat
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  int8_t* stage = reinterpret_cast<int8_t*>(smem + S.stage) + warp * Key::kStageBytes;
   const int UN = S.U * S.N;
   const int b0 = blockIdx.x * kSamples;
   const int nvalid = min(kSamples, S.B - b0);
@@ -478,39 +591,42 @@ __global__ void __launch_bounds__(kThreads, 1) rotate_kernel(
     __syncthreads();
     CRT_MMA_PHASE(0);
     copy16(dig_g, reinterpret_cast<const uint4*>(buf1), dig16, tid);   // kept for the second
-    forward<DL, 0>(S, buf1, X, Wf, nvalid, warp, lane);
+    forward<DL, 0, MTK>(S, buf1, X, Wf, nvalid, warp, lane);
     __syncthreads();
     CRT_MMA_PHASE(1);
-    pointwise<Key, 0>(S, i, key, X, buf1, warp, lane);
+    pointwise<Key, 0, MTK>(S, i, key, X, buf1, stage, warp, lane);
     __syncthreads();
     CRT_MMA_PHASE(2);
-    inverse<0, MTM>(S, buf1, Wi, res0_b, acc, nvalid, warp, lane);
+    if constexpr (MTM > 0) inverse<0, MTM>(S, buf1, Wi, res0_b, acc, nvalid, warp, lane);
+    else inverse_scatter<0>(S, buf1, Wi, res0_b, acc, nvalid, warp, lane);
     __syncthreads();
     CRT_MMA_PHASE(3);
     // second prime, then the accumulator update
     copy16(reinterpret_cast<uint4*>(buf1), dig_g, dig16, tid);
     __syncthreads();
     CRT_MMA_PHASE(4);
-    forward<DL, 1>(S, buf1, X, Wf, nvalid, warp, lane);
+    forward<DL, 1, MTK>(S, buf1, X, Wf, nvalid, warp, lane);
     __syncthreads();
     CRT_MMA_PHASE(5);
-    pointwise<Key, 1>(S, i, key, X, buf1, warp, lane);
+    pointwise<Key, 1, MTK>(S, i, key, X, buf1, stage, warp, lane);
     __syncthreads();
     CRT_MMA_PHASE(6);
-    inverse<1, MTM>(S, buf1, Wi, res0_b, acc, nvalid, warp, lane);
+    if constexpr (MTM > 0) inverse<1, MTM>(S, buf1, Wi, res0_b, acc, nvalid, warp, lane);
+    else inverse_scatter<1>(S, buf1, Wi, res0_b, acc, nvalid, warp, lane);
     __syncthreads();
     CRT_MMA_PHASE(7);
   }
 }
 
 // Checks the shape and the stated bounds, sizes shared memory and launches
-// rotate_kernel<Key, DL> on `stream`. acc0, out: (B, U, N) int32; bara:
+// rotate_kernel<Key, ...> on `stream`. acc0, out: (B, U, N) int32; bara:
 // (n, B) int32 in [0, 2N); key: the NTT-domain key as Key reads it; Wf, Wi:
 // (2, FP/8, FP/32, 32, 4, 8) int8 B fragments of W [t][f] and Winv [f][t]
 // (ntt.NttContext.W_mma / Winv_mma); scratch: scratch_bytes of device
-// memory, 16-byte aligned, at least ceil(B/8) * (2*8*M*F + DL*8*K*(FP+16))
-// rounded up per part to 16 bytes. Returns a cudaError_t (0 on success); allocates nothing and does
-// not sync.
+// memory, 16-byte aligned, at least ceil(B/8) * (2*8*Mp*F + DL*8*Kp*(FP+16))
+// rounded up per part to 16 bytes. Returns a cudaError_t (0 on success);
+// allocates nothing and does not sync. The Python wrappers refuse the same
+// shapes first, by name (ops/blind_rotate.check_kernel_domain).
 template <class Key>
 int launch(const void* acc0, const void* bara, const void* key, const void* Wf,
            const void* Wi, void* scratch, long long scratch_bytes, void* out, int B, int n,
@@ -520,6 +636,7 @@ int launch(const void* acc0, const void* bara, const void* key, const void* Wf,
   S.B = B; S.n = n; S.U = U; S.N = N; S.R = R; S.F = R > 0 ? N / R : 0; S.l = l;
   S.FP = S.F > 32 ? S.F : 32;
   S.J = U * l; S.K = S.J * R; S.L = L; S.M = L * U * R; S.Bgbit = Bgbit; S.kbits = kbits;
+  S.Kp = (S.K + 15) / 16 * 16; S.Mp = (S.M + 15) / 16 * 16; S.UR = U * R;
   S.crt_inv = crt_inv; S.p0 = p0; S.p1 = p1;
   S.half0 = (p0 - 1) / 2; S.half1 = (p1 - 1) / 2;
   S.finv0 = 1.0f / p0; S.finv1 = 1.0f / p1;
@@ -532,8 +649,7 @@ int launch(const void* acc0, const void* bara, const void* key, const void* Wf,
   if (B <= 0 || n < 0 || U <= 0 || l <= 0 || Bgbit <= 0 || Bgbit > 15 || l * Bgbit > 32 ||
       R <= 0 || N % R != 0 || (N & (N - 1)) != 0 || (R & (R - 1)) != 0 ||
       S.F % 8 != 0 || S.FP % 32 != 0 || S.FP > 32 * kMaxKT || S.F > 8 * kWarps * kNJ ||
-      U * R != 16 || S.K % 16 != 0 || S.K > 16 * kMaxMTK || S.M % 16 != 0 ||
-      S.M > 16 * 4 || L * kbits < 32 || kbits * (L - 1) >= 32 ||
+      S.Kp > 16 * 4 || L * kbits < 32 || kbits * (L - 1) >= 32 ||
       p0 < 1024 || p1 < 1024 || (p0 & 1) == 0 || (p1 & 1) == 0)   // reduce32: |z/p| < 2^22
     return static_cast<int>(cudaErrorInvalidValue);
   S.halfBg = 1 << (Bgbit - 1);
@@ -543,31 +659,39 @@ int launch(const void* acc0, const void* bara, const void* key, const void* Wf,
     S.offset += static_cast<uint32_t>(S.halfBg) << (32 - (p + 1) * Bgbit);
   const int DL = S.halfBg <= 128 ? 1 : 2;
   const long long dhi = DL == 1 ? 0 : (S.halfBg + 255) / 256;
-  // Residues split into bytes with |hi| <= 127; the forward and inverse
-  // int32 sums stay below 2^31 (see the note at the head of this file); the
-  // CRT product (v1 - v0) * crt_inv and V = v0 + q p0 fit int32.
+  // Residues split into bytes with |hi| <= 127; the forward, pointwise and
+  // inverse int32 sums stay below 2^31 (see the note at the head of this
+  // file); the CRT product (v1 - v0) * crt_inv and V = v0 + q p0 fit int32.
   const int hmax = S.half0 > S.half1 ? S.half0 : S.half1;
-  const int c16 = abs(S.c16_0) > abs(S.c16_1) ? abs(S.c16_0) : abs(S.c16_1);
-  if (hmax > 127 * 256 + 127 || dhi > 127 ||
-      static_cast<long long>(S.K) * 128 * 128 * (1 + 2 * 256 + c16) >= (1LL << 31) ||
+  const long long c16 = abs(S.c16_0) > abs(S.c16_1) ? abs(S.c16_0) : abs(S.c16_1);
+  const long long c16_half = abs(S.c16_0) * static_cast<long long>(S.half0) >
+                                     abs(S.c16_1) * static_cast<long long>(S.half1)
+                                 ? abs(S.c16_0) * static_cast<long long>(S.half0)
+                                 : abs(S.c16_1) * static_cast<long long>(S.half1);
+  const long long pointwise_sum = Key::kReduceC2
+      ? static_cast<long long>(S.Kp) * 128 * 128 * (1 + 2 * 256) + c16_half
+      : static_cast<long long>(S.Kp) * 128 * 128 * (1 + 2 * 256 + c16);
+  if (hmax > 127 * 256 + 127 || dhi > 127 || pointwise_sum >= (1LL << 31) ||
       257LL * S.FP * 128 * (128 + dhi) >= (1LL << 31) ||
       257LL * S.FP * 2 * 128 * 128 >= (1LL << 31) ||
       static_cast<long long>(S.half0 + S.half1) * abs(crt_inv) >= (1LL << 31) ||
       static_cast<long long>(S.half1) * p0 + S.half0 >= (1LL << 31))
     return static_cast<int>(cudaErrorInvalidValue);
   S.DS = S.FP + 16;
-  S.dig_plane = kSamples * S.K * S.DS;
-  S.y_plane = kSamples * S.M * S.DS;
+  S.dig_plane = kSamples * S.Kp * S.DS;
+  S.y_plane = kSamples * S.Mp * S.DS;
   const int buf1 = DL * S.dig_plane > 2 * S.y_plane ? DL * S.dig_plane : 2 * S.y_plane;
   S.buf2 = (buf1 + 15) / 16 * 16;
-  S.xs = 2 * kSamples * S.K + 16;
+  S.xs = 2 * kSamples * S.Kp + 16;
+  S.stage = S.buf2 + S.F * S.xs;
   const int grid = (B + kSamples - 1) / kSamples;
-  S.res0_16 = (kSamples * S.M * S.F * 2 + 15) / 16;
+  S.res0_16 = (kSamples * S.Mp * S.F * 2 + 15) / 16;
   S.dig16 = (DL * S.dig_plane + 15) / 16;
   S.scratch16 = S.res0_16 + S.dig16;
   if (scratch_bytes < static_cast<long long>(grid) * S.scratch16 * 16)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = static_cast<size_t>(S.buf2) + static_cast<size_t>(S.F) * S.xs;
+  const size_t smem = static_cast<size_t>(S.stage) + static_cast<size_t>(kWarps) *
+                                                        Key::kStageBytes;
   int device = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess)
@@ -585,13 +709,21 @@ int launch(const void* acc0, const void* bara, const void* key, const void* Wf,
         static_cast<int32_t*>(out), S);
     err = cudaGetLastError();
   };
-  // M/16 m-tiles of the inverse as a compile-time bound: 3 (M <= 48) or 4.
-  if (S.M <= 48) {
-    if (DL == 1) args(rotate_kernel<Key, 1, 3>);
-    else args(rotate_kernel<Key, 2, 3>);
+  // Compile-time tile counts: (MTK, MTM) = (3, 3), (3, 4) or (4, 4) on the
+  // register path (U*R = 16, Mp <= 64), (4, 0) on the scatter path.
+  const bool reg = S.UR == 16 && S.Mp <= 64;
+  if (reg && S.Kp <= 48 && S.Mp <= 48) {
+    if (DL == 1) args(rotate_kernel<Key, 1, 3, 3>);
+    else args(rotate_kernel<Key, 2, 3, 3>);
+  } else if (reg && S.Kp <= 48) {
+    if (DL == 1) args(rotate_kernel<Key, 1, 3, 4>);
+    else args(rotate_kernel<Key, 2, 3, 4>);
+  } else if (reg) {
+    if (DL == 1) args(rotate_kernel<Key, 1, 4, 4>);
+    else args(rotate_kernel<Key, 2, 4, 4>);
   } else {
-    if (DL == 1) args(rotate_kernel<Key, 1, 4>);
-    else args(rotate_kernel<Key, 2, 4>);
+    if (DL == 1) args(rotate_kernel<Key, 1, 4, 0>);
+    else args(rotate_kernel<Key, 2, 4, 0>);
   }
   return static_cast<int>(err);
 }

@@ -30,8 +30,8 @@ SIGNATURES = {
     # acc0, bara, key, W_mma, Winv_mma, scratch, scratch_bytes, out; B, n, U, N,
     # R, l, Bgbit, L, kbits, p0, p1, crt_inv; stream
     "blind_rotate_ntt": ("blind_rotate_ntt_launch", [_P] * 6 + [_L, _P] + [_I] * 12 + [_P]),
-    # acc0, bara, key, W, Winv, out and the same integers; key (n, 2, F, K, 2M) int8
-    "blind_rotate_ntt_v1": ("blind_rotate_ntt_v1_launch", [_P] * 6 + [_I] * 12 + [_P]),
+    # the same arguments; key (n, 2, F, K, 2M) int8
+    "blind_rotate_ntt_v1": ("blind_rotate_ntt_v1_launch", [_P] * 6 + [_L, _P] + [_I] * 12 + [_P]),
     # acc0, bara, key, out; B, n, U, N, l, Bgbit; stream
     "blind_rotate_compact": ("blind_rotate_compact_launch", [_P] * 4 + [_I] * 6 + [_P]),
 }
@@ -88,17 +88,24 @@ def build_all() -> dict[str, tuple[float, str]]:
         if out.exists():
             continue
         tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-        proc = subprocess.Popen(_command(name, tmp), stdout=subprocess.PIPE,
-                                stderr=subprocess.STDOUT, text=True)
-        jobs[name] = (proc, tmp, out, time.perf_counter())
+        log = tmp.with_suffix(".log").open("w+")
+        proc = subprocess.Popen(_command(name, tmp), stdout=log, stderr=subprocess.STDOUT)
+        jobs[name] = (proc, log, tmp, out, time.perf_counter())
     logs, failed = {}, []
-    for name, (proc, tmp, out, t0) in jobs.items():
-        log, _ = proc.communicate()
-        logs[name] = (time.perf_counter() - t0, log)
-        if proc.returncode != 0:
-            failed.append(f"{name}:\n{log}")
-        else:
-            os.replace(tmp, out)
+    while len(logs) < len(jobs):    # each source's own seconds, in the order they end
+        time.sleep(0.05)
+        for name, (proc, log, tmp, out, t0) in jobs.items():
+            if name in logs or proc.poll() is None:
+                continue
+            secs = time.perf_counter() - t0
+            log.seek(0)
+            logs[name] = (secs, log.read())
+            log.close()
+            os.remove(log.name)
+            if proc.returncode != 0:
+                failed.append(f"{name}:\n{logs[name][1]}")
+            else:
+                os.replace(tmp, out)
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return logs

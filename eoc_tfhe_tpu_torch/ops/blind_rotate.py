@@ -9,9 +9,10 @@ dataflow gives the same bits.
 :func:`blind_rotate_ntt` is the wrapper.  For a tensor on the CPU it runs
 :func:`blind_rotate_ntt_plain`; for a CUDA tensor it launches the
 hand-written int8 tensor-core kernel in ``csrc/blind_rotate_ntt.cu`` or
-raises.  ``launches`` counts kernel launches and nothing else.  The key is
-``ntt.prepare_kernel_key``'s byte planes; the plain version reads the same
-key.
+raises: :func:`check_kernel_domain` refuses, by name and before any launch,
+a shape the kernel does not take.  ``launches`` counts kernel launches and
+nothing else.  The key is ``ntt.prepare_kernel_key``'s byte planes; the
+plain version reads the same key.
 """
 
 from __future__ import annotations
@@ -21,10 +22,13 @@ import torch
 from ..core.numeric import wrap32
 from ..core.tgsw import decompose_h
 from . import rotate
-from .ntt import NttContext, balanced_mod, unpack_kernel_key
+from .ntt import NttContext, balanced_mod, pad16, unpack_kernel_key
 
 #: Number of launches of the CUDA kernel in this process.
 launches = 0
+
+#: Shared memory a block may use on the H100 (its opt-in limit per block).
+SMEM_PER_BLOCK = 232_448
 
 
 def external_product_plain(digits: torch.Tensor, key_step: torch.Tensor,
@@ -78,13 +82,13 @@ def cmux_ntt_step(acc: torch.Tensor, key_step: torch.Tensor, bara_i: torch.Tenso
 def kernel_key_shapes(acc0: torch.Tensor, bara: torch.Tensor, key: torch.Tensor,
                       ctx: NttContext, params):
     """Check a rotation's shapes against the plan for the packed key
-    (n, P, F, M/16, K/16, 32, 16); returns (B, U, N, n)."""
+    (n, P, F, Mp/16, Kp/16, 32, 16); returns (B, U, N, n)."""
     B, U, N = acc0.shape
     tg = params.tgsw_params
     K, M = tg.kpl * ctx.R, ctx.key_limbs * U * ctx.R
     n = key.shape[0]
-    ok = (key.dim() == 7 and N == ctx.N and K % 16 == 0 and M % 16 == 0
-          and tuple(key.shape[1:]) == (2, ctx.F, M // 16, K // 16, 32, 16)
+    ok = (key.dim() == 7 and N == ctx.N
+          and tuple(key.shape[1:]) == (2, ctx.F, pad16(M) // 16, pad16(K) // 16, 32, 16)
           and len(ctx.primes) == 2 and tg.kpl == U * tg.l and U == tg.tlwe_params.k + 1
           and tuple(bara.shape) == (n, B))
     if not ok:
@@ -101,13 +105,14 @@ def blind_rotate_ntt_plain(acc0: torch.Tensor, bara: torch.Tensor, key: torch.Te
 
     Args:
       acc0: (B, k+1, N) int32; bara: (n, B) int32 in [0, 2N);
-      key: (n, P, F, M/16, K/16, 32, 16) int8 from ``ntt.prepare_kernel_key``.
+      key: (n, P, F, Mp/16, Kp/16, 32, 16) int8 from ``ntt.prepare_kernel_key``.
     Returns (B, k+1, N) int32.
     """
-    n = kernel_key_shapes(acc0, bara, key, ctx, params)[3]
+    B, U, N, n = kernel_key_shapes(acc0, bara, key, ctx, params)
+    K, M = params.tgsw_params.kpl * ctx.R, ctx.key_limbs * U * ctx.R
     acc = acc0
     for i in range(n):
-        acc = cmux_ntt_step(acc, unpack_kernel_key(key[i]), bara[i], ctx, params)
+        acc = cmux_ntt_step(acc, unpack_kernel_key(key[i], K, M), bara[i], ctx, params)
     return acc
 
 
@@ -127,13 +132,76 @@ def launch_error(name: str, lib, err: int) -> RuntimeError:
 
 
 def kernel_scratch_bytes(B: int, U: int, ctx: NttContext, tg) -> int:
-    """Device scratch of the kernel: per block of 8 samples, the first
-    prime's inverse residues (8, M, F) int16 and the digits (DL, 8, K, FP + 16)
-    int8, each rounded up to 16 bytes (``crt_ntt_mma.cuh``)."""
-    K, M, F = tg.kpl * ctx.R, ctx.key_limbs * U * ctx.R, ctx.F
+    """Device scratch of the kernels on ``crt_ntt_mma.cuh`` (K1, K3): per block
+    of 8 samples, the first prime's inverse residues (8, Mp, F) int16 and the
+    digits (DL, 8, Kp, FP + 16) int8, each rounded up to 16 bytes."""
+    Kp, Mp, F = pad16(tg.kpl * ctx.R), pad16(ctx.key_limbs * U * ctx.R), ctx.F
     DL = 1 if tg.halfBg <= 128 else 2
-    per_block = -(-8 * M * F * 2 // 16) * 16 + -(-DL * 8 * K * (max(F, 32) + 16) // 16) * 16
+    per_block = -(-8 * Mp * F * 2 // 16) * 16 + -(-DL * 8 * Kp * (max(F, 32) + 16) // 16) * 16
     return -(-B // 8) * per_block
+
+
+def crt_mma_smem_bytes(U: int, ctx: NttContext, tg, stage_bytes: int = 0) -> int:
+    """Shared memory of a ``crt_ntt_mma.cuh`` block: dig and chat in one
+    buffer, dhat, and ``stage_bytes`` per warp (16 warps) for a key that is
+    transposed on the chip."""
+    Kp, Mp, F = pad16(tg.kpl * ctx.R), pad16(ctx.key_limbs * U * ctx.R), ctx.F
+    DL = 1 if tg.halfBg <= 128 else 2
+    DS = max(F, 32) + 16
+    buf1 = -(-max(DL * 8 * Kp * DS, 2 * 8 * Mp * DS) // 16) * 16
+    return buf1 + F * (2 * 8 * Kp + 16) + 16 * stage_bytes
+
+
+def check_crt_mma_domain(name: str, U: int, ctx: NttContext, tg, *, reduce_c2: bool,
+                         stage_bytes: int) -> None:
+    """Raise ``ValueError``, naming the limit and the value, for a shape that
+    ``crt_mma::launch`` refuses: its launcher's conditions, shared memory
+    included, in Python, so that the refusal comes before any launch.
+    ``reduce_c2`` and ``stage_bytes`` are the key loader's ``kReduceC2`` and
+    ``kStageBytes``."""
+    N, R, F, L, kbits = ctx.N, ctx.R, ctx.F, ctx.key_limbs, ctx.key_limb_bits
+    K, M = tg.kpl * ctx.R, L * U * R
+    p0, p1 = ctx.primes
+    half0, half1 = (p0 - 1) // 2, (p1 - 1) // 2
+
+    def refuse(what):
+        raise ValueError(f"{name} {what} (N={N}, k={U - 1}, l={tg.l}, Bgbit={tg.Bgbit}, "
+                         f"primes {ctx.primes})")
+
+    if F % 8 or not 8 <= F <= 128:
+        refuse(f"takes F = N/R a multiple of 8 from 8 to 128; N={N}, R={R} give F={F}")
+    if pad16(K) > 64:
+        refuse(f"takes K = kpl*R up to 64 rows; kpl={tg.kpl}, R={R} give K={K}")
+    if tg.Bgbit > 15 or tg.l * tg.Bgbit > 32:
+        refuse(f"takes Bgbit <= 15 and l*Bgbit <= 32; got Bgbit={tg.Bgbit}, l={tg.l}")
+    if L * kbits < 32 or kbits * (L - 1) >= 32:
+        refuse(f"takes key limbs covering 32 bits once; got {L} x {kbits} bits")
+    if min(p0, p1) < 1024 or not (p0 & p1 & 1) or max(half0, half1) > 127 * 256 + 127:
+        refuse(f"takes odd primes from 1024 to 65279; got {ctx.primes}")
+
+    def c16(p):
+        r = (1 << 16) % p
+        return abs(r - p if r > p // 2 else r)
+    kp = pad16(K) * 128 * 128
+    if reduce_c2:
+        pointwise = kp * 513 + max(c16(p0) * half0, c16(p1) * half1)
+    else:
+        pointwise = kp * (513 + max(c16(p0), c16(p1)))
+    if pointwise >= 1 << 31:
+        refuse(f"pointwise int32 sum reaches {pointwise:,} >= 2^31 (Kp={pad16(K)}, "
+               f"c16 = {c16(p0)}, {c16(p1)}{', C2 reduced' if reduce_c2 else ''})")
+    if (half0 + half1) * abs(ctx.crt_inv) >= 1 << 31 or half1 * p0 + half0 >= 1 << 31:
+        refuse(f"CRT sums leave int32 for primes {ctx.primes}")
+    smem = crt_mma_smem_bytes(U, ctx, tg, stage_bytes)
+    if smem > SMEM_PER_BLOCK:
+        refuse(f"needs {smem:,} bytes of shared memory for U={U}, N={N}, K={K}, M={M}; "
+               f"the card allows {SMEM_PER_BLOCK:,}")
+
+
+def check_kernel_domain(U: int, ctx: NttContext, tg) -> None:
+    """K1's domain (``csrc/blind_rotate_ntt.cu``): raise ``ValueError``, by
+    name, for a shape its launcher refuses."""
+    check_crt_mma_domain("K1 (blind_rotate_ntt)", U, ctx, tg, reduce_c2=False, stage_bytes=0)
 
 
 def _launch(acc0: torch.Tensor, bara: torch.Tensor, key: torch.Tensor,
@@ -143,11 +211,12 @@ def _launch(acc0: torch.Tensor, bara: torch.Tensor, key: torch.Tensor,
     from ..kernels import build
 
     B, U, N, n = kernel_key_shapes(acc0, bara, key, ctx, params)
+    tg = params.tgsw_params
+    check_kernel_domain(U, ctx, tg)
     check_operands(acc0, (("acc0", acc0, torch.int32), ("bara", bara, torch.int32),
                            ("key", key, torch.int8), ("W_mma", ctx.W_mma, torch.int8),
                            ("Winv_mma", ctx.Winv_mma, torch.int8)))
     out = torch.empty_like(acc0)
-    tg = params.tgsw_params
     scratch = torch.empty(kernel_scratch_bytes(B, U, ctx, tg), dtype=torch.uint8,
                           device=acc0.device)
     lib = build.load("blind_rotate_ntt")

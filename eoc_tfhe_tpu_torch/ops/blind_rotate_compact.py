@@ -13,7 +13,9 @@ unit, which gives the same bits.
 :func:`blind_rotate_compact` is the wrapper.  For a tensor on the CPU it
 runs :func:`blind_rotate_compact_plain` (the rows scan); for a CUDA tensor it
 launches the hand-written kernel in ``csrc/blind_rotate_compact.cu`` or
-raises (the kernel takes U = 2 and N = 64 or 1024).  ``launches`` counts
+raises: :func:`check_kernel_domain` refuses, by name and before any launch, a
+shape the kernel does not take (it takes k = 1 or 2 and every power-of-two N
+from 32 to 1024 whose block fits in shared memory).  ``launches`` counts
 kernel launches and nothing else.
 """
 
@@ -25,6 +27,7 @@ from ..core.numeric import wrap32
 from ..core.params import GateBootstrappingParams
 from ..core.tgsw import decompose_h
 from . import polymul, rotate
+from .blind_rotate import SMEM_PER_BLOCK
 
 #: Number of launches of the CUDA kernel in this process.
 launches = 0
@@ -43,6 +46,36 @@ def check_digit_domain(params: GateBootstrappingParams) -> None:
         raise ValueError(
             f"halfBg = {half} > 128: the compact and rows eval-key forms are exact "
             "only for int8 gadget digits; use the ntt_kernel form")
+
+
+def smem_bytes(U: int, N: int, J: int) -> int:
+    """Shared memory of a K2 block: the accumulators (8, U*N + 4) uint32, the
+    digits (8, J*N + 16) int8 and the byte rows (4, J, U, 2N) int8, + 16."""
+    return 8 * (U * N + 4) * 4 + 8 * (J * N + 16) + 4 * J * U * 2 * N + 16
+
+
+def check_kernel_domain(params: GateBootstrappingParams) -> None:
+    """K2's domain (``csrc/blind_rotate_compact.cu``): raise ``ValueError``,
+    naming the limit and the value, for a shape its launcher refuses."""
+    check_digit_domain(params)
+    tg = params.tgsw_params
+    U, N, J = tg.tlwe_params.k + 1, tg.tlwe_params.N, tg.kpl
+    where = f"(N={N}, k={U - 1}, l={tg.l}, Bgbit={tg.Bgbit})"
+    if U not in (2, 3):
+        raise ValueError(f"K2 (blind_rotate_compact) takes k = 1 or 2 (U = 2, 3); "
+                         f"got U={U} {where}")
+    if N & (N - 1) or not 32 <= N <= 1024:
+        raise ValueError(f"K2 (blind_rotate_compact) takes N a power of two from 32 to "
+                         f"1024; got N={N} {where}")
+    if tg.l * tg.Bgbit > 32:
+        raise ValueError(f"K2 (blind_rotate_compact) takes l*Bgbit <= 32 {where}")
+    if J * N * tg.halfBg * 128 >= 1 << 31:
+        raise ValueError(f"K2 (blind_rotate_compact) limb sum reaches "
+                         f"{J * N * tg.halfBg * 128:,} >= 2^31 {where}")
+    smem = smem_bytes(U, N, J)
+    if smem > SMEM_PER_BLOCK:
+        raise ValueError(f"K2 (blind_rotate_compact) needs {smem:,} bytes of shared memory "
+                         f"for U={U}, N={N}; the card allows {SMEM_PER_BLOCK:,} {where}")
 
 
 def prepare_compact_bk(bk_rows: torch.Tensor, limbs: int = polymul.LIMBS) -> torch.Tensor:
@@ -114,6 +147,7 @@ def _launch(acc0: torch.Tensor, bara: torch.Tensor, key: torch.Tensor,
     from ..kernels import build
 
     B, U, N, n = _shapes(acc0, bara, key, params)
+    check_kernel_domain(params)
     for name, x in (("acc0", acc0), ("bara", bara), ("key", key)):
         if (x.device != acc0.device or x.dtype != torch.int32 or not x.is_contiguous()
                 or x.data_ptr() % 4):

@@ -11,7 +11,10 @@ gives the scan form's bits at every parameter set.
 
 :func:`blind_rotate_ntt_v1` is the wrapper.  For a tensor on the CPU it runs
 :func:`blind_rotate_ntt_v1_plain`; for a CUDA tensor it launches the
-hand-written kernel in ``csrc/blind_rotate_ntt_v1.cu`` or raises.
+hand-written int8 tensor-core kernel in ``csrc/blind_rotate_ntt_v1.cu`` (the
+dataflow of ``csrc/crt_ntt_mma.cuh``, shared with K1, over this form's own
+key, transposed on the chip) or raises: :func:`check_kernel_domain` refuses,
+by name and before any launch, a shape the kernel does not take.
 ``launches`` counts kernel launches and nothing else.
 """
 
@@ -19,11 +22,24 @@ from __future__ import annotations
 
 import torch
 
-from .blind_rotate import check_operands, cmux_ntt_step, launch_error
+from .blind_rotate import (check_crt_mma_domain, check_operands, cmux_ntt_step,
+                           kernel_scratch_bytes, launch_error)
 from .ntt import NttContext, join_key_bytes
 
 #: Number of launches of the CUDA kernel in this process.
 launches = 0
+
+#: Shared memory per warp of the kernel's key loader (``V1Key::kStageBytes``):
+#: a 16 x 16 tile per byte plane, each padded by 16 bytes.
+STAGE_BYTES = 2 * (16 * 16 + 16)
+
+
+def check_kernel_domain(U: int, ctx: NttContext, tg) -> None:
+    """K3's domain (``csrc/blind_rotate_ntt_v1.cu``): raise ``ValueError``, by
+    name, for a shape its launcher refuses.  Its pointwise sum reduces C2
+    first, so either prime pair is in range."""
+    check_crt_mma_domain("K3 (blind_rotate_ntt_v1)", U, ctx, tg, reduce_c2=True,
+                         stage_bytes=STAGE_BYTES)
 
 
 def check_shapes(acc0: torch.Tensor, bara: torch.Tensor, key: torch.Tensor,
@@ -81,19 +97,22 @@ def _launch(acc0: torch.Tensor, bara: torch.Tensor, key: torch.Tensor,
     from ..kernels import build
 
     B, U, N, n = check_shapes(acc0, bara, key, ctx, params)
-    check_operands(acc0, (("acc0", acc0, torch.int32), ("bara", bara, torch.int32),
-                          ("key", key, torch.int8), ("W", ctx.W, torch.int16),
-                          ("Winv", ctx.Winv, torch.int16)))
-    out = torch.empty_like(acc0)
     tg = params.tgsw_params
+    check_kernel_domain(U, ctx, tg)
+    check_operands(acc0, (("acc0", acc0, torch.int32), ("bara", bara, torch.int32),
+                          ("key", key, torch.int8), ("W_mma", ctx.W_mma, torch.int8),
+                          ("Winv_mma", ctx.Winv_mma, torch.int8)))
+    out = torch.empty_like(acc0)
+    scratch = torch.empty(kernel_scratch_bytes(B, U, ctx, tg), dtype=torch.uint8,
+                          device=acc0.device)
     lib = build.load("blind_rotate_ntt_v1")
     stream = torch.cuda.current_stream(acc0.device).cuda_stream
     with torch.cuda.device(acc0.device):
         err = lib.blind_rotate_ntt_v1_launch(
-            acc0.data_ptr(), bara.data_ptr(), key.data_ptr(), ctx.W.data_ptr(),
-            ctx.Winv.data_ptr(), out.data_ptr(), B, n, U, N, ctx.R, tg.l, tg.Bgbit,
-            ctx.key_limbs, ctx.key_limb_bits, ctx.primes[0], ctx.primes[1],
-            ctx.crt_inv, stream)
+            acc0.data_ptr(), bara.data_ptr(), key.data_ptr(), ctx.W_mma.data_ptr(),
+            ctx.Winv_mma.data_ptr(), scratch.data_ptr(), scratch.numel(), out.data_ptr(),
+            B, n, U, N, ctx.R, tg.l, tg.Bgbit, ctx.key_limbs, ctx.key_limb_bits,
+            ctx.primes[0], ctx.primes[1], ctx.crt_inv, stream)
     if err != 0:
         raise launch_error("blind_rotate_ntt_v1", lib, err)
     return out

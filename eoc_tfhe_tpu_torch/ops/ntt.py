@@ -17,8 +17,9 @@ Two key layouts, one per kernel.  The "ntt_kernel" form stores the balanced
 residues ``(n, P, F, K, M)`` over ``KERNEL_PRIMES`` (:func:`kernel_key_residues`),
 with K = J*R rows (j, r1) and M = L*U*R columns (limb, u, s), as the byte
 planes of the int8 tensor-core fragments its kernel reads
-(:func:`prepare_kernel_key`, :func:`unpack_kernel_key`); the TPU's DMA
-padding has no use here.  The "ntt_scan" form stores the same residues over
+(:func:`prepare_kernel_key`, :func:`unpack_kernel_key`), K and M padded to
+the kernel's 16-row tiles (the TPU's wider DMA padding has no use here).
+The "ntt_scan" form stores the same residues over
 ``DEFAULT_PRIMES`` as the reference's v1 kernel key ``(n, P, F, K, 2M)`` int8,
 the last axis the [lo | hi] bytes of each residue (:func:`prepare_key_ntt`),
 and :func:`scan_to_v1_key` / :func:`v1_key_to_scan` carry it to and from the
@@ -286,32 +287,45 @@ def mma_b_fragments(B: torch.Tensor, p: int) -> torch.Tensor:
         torch.int8).contiguous()
 
 
+def pad16(x: int) -> int:
+    """x rounded up to a multiple of 16: the kernels' m16 / k16 tiles."""
+    return -(-x // 16) * 16
+
+
 def pack_kernel_key(res: torch.Tensor) -> torch.Tensor:
-    """(n, P, F, K, M) int16 residues -> (n, P, F, M/16, K/16, 32, 16) int8:
-    per m16 x k16 tile of T^T (T = the (K, M) residues of one frequency), lane
-    4g + tig holds lo(a0), lo(a1), hi(a0), hi(a1), a0 = T^T[16mt + g, 16kt +
-    4tig + e], a1 = the same 8 rows on (e < 4): the m16n8k16 A fragments."""
+    """(n, P, F, K, M) int16 residues -> (n, P, F, Mp/16, Kp/16, 32, 16) int8,
+    K and M zero-padded to Kp, Mp (multiples of 16: zero rows and columns add
+    nothing to any sum): per m16 x k16 tile of T^T (T = the (Kp, Mp)
+    residues of one frequency), lane 4g + tig holds lo(a0), lo(a1), hi(a0),
+    hi(a1), a0 = T^T[16mt + g, 16kt + 4tig + e], a1 = the same 8 rows on
+    (e < 4): the m16n8k16 A fragments."""
     n, P, F, K, M = res.shape
-    lo, hi = split_bytes(res.to(torch.int16))
-    x = torch.stack([lo, hi]).to(torch.int8).reshape(2, n, P, F, K // 16, 4, 4, M // 16, 2, 8)
+    Kp, Mp = pad16(K), pad16(M)
+    res = torch.nn.functional.pad(res.to(torch.int16), (0, Mp - M, 0, Kp - K))
+    lo, hi = split_bytes(res)
+    x = torch.stack([lo, hi]).to(torch.int8).reshape(2, n, P, F, Kp // 16, 4, 4, Mp // 16, 2, 8)
     # (q, n, P, F, kt, tig, e, mt, half, g) -> (n, P, F, mt, kt, g, tig, q, half, e)
     return x.permute(1, 2, 3, 7, 4, 9, 5, 0, 8, 6).reshape(
-        n, P, F, M // 16, K // 16, 32, 16).contiguous()
+        n, P, F, Mp // 16, Kp // 16, 32, 16).contiguous()
 
 
-def unpack_kernel_key(key: torch.Tensor) -> torch.Tensor:
-    """Inverse of :func:`pack_kernel_key`: (..., F, M/16, K/16, 32, 16) int8 ->
-    (..., F, K, M) int16 residues."""
+def unpack_kernel_key(key: torch.Tensor, K: int | None = None,
+                      M: int | None = None) -> torch.Tensor:
+    """Inverse of :func:`pack_kernel_key`: (..., F, Mp/16, Kp/16, 32, 16) int8
+    -> (..., F, K, M) int16 residues, cropped to the true K and M where given
+    (else the padded Kp, Mp)."""
     *lead, F, MT, KT, _, _ = key.shape
     x = key.reshape(-1, F, MT, KT, 8, 4, 2, 2, 4)      # (b, F, mt, kt, g, tig, q, half, e)
     x = x.permute(6, 0, 1, 3, 5, 8, 2, 7, 4).to(torch.int16)   # (q, b, F, kt, tig, e, mt, half, g)
-    return (x[0] + 256 * x[1]).reshape(*lead, F, 16 * KT, 16 * MT)
+    res = (x[0] + 256 * x[1]).reshape(*lead, F, 16 * KT, 16 * MT)
+    return res[..., :16 * KT if K is None else K, :16 * MT if M is None else M]
 
 
 def prepare_kernel_key(bk_rows: torch.Tensor, ctx: NttContext) -> torch.Tensor:
     """(n, J, U, N) int32 TGSW rows -> the "ntt_kernel" form's key: the
     residues of :func:`kernel_key_residues` as :func:`pack_kernel_key`'s byte
-    planes, (n, P, F, M/16, K/16, 32, 16) int8 (the same bytes as int16)."""
+    planes, (n, P, F, Mp/16, Kp/16, 32, 16) int8 (the bytes of the int16
+    residues, K and M padded to multiples of 16)."""
     return pack_kernel_key(kernel_key_residues(bk_rows, ctx))
 
 

@@ -10,13 +10,15 @@ keys (from the same random TGSW rows) through its own functions.  Shapes:
 the 128-bit set over all 630 steps; K1 (``blind_rotate_ntt``) at B=1 (the
 API's batch) and B=8192 (the NAND path's), K2 (``blind_rotate_compact``,
 exact key) at B=1024 (the circuit path's) and B=8192, K3
-(``blind_rotate_ntt_v1``) at B=1024.  Times are CUDA-event means over
-several launches after one warm launch.  Prints the card and one JSON line.
+(``blind_rotate_ntt_v1``, over ``DEFAULT_PRIMES``) at B=1024 and B=8192.
+Times are CUDA-event means over several launches after one warm launch.
+Prints the card and one JSON line.
 
-``--stages`` also builds ``csrc/blind_rotate_ntt.cu`` with
-``-DCRT_MMA_PROFILE`` (a diagnostic library beside the others in
-``_build/``), runs it once at B=1 and at B=8192 and prints the share of
-block 0's clock cycles in each stage of a step.
+``--stages`` also builds ``csrc/blind_rotate_ntt.cu`` and
+``csrc/blind_rotate_ntt_v1.cu`` with ``-DCRT_MMA_PROFILE`` (diagnostic
+libraries beside the others in ``_build/``), runs each once at B=1 and at
+B=8192 and prints the share of block 0's clock cycles in each stage of a
+step (for K3 the pointwise stages include its key loader's transpose).
 """
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0, help="seed of the random rows and inputs")
     ap.add_argument("--label", default="", help="name of this checkout in the output")
     ap.add_argument("--stages", action="store_true",
-                    help="also print K1's clock cycles by stage (diagnostic build)")
+                    help="also print K1's and K3's clock cycles by stage (diagnostic builds)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("kernel_times: no CUDA device is available", file=sys.stderr)
@@ -80,7 +82,7 @@ def main() -> int:
     ctx = ntt.kernel_context_for_params(p, device=dev)
     key = ntt.prepare_kernel_key(rows, ctx)
     if args.stages:
-        stages(build, blind_rotate, acc, bara, key, ctx, p)
+        stages(build, blind_rotate, "blind_rotate_ntt", acc, bara, key, ctx, p)
     k1 = lambda a, b: blind_rotate.blind_rotate_ntt(a, b, key, ctx, p)  # noqa: E731
     times["blind_rotate_ntt B=1"] = ms(k1, 1, 10)
     times["blind_rotate_ntt B=8192"] = ms(k1, 8192, 2)
@@ -91,37 +93,43 @@ def main() -> int:
     times["blind_rotate_compact B=8192"] = ms(k2, 8192, 2)
     sctx = ntt.context_for_params(p, device=dev)
     skey = ntt.prepare_key_ntt(rows, sctx)
+    if args.stages:
+        stages(build, blind_rotate_v1, "blind_rotate_ntt_v1", acc, bara, skey, sctx, p)
     k3 = lambda a, b: blind_rotate_v1.blind_rotate_ntt_v1(a, b, skey, sctx, p)  # noqa: E731
     times["blind_rotate_ntt_v1 B=1024"] = ms(k3, 1024, 3)
+    times["blind_rotate_ntt_v1 B=8192"] = ms(k3, 8192, 2)
     print(json.dumps({"label": args.label, "package": os.path.dirname(build.SRC_DIR),
                       "card": smi.splitlines()[0], "ms": times}), flush=True)
     return 0
 
 
-def stages(build, blind_rotate, acc, bara, key, ctx, p) -> None:
-    """K1's clock cycles by stage, from its -DCRT_MMA_PROFILE build."""
-    out = build.BUILD_DIR / "libblind_rotate_ntt-stages.so"
-    cmd = build._command("blind_rotate_ntt", out)
+def stages(build, module, name, acc, bara, key, ctx, p) -> None:
+    """Clock cycles by stage of kernel ``name`` (K1 or K3, whose wrapper
+    module's ``_launch`` is called), from its -DCRT_MMA_PROFILE build."""
+    out = build.BUILD_DIR / f"lib{name}-stages.so"
+    cmd = build._command(name, out)
     subprocess.run(cmd[:1] + ["-DCRT_MMA_PROFILE"] + cmd[1:], check=True, capture_output=True)
     lib = ctypes.CDLL(str(out))
-    lib.blind_rotate_ntt_launch.argtypes = build.SIGNATURES["blind_rotate_ntt"][1]
-    lib.blind_rotate_ntt_launch.restype = ctypes.c_int
+    fn_name, argtypes = build.SIGNATURES[name]
+    getattr(lib, fn_name).argtypes = argtypes
+    getattr(lib, fn_name).restype = ctypes.c_int
     lib.kernel_error_string.argtypes = [ctypes.c_int]
     lib.kernel_error_string.restype = ctypes.c_char_p
-    lib.blind_rotate_ntt_phase_clocks.argtypes = [ctypes.c_void_p]
+    phase_clocks = getattr(lib, f"{name}_phase_clocks")
+    phase_clocks.argtypes = [ctypes.c_void_p]
     load = build.load
-    build.load = lambda name: lib
+    build.load = lambda _: lib
     names = ["digits0", "fwd0", "pw0", "inv0", "digits1", "fwd1", "pw1", "inv1"]
     try:
         for B in (1, 8192):
             clocks = (ctypes.c_ulonglong * 8)()
-            lib.blind_rotate_ntt_phase_clocks(ctypes.addressof(clocks))
+            phase_clocks(ctypes.addressof(clocks))
             before = list(clocks)
-            blind_rotate._launch(acc[:B].contiguous(), bara[:, :B].contiguous(), key, ctx, p)
+            module._launch(acc[:B].contiguous(), bara[:, :B].contiguous(), key, ctx, p)
             torch.cuda.synchronize()
-            lib.blind_rotate_ntt_phase_clocks(ctypes.addressof(clocks))
+            phase_clocks(ctypes.addressof(clocks))
             d = [x - y for x, y in zip(clocks, before)]
-            print(f"blind_rotate_ntt B={B} stages: {sum(d) / p.n:.0f} clocks per step of "
+            print(f"{name} B={B} stages: {sum(d) / p.n:.0f} clocks per step of "
                   "block 0; " + ", ".join(f"{k} {100 * x / sum(d):.1f}%" for k, x in zip(names, d)),
                   flush=True)
     finally:

@@ -3,19 +3,26 @@
 On the CPU the blind rotation runs its plain version, held bit for bit
 against the reference's XLA scan (``ntt.blind_rotate_ntt``) and its Pallas
 kernel in interpret mode.  The rotation is exact for any TGSW rows, so the
-full-width case uses random rows instead of a 128-bit keygen.
+full-width case uses random rows instead of a 128-bit keygen.  The C5 cases
+(ROADMAP) hold the padded key at shapes whose K or M is no multiple of 16,
+and the kernels' domain checks.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from eoc_tfhe_tpu.core import bootstrap as jboot
+from eoc_tfhe_tpu.core import gates as jgates
+from eoc_tfhe_tpu.core import keys as jkeys
 from eoc_tfhe_tpu.core import params as jparams
 from eoc_tfhe_tpu.ops import ntt as jntt
 from eoc_tfhe_tpu.ops import pallas_ntt_blindrot2 as jpnb2
 
-from eoc_tfhe_tpu_torch.ops import blind_rotate, ntt
+from eoc_tfhe_tpu_torch.core import bootstrap, gates, keys, lwe, params
+from eoc_tfhe_tpu_torch.ops import blind_rotate, blind_rotate_compact, blind_rotate_v1, ntt
 
 CASES = {
     "toy": lambda: jparams.test_params(n=16, N=64, k=1, l=3, Bgbit=7),
@@ -101,3 +108,113 @@ def test_wrapper_takes_the_plain_version_on_the_cpu():
     with pytest.raises(ValueError, match="shape mismatch"):
         blind_rotate.blind_rotate_ntt(torch.from_numpy(acc0), torch.from_numpy(bara[:, :1]),
                                       key, ctx, p)
+
+
+# --- C5: the padded key and the kernels' domains ------------------------------
+
+C5_CASES = {
+    "k2_l2_N64": lambda: jparams.test_params(k=2, l=2, N=64, n=4),     # M = 72, U*R = 24
+    "k1_l4_N64": lambda: jparams.test_params(k=1, l=4, N=64),          # K = 64
+    "k1_l2_N128": lambda: jparams.test_params(k=1, l=2, N=128),        # F = 16
+}
+
+
+@pytest.mark.parametrize("case", list(C5_CASES))
+def test_packed_key_round_trips_with_padding(case):
+    p = C5_CASES[case]()
+    tg = p.tgsw_params
+    rows, _, _ = _inputs(p, 2, 1, seed=5)
+    ctx = ntt.kernel_context_for_params(p, device="cpu")
+    res = ntt.kernel_key_residues(torch.from_numpy(rows), ctx)
+    K, M = tg.kpl * ctx.R, ctx.key_limbs * (tg.tlwe_params.k + 1) * ctx.R
+    key = ntt.pack_kernel_key(res)
+    assert tuple(key.shape) == (2, 2, ctx.F, ntt.pad16(M) // 16, ntt.pad16(K) // 16, 32, 16)
+    assert torch.equal(ntt.unpack_kernel_key(key, K, M), res)
+    padded = ntt.unpack_kernel_key(key)
+    assert not padded[..., K:, :].any() and not padded[..., :, M:].any()
+
+
+@pytest.mark.parametrize("case", list(C5_CASES))
+def test_plain_rotation_over_the_padded_key_matches_reference_scan(case):
+    p = C5_CASES[case]()
+    rows, acc0, bara = _inputs(p, min(p.n, 6), 3, seed=6)
+    sctx = jntt.context_for_params(p)
+    want = np.asarray(jntt.blind_rotate_ntt(
+        jnp.asarray(acc0), jnp.asarray(bara), jntt.prepare_key_ntt_np(rows, sctx), p, sctx))
+    ctx = ntt.kernel_context_for_params(p, device="cpu")
+    key = ntt.prepare_kernel_key(torch.from_numpy(rows), ctx)
+    out = blind_rotate.blind_rotate_ntt(torch.from_numpy(acc0), torch.from_numpy(bara),
+                                        key, ctx, p)
+    np.testing.assert_array_equal(out.numpy(), want)
+
+
+def test_c5_default_eval_key_at_k2_matches_reference_nand():
+    """ROADMAP C5: the default ("auto") eval key at k = 2 (M = 72) used to
+    raise in ``pack_kernel_key``; its NAND now has the reference's words."""
+    p = C5_CASES["k2_l2_N64"]()
+    jk = jkeys.new_random_gate_bootstrapping_secret_keyset(jax.random.key(31), p)
+    bk = jk.cloud.bk
+    tk = keys.keyset_from_numpy(
+        np.asarray(jk.lwe_key.s), np.asarray(jk.tgsw_key.key), np.asarray(bk.bk),
+        np.asarray(bk.bk_variance), np.asarray(bk.ks.ks), np.asarray(bk.ks.variance),
+        device="cpu")
+    ek = bootstrap.prepare_eval_key_ntt(tk.cloud, p, kernel="auto")
+    assert ek.form == "ntt_kernel" and ek.bk_ntt_kernel.shape[3] == 80 // 16
+    bits = np.array([True, False, True])
+    ct = jgates.encrypt_bit(jax.random.key(32), jnp.asarray(bits), jk.lwe_key, p)
+    ref = jgates.nand(ct, ct, jboot.prepare_eval_key_ntt(jk.cloud, p), p)
+
+    def t(x):
+        return torch.from_numpy(np.array(x))
+    pct = lwe.LweCiphertext(a=t(ct.a), b=t(ct.b), current_variance=t(ct.current_variance))
+    out = gates.nand(pct, pct, ek, p)
+    np.testing.assert_array_equal(out.a.numpy(), np.asarray(ref.a))
+    np.testing.assert_array_equal(out.b.numpy(), np.asarray(ref.b))
+    np.testing.assert_allclose(out.current_variance.numpy(), np.asarray(ref.current_variance),
+                               rtol=1e-6)        # both sides compute it in float32
+    np.testing.assert_array_equal(gates.decrypt_bit(out, tk.lwe_key).numpy(), [False, True, False])
+
+
+DOMAIN_SETS = {
+    "test_params": lambda: params.test_params(),
+    "128-bit": lambda: params.default_128bit_params(),
+    "80-bit": lambda: params.default_80bit_params(),
+    "k2_l2_N64": lambda: params.test_params(k=2, l=2, N=64, n=4),
+    "k1_l4_N64": lambda: params.test_params(k=1, l=4, N=64),
+    "k1_l2_N128": lambda: params.test_params(k=1, l=2, N=128),
+    "k1_l2_N32": lambda: params.test_params(k=1, l=2, N=32),
+}
+
+
+@pytest.mark.parametrize("case", list(DOMAIN_SETS))
+def test_kernel_domains_take_the_shipped_sets_and_the_c5_shapes(case):
+    p = DOMAIN_SETS[case]()
+    tg = p.tgsw_params
+    U = tg.tlwe_params.k + 1
+    blind_rotate.check_kernel_domain(U, ntt.kernel_context_for_params(p, device="cpu"), tg)
+    blind_rotate_v1.check_kernel_domain(U, ntt.context_for_params(p, device="cpu"), tg)
+    if tg.halfBg <= 128:           # the compact form's own digit domain (ROADMAP C1)
+        blind_rotate_compact.check_kernel_domain(p)
+    assert blind_rotate.crt_mma_smem_bytes(
+        U, ntt.context_for_params(p, device="cpu"), tg,
+        blind_rotate_v1.STAGE_BYTES) <= blind_rotate.SMEM_PER_BLOCK
+
+
+def test_kernel_domains_refuse_by_name():
+    big = params.test_params(N=1024, k=2, l=3, Bgbit=7)       # U = 3, K = 72
+    with pytest.raises(ValueError, match=r"K2 \(blind_rotate_compact\) needs 393,488 bytes "
+                                         r"of shared memory for U=3, N=1024; the card allows "
+                                         r"232,448"):
+        blind_rotate_compact.check_kernel_domain(big)
+    tg = big.tgsw_params
+    with pytest.raises(ValueError, match=r"K1 .* takes K = kpl\*R up to 64 rows; .* K=72"):
+        blind_rotate.check_kernel_domain(3, ntt.kernel_context_for_params(big, device="cpu"), tg)
+    wide = params.test_params(N=1024, k=2, l=1, Bgbit=8)      # U = 3, K = 24, M = 72
+    tg = wide.tgsw_params
+    with pytest.raises(ValueError, match=r"K3 .* needs 260,608 bytes of shared memory .* "
+                                         r"the card allows 232,448"):
+        blind_rotate_v1.check_kernel_domain(3, ntt.context_for_params(wide, device="cpu"), tg)
+    with pytest.raises(ValueError, match=r"K2 .* takes k = 1 or 2"):
+        blind_rotate_compact.check_kernel_domain(params.test_params(k=3, l=2, N=64))
+    with pytest.raises(ValueError, match=r"K2 .* takes N a power of two from 32 to 1024"):
+        blind_rotate_compact.check_kernel_domain(params.test_params(N=16))

@@ -204,3 +204,83 @@ def test_maj_and_refresh_on_the_card_go_through_the_compact_kernel(cuda_device):
     out = gates.refresh(gates.not_(ca), ek, p)
     assert blind_rotate_compact.launches == before + 2
     assert torch.equal(gates.decrypt_bit(out, ks.lwe_key), ~bits[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", RAGGED)
+@pytest.mark.parametrize("primes", [ntt.DEFAULT_PRIMES, ntt.KERNEL_PRIMES])
+@pytest.mark.parametrize("case", list(K1_CASES))
+def test_v1_kernel_matches_plain_at_ragged_batches(case, primes, B, cuda_device):
+    p = K1_CASES[case]()
+    tg = p.tgsw_params
+    rows, acc0, bara = _rotation_inputs(p, B, 30 + B, cuda_device)
+    ctx = ntt.make_context(tg.tlwe_params.N, tg.kpl, tg.halfBg, primes, device=cuda_device)
+    key = ntt.prepare_key_ntt(rows, ctx)
+    before = blind_rotate_v1.launches
+    out = blind_rotate_v1.blind_rotate_ntt_v1(acc0, bara, key, ctx, p)
+    torch.cuda.synchronize()
+    assert blind_rotate_v1.launches == before + 1
+    assert torch.equal(out, blind_rotate_v1.blind_rotate_ntt_v1_plain(acc0, bara, key, ctx, p))
+
+
+#: ROADMAP C5: k = 2 (U*R = 24, M = 72), K = 64, and N = 128; and N = 32
+#: (R = 4: U*R = 8, M = 24; K2 at 4 warps of one tile each).
+C5_CASES = {
+    "k2_l2_N64": lambda: params.test_params(k=2, l=2, N=64, n=4),
+    "k1_l4_N64": lambda: params.test_params(k=1, l=4, N=64),
+    "k1_l2_N128": lambda: params.test_params(k=1, l=2, N=128),
+    "k1_l2_N32": lambda: params.test_params(k=1, l=2, N=32),
+}
+
+
+def _c5_rotation(kernel, p, device):
+    """The kernel's wrapper and plain version and their inputs at (p, B=7)."""
+    tg = p.tgsw_params
+    rows, acc0, bara = _rotation_inputs(p, 7, 40, device)
+    if kernel == "K1":
+        ctx = ntt.kernel_context_for_params(p, device=device)
+        key = ntt.prepare_kernel_key(rows, ctx)
+        return (blind_rotate, lambda: blind_rotate.blind_rotate_ntt(acc0, bara, key, ctx, p),
+                lambda: blind_rotate.blind_rotate_ntt_plain(acc0, bara, key, ctx, p))
+    if kernel == "K3":
+        ctx = ntt.context_for_params(p, device=device)
+        key = ntt.prepare_key_ntt(rows, ctx)
+        return (blind_rotate_v1,
+                lambda: blind_rotate_v1.blind_rotate_ntt_v1(acc0, bara, key, ctx, p),
+                lambda: blind_rotate_v1.blind_rotate_ntt_v1_plain(acc0, bara, key, ctx, p))
+    key = blind_rotate_compact.prepare_compact_bk(rows, 4)
+    assert tg.halfBg <= 128
+    return (blind_rotate_compact,
+            lambda: blind_rotate_compact.blind_rotate_compact(acc0, bara, key, p),
+            lambda: blind_rotate_compact.blind_rotate_compact_plain(acc0, bara, key, p))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["K1", "K2", "K3"])
+@pytest.mark.parametrize("case", list(C5_CASES))
+def test_kernels_match_plain_at_the_c5_shapes(case, kernel, cuda_device):
+    """Each kernel takes the C5 shapes (part A widened all three), bit for
+    bit against its plain version."""
+    module, run, plain = _c5_rotation(kernel, C5_CASES[case](), cuda_device)
+    before = module.launches
+    out = run()
+    torch.cuda.synchronize()
+    assert module.launches == before + 1
+    assert torch.equal(out, plain())
+
+
+@pytest.mark.gpu
+def test_kernels_refuse_by_name_before_any_launch(cuda_device):
+    big = params.test_params(N=1024, k=2, l=3, Bgbit=7, n=2)    # K2: 393,488 bytes of smem
+    rows, acc0, bara = _rotation_inputs(big, 3, 50, cuda_device)
+    key = blind_rotate_compact.prepare_compact_bk(rows, 4)
+    before = blind_rotate_compact.launches
+    with pytest.raises(ValueError, match="K2 .* needs 393,488 bytes of shared memory"):
+        blind_rotate_compact.blind_rotate_compact(acc0, bara, key, big)
+    assert blind_rotate_compact.launches == before
+    gen = torch.Generator(device=cuda_device).manual_seed(51)
+    ks = keys.new_random_gate_bootstrapping_secret_keyset(gen, big)
+    with pytest.raises(ValueError, match="K1 .* takes K = kpl\\*R up to 64 rows"):
+        bootstrap.prepare_eval_key_ntt(ks.cloud, big)
+    with pytest.raises(ValueError, match="K2 .* needs 393,488 bytes"):
+        bootstrap.prepare_eval_key_fused(ks.cloud, big)

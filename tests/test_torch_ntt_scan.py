@@ -146,14 +146,16 @@ def test_wrapper_checks_shapes_and_devices():
 
 
 def test_kernel_build_hashes_included_headers(tmp_path, monkeypatch):
+    # K3 runs on K1's tensor-core header; the CUDA-core header is gone
     assert [s.name for s in build._sources("blind_rotate_ntt_v1")] == [
-        "blind_rotate_ntt_v1.cu", "crt_ntt_rotate.cuh"]
+        "blind_rotate_ntt_v1.cu", "crt_ntt_mma.cuh"]
+    assert not (build.SRC_DIR / "crt_ntt_rotate.cuh").exists()
     assert "blind_rotate_ntt_v1" in build.SIGNATURES
     for src in build.SRC_DIR.iterdir():
         (tmp_path / src.name).write_bytes(src.read_bytes())
     monkeypatch.setattr(build, "SRC_DIR", tmp_path)
-    for header_name, users in (("crt_ntt_rotate.cuh", {"blind_rotate_ntt_v1"}),
-                               ("crt_ntt_mma.cuh", {"blind_rotate_ntt"})):
+    for header_name, users in (("crt_ntt_mma.cuh", {"blind_rotate_ntt", "blind_rotate_ntt_v1"}),
+                               ("blind_rotate_ntt_v1.cu", {"blind_rotate_ntt_v1"})):
         before = {name: build._target(name) for name in build.SIGNATURES}
         header = tmp_path / header_name
         header.write_bytes(header.read_bytes() + b"\n// edited\n")

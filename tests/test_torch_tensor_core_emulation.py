@@ -1,7 +1,8 @@
 """Limb-by-limb emulations of the tensor-core kernels' arithmetic, against the JAX package.
 
-``csrc/blind_rotate_ntt.cu`` (K1, ``crt_ntt_mma.cuh``) and
-``csrc/blind_rotate_compact.cu`` (K2) run only on the card.  Their exactness
+``csrc/blind_rotate_ntt.cu`` (K1) and ``csrc/blind_rotate_ntt_v1.cu`` (K3),
+both on ``crt_ntt_mma.cuh``, and ``csrc/blind_rotate_compact.cu`` (K2) run
+only on the card.  Their exactness
 rests on the int8 splits they make and on bounds for the int32 sums of each
 MMA.  The emulations below repeat that arithmetic in torch on the CPU: the
 same byte planes read from the same layouts (the key's and the matrices'
@@ -20,7 +21,7 @@ from eoc_tfhe_tpu.core import params as jparams
 from eoc_tfhe_tpu.ops import ntt as jntt
 
 from eoc_tfhe_tpu_torch.core.numeric import wrap32
-from eoc_tfhe_tpu_torch.ops import blind_rotate, blind_rotate_compact, ntt, rotate
+from eoc_tfhe_tpu_torch.ops import blind_rotate, blind_rotate_compact, blind_rotate_v1, ntt, rotate
 
 I32 = 1 << 31
 
@@ -30,6 +31,12 @@ CASES = {
     "bgbit10": lambda: jparams.test_params(n=8, N=64, k=1, l=2, Bgbit=10),
     "full_width_128": lambda: jparams.default_128bit_params(),
     "full_width_80": lambda: jparams.default_80bit_params(),
+}
+#: ROADMAP C5: shapes whose K or M is no multiple of 16, or whose U*R != 16.
+C5_CASES = {
+    "k2_l2_N64": lambda: jparams.test_params(k=2, l=2, N=64, n=4),     # M = 72, U*R = 24
+    "k1_l4_N64": lambda: jparams.test_params(k=1, l=4, N=64),          # K = 64
+    "k1_l2_N128": lambda: jparams.test_params(k=1, l=2, N=128),        # F = 16
 }
 
 
@@ -83,18 +90,73 @@ def _key_planes(key_step: torch.Tensor) -> torch.Tensor:
     return x.permute(6, 0, 1, 3, 5, 8, 2, 7, 4).reshape(2, P, F, 16 * KT, 16 * MT)
 
 
+#: K3's staging tile per warp (``V1Key::kPlane``): 16 x 16 bytes a plane + 16.
+V1_PLANE = 16 * 16 + 16
+
+
+def _v1_stage_offsets():
+    """Byte offsets in the staging tile of ``V1Key::load``: where lane 16q + r
+    stores byte m of its row (column r of plane q), (32, 16), and where lane
+    (g, tig) reads its words lo a0, lo a1, hi a0, hi a1, (32, 4)."""
+    lane = torch.arange(32)
+    store = ((lane >> 4) * V1_PLANE + (lane & 15))[:, None] + 16 * torch.arange(16)[None, :]
+    base = (lane >> 2) * 16 + 4 * (lane & 3)
+    load = base[:, None] + torch.tensor([0, 128, V1_PLANE, V1_PLANE + 128])[None, :]
+    return store, load
+
+
+def _v1_loader(key8_step: torch.Tensor, K: int, M: int) -> torch.Tensor:
+    """``V1Key::load`` of K3, lane by lane, for every tile of one step: the v1
+    key (P, F, K, 2M) int8 -> the pointwise A fragments (P, F, Mp/16, Kp/16,
+    32, 16).  Lane 16q + r of tile (mt, kt) loads the 16 bytes of plane q
+    (lo, hi) in row k = 16kt + r, columns m = 16mt.. (bytes k*2M + q*M + m of
+    the frequency's rows, zero where k >= K or m >= M), stores byte m at its
+    staging offset, and reads back its four fragment words."""
+    P, F = key8_step.shape[:2]
+    MT, KT = ntt.pad16(M) // 16, ntt.pad16(K) // 16
+    flat = torch.cat([key8_step.reshape(P, F, K * 2 * M),
+                      torch.zeros((P, F, 1), dtype=torch.int8)], dim=-1)
+    lane = torch.arange(32)
+    q, r = (lane >> 4)[:, None], (lane & 15)[:, None]
+    k = (16 * torch.arange(KT))[None, :, None, None] + r                  # (1, KT, 32, 1)
+    m = (16 * torch.arange(MT))[:, None, None, None] + torch.arange(16)   # (MT, 1, 1, 16)
+    src = torch.where((k < K) & (m < M), k * 2 * M + q * M + m, K * 2 * M)   # the zero byte
+    store, load = _v1_stage_offsets()
+    stage = torch.zeros((P, F, MT, KT, 2 * V1_PLANE), dtype=torch.int8)
+    stage[..., store] = flat[:, :, src]                   # (P, F, MT, KT, lane, m)
+    return stage[..., load[:, :, None] + torch.arange(4)].reshape(P, F, MT, KT, 32, 16)
+
+
 def emulate_k1_step(acc, key_step, bara_i, ctx, params):
-    """One CMux step as ``crt_ntt_mma.cuh`` computes it."""
+    """One CMux step as K1 computes it (``crt_ntt_mma.cuh`` over the packed key)."""
+    return _emulate_crt_step(acc, _key_planes(key_step), bara_i, ctx, params, reduce_c2=False)
+
+
+def emulate_k3_step(acc, key8_step, bara_i, ctx, params):
+    """One CMux step as K3 computes it: ``crt_ntt_mma.cuh`` over the v1 key as
+    its loader reads it, with C2 reduced before the c16 product."""
+    tg = params.tgsw_params
+    K, M = tg.kpl * ctx.R, ctx.key_limbs * acc.shape[1] * ctx.R
+    keyp = _key_planes(_v1_loader(key8_step, K, M))
+    return _emulate_crt_step(acc, keyp, bara_i, ctx, params, reduce_c2=True)
+
+
+def _emulate_crt_step(acc, keyp, bara_i, ctx, params, reduce_c2):
+    """One CMux step of ``crt_ntt_mma.cuh``; keyp: (2, P, F, Kp, Mp) int8
+    [lo, hi] planes of T[f][k][m] as the pointwise stage's A fragments hold
+    them.  The digits are zero-padded to Kp rows, as the digit pass does;
+    rows m >= M of the inverse are dropped, as the accumulator update does."""
     tg = params.tgsw_params
     B, U, N = acc.shape
     R, F, L = ctx.R, ctx.F, ctx.key_limbs
+    M = L * U * R
     dig = _digits(acc, bara_i, tg)
     dig = dig.reshape(B, -1, F, R).transpose(-1, -2).reshape(B, -1, F)   # (B, K, t)
+    dig = torch.nn.functional.pad(dig, (0, 0, 0, keyp.shape[3] - dig.shape[1]))   # (B, Kp, t)
     if tg.halfBg <= 128:
         dplanes = [dig.to(torch.int8)]
     else:
         dplanes = [x.to(torch.int8) for x in ntt.split_bytes(dig)]
-    keyp = _key_planes(key_step)
     res = []
     for pi, p in enumerate(ctx.primes):
         Wp = _b_planes(ctx.W_mma[pi])[:, :F, :F]              # (4, t, f)
@@ -110,14 +172,16 @@ def emulate_k1_step(acc, key_step, bara_i, ctx, params):
         c0 = _int32_sum(_mma(lo, Alo, eq))
         c1 = _int32_sum(_mma(hi, Alo, eq) + _mma(lo, Ahi, eq))
         c2 = _int32_sum(_mma(hi, Ahi, eq))
-        c16 = int(ntt.balanced_mod(torch.tensor(1 << 16), p))     # 2^16 mod p, ~2^10
-        chat = ntt.balanced_mod(_int32_sum(c0 + 256 * c1 + c16 * c2), p)   # (B, f, M)
+        c16 = int(ntt.balanced_mod(torch.tensor(1 << 16), p))     # 2^16 mod p
+        if reduce_c2:                     # K3: |c16| up to 16386 over DEFAULT_PRIMES
+            c2 = ntt.balanced_mod(c2, p)
+        chat = ntt.balanced_mod(_int32_sum(c0 + 256 * c1 + c16 * c2), p)   # (B, f, Mp)
         clo, chi = (x.to(torch.int8) for x in ntt.split_bytes(chat))
         Vp = _b_planes(ctx.Winv_mma[pi])[:, :F, :F]           # (4, f, t)
         eq = "bfm,ft->bmt"
         c0 = _mma(clo, Vp[0], eq) + _mma(chi, Vp[2], eq)
         c1 = _mma(clo, Vp[1], eq) + _mma(chi, Vp[3], eq)
-        res.append(ntt.balanced_mod(_int32_sum(c0 + 256 * _int32_sum(c1)), p))
+        res.append(ntt.balanced_mod(_int32_sum(c0 + 256 * _int32_sum(c1)), p)[:, :M])
     p0, p1 = ctx.primes
     q = ntt.balanced_mod(_int32_sum((res[1] - res[0]) * ctx.crt_inv), p1)
     V = _int32_sum(res[0] + q * p0).reshape(B, L, U, R, F)
@@ -127,11 +191,12 @@ def emulate_k1_step(acc, key_step, bara_i, ctx, params):
 
 
 K1_STEPS = {"full_width_128": 3, "full_width_80": 2}
+K1_CASES = {**CASES, **{c: C5_CASES[c] for c in ("k2_l2_N64", "k1_l4_N64")}}
 
 
-@pytest.mark.parametrize("case", list(CASES))
+@pytest.mark.parametrize("case", list(K1_CASES))
 def test_k1_emulation_matches_reference_scan(case):
-    p = CASES[case]()
+    p = K1_CASES[case]()
     n_steps = K1_STEPS.get(case, min(p.n, 6))
     rows, acc0, bara = _inputs(p, n_steps, 3, seed=21)
     sctx = jntt.context_for_params(p)
@@ -162,6 +227,77 @@ def test_k1_matrix_fragments_hold_the_context(case):
             assert torch.equal(planes[2, :F, :F] + 256 * planes[3, :F, :F],
                                ntt.balanced_mod(256 * full, prime))
             assert not planes[:, F:].any() and not planes[:, :, F:].any()
+
+
+K3_STEPS = {"full_width_128": 2, "full_width_80": 2}
+
+
+@pytest.mark.parametrize("primes", ["default", "kernel"])
+@pytest.mark.parametrize("case", list(CASES) + ["k2_l2_N64"])
+def test_k3_emulation_matches_reference_scan(case, primes):
+    """K3's arithmetic over its own v1 key, either prime pair: over
+    DEFAULT_PRIMES c16 = -16386 (mod 40961), so the plain pointwise sum would
+    leave int32; with C2 reduced first every MMA sum stays inside it."""
+    p = {**CASES, **C5_CASES}[case]()
+    tg = p.tgsw_params
+    pr = ntt.DEFAULT_PRIMES if primes == "default" else ntt.KERNEL_PRIMES
+    n_steps = K3_STEPS.get(case, min(p.n, 6))
+    rows, acc0, bara = _inputs(p, n_steps, 3, seed=23)
+    sctx = jntt.make_context(N=tg.tlwe_params.N, J=tg.kpl, halfBg=tg.halfBg, primes=pr)
+    want = np.asarray(jntt.blind_rotate_ntt(
+        jnp.asarray(acc0), jnp.asarray(bara), jntt.prepare_key_ntt_np(rows, sctx), p, sctx))
+    ctx = ntt.make_context(tg.tlwe_params.N, tg.kpl, tg.halfBg, pr, device="cpu")
+    key8 = ntt.prepare_key_ntt(torch.from_numpy(rows), ctx)
+    acc = torch.from_numpy(acc0)
+    for i in range(n_steps):
+        acc = emulate_k3_step(acc, key8[i], torch.from_numpy(bara[i]), ctx, p)
+    np.testing.assert_array_equal(acc.numpy(), want)
+
+
+@pytest.mark.parametrize("case", ["test_params", "k2_l2_N64", "k1_l4_N64"])
+def test_k3_loader_gives_the_packed_fragments(case):
+    """The v1 key as K3's loader reads it is K1's packed key of the same
+    residues, zero padding included."""
+    p = {**CASES, **C5_CASES}[case]()
+    tg = p.tgsw_params
+    rows, _, _ = _inputs(p, 2, 1, seed=24)
+    ctx = ntt.context_for_params(p, device="cpu")
+    res = ntt.kernel_key_residues(torch.from_numpy(rows), ctx)
+    K, M = res.shape[-2:]
+    assert K == tg.kpl * ctx.R and M == ctx.key_limbs * (tg.tlwe_params.k + 1) * ctx.R
+    frags = _v1_loader(ntt.split_key_bytes(res)[0], K, M)
+    assert torch.equal(frags, ntt.pack_kernel_key(res)[0])
+    # no two lanes store one byte; each byte store of the warp touches words
+    # in distinct banks, and each 32-bit load hits 32 distinct banks
+    store, load = _v1_stage_offsets()
+    assert store.unique().numel() == store.numel()
+    for x in store.T:
+        words = (x // 4).unique()
+        assert (words % 32).unique().numel() == words.numel()
+    for x in load.T:
+        assert ((x // 4) % 32).unique().numel() == 32
+
+
+@pytest.mark.parametrize("case", ["test_params", "full_width_128", "full_width_80"])
+def test_pointwise_bound_is_a_function_of_the_primes(case):
+    """The launcher's pointwise check, as ``check_crt_mma_domain`` mirrors it:
+    over DEFAULT_PRIMES only the C2-reduced sum fits int32 (K3); over
+    KERNEL_PRIMES the plain sum fits too (K1)."""
+    p = CASES[case]()
+    tg = p.tgsw_params
+    U = tg.tlwe_params.k + 1
+    kctx = ntt.kernel_context_for_params(p, device="cpu")
+    sctx = ntt.context_for_params(p, device="cpu")
+    blind_rotate.check_kernel_domain(U, kctx, tg)
+    blind_rotate_v1.check_kernel_domain(U, kctx, tg)
+    blind_rotate_v1.check_kernel_domain(U, sctx, tg)
+    with pytest.raises(ValueError, match="pointwise int32 sum"):
+        blind_rotate.check_kernel_domain(U, sctx, tg)
+    Kp = ntt.pad16(tg.kpl * sctx.R)
+    c16 = [abs(int(ntt.balanced_mod(torch.tensor(1 << 16), q))) for q in sctx.primes]
+    assert c16 == [16386, 4095]
+    assert Kp * 2**14 * (513 + max(c16)) >= 2**31
+    assert Kp * 2**14 * 513 + max(c * (q - 1) // 2 for c, q in zip(c16, sctx.primes)) < 2**31
 
 
 # --- K2: the direct negacyclic product on byte limbs -------------------------
