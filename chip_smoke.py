@@ -45,7 +45,24 @@ Phases, in order; any failure exits non-zero:
      the reference's vectors, the JWT gate, and uint8 add, subtract,
      less-than, equals, select and multiply on seeded and full uploads, one
      value per call (batch 1), each decrypted and checked, with the host
-     seconds of each call.
+     seconds of each call;
+ 15. the served path: ``FrameworkConfig().make_gate_server`` over phase 4's
+     keyset and eval key; SERVED_REQUESTS single-ciphertext NAND requests
+     (half seeded uploads, half full ones, host tensors as a client holds
+     them) from CLIENTS threads, at the default pipeline chunk (128) and at
+     ``pipeline_chunk=2048``; every result decrypted and held word for word
+     against one direct ``gates.nand`` call on the same stacked inputs;
+     flushes, requests/s, per-request p50/p99 latency (submit to the
+     future's completion) and K1 launches; then UINT8_REQUESTS
+     ``submit_uint8`` requests each of add, sub and mul, decrypted and
+     checked, with their seconds;
+ 16. the process runtime: ``Process(process_id="smoke")`` on the card at the
+     default params handles a message log (Info, GenerateSecretKey, and
+     Eval chunks running the reference's Lua cases: integer and string round
+     trips, 15 + 27, 50 - 8, and uint8 add and subtract through
+     ``Tfhe.addUint8`` / ``subtractUint8``), every output checked, with the
+     seconds of each message and the K1 launches; the log is then replayed
+     on a fresh ``Process`` and every response must be byte-identical.
 The three kernels are printed as one ``{"kernels": [...]}`` line.  The last
 line is {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
@@ -58,6 +75,7 @@ import os
 import re
 import subprocess
 import sys
+import threading
 import time
 
 import torch
@@ -66,14 +84,18 @@ import torch
 INT8_OPS_PER_S = 1979e12
 HBM_BYTES_PER_S = 3.35e12
 
-#: The main path's batch (the reference's default gate batch) and timed calls.
-BATCH = 8192
+#: Timed calls of the main path's batch (``FrameworkConfig().batch_size``).
 ITERS = 2
 #: The circuit path's batch ("batches of 1k ciphertexts") and the classic adder's.
 CIRCUIT_BATCH = 1024
 CLASSIC_BATCH = 32
 #: Batch of the ROADMAP C5 shape cases (not a multiple of a block's 8 samples).
 C5_BATCH = 7
+#: The served path: client threads, and the chunk timed beside the default.
+CLIENTS = 8
+WIDE_CHUNK = 2048
+#: ``submit_uint8`` requests of each op.
+UINT8_REQUESTS = 64
 
 
 def c5_params(params):
@@ -266,6 +288,189 @@ def api_smoke(seed: int, gen: torch.Generator) -> None:
           ", ".join(f"{k} {sum(v) / len(v):.3f}" for k, v in secs.items()), flush=True)
 
 
+def _host(ct):
+    """A ciphertext's tensors on the host, as a client holds them."""
+    return type(ct)(*(x.cpu() for x in vars(ct).values()))
+
+
+def served_smoke(ks, ek, p, gen) -> None:
+    """Phase 15: the served path over phase 4's keyset and eval key."""
+    from eoc_tfhe_tpu_torch.config import FrameworkConfig
+    from eoc_tfhe_tpu_torch.core import gates, lwe
+    from eoc_tfhe_tpu_torch.ops import blind_rotate
+
+    cfg = FrameworkConfig()
+    R, half = cfg.serving_max_batch, cfg.serving_max_batch // 2
+    dev = gen.device
+    a = torch.randint(0, 2, (R,), generator=gen, device=dev).bool()
+    b = torch.randint(0, 2, (R,), generator=gen, device=dev).bool()
+    full = [_host(gates.encrypt_bit(gen, x[:half], ks.lwe_key, p)) for x in (a, b)]
+    seeded = [_host(gates.encrypt_bit_seeded(gen, x[half:], ks.lwe_key, p)) for x in (a, b)]
+    reqs = [tuple(lwe.lwe_index(c, i) for c in full) for i in range(half)]
+    reqs += [tuple(type(c)(*(x[i] for x in vars(c).values())) for c in seeded)
+             for i in range(R - half)]
+    stacked = [lwe.LweCiphertext(
+        a=torch.cat([f.a.to(dev), lwe.lwe_seeded_expand(
+            lwe.SeededLweCiphertext(*(x.to(dev) for x in vars(s).values())), p.n).a]),
+        b=torch.cat([f.b, s.b]).to(dev),
+        current_variance=torch.cat([f.current_variance, s.current_variance]).to(dev))
+        for f, s in zip(full, seeded)]
+    direct = _host(gates.nand(*stacked, ek, p))
+    want = ~(a & b).cpu()
+
+    for chunk in (cfg.serving_pipeline_chunk, WIDE_CHUNK):
+        overrides = {} if chunk == cfg.serving_pipeline_chunk else {"pipeline_chunk": chunk}
+        srv = cfg.make_gate_server(ek, p, **overrides)
+        futs, lat, flush_log = [None] * R, [0.0] * R, []
+        run_batch = srv._run_batch
+
+        def logged_batch(qkey, batch, run_batch=run_batch, flush_log=flush_log):
+            t = time.perf_counter()
+            n = run_batch(qkey, batch)
+            flush_log.append(f"{len(batch)} in {time.perf_counter() - t:.3f} s")
+            return n
+        srv._run_batch = logged_batch
+
+        def client(t):
+            for i in range(t, R, CLIENTS):
+                t0 = time.perf_counter()
+                futs[i] = srv.submit("nand", *reqs[i])
+                futs[i].add_done_callback(
+                    lambda f, i=i, t0=t0: lat.__setitem__(i, time.perf_counter() - t0))
+
+        blind_rotate.launches = 0
+        with srv:
+            t0 = time.perf_counter()
+            threads = [threading.Thread(target=client, args=(t,)) for t in range(CLIENTS)]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(timeout=600)
+            check(not any(th.is_alive() for th in threads), "served: a client thread hung")
+            submit_s = time.perf_counter() - t0
+            outs = [f.result(timeout=600) for f in futs]
+            wall = time.perf_counter() - t0
+        launches = blind_rotate.launches
+        got = lwe.lwe_stack(outs)
+        check(all(torch.equal(getattr(got, f), getattr(direct, f))
+                  for f in ("a", "b", "current_variance")),
+              f"served NAND (chunk {chunk}) differs from the direct call")
+        n_wrong = int((gates.decrypt_bit(got, _host(ks.lwe_key)) != want).sum())
+        check(n_wrong == 0, f"{n_wrong} of {R} served NAND outputs decrypt wrong")
+        check(launches > 0, "served: the NAND never launched K1")
+        q = torch.tensor(lat).quantile(torch.tensor([0.5, 0.99], dtype=torch.float64)
+                                       .to(torch.float32)).tolist()
+        print(f"served nand, chunk {chunk}: {R} requests ({half} seeded) from {CLIENTS} "
+              f"clients in {wall:.3f} s, {R / wall:.1f} requests/s; latency p50 "
+              f"{q[0] * 1e3:.2f} ms, p99 {q[1] * 1e3:.2f} ms; all submitted after "
+              f"{submit_s:.3f} s; flushes {srv.stats['flushes']} ({', '.join(flush_log)}), "
+              f"padded slots {srv.stats['padded_slots']}; K1 launches {launches}; "
+              f"word-identical to the direct call, {R} of {R} decrypt correctly", flush=True)
+
+    vals = torch.randint(0, 256, (2, UINT8_REQUESTS), generator=gen, device=dev).tolist()
+
+    def enc8(v, seeded_upload):
+        bits = torch.tensor([(v >> i) & 1 for i in range(8)], dtype=torch.bool, device=dev)
+        fn = gates.encrypt_bit_seeded if seeded_upload else gates.encrypt_bit
+        return _host(fn(gen, bits, ks.lwe_key, p))
+
+    key = _host(ks.lwe_key)
+    with cfg.make_gate_server(ek, p) as srv:
+        for op, fn, seeded_upload in (("add", lambda x, y: x + y, False),
+                                      ("sub", lambda x, y: x - y, True),
+                                      ("mul", lambda x, y: x * y, False)):
+            ins = [(enc8(x, seeded_upload), enc8(y, seeded_upload)) for x, y in zip(*vals)]
+            blind_rotate.launches = 0
+            t0 = time.perf_counter()
+            outs = [f.result(timeout=600) for f in [srv.submit_uint8(op, *c) for c in ins]]
+            secs = time.perf_counter() - t0
+            launches = blind_rotate.launches
+            got = [int(sum(int(bit) << i for i, bit in enumerate(gates.decrypt_bit(o, key))))
+                   for o in outs]
+            want8 = [fn(x, y) % 256 for x, y in zip(*vals)]
+            check(got == want8, f"served uint8 {op}: {got} != {want8}")
+            print(f"served uint8 {op}: {UINT8_REQUESTS} requests "
+                  f"({'seeded' if seeded_upload else 'full'} uploads) in {secs:.3f} s; "
+                  f"K1 launches {launches}; all decrypt correctly", flush=True)
+
+
+#: Phase 16's Eval chunks (the reference's Lua integration cases and the
+#: bootstrapped uint8 add and subtract), each with a test of its output.
+PROCESS_CHUNKS = (
+    ("""local tfhe = require(".tfhe")
+        local info = tfhe.info()
+        tfhe.testJWT();
+        print(info)
+        return "OK" """, lambda out: out.startswith("TFHE Library") and out.endswith("\nOK")),
+    ("""local tfhe = require(".tfhe")
+        tfhe.generateSecretKey("h.p", "")
+        local original = 42
+        local encrypted = tfhe.encryptInteger(original, '')
+        local decrypted = tfhe.decryptInteger(encrypted, '', "h.p", "")
+        return tostring(decrypted)""", lambda out: out == "42"),
+    ("""local tfhe = require(".tfhe")
+        local text = "Hello TFHE!"
+        local encrypted = tfhe.encryptASCIIString(text, #text, '')
+        local decrypted = tfhe.decryptASCIIString(encrypted, #text, '', "h.p", "")
+        return decrypted""", lambda out: out == "Hello TFHE!"),
+    ("""local tfhe = require(".tfhe")
+        local enc_a = tfhe.encryptInteger(15, '')
+        local enc_b = tfhe.encryptInteger(27, '')
+        local enc_sum = tfhe.addCiphertexts(enc_a, enc_b, '')
+        return tostring(tfhe.decryptInteger(enc_sum, '', "h.p", ""))""", lambda out: out == "42"),
+    ("""local tfhe = require(".tfhe")
+        local enc_a = tfhe.encryptInteger(50, '')
+        local enc_b = tfhe.encryptInteger(8, '')
+        local enc_diff = tfhe.subtractCiphertexts(enc_a, enc_b, '')
+        return tostring(tfhe.decryptInteger(enc_diff, '', "h.p", ""))""", lambda out: out == "42"),
+    ("""local a = Tfhe.encryptUint8Seeded(50, '')
+        local b = Tfhe.encryptUint8(8, '')
+        local d = Tfhe.subtractUint8(a, b, '')
+        local s = Tfhe.addUint8(a, b, '')
+        return 'diff=' .. Tfhe.decryptUint8(d, '', 'h.p', '')
+            .. ' sum=' .. Tfhe.decryptUint8(s, '', 'h.p', '')""",
+     lambda out: out == "diff=42 sum=58"),
+)
+
+
+def process_smoke(device=None) -> None:
+    """Phase 16: ``Process`` at the default params on the card."""
+    from eoc_tfhe_tpu_torch.ops import blind_rotate
+    from eoc_tfhe_tpu_torch.process import Process
+
+    env = json.dumps({"Process": {"Id": "smoke", "Owner": "OWNER", "Module": "M1"}})
+
+    def message(action, data="", **tags):
+        return json.dumps({"Target": "smoke", "From": "OWNER", "Block-Height": "1000",
+                           "Tags": [{"name": "Action", "value": action}] +
+                                   [{"name": k, "value": v} for k, v in tags.items()],
+                           "Data": data})
+
+    log = [(message("Info"), lambda out: out.startswith("TFHE Library")),
+           (message("GenerateSecretKey", Token="h.p"), lambda out: len(out) > 100)]
+    log += [(message("Eval", chunk), ok) for chunk, ok in PROCESS_CHUNKS]
+    proc = Process(process_id="smoke", device=device)
+    blind_rotate.launches = 0
+    replies, secs = [], []
+    for msg, ok in log:
+        s, reply = timed(lambda: proc.handle(msg, env))
+        replies.append(reply)
+        secs.append(s)
+        r = json.loads(reply)
+        check(r["Error"] is None, f"process: {r['Error']}")
+        out = r["Output"]["data"]["output"]
+        check(ok(out), f"process: wrong output {out[:200]!r} for {msg[:300]!r}")
+    launches = blind_rotate.launches
+    check(launches == 18, f"process: {launches} K1 launches, want 18 (add 9, sub 9)")
+    print(f"process: {len(log)} messages answered correctly; K1 launches {launches}; "
+          f"seconds per message: " + ", ".join(f"{x:.3f}" for x in secs), flush=True)
+    fresh = Process(process_id="smoke", device=device)
+    replay_s, again = timed(lambda: [fresh.handle(m, e) for m, e in proc.log])
+    check(again == replies, "process: a replayed response differs from the first run's")
+    print(f"process: the log replayed on a fresh Process in {replay_s:.3f} s gave "
+          f"{len(again)} byte-identical responses", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of keys and data")
@@ -332,7 +537,7 @@ def main() -> int:
 
     # 4. main path: 128-bit gate bootstrapping at full batch
     p = params.default_128bit_params()
-    B = BATCH
+    B = FrameworkConfig().batch_size
     t0 = time.perf_counter()
     ks = keys.new_random_gate_bootstrapping_secret_keyset(gen, p, device=dev)
     torch.cuda.synchronize()
@@ -590,6 +795,10 @@ def main() -> int:
 
     # 14. the Tfhe.* string API, one value per call
     api_smoke(args.seed, gen)
+
+    # 15. the served path; 16. the process runtime
+    served_smoke(ks, ek, p, gen)
+    process_smoke()
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -14,8 +14,10 @@ reference's module layout and names:
   circuits.adder                   integer circuits: add, sub, mul, compare, equals, select
   io.tfhe_io                       the reference-compatible wire codec
   api.tfhe / api.jwt               the ``Tfhe.*`` string API and its JWT gate
-  utils.profiling                  per-op timers
-  config                           FrameworkConfig: parameter set, eval-key form, JWT, echo
+  serving                          the batching gate server (GateServer)
+  lua / process                    the Lua interpreter and the AO process runtime (Process, Router)
+  utils.profiling                  per-op timers and torch.profiler regions
+  config                           FrameworkConfig: parameter set, eval-key form, JWT, echo, serving
   kernels.build                    builds ``csrc/*.cu`` with nvcc at first use
 
 Entry points that create tensors take ``device=`` and default to the card;

@@ -213,7 +213,7 @@ class TfheSession:
         self._require_key()
         api = self.gate_api()
         out, _flag = fn(self._import_bits(b64_a), self._import_bits(b64_b), api.eval_key,
-                        api.params)
+                        api.params, rotation_impl=self.config.rotation_impl)
         return self._export_samples(out)
 
     def add_uint8_bits(self, b64_a: str, b64_b: str) -> str:
@@ -244,7 +244,8 @@ class TfheSession:
         api = self.gate_api()
         with op_timer("lessThanUint8Bits"):
             lt = adder.compare_lt(self._import_bits(b64_a), self._import_bits(b64_b),
-                                  api.eval_key, api.params)
+                                  api.eval_key, api.params,
+                                  rotation_impl=self.config.rotation_impl)
             return self._pack_bit_as_u8(lt)
 
     def equals_uint8_bits(self, b64_a: str, b64_b: str) -> str:
@@ -253,7 +254,7 @@ class TfheSession:
         api = self.gate_api()
         with op_timer("equalsUint8Bits"):
             eq = adder.equals(self._import_bits(b64_a), self._import_bits(b64_b),
-                              api.eval_key, api.params)
+                              api.eval_key, api.params, rotation_impl=self.config.rotation_impl)
             return self._pack_bit_as_u8(eq)
 
     def select_uint8_bits(self, b64_c: str, b64_a: str, b64_b: str) -> str:
@@ -263,7 +264,8 @@ class TfheSession:
         with op_timer("selectUint8Bits"):
             cc = self._import_bits(b64_c)
             out = adder.select_word(lwe.lwe_index(cc, 0), self._import_bits(b64_a),
-                                    self._import_bits(b64_b), api.eval_key, api.params)
+                                    self._import_bits(b64_b), api.eval_key, api.params,
+                                    rotation_impl=self.config.rotation_impl)
             return self._export_samples(out)
 
 

@@ -8,17 +8,22 @@ Port of ``eoc_tfhe_tpu/config.py``: the same fields, choices and JSON form.  Wha
     resolves "ntt_rounded" to the exact plan at every parameter set),
     "fused" -> "compact", "rows" -> "compact" with the exact key (the same
     rows and bits as the reference's "rows" form)
-  * ``rotation_impl`` selects the TPU's rotation code in the reference and
-    changes no bits; every choice gives the port's one rotation.
+  * ``rotation_impl`` -> bound into every gate and circuit call (by
+    :meth:`make_gate_api`, :meth:`make_gate_server` and ``api.tfhe``); it
+    selects the TPU's rotation code in the reference and changes no bits:
+    every choice gives the port's one rotation.
   * ``enable_jwt`` / ``jwt_rs256`` -> the JWT gate of ``api.tfhe.Tfhe``
+  * ``batch_size``    -> the batch of ``chip_smoke.py``'s NAND phases
   * ``profile_echo`` -> ``utils.profiling.PROFILER.echo``
     (:meth:`FrameworkConfig.apply_profiling`, run by ``TfheSession``)
+  * ``serving_max_batch`` / ``serving_max_delay_s`` /
+    ``serving_pipeline_chunk`` -> :meth:`make_gate_server`
+    (``serving.GateServer``'s flush policy and chunked pipeline)
 
-The consumers of the remaining fields (``make_gate_server``, ``make_mesh``
-and the benchmark's batch: serving and the parallel paths) are not ported
-yet.  Those fields keep the reference's defaults, so the JSON form matches
-the reference's, and a config that sets any of them to another value is
-refused rather than silently ignored.
+The consumer of ``mesh_dp`` and ``mesh_tp`` (``make_mesh``, the parallel
+paths) is not ported yet.  Those fields keep the reference's defaults, so
+the JSON form matches the reference's, and a config that sets either to
+another value is refused rather than silently ignored.
 """
 
 from __future__ import annotations
@@ -41,10 +46,6 @@ ROTATION_IMPL_CHOICES = ("auto", "gather", "onehot", "barrel")
 NOT_PORTED = {
     "mesh_dp": "make_mesh (parallel)",
     "mesh_tp": "make_mesh (parallel)",
-    "batch_size": "the benchmark's default batch",
-    "serving_max_batch": "make_gate_server (serving)",
-    "serving_max_delay_s": "make_gate_server (serving)",
-    "serving_pipeline_chunk": "make_gate_server (serving)",
 }
 
 _GATES = ("nand", "and_", "or_", "nor", "xor_", "xnor", "andny", "andyn", "orny", "oryn",
@@ -99,18 +100,33 @@ class FrameworkConfig:
 
     def make_gate_api(self, keyset, params: GateBootstrappingParams | None = None):
         """Bound boolean-gate namespace: every gate carries this config's eval
-        key (the reference's ``boots*`` surface with explicit keys)."""
+        key and rotation_impl (the reference's ``boots*`` surface with explicit
+        keys)."""
         from .core import gates
         params = params or self.params()
         ek = self.prepare_eval_key(keyset.cloud, params)
         ns = types.SimpleNamespace(eval_key=ek, params=params)
         for name in _GATES:
-            setattr(ns, name, functools.partial(getattr(gates, name), ek=ek, params=params))
+            setattr(ns, name, functools.partial(getattr(gates, name), ek=ek, params=params,
+                                                rotation_impl=self.rotation_impl))
         ns.not_ = gates.not_
         ns.copy = gates.copy
         ns.constant = functools.partial(gates.constant, params=params,
                                         device=ek.bk_rows.device)
         return ns
+
+    def make_gate_server(self, ek, params: GateBootstrappingParams | None = None,
+                         **overrides):
+        """Batching gate server with this config's flush and pipeline policy
+        (``serving.GateServer``); keyword overrides win, ``device`` among
+        them (the card unless named)."""
+        from .serving import GateServer
+        params = params or self.params()
+        kw = dict(max_batch=self.serving_max_batch, max_delay_s=self.serving_max_delay_s,
+                  rotation_impl=self.rotation_impl,
+                  pipeline_chunk=self.serving_pipeline_chunk)
+        kw.update(overrides)
+        return GateServer(ek, params, **kw)
 
     def apply_profiling(self) -> None:
         """Apply the profiling echo flag to the process profiler."""

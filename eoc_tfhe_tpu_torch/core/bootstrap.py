@@ -27,6 +27,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..config import ROTATION_IMPL_CHOICES
 from .params import GateBootstrappingParams
 from .numeric import mod_switch_from_torus32
 from .lwe import LweCiphertext
@@ -180,12 +181,25 @@ def blind_rotate_inputs(mu: int, ct: LweCiphertext, params: GateBootstrappingPar
     return acc0, bara.t().contiguous()
 
 
+def check_rotation_impl(rotation_impl: str) -> None:
+    """Refuse a ``rotation_impl`` outside ``config.ROTATION_IMPL_CHOICES``.
+
+    The argument picks the reference's monomial-rotation code for the TPU;
+    every choice computes the same bits, and the port has one rotation."""
+    if rotation_impl not in ROTATION_IMPL_CHOICES:
+        raise ValueError(f"unknown rotation impl {rotation_impl!r}; one of "
+                         f"{ROTATION_IMPL_CHOICES}")
+
+
 def bootstrap_woKS(mu: int, ct: LweCiphertext, ek: EvalKey,
-                   params: GateBootstrappingParams) -> LweCiphertext:
+                   params: GateBootstrappingParams,
+                   rotation_impl: str = "auto") -> LweCiphertext:
     """``tfhe_bootstrap_woKS_FFT``: blind-rotate a test vector and extract.
 
     Returns an LWE sample over k*N encrypting ``mu`` times the sign of the
-    phase of ``ct`` (upstream semantics)."""
+    phase of ``ct`` (upstream semantics).  ``rotation_impl`` is checked by
+    :func:`check_rotation_impl` and changes no bits."""
+    check_rotation_impl(rotation_impl)
     tl = params.tgsw_params.tlwe_params
     batch_shape = tuple(ct.b.shape)
     acc0, bara = blind_rotate_inputs(mu, ct, params)
@@ -206,21 +220,19 @@ def bootstrap_woKS(mu: int, ct: LweCiphertext, ek: EvalKey,
 
 
 def compact_round_variance(params: GateBootstrappingParams, limbs: int) -> float:
-    """Variance added by the rounded compact key (``limbs < 4``): an error
-    uniform in +-2^(8*drop-1) per key coefficient, fixed per key, convolved
-    with digits bounded by halfBg over n steps, accumulated coherently
-    (~n^2); normalized torus units."""
-    tg = params.tgsw_params
-    drop = polymul.LIMBS - limbs
-    return (float(params.n) ** 2 * tg.kpl * tg.tlwe_params.N * float(tg.halfBg ** 2)
-            * (float(1 << (16 * drop)) / 12.0) / float(2 ** 64))
+    """Variance added by the rounded compact key (``limbs < 4``): the key
+    rounded to its top ``8 * limbs`` bits (:func:`_key_round_variance`)."""
+    return _key_round_variance(params, 8 * (polymul.LIMBS - limbs))
 
 
 def blind_rotate_output_variance(params: GateBootstrappingParams,
-                                 bk_variance: torch.Tensor) -> torch.Tensor:
+                                 bk_variance: torch.Tensor,
+                                 key_round_bits: int = 0) -> torch.Tensor:
     """Output phase variance of a blind rotation (float32 scalar on the key's
     device), the reference's recurrence in the same float32 operations:
-    n * (kpl*N*E[d^2]*Var_bk + decomposition term)."""
+    n * (kpl*N*E[d^2]*Var_bk + decomposition term).  ``key_round_bits > 0``
+    adds the rounded-key plans' error, a fixed error per key coefficient
+    that accumulates coherently over the n steps (~n^2)."""
     tg = params.tgsw_params
     tl = tg.tlwe_params
     N = tl.N
@@ -234,32 +246,53 @@ def blind_rotate_output_variance(params: GateBootstrappingParams,
         return torch.tensor(x, dtype=torch.float32, device=bk_variance.device)
 
     step_var = f32(tg.kpl * N * d2) * bk_variance.to(torch.float32) + f32(dec_step)
-    return f32(params.n) * step_var
+    var = f32(params.n) * step_var
+    if key_round_bits:
+        var = var + f32(_key_round_variance(params, key_round_bits))
+    return var
 
 
-def predicted_bootstrap_variance(params: GateBootstrappingParams) -> float:
-    """Host-side worst-case output phase variance of one gate bootstrap with
-    key switching (every keyswitch digit nonzero); feeds
-    ``gates.check_noise_budget``."""
+def _key_round_variance(params: GateBootstrappingParams, key_round_bits: int) -> float:
+    """A key rounded to its top 32 - rb bits: an error uniform in +-2^(rb-1)
+    per key coefficient, fixed per key, convolved with digits bounded by
+    halfBg over the n steps and accumulated coherently (~n^2); normalized
+    torus units."""
+    tg = params.tgsw_params
+    return (float(params.n) ** 2 * tg.kpl * tg.tlwe_params.N * float(tg.halfBg ** 2)
+            * (float(1 << (2 * key_round_bits)) / 12.0) / float(2 ** 64))
+
+
+def predicted_bootstrap_variance(params: GateBootstrappingParams,
+                                 bk_variance: float | None = None,
+                                 with_keyswitch: bool = True,
+                                 key_round_bits: int = 0) -> float:
+    """Host-side worst-case output phase variance of one gate bootstrap
+    (with key switching unless ``with_keyswitch`` is false; every keyswitch
+    digit nonzero); feeds ``gates.check_noise_budget`` and the noise tests.
+    ``bk_variance`` defaults to the set's alpha_min^2."""
     tg = params.tgsw_params
     tl = tg.tlwe_params
-    bk_variance = float(tl.alpha_min) ** 2
+    if bk_variance is None:
+        bk_variance = float(tl.alpha_min) ** 2
     eps_mean = 2.0 ** -(tg.l * tg.Bgbit + 1)
     eps_u2 = 2.0 ** (-2 * tg.l * tg.Bgbit) / 12.0
     kN2 = 1.0 + tl.k * tl.N / 2.0
     dec_step = 0.5 * (kN2 * eps_mean) ** 2 + kN2 * eps_u2
     d2 = (2.0 * tg.halfBg) ** 2 / 12.0
     var = params.n * (tg.kpl * tl.N * d2 * bk_variance + dec_step)
-    n_in = tl.k * tl.N
-    tb = params.ks.t * params.ks.basebit
-    var += n_in * params.ks.t * float(params.in_out_params.alpha_min) ** 2
-    var += n_in * 2.0 ** (-2 * tb) / 24.0
+    if key_round_bits:
+        var += _key_round_variance(params, key_round_bits)
+    if with_keyswitch:
+        n_in = tl.k * tl.N
+        tb = params.ks.t * params.ks.basebit
+        var += n_in * params.ks.t * float(params.in_out_params.alpha_min) ** 2
+        var += n_in * 2.0 ** (-2 * tb) / 24.0
     return var
 
 
 def bootstrap(mu: int, ct: LweCiphertext, ek: EvalKey,
-              params: GateBootstrappingParams) -> LweCiphertext:
+              params: GateBootstrappingParams, rotation_impl: str = "auto") -> LweCiphertext:
     """``tfhe_bootstrap_FFT``: woKS bootstrap followed by key switching."""
-    u = bootstrap_woKS(mu, ct, ek, params)
+    u = bootstrap_woKS(mu, ct, ek, params, rotation_impl)
     return keyswitch_apply(u, ek.ks, t=params.ks.t, basebit=params.ks.basebit,
                            prepared=ek.ks_prepared)

@@ -108,74 +108,76 @@ def linear_input(offset_t32: int, ca: LweCiphertext, cb: LweCiphertext,
 
 
 def _gate(offset_t32: int, ca: LweCiphertext, cb: LweCiphertext,
-          sa: int, sb: int, ek: EvalKey, params: GateBootstrappingParams) -> LweCiphertext:
+          sa: int, sb: int, ek: EvalKey, params: GateBootstrappingParams,
+          rotation_impl: str = "auto") -> LweCiphertext:
     """temp = (0, offset) + sa*ca + sb*cb ; bootstrap(mu=1/8, temp)."""
     check_noise_budget(params, sa, sb)
-    return bootstrap(MU_BOOL, linear_input(offset_t32, ca, cb, sa, sb), ek, params)
+    return bootstrap(MU_BOOL, linear_input(offset_t32, ca, cb, sa, sb), ek, params,
+                     rotation_impl)
 
 
-def nand(ca, cb, ek, params):
+def nand(ca, cb, ek, params, rotation_impl="auto"):
     """NAND = bootstrap((0,1/8) - ca - cb)."""
-    return _gate(_t32(1, 8), ca, cb, -1, -1, ek, params)
+    return _gate(_t32(1, 8), ca, cb, -1, -1, ek, params, rotation_impl)
 
 
-def and_(ca, cb, ek, params):
+def and_(ca, cb, ek, params, rotation_impl="auto"):
     """AND = bootstrap((0,-1/8) + ca + cb)."""
-    return _gate(_t32(-1, 8), ca, cb, 1, 1, ek, params)
+    return _gate(_t32(-1, 8), ca, cb, 1, 1, ek, params, rotation_impl)
 
 
-def or_(ca, cb, ek, params):
+def or_(ca, cb, ek, params, rotation_impl="auto"):
     """OR = bootstrap((0,1/8) + ca + cb)."""
-    return _gate(_t32(1, 8), ca, cb, 1, 1, ek, params)
+    return _gate(_t32(1, 8), ca, cb, 1, 1, ek, params, rotation_impl)
 
 
-def nor(ca, cb, ek, params):
+def nor(ca, cb, ek, params, rotation_impl="auto"):
     """NOR = bootstrap((0,-1/8) - ca - cb)."""
-    return _gate(_t32(-1, 8), ca, cb, -1, -1, ek, params)
+    return _gate(_t32(-1, 8), ca, cb, -1, -1, ek, params, rotation_impl)
 
 
-def xor_(ca, cb, ek, params):
+def xor_(ca, cb, ek, params, rotation_impl="auto"):
     """XOR = bootstrap((0,1/4) + 2*(ca + cb))."""
-    return _gate(_t32(1, 4), ca, cb, 2, 2, ek, params)
+    return _gate(_t32(1, 4), ca, cb, 2, 2, ek, params, rotation_impl)
 
 
-def xnor(ca, cb, ek, params):
+def xnor(ca, cb, ek, params, rotation_impl="auto"):
     """XNOR = bootstrap((0,-1/4) - 2*(ca + cb))."""
-    return _gate(_t32(-1, 4), ca, cb, -2, -2, ek, params)
+    return _gate(_t32(-1, 4), ca, cb, -2, -2, ek, params, rotation_impl)
 
 
-def andny(ca, cb, ek, params):
+def andny(ca, cb, ek, params, rotation_impl="auto"):
     """ANDNY = (not a) and b = bootstrap((0,-1/8) - ca + cb)."""
-    return _gate(_t32(-1, 8), ca, cb, -1, 1, ek, params)
+    return _gate(_t32(-1, 8), ca, cb, -1, 1, ek, params, rotation_impl)
 
 
-def andyn(ca, cb, ek, params):
+def andyn(ca, cb, ek, params, rotation_impl="auto"):
     """ANDYN = a and (not b) = bootstrap((0,-1/8) + ca - cb)."""
-    return _gate(_t32(-1, 8), ca, cb, 1, -1, ek, params)
+    return _gate(_t32(-1, 8), ca, cb, 1, -1, ek, params, rotation_impl)
 
 
-def orny(ca, cb, ek, params):
+def orny(ca, cb, ek, params, rotation_impl="auto"):
     """ORNY = (not a) or b = bootstrap((0,1/8) - ca + cb)."""
-    return _gate(_t32(1, 8), ca, cb, -1, 1, ek, params)
+    return _gate(_t32(1, 8), ca, cb, -1, 1, ek, params, rotation_impl)
 
 
-def oryn(ca, cb, ek, params):
+def oryn(ca, cb, ek, params, rotation_impl="auto"):
     """ORYN = a or (not b) = bootstrap((0,1/8) + ca - cb)."""
-    return _gate(_t32(1, 8), ca, cb, 1, -1, ek, params)
+    return _gate(_t32(1, 8), ca, cb, 1, -1, ek, params, rotation_impl)
 
 
-def mux(c, a, b, ek, params):
+def mux(c, a, b, ek, params, rotation_impl="auto"):
     """MUX(c, a, b) = c ? a : b: two woKS bootstraps, a sum and one keyswitch
     (upstream ``bootsMUX``)."""
     check_noise_budget(params, 1, 1)
     mu = _t32(1, 8)
-    u1 = bootstrap_woKS(mu, linear_input(_t32(-1, 8), c, a, 1, 1), ek, params)
-    u2 = bootstrap_woKS(mu, linear_input(_t32(-1, 8), b, c, 1, -1), ek, params)
+    u1 = bootstrap_woKS(mu, linear_input(_t32(-1, 8), c, a, 1, 1), ek, params, rotation_impl)
+    u2 = bootstrap_woKS(mu, linear_input(_t32(-1, 8), b, c, 1, -1), ek, params, rotation_impl)
     return keyswitch_apply(linear_input(mu, u1, u2, 1, 1), ek.ks, t=params.ks.t,
                            basebit=params.ks.basebit, prepared=ek.ks_prepared)
 
 
-def maj(ca, cb, cc, ek, params):
+def maj(ca, cb, cc, ek, params, rotation_impl="auto"):
     """MAJ(a, b, c) = bootstrap((0, 0) + ca + cb + cc): 3-input majority.
 
     The phase of a + b + c on the +-1/8 encoding is (2t-3)/8 for t ones; its
@@ -183,12 +185,12 @@ def maj(ca, cb, cc, ek, params):
     one-bootstrap full adder (``circuits/adder.py``).
     """
     check_noise_budget(params, 1, 1, 1)
-    return bootstrap(MU_BOOL, lwe_add(lwe_add(ca, cb), cc), ek, params)
+    return bootstrap(MU_BOOL, lwe_add(lwe_add(ca, cb), cc), ek, params, rotation_impl)
 
 
-def refresh(ct, ek, params):
+def refresh(ct, ek, params, rotation_impl="auto"):
     """Noise refresh: bootstrap(mu=1/8, ct) re-encrypts sign(phase) at the
     fresh gate-output noise level.  The static rail models the worst input
     it is fed, a fast-adder raw sum with coefficients (2, 1, 1, 1)."""
     check_noise_budget(params, 2, 1, 1, 1)
-    return bootstrap(MU_BOOL, ct, ek, params)
+    return bootstrap(MU_BOOL, ct, ek, params, rotation_impl)

@@ -55,6 +55,11 @@ class SecretKeySet:
     tgsw_key: TLweKey
     cloud: CloudKeySet
 
+    @property
+    def extracted_key(self) -> LweKey:
+        """``tLweExtractKey``: the ring key flattened to an LWE key over k*N."""
+        return LweKey(s=self.tgsw_key.key.reshape(-1))
+
 
 def _f32_square(alpha: float, device) -> torch.Tensor:
     return torch.tensor(np.float32(alpha) ** 2, dtype=torch.float32, device=device)

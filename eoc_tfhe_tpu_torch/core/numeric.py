@@ -72,6 +72,14 @@ def double_to_t32(d: float) -> int:
     return v - _TWO32 if v >= 2**31 else v
 
 
+def t32_to_double(t) -> np.ndarray:
+    """Torus32 -> centered double in [-1/2, 1/2) (upstream ``t32tod``).
+
+    Host-side numpy; exact (int32 / 2^32 is representable in float64).
+    """
+    return np.asarray(t, np.int32).astype(np.float64) / _TWO32
+
+
 # ---------------------------------------------------------------------------
 # Tensor paths.
 # ---------------------------------------------------------------------------

@@ -1,7 +1,9 @@
-"""Batched TGSW layer: encryption of small integers and the gadget decomposition.
+"""Batched TGSW layer: encryption of small integers, the gadget decomposition
+and the external product.
 
-Port of ``eoc_tfhe_tpu/core/tgsw.py``.  The external product itself lives in
-the blind rotation (``ops/blind_rotate.py``).
+Port of ``eoc_tfhe_tpu/core/tgsw.py``.  The blind rotation fuses its own
+external products (``ops/blind_rotate*.py``); :func:`tgsw_extern_mul` is the
+stand-alone product, plain torch ops as in the reference.
 """
 
 from __future__ import annotations
@@ -13,7 +15,8 @@ import torch
 
 from .numeric import as_u32, wrap32
 from .params import TGswParams
-from .tlwe import TLweKey, tlwe_sym_encrypt_zero
+from .tlwe import TLweCiphertext, TLweKey, tlwe_sym_encrypt_zero
+from ..ops import polymul
 
 
 @dataclasses.dataclass
@@ -61,3 +64,23 @@ def decompose_h(sample_polys: torch.Tensor, params: TGswParams) -> torch.Tensor:
     digits = ((u[..., None, :] >> shifts[:, None]) & params.maskMod) - params.halfBg
     kp1, N = sample_polys.shape[-2:]
     return digits.to(torch.int32).reshape(sample_polys.shape[:-2] + (kp1 * l, N))
+
+
+def tgsw_extern_mul(acc: TLweCiphertext, tgsw_rows: torch.Tensor, params: TGswParams,
+                    row_variance: float | torch.Tensor = 0.0) -> TLweCiphertext:
+    """External product  tgsw (x) acc  (upstream ``tGswExternMulToTLwe``,
+    functional: returns the product instead of accumulating in place).
+
+    Args:
+      acc: batched TLWE (..., k+1, N).
+      tgsw_rows: shared TGSW rows (kpl, k+1, N) int32, as for the
+        bootstrapping key.
+    The variance adds the first-order term kpl * N * halfBg^2 * row_variance,
+    in float32 as the reference does.
+    """
+    digits = decompose_h(acc.a, params)                # (..., kpl, N)
+    out = polymul.small_by_torus_matmul(digits, tgsw_rows, x_bound=params.halfBg)
+    kpl, N = params.kpl, params.tlwe_params.N
+    row_var = torch.as_tensor(row_variance, dtype=torch.float32, device=out.device)
+    var = acc.current_variance + np.float32(kpl * N * params.halfBg ** 2) * row_var
+    return TLweCiphertext(a=out, current_variance=var)

@@ -31,6 +31,11 @@ class TLweCiphertext:
     a: torch.Tensor  # (..., k+1, N) int32
     current_variance: torch.Tensor  # (...) float32
 
+    @property
+    def b(self) -> torch.Tensor:
+        """The body polynomial, (..., N)."""
+        return self.a[..., -1, :]
+
 
 def tlwe_key_gen(generator: torch.Generator, params: TLweParams) -> TLweKey:
     """Uniform binary ring key (upstream ``tLweKeyGen``)."""
@@ -51,6 +56,24 @@ def tlwe_sym_encrypt_zero(generator: torch.Generator, alpha: float,
                      dtype=torch.float32, device=a.device)
     return TLweCiphertext(a=torch.cat([a, b[..., None, :]], dim=-2),
                           current_variance=var)
+
+
+def tlwe_phase(ct: TLweCiphertext, tlwe_key: TLweKey) -> torch.Tensor:
+    """``tLwePhase``: b - sum_i key_i * a_i (exact), (..., N) int32."""
+    dot = polymul.torus_by_small_shared_matmul(ct.a[..., :-1, :], tlwe_key.key)
+    return wrap32(ct.b.to(torch.int64) - dot.to(torch.int64))
+
+
+def tlwe_add(x: TLweCiphertext, y: TLweCiphertext) -> TLweCiphertext:
+    """``tLweAddTo`` semantics, functional: x + y."""
+    return TLweCiphertext(a=wrap32(x.a.to(torch.int64) + y.a.to(torch.int64)),
+                          current_variance=x.current_variance + y.current_variance)
+
+
+def tlwe_sub(x: TLweCiphertext, y: TLweCiphertext) -> TLweCiphertext:
+    """``tLweSubTo`` semantics, functional: x - y."""
+    return TLweCiphertext(a=wrap32(x.a.to(torch.int64) - y.a.to(torch.int64)),
+                          current_variance=x.current_variance + y.current_variance)
 
 
 def tlwe_noiseless_trivial(mu_poly: torch.Tensor, k: int) -> TLweCiphertext:

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` exposes a plain C launch function; it is compiled for
 ``sm_90a`` into ``_build/lib<name>-<hash>.so`` (the hash is of the source and
 of every ``csrc/`` header it includes, so an edited source or header is
-rebuilt) at first use and loaded once per process.
-Nothing is built when a module is imported.
+rebuilt) at first use and loaded once per process.  A lock makes the first
+use from several threads (the gate server's worker and its callers) build
+once.  Nothing is built when a module is imported.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -111,9 +113,17 @@ def build_all() -> dict[str, tuple[float, str]]:
     return logs
 
 
-@functools.lru_cache(maxsize=None)
+_LOAD_LOCK = threading.Lock()
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of kernel ``name``, built first if needed."""
+    with _LOAD_LOCK:
+        return _load(name)
+
+
+@functools.lru_cache(maxsize=None)
+def _load(name: str) -> ctypes.CDLL:
     out = _target(name)
     if not out.exists():
         build_all()

@@ -1,10 +1,11 @@
 """Per-op timing and structured counters.
 
-Port of ``eoc_tfhe_tpu/utils/profiling.py`` (``Profiler``, ``PROFILER`` and
-``op_timer``): per-op host wall time and call counts, opt-in echo lines like
-the reference wrapper's.  An op's time is what its caller waits for: the API
-methods end in a host copy of their result, which waits for the card.
-The reference's ``trace`` (a ``jax.profiler`` region) is not ported.
+Port of ``eoc_tfhe_tpu/utils/profiling.py``: ``Profiler``, ``PROFILER`` and
+``op_timer`` give per-op host wall time and call counts, with opt-in echo
+lines like the reference wrapper's.  An op's time is what its caller waits
+for: the API methods end in a host copy of their result, which waits for the
+card.  :func:`trace` is the reference's ``jax.profiler`` region on
+``torch.profiler``.
 """
 
 from __future__ import annotations
@@ -66,3 +67,25 @@ PROFILER = Profiler()
 
 def op_timer(name: str):
     return PROFILER.op(name)
+
+
+@contextlib.contextmanager
+def trace(name: str, tensorboard_dir: str | None = None):
+    """A named ``torch.profiler`` region.  Without ``tensorboard_dir`` it only
+    labels the region for a profiler the caller runs; with it, it profiles
+    the region (the CPU, and the card when there is one) and writes a trace
+    file into ``tensorboard_dir`` for TensorBoard."""
+    import torch
+
+    if tensorboard_dir is None:
+        with torch.profiler.record_function(name):
+            yield
+        return
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(
+            activities=activities,
+            on_trace_ready=torch.profiler.tensorboard_trace_handler(tensorboard_dir)):
+        with torch.profiler.record_function(name):
+            yield

@@ -5,10 +5,13 @@ skip without one. They import only the port, so they also run where JAX is
 absent:  python -m pytest --noconftest tests/test_torch_card.py -q
 """
 
+import threading
+
 import pytest
 import torch
 
-from eoc_tfhe_tpu_torch.core import bootstrap, gates, keys, params
+from eoc_tfhe_tpu_torch.core import bootstrap, gates, keys, lwe, params
+from eoc_tfhe_tpu_torch.kernels import build
 from eoc_tfhe_tpu_torch.ops import blind_rotate, blind_rotate_compact, blind_rotate_v1, ntt
 
 CASES = {
@@ -284,3 +287,68 @@ def test_kernels_refuse_by_name_before_any_launch(cuda_device):
         bootstrap.prepare_eval_key_ntt(ks.cloud, big)
     with pytest.raises(ValueError, match="K2 .* needs 393,488 bytes"):
         bootstrap.prepare_eval_key_fused(ks.cloud, big)
+
+
+@pytest.mark.gpu
+def test_served_nand_on_the_card_matches_the_direct_call(cuda_device):
+    """The gate server on the card (compute and download streams, pinned
+    host buffers, several chunks) gives the direct call's words, for full
+    and seeded uploads."""
+    from eoc_tfhe_tpu_torch.serving import GateServer
+    p = CASES["toy"]()
+    gen = torch.Generator(device=cuda_device).manual_seed(60)
+    ks = keys.new_random_gate_bootstrapping_secret_keyset(gen, p)
+    ek = bootstrap.prepare_eval_key_ntt(ks.cloud, p)
+    B = 37
+    a = torch.randint(0, 2, (B,), generator=gen, device=cuda_device).bool()
+    b = torch.randint(0, 2, (B,), generator=gen, device=cuda_device).bool()
+    ca, cb = (gates.encrypt_bit(gen, x, ks.lwe_key, p) for x in (a, b))
+    sa, sb = (gates.encrypt_bit_seeded(gen, x, ks.lwe_key, p) for x in (a, b))
+    before = blind_rotate.launches
+    with GateServer(ek, p, max_batch=64, max_delay_s=0.01, pipeline_chunk=8) as srv:
+        futs = [srv.submit("nand", lwe.lwe_index(ca, i), lwe.lwe_index(cb, i))
+                for i in range(B)]
+        futs += [srv.submit("nand", *(lwe.SeededLweCiphertext(c.seed[i], c.b[i],
+                                                              c.current_variance[i])
+                                      for c in (sa, sb)))
+                 for i in range(B)]
+        outs = lwe.lwe_stack([f.result(timeout=300) for f in futs])
+    assert blind_rotate.launches > before
+    assert outs.a.device.type == "cpu" and srv.stats["padded_slots"] == 0
+    direct = gates.nand(ca, cb, ek, p)
+    seeded = gates.nand(lwe.lwe_seeded_expand(sa, p.n), lwe.lwe_seeded_expand(sb, p.n), ek, p)
+    for field in ("a", "b", "current_variance"):
+        want = torch.cat([getattr(direct, field), getattr(seeded, field)]).cpu()
+        assert torch.equal(getattr(outs, field), want), field
+    assert torch.equal(gates.decrypt_bit(outs, lwe.LweKey(s=ks.lwe_key.s.cpu())),
+                       torch.cat([~(a & b)] * 2).cpu())
+
+
+@pytest.mark.gpu
+def test_two_threads_first_use_of_build_load_builds_once(cuda_device, tmp_path, monkeypatch):
+    """Two threads that load a kernel for the first time at once run nvcc
+    once and get the same library."""
+    name = "blind_rotate_compact"
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(build, "SIGNATURES", {name: build.SIGNATURES[name]})
+    builds = []
+    real_build_all = build.build_all
+    monkeypatch.setattr(build, "build_all", lambda: builds.append(1) or real_build_all())
+    build._load.cache_clear()
+    barrier = threading.Barrier(2)
+    libs = []
+
+    def first_use():
+        barrier.wait()
+        libs.append(build.load(name))
+    threads = [threading.Thread(target=first_use) for _ in range(2)]
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=900)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        build._load.cache_clear()      # later tests load from the package's build dir
+    assert len(builds) == 1 and len(libs) == 2 and libs[0] is libs[1]
+    assert [p.name for p in tmp_path.glob("*.so")] == [build._target(name).name]

@@ -267,13 +267,18 @@ def test_config_fields_validate_and_roundtrip_like_reference():
     assert config.FrameworkConfig.from_json(cfg.to_json()) == cfg
     assert jconfig.FrameworkConfig.from_json(cfg.to_json()).to_json() == cfg.to_json()
     # fields whose consumer is not ported yet keep their default or are refused
-    changed = dict(mesh_dp=4, mesh_tp=4, batch_size=512, serving_max_batch=64,
-                   serving_max_delay_s=0.1, serving_pipeline_chunk=32)
+    changed = dict(mesh_dp=4, mesh_tp=4)
     assert changed.keys() == config.NOT_PORTED.keys()
     for name, value in changed.items():
         jconfig.FrameworkConfig(**{name: value})
         with pytest.raises(ValueError, match=f"{name}=.*not ported yet"):
             config.FrameworkConfig(**{name: value})
+    # the serving fields and the batch have their consumers (make_gate_server,
+    # chip_smoke.py) and round-trip like the reference's
+    served = dict(batch_size=512, serving_max_batch=64, serving_max_delay_s=0.1,
+                  serving_pipeline_chunk=32)
+    assert config.FrameworkConfig(**served).to_json() == \
+        jconfig.FrameworkConfig(**served).to_json()
     # the API's fields have their consumers (api.tfhe, utils.profiling)
     cfg = config.FrameworkConfig(enable_jwt=False, jwt_rs256=True, profile_echo=True)
     assert cfg.to_json() == jconfig.FrameworkConfig(
