@@ -62,7 +62,29 @@ Phases, in order; any failure exits non-zero:
      trips, 15 + 27, 50 - 8, and uint8 add and subtract through
      ``Tfhe.addUint8`` / ``subtractUint8``), every output checked, with the
      seconds of each message and the K1 launches; the log is then replayed
-     on a fresh ``Process`` and every response must be byte-identical.
+     on a fresh ``Process`` and every response must be byte-identical;
+ 17. the llama tier at llama2.c stories110M's published widths (all 12
+     layers, random weights from seed 0 through ``init_params``): the
+     weights saved as a Q8_0 v2 checkpoint, published with
+     ``byte_tokenizer(32000)`` as a chunked chain, and served by
+     ``Process(process_id="smoke-llama")`` on the card through
+     ``Llama.load``, ``setPrompt`` (128 tokens), ``run(64)``, ``add`` and
+     ``next``; every logit the backend served (prefill, then decode through
+     the cache), and the bf16 ``forward`` at every prompt position, held
+     against the float64 oracle ``tests/llama_oracle.py`` over the same
+     dequantized weights, at a tolerance that the same forward with bf16
+     weights must fail; the float32 ``forward`` held at a tolerance that
+     TF32 products fail (an emulated TF32 run must fail it); every distinct
+     product of the bf16 path at its own inputs against float64, with the
+     caller's TF32 and reduced-precision bf16 flags on, at a bound that bf16
+     weights and TF32 fail; the emitted ids equal to the argmax of the
+     served logits; load s, prefill ms, decode ms a token, tokens/s, peak
+     device memory, and ``generate`` at batch 8;
+ 18. the native codec: built on the machine (``native.available()``), the
+     ``tests/data/golden_*.bin`` fixtures round-tripped byte for byte through
+     the native path and through the numpy path, and base64 decoding of
+     phase 14's key blob and the record functions at the 128-bit keys'
+     sizes timed on both paths.
 The three kernels are printed as one ``{"kernels": [...]}`` line.  The last
 line is {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
@@ -70,7 +92,10 @@ line is {"ok": true, "device": {...}}.  Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import base64
+import io
 import json
+import math
 import os
 import re
 import subprocess
@@ -78,6 +103,7 @@ import sys
 import threading
 import time
 
+import numpy as np
 import torch
 
 #: Published H100 SXM peaks (NVIDIA data sheet), for the bounds.
@@ -96,6 +122,16 @@ CLIENTS = 8
 WIDE_CHUNK = 2048
 #: ``submit_uint8`` requests of each op.
 UINT8_REQUESTS = 64
+#: llama2.c stories110M (karpathy/llama2.c README, table of models), all
+#: published widths and all 12 layers.
+STORIES110M = dict(dim=768, hidden_dim=2048, n_layers=12, n_heads=12, n_kv_heads=12,
+                   vocab_size=32000, max_seq_len=1024)
+#: Phase 17: prompt tokens, tokens of ``Llama.run``, the chain's chunk bytes,
+#: and ``generate``'s batch, prompt and new tokens.
+LLAMA_PROMPT, LLAMA_RUN, LLAMA_CHUNK = 128, 64, 16 << 20
+GEN_BATCH, GEN_PROMPT, GEN_NEW = 8, 16, 128
+#: Phase 18: timed repeats of each codec function on each path.
+CODEC_REPEATS = 5
 
 
 def c5_params(params):
@@ -230,9 +266,10 @@ def device_breakdown(fn) -> str:
             f"(idle share {max(0.0, 1 - total / 1e6 / wall_s):.3f}); by kernel: {top}")
 
 
-def api_smoke(seed: int, gen: torch.Generator) -> None:
+def api_smoke(seed: int, gen: torch.Generator) -> str:
     """Phase 14: ``Tfhe(seed=seed)`` at 128-bit with the default config on
-    the card; every result decrypted and checked; host seconds per call."""
+    the card; every result decrypted and checked; host seconds per call.
+    Returns the secret key blob (base64) that ``generateSecretKey`` gave."""
     from eoc_tfhe_tpu_torch.api.tfhe import Tfhe
     from eoc_tfhe_tpu_torch.ops import blind_rotate
 
@@ -286,6 +323,7 @@ def api_smoke(seed: int, gen: torch.Generator) -> None:
     print(f"api: uint8 ops on {pairs} (seeded and full uploads) decrypt correctly; "
           f"{blind_rotate.launches} blind_rotate_ntt launches; host s per call (batch 1): " +
           ", ".join(f"{k} {sum(v) / len(v):.3f}" for k, v in secs.items()), flush=True)
+    return sk
 
 
 def _host(ct):
@@ -469,6 +507,367 @@ def process_smoke(device=None) -> None:
     check(again == replies, "process: a replayed response differs from the first run's")
     print(f"process: the log replayed on a fresh Process in {replay_s:.3f} s gave "
           f"{len(again)} byte-identical responses", flush=True)
+
+
+def _oracle():
+    """The independent float64 numpy decoder of the test suite."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    import llama_oracle
+    return llama_oracle
+
+
+def _words(gen: torch.Generator, n_chars: int) -> str:
+    """Seeded lowercase words and spaces, exactly ``n_chars`` long."""
+    words = ("once", "upon", "a", "time", "there", "was", "little", "girl", "who",
+             "liked", "to", "play", "in", "the", "park", "with", "her", "dog")
+    out = ""
+    while len(out) < n_chars:
+        out += words[int(torch.randint(0, len(words), (1,), generator=gen))] + " "
+    return out[:n_chars - 1] + "x"
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """float32 values rounded to TF32's 10-bit mantissa, as a TF32 tensor-core
+    product rounds its inputs."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _rel_err(a: torch.Tensor, b: torch.Tensor, got: torch.Tensor) -> torch.Tensor:
+    """|got - a @ b| / (|a| @ |b|) elementwise, in float64 over a's and b's
+    values: the product's error in units of its terms' magnitudes."""
+    a, b = a.double(), b.double()
+    return (got.double() - a @ b).abs() / (a.abs() @ b.abs()).clamp_min(1e-300)
+
+
+def _bf16_weights(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The fault the llama's ``matmul`` guards against: both sides in bf16
+    (torch's way to a bf16 x float32 product), in the dtype ``matmul``
+    returns."""
+    from eoc_tfhe_tpu_torch.device import exact_matmuls
+    with exact_matmuls():
+        out = torch.matmul(a.to(torch.bfloat16), b.to(torch.bfloat16))
+    return out.to(torch.promote_types(a.dtype, b.dtype))
+
+
+def llama_products(p_dev: dict, ids: torch.Tensor, cfg, cache: torch.Tensor,
+                   pos: int) -> None:
+    """Every distinct product of the bf16 path at its own inputs (the 128
+    prompt positions' ``forward`` and one ``decode_step``), run by
+    ``llama.matmul`` on the card with the caller's TF32 and reduced-precision
+    bf16 flags left on, against float64, in units of sum |a||w| of each
+    output.
+
+    bf16 activation x float32 weight: a float32 product of the bf16 values.
+    The K additions' roundings (2^-24 each) have random signs and grow as
+    sqrt(K) (Higham and Mary's probabilistic bound), so the bound is
+    sqrt(K) 2^-24.  Two controls must exceed it: the weight cast to bf16 (the
+    fault of bf16 weights, 2^-8 a term) and, wherever cuBLAS then takes
+    another kernel, TF32 left on (2^-11 a term).  bf16 x bf16 (the
+    classifier): the float32 sum rounded to bf16, so within 2^-8 |a @ b| plus
+    twice the worst-case float32 bound (K+1) 2^-24; cuBLAS's reduced-precision
+    bf16 reduction turned on is its control, reported."""
+    from unittest import mock
+
+    from eoc_tfhe_tpu_torch.device import exact_matmuls
+    from eoc_tfhe_tpu_torch.models import llama
+
+    seen = {}
+    real = llama.matmul
+
+    def recording(a, b):
+        key = (tuple(a.shape[-2:]), tuple(b.shape), a.dtype, b.dtype)
+        if key not in seen:
+            seen[key] = (a.reshape(-1, a.shape[-1]).clone(), b.clone())
+        return real(a, b)
+
+    with mock.patch.object(llama, "matmul", recording):
+        llama.forward(p_dev, ids, cfg)
+        llama.decode_step(p_dev, cache.clone(), pos, ids[:, -1], cfg)
+    flags = torch.backends.cuda.matmul
+    prev = flags.allow_tf32, flags.allow_bf16_reduced_precision_reduction
+    rows = []
+    try:
+        for (_, _, _, bdt), (a, b) in sorted(seen.items(), key=lambda kv: str(kv[0])):
+            (M, K), N = a.shape, b.shape[1]
+            flags.allow_tf32 = flags.allow_bf16_reduced_precision_reduction = True
+            got = llama.matmul(a, b)
+            if bdt == torch.float32:
+                bound = math.sqrt(K) * 2.0 ** -24
+                sound = float(_rel_err(a, b, got).max())
+                tf32_out = torch.matmul(a.float(), b)          # TF32 on, no scope
+                bf16w = float(_rel_err(a, b, _bf16_weights(a, b)).max())
+                tf32 = (float(_rel_err(a, b, tf32_out).max())
+                        if not torch.equal(tf32_out, got) else None)
+                check(sound <= bound < bf16w and (tf32 is None or tf32 > bound),
+                      f"llama: product {M}x{K}x{N} bf16 x float32: {sound:.3e}, bf16 weights "
+                      f"{bf16w:.3e}, TF32 {tf32}, bound {bound:.3e}")
+                rows.append(f"{M}x{K}x{N} bf16 x float32 {sound:.3e} (bound {bound:.3e}; bf16 "
+                            f"weights {bf16w:.3e}; TF32 "
+                            + ("the same bits" if tf32 is None else f"{tf32:.3e}") + ")")
+            else:
+                exact = a.double() @ b.double()
+                mag = a.double().abs() @ b.double().abs()
+                gamma = (K + 1) * 2.0 ** -24
+
+                def excess(out):
+                    return float(((out.double() - exact).abs()
+                                  - 2.0 ** -8 * exact.abs() - 2 * gamma * mag).max())
+                with exact_matmuls():
+                    flags.allow_bf16_reduced_precision_reduction = True
+                    reduced = torch.matmul(a, b)
+                check(excess(got) <= 0, f"llama: product {M}x{K}x{N} bf16 x bf16 off its bound")
+                rows.append(f"{M}x{K}x{N} bf16 x bf16 within its bound (reduced-precision "
+                            "reduction on: "
+                            + ("the same bits" if torch.equal(got, reduced) else
+                               ("other bits, within" if excess(reduced) <= 0 else
+                                "other bits, outside") + " the bound") + ")")
+    finally:
+        flags.allow_tf32, flags.allow_bf16_reduced_precision_reduction = prev
+    check(len(rows) == 8, f"llama: {len(rows)} distinct products, want 8")
+    print("llama products on the card, max |err| / sum |a||w| (the caller's TF32 and "
+          "reduced-precision bf16 flags on): " + "; ".join(rows), flush=True)
+
+
+def llama_smoke(smi: str, device=None) -> None:
+    """Phase 17: stories110M through ``Process``'s Llama table on the card."""
+    import tempfile
+    from unittest import mock
+
+    from eoc_tfhe_tpu_torch.models import checkpoint, llama, publish, tokenizer
+    from eoc_tfhe_tpu_torch.process import Process
+
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    cfg = llama.LlamaConfig(**STORIES110M)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    with tempfile.TemporaryDirectory() as tmp:
+        params = llama.init_params(gen, cfg, device=dev)
+        n_params = sum(v.numel() for v in params.values())
+        ckpt = os.path.join(tmp, "stories110M_q80.bin")
+        save_s, _ = timed(lambda: checkpoint.save_llama2c(ckpt, params, cfg, version=2))
+        del params
+        with open(ckpt, "rb") as f:
+            model_bytes = f.read()
+        tok = tokenizer.byte_tokenizer(cfg.vocab_size)
+        tok.save(os.path.join(tmp, "tok.bin"))
+        with open(os.path.join(tmp, "tok.bin"), "rb") as f:
+            tok_bytes = f.read()
+        store = publish.LocalStore(os.path.join(tmp, "items"))
+        head = publish.publish_model(store, model_bytes, tok_bytes, chunk_size=LLAMA_CHUNK)
+        n_chunks = -(-len(model_bytes) // LLAMA_CHUNK)
+        print(f"llama: stories110M {STORIES110M}, {n_params} parameters; Q8_0 v2 checkpoint "
+              f"{len(model_bytes)} bytes in {save_s:.3f} s, published in {n_chunks} chunks",
+              flush=True)
+
+        text_gen = torch.Generator().manual_seed(0)
+        prompt = _words(text_gen, LLAMA_PROMPT - 1)        # + the dummy-prefix space
+        added = " and then"
+        check(len(tok.encode(prompt)) == LLAMA_PROMPT, "llama: the prompt is not 128 tokens")
+        env = json.dumps({"Process": {"Id": "smoke-llama", "Owner": "OWNER", "Module": "M1"}})
+
+        def eval_chunk(src):
+            r = json.loads(proc.handle(json.dumps({
+                "Target": "smoke-llama", "From": "OWNER", "Block-Height": "1000",
+                "Tags": [{"name": "Action", "value": "Eval"}], "Data": src}), env))
+            check(r["Error"] is None, f"llama: {src[:80]!r} gave {r['Error']}")
+            return r["Output"]["data"]["output"]
+
+        served = []     # (kind, seconds, logits (B, V), token fed or None)
+
+        def recording(fn, kind):
+            def wrapped(*a, **k):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logits, cache = fn(*a, **k)
+                torch.cuda.synchronize()
+                fed = int(a[3][0]) if kind == "decode" else None
+                served.append((kind, time.perf_counter() - t0, logits[0].clone(), fed))
+                return logits, cache
+            return wrapped
+
+        base_bytes = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        proc = Process(process_id="smoke-llama", model_store=store, device=device)
+        load_s, _ = timed(lambda: eval_chunk(f'Llama.load("{head}")'))
+        with mock.patch.object(llama, "prefill", recording(llama.prefill, "prefill")), \
+                mock.patch.object(llama, "decode_step", recording(llama.decode_step, "decode")):
+            eval_chunk(f'Llama.setPrompt("{prompt}")')
+            run_s, _ = timed(lambda: eval_chunk(f"return Llama.run({LLAMA_RUN})"))
+            eval_chunk(f'Llama.add("{added}")')
+            eval_chunk("return Llama.next()")
+        peak_gb = (torch.cuda.max_memory_allocated() - base_bytes) / 1e9
+        be = proc._llama_backend
+        final_id = be._pending[-1]
+
+        # the emitted ids against the argmax of the served logits (check 3)
+        prompt_ids = tok.encode(prompt)
+        add_ids = tok.encode(added)
+        fed = [f for kind, _, _, f in served if kind == "decode"]
+        emitted = fed[:LLAMA_RUN] + [final_id]
+        argmax = [int(torch.argmax(lg)) for _, _, lg, _ in served]
+        check([k for k, *_ in served] == ["prefill"] + ["decode"] * (len(served) - 1),
+              "llama: the backend did not prefill and then decode")
+        check(len(fed) == LLAMA_RUN + len(add_ids) and fed[LLAMA_RUN:] == add_ids,
+              f"llama: decode fed {len(fed)} tokens, want the run's and the added")
+        check(emitted == argmax[:LLAMA_RUN] + argmax[-1:],
+              "llama: an emitted id is not the argmax of the card's logits")
+        seq = prompt_ids + fed
+        check(len(seq) == LLAMA_PROMPT + LLAMA_RUN + len(add_ids) and len(served) ==
+              len(seq) - LLAMA_PROMPT + 1, "llama: served positions do not tile the stream")
+
+        # the float64 oracle over the same dequantized weights, from its own
+        # v0 parser (checks 1 and 2)
+        _, np_params = checkpoint.load_llama2c(io.BytesIO(model_bytes))
+        v0 = os.path.join(tmp, "dequantized_v0.bin")
+        checkpoint.save_llama2c(v0, np_params, cfg, version=0)
+        orc = _oracle()
+        oracle_s, want = timed(lambda: orc.forward(*orc.load_v0(v0), seq))
+        scale = float(np.abs(want).max())
+        served_logits = torch.stack([lg for _, _, lg, _ in served]).double().cpu().numpy()
+        err_served = float(np.abs(served_logits - want[LLAMA_PROMPT - 1:]).max())
+        p_dev = be.model.params
+        ids = torch.tensor([seq], dtype=torch.int32, device=dev)
+        bf16_prompt = llama.forward(p_dev, ids[:, :LLAMA_PROMPT], cfg)[0].double().cpu().numpy()
+        err_prompt = float(np.abs(bf16_prompt - want[:LLAMA_PROMPT]).max())
+        f32 = llama.forward(p_dev, ids, cfg, compute_dtype=torch.float32)[0].double().cpu().numpy()
+        err_f32 = float(np.abs(f32 - want).max())
+        with mock.patch.object(llama, "matmul", lambda a, b: torch.matmul(_tf32(a), _tf32(b))):
+            tf32 = llama.forward(p_dev, ids, cfg, compute_dtype=torch.float32)
+        err_tf32 = float(np.abs(tf32[0].double().cpu().numpy() - want).max())
+        with mock.patch.object(llama, "matmul", _bf16_weights):
+            bf16w = llama.forward(p_dev, ids[:, :LLAMA_PROMPT], cfg)[0].double().cpu().numpy()
+        err_bf16w = float(np.abs(bf16w - want[:LLAMA_PROMPT]).max())
+        # bf16 (unit roundoff 2^-8): the classifier rounds its output to bf16
+        # (up to 2^-8 of a logit) and both its inputs, the activation and the
+        # embedding (each ~2^-8/sqrt(3) of a logit, random signs); the layers'
+        # activation roundings add less, as the residual stream stays float32.
+        # So 2^-7 (two roundoffs) of the largest logit bounds the path, and
+        # the control with every weight in bf16 too (84 more roundings of that
+        # size) must fail it.  float32: its roundoff is 2^-24, and a float32
+        # path stays near 1e-6 of the largest logit; TF32 rounds every product
+        # input at 2^-11, so 2^-14 of it passes float32 by ~2 orders and fails
+        # TF32.
+        tol_bf16, tol_f32 = scale * 2.0 ** -7, scale * 2.0 ** -14
+        print(f"llama check: oracle (float64, {len(seq)} tokens) in {oracle_s:.3f} s, max |logit| "
+              f"{scale:.6f}; served logits (prefill, then {len(served) - 1} decode steps) max err "
+              f"{err_served:.3e}, bf16 forward at the {LLAMA_PROMPT} prompt positions "
+              f"{err_prompt:.3e} (tolerance {tol_bf16:.3e}; with bf16 weights {err_bf16w:.3e}); "
+              f"float32 forward {err_f32:.3e} (tolerance {tol_f32:.3e}; emulated TF32 "
+              f"{err_tf32:.3e})", flush=True)
+        check(err_served <= tol_bf16 and err_prompt <= tol_bf16,
+              "llama: the served bf16 logits disagree with the float64 oracle")
+        check(err_bf16w > tol_bf16, "llama: the bf16 tolerance does not reject bf16 weights")
+        check(err_f32 <= tol_f32, "llama: the float32 forward disagrees with the float64 oracle")
+        check(err_tf32 > tol_f32, "llama: the float32 tolerance does not reject TF32 products")
+        llama_products(p_dev, ids[:, :LLAMA_PROMPT], cfg, be._cache, be._pos)
+
+        prefill_ms = 1e3 * served[0][1]
+        warm_s, _ = timed(lambda: be.model.prefill(ids[:, :LLAMA_PROMPT]))
+        cache = be._cache.clone()
+        step = device_breakdown(lambda: be.model.decode_step(cache, be._pos, ids[0, -1:]))
+        decode_ms = 1e3 * float(np.median([s for k, s, _, _ in served if k == "decode"]
+                                          [:LLAMA_RUN]))
+        prompts = torch.randint(0, cfg.vocab_size, (GEN_BATCH, GEN_PROMPT), generator=gen,
+                                device=dev, dtype=torch.int32)
+        gen_s, out = timed(lambda: llama.generate(p_dev, prompts, GEN_NEW, cfg))
+        check(out.shape == (GEN_BATCH, GEN_NEW) and bool(((out >= 0) & (out < cfg.vocab_size))
+                                                         .all()), "llama: generate's ids")
+        print(f"llama ({smi}): load {load_s:.3f} s (chain fetch, dequantization, upload); "
+              f"prefill {prefill_ms:.2f} ms for {LLAMA_PROMPT} tokens (the process's first; "
+              f"{1e3 * warm_s:.2f} ms again); decode {decode_ms:.2f} ms "
+              f"a token (median of {LLAMA_RUN}), {1e3 / decode_ms:.1f} tokens/s; "
+              f"run({LLAMA_RUN}) {run_s:.3f} s; peak device memory {peak_gb:.3f} GB above the "
+              f"earlier phases'; "
+              f"generate batch {GEN_BATCH}, prompt {GEN_PROMPT}, {GEN_NEW} new tokens in "
+              f"{gen_s:.3f} s, {GEN_BATCH * GEN_NEW / gen_s:.1f} new tokens/s", flush=True)
+        print(f"llama decode step at position {be._pos}, {step}", flush=True)
+        del be, proc, p_dev, cache
+
+
+def codec_smoke(key_blob: str, smi: str) -> None:
+    """Phase 18: the native codec, built here, against the numpy path."""
+    from eoc_tfhe_tpu_torch import native
+    from eoc_tfhe_tpu_torch.core import params
+    from eoc_tfhe_tpu_torch.io import tfhe_io
+
+    build_s, ok = timed(native.available)
+    check(ok, f"native: the codec did not build (g++) or load: {native.build_error}")
+    data = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data")
+    names = sorted(f for f in os.listdir(data) if re.fullmatch(r"golden_.*\.bin", f))
+    check(len(names) >= 3, f"native: golden fixtures missing ({names})")
+
+    def numpy_path(fn):
+        """fn() with the library unloaded: the path of a machine without g++."""
+        saved = native._lib, native._tried
+        native._lib, native._tried = None, True
+        try:
+            return fn()
+        finally:
+            native._lib, native._tried = saved
+
+    def round_trip(name):
+        with open(os.path.join(data, name), "rb") as f:
+            blob = f.read()
+        text = tfhe_io.b64encode(blob)
+        outs = [text == base64.b64encode(blob).decode(), tfhe_io.b64decode(text) == blob]
+        if name == "golden_lwesample_630.bin":
+            outs.append(tfhe_io.pack_lwe_samples(*tfhe_io.unpack_lwe_samples(blob, 1, 630))
+                        == blob)
+            if native.available():
+                outs.append(native.pack_lwe_array(*native.unpack_lwe_array(blob, 1, 630))
+                            == blob)
+        elif name.startswith("golden_secret_keyset"):
+            ks, p = tfhe_io.import_secret_keyset(blob, device="cpu")
+            outs.append(tfhe_io.export_secret_keyset(ks, p) == blob)
+        return all(outs)
+
+    for name in names:
+        check(round_trip(name) and numpy_path(lambda: round_trip(name)),
+              f"native: {name} does not round-trip on both paths")
+    raw = tfhe_io.b64decode(key_blob)
+    enc_s, enc = timed(lambda: tfhe_io.b64encode(raw))
+    check(enc == key_blob, "native: the key blob's base64 differs")
+    # the bulk records at the 128-bit keys' sizes: the keyswitch key's
+    # 32,768 LWE records of n words, and the bootstrapping key's n (k+1) l
+    # TLWE records of (k+1) N words
+    p = params.default_128bit_params()
+    rng = np.random.default_rng(0)
+    B_ks = p.k * p.N * p.ks.t * (1 << p.ks.basebit)
+    B_bk, m = p.n * (p.k + 1) * p.tgsw_params.l, (p.k + 1) * p.N
+    a = rng.integers(-2**31, 2**31, (B_ks, p.n), dtype=np.int64).astype(np.int32)
+    b = rng.integers(-2**31, 2**31, B_ks, dtype=np.int64).astype(np.int32)
+    polys = rng.integers(-2**31, 2**31, (B_bk, m), dtype=np.int64).astype(np.int32)
+    var, var_bk = rng.random(B_ks), rng.random(B_bk)
+    lwe = tfhe_io.pack_lwe_samples(a, b, var)
+    tlwe = tfhe_io.pack_tlwe_samples(polys, var_bk)
+    # (native, numpy): tfhe_io routes only base64 decoding through the library
+    ops = {"base64 decode of the key blob": (lambda: tfhe_io.b64decode(key_blob),
+                                             lambda: numpy_path(
+                                                 lambda: tfhe_io.b64decode(key_blob))),
+           f"pack {B_ks} LWE records": (lambda: native.pack_lwe_array(a, b, var),
+                                         lambda: tfhe_io.pack_lwe_samples(a, b, var)),
+           f"unpack {B_ks} LWE records": (lambda: native.unpack_lwe_array(lwe, B_ks, p.n),
+                                           lambda: tfhe_io.unpack_lwe_samples(lwe, B_ks, p.n)),
+           f"pack {B_bk} TLWE records": (lambda: native.pack_tlwe_array(polys, var_bk),
+                                          lambda: tfhe_io.pack_tlwe_samples(polys, var_bk)),
+           f"unpack {B_bk} TLWE records": (lambda: native.unpack_tlwe_array(tlwe, B_bk, m),
+                                            lambda: tfhe_io.unpack_tlwe_samples(tlwe, B_bk, m))}
+    rows = []
+    for label, (fn_native, fn_numpy) in ops.items():
+        want, got = fn_numpy(), fn_native()
+        same = (got == want) if isinstance(want, bytes) else all(
+            np.array_equal(x, y) for x, y in zip(got, want))
+        check(same, f"native: {label} differs between the paths")
+        t_native, t_numpy = [], []
+        for _ in range(CODEC_REPEATS):      # alternating, median of each
+            t_native.append(timed(fn_native)[0])
+            t_numpy.append(timed(fn_numpy)[0])
+        rows.append(f"{label} {1e3 * float(np.median(t_native)):.1f} ms native, "
+                    f"{1e3 * float(np.median(t_numpy)):.1f} ms numpy")
+    print(f"native ({smi}): codec built and loaded in {build_s:.3f} s; {len(names)} golden "
+          f"fixtures ({', '.join(names)}) round-trip byte for byte on the native and numpy "
+          f"paths; base64 encode of the {len(raw)}-byte key blob {enc_s:.3f} s (binascii); "
+          f"median of {CODEC_REPEATS}: " + "; ".join(rows), flush=True)
 
 
 def main() -> int:
@@ -794,11 +1193,17 @@ def main() -> int:
     del eks
 
     # 14. the Tfhe.* string API, one value per call
-    api_smoke(args.seed, gen)
+    key_blob = api_smoke(args.seed, gen)
 
     # 15. the served path; 16. the process runtime
     served_smoke(ks, ek, p, gen)
     process_smoke()
+    del ks, ek, ca, cb, ca8, cb8, api, eck
+    torch.cuda.empty_cache()
+
+    # 17. the llama tier at stories110M widths; 18. the native codec
+    llama_smoke(smi)
+    codec_smoke(key_blob, smi)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

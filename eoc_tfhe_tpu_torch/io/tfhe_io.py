@@ -14,21 +14,27 @@ format was pinned to the reference binary.  The bytes are the reference's:
     LWEKSPARAMS + 200, 201, 43, 169;
   * base64 around every blob, decoded the reference's lenient way.
 
-Records are packed with numpy (the reference's native codec gives the same
-bytes).  Keysets cross between the port's tensors and numpy at
-:func:`export_secret_keyset` / :func:`import_secret_keyset` and the cloud
-pair; imports land on the card unless the caller names a device.
+Base64 decoding goes through the port's native C++ codec
+(:mod:`eoc_tfhe_tpu_torch.native`) where ``g++`` built it, and through
+numpy otherwise; both paths give the same bytes.  Bulk records stay on
+numpy and encoding on ``binascii``: the library was no faster at either
+(PERF.md).  Keysets cross between the
+port's tensors and numpy at :func:`export_secret_keyset` /
+:func:`import_secret_keyset` and the cloud pair; imports land on the card
+unless the caller names a device.
 """
 
 from __future__ import annotations
 
 import base64
 import io as _io
+import re
 import struct
 
 import numpy as np
 import torch
 
+from .. import native
 from ..core.params import (GateBootstrappingParams, KeySwitchParams, LweParams,
                            TGswParams, TLweParams)
 
@@ -230,7 +236,8 @@ def read_tgsw_key(f, k: int, N: int) -> np.ndarray:
 
 
 # ---------------------------------------------------------------------------
-# Bulk record arrays, packed in one vectorized pass.
+# Bulk record arrays: one vectorized numpy pass (the keyswitch key's size,
+# 32,768 records at the 128-bit set, packs as fast as the native codec).
 # ---------------------------------------------------------------------------
 
 def _pack(uid: int, fields: list[tuple[np.ndarray, str]]) -> bytes:
@@ -422,7 +429,8 @@ def import_cloud_keyset(data: bytes, device=None):
 # Base64 around every stream.
 # ---------------------------------------------------------------------------
 
-_B64_ALPHABET = frozenset("ABCDEFGHIJKLMNOPQRSTUVWXYZabcdefghijklmnopqrstuvwxyz0123456789+/")
+#: The longest prefix of a string inside the base64 alphabet.
+_B64_PREFIX = re.compile(r"[A-Za-z0-9+/]*")
 
 
 def b64encode(data: bytes) -> str:
@@ -431,7 +439,11 @@ def b64encode(data: bytes) -> str:
 
 def b64decode(s: str) -> bytes:
     """The reference's decoder: stops at the first character outside the
-    alphabet and tolerates missing padding."""
-    end = next((i for i, ch in enumerate(s) if ch not in _B64_ALPHABET), len(s))
-    t = s[:end]
+    alphabet, tolerates missing padding, and (as the native decoder does)
+    drops a lone trailing character, whose 6 bits make no byte."""
+    out = native.b64decode(s)
+    if out is not None:
+        return out
+    end = _B64_PREFIX.match(s).end()
+    t = s[:end - (end % 4 == 1)]
     return base64.b64decode(t + "=" * (-len(t) % 4))

@@ -7,23 +7,17 @@ times the table's signed byte limbs, recombined mod 2^32.
 
 from __future__ import annotations
 
-import threading
-
 import torch
 
 from ..core.keys import KeySwitchKey
 from ..core.lwe import LweCiphertext
 from ..core.numeric import as_u32, wrap32
+from ..device import exact_matmuls
 from . import polymul
 
 #: Batch rows per one-hot product: bounds the (rows, n_in*t*base) float32
 #: one-hot at 128 MiB for the 128-bit set (n_in*t*base = 32768).
 _CHUNK = 1024
-
-#: Makes the TF32 switch and the product it guards one step for every thread
-#: (the gate server's worker and its callers): torch's flag is process-wide.
-_TF32_LOCK = threading.Lock()
-
 
 def prepare_keyswitch_matmul(ks: KeySwitchKey) -> torch.Tensor:
     """(n_in * t * base, (n_out+1) * LIMBS) float32 signed byte limbs of the
@@ -64,13 +58,8 @@ def _onehot_product(digits: torch.Tensor, prepared: torch.Tensor, base: int) -> 
     flat = (torch.arange(digits.shape[1] * digits.shape[2], device=digits.device)
             * base).reshape(digits.shape[1:])
     onehot.scatter_(1, (flat + digits.to(torch.int64)).reshape(rows, -1), 1.0)
-    with _TF32_LOCK:
-        prev = torch.backends.cuda.matmul.allow_tf32
-        torch.backends.cuda.matmul.allow_tf32 = False
-        try:
-            return onehot @ prepared
-        finally:
-            torch.backends.cuda.matmul.allow_tf32 = prev
+    with exact_matmuls():
+        return onehot @ prepared
 
 
 def keyswitch_apply(ct_extracted: LweCiphertext, ks: KeySwitchKey, t: int, basebit: int,

@@ -31,9 +31,9 @@ Dispatch is by ``Action`` tag over the reference's operation set, plus:
   * ``Process.send`` and the response's ``Messages``: the ``ao.send``
     pattern; :class:`Router` delivers them between registered processes.
 
-The ``Llama`` table is registered as in the reference's boot, but the
-models tier (``models/``) is not ported yet: its backend raises a
-deterministic ``NotImplementedError`` that names it.
+The ``Llama`` table is registered as in the reference's boot; its backend
+(:class:`~eoc_tfhe_tpu_torch.models.ao_llama.LlamaBackend`) is made at the
+first ``Llama.*`` call and runs the decoder on the process's device.
 """
 
 from __future__ import annotations
@@ -108,11 +108,14 @@ class Process:
         #: Process-creation environment (the ``--env K=V`` values of
         #: ``aos create-process``; surfaced to Lua as ``Process.env.K``).
         self.process_env = dict(process_env or {})
-        #: Model-loading backends of the AO-Llama surface in the reference (a
-        #: publish-chain store and a WeaveDrive-analog virtual FS); carried
-        #: through replay() for the models tier, which is not ported yet.
+        #: Model-loading backends for the AO-Llama surface: a publish-chain
+        #: store (models/publish.LocalStore or any Store) and/or a
+        #: WeaveDrive-analog virtual FS (io/virtualfs.VirtualFS).  The
+        #: ``Llama`` Lua table is always registered (as in the reference's
+        #: boot); ``Llama.load`` fails deterministically when neither is given.
         self.model_store = model_store
         self.vfs = vfs
+        self._llama_backend = None
         self.tfhe: Tfhe | None = None
         self.log: list[tuple[str, str]] = []
         self.handlers: dict[str, Callable[[dict, dict], str]] = {}
@@ -273,9 +276,8 @@ class Process:
         (``load / set_prompt / add / run / next / stop``); the shim mirrors
         the Lua module of the shipped wasm (``Llama.load/setPrompt/add/run/
         next/stop/info`` and the ``onLog``/``onProgress``/``logLevels``
-        plumbing).  The engine behind it (the reference's
-        ``models/ao_llama.py``) is not ported yet: every backend call raises
-        ``NotImplementedError`` naming ``models/``."""
+        plumbing).  The engine behind it is :mod:`.models.ao_llama`, made
+        lazily on the process's device."""
         llama_t = lua.LuaTable()
         levels = lua.LuaTable({2: "error", 3: "warn", 4: "info", 5: "debug"})
         llama_t.set("logLevels", levels)
@@ -298,9 +300,12 @@ class Process:
             bucket.set(bucket.length() + 1, lua.lua_tostring(s))
 
         def llama_backend():
-            raise NotImplementedError(
-                "Llama: the models tier (models/, the reference's "
-                "models/ao_llama.py) is not ported to eoc_tfhe_tpu_torch yet")
+            if self._llama_backend is None:
+                from .models.ao_llama import LlamaBackend
+                self._llama_backend = LlamaBackend(
+                    store=self.model_store, vfs=self.vfs,
+                    on_log=llama_on_log, device=self.device)
+            return self._llama_backend
 
         backend_t = lua.LuaTable()
         for bname in ("load", "set_prompt", "add", "run", "next", "stop"):

@@ -5,8 +5,11 @@ skip without one. They import only the port, so they also run where JAX is
 absent:  python -m pytest --noconftest tests/test_torch_card.py -q
 """
 
+import base64
 import threading
+from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -352,3 +355,97 @@ def test_two_threads_first_use_of_build_load_builds_once(cuda_device, tmp_path, 
         build._load.cache_clear()      # later tests load from the package's build dir
     assert len(builds) == 1 and len(libs) == 2 and libs[0] is libs[1]
     assert [p.name for p in tmp_path.glob("*.so")] == [build._target(name).name]
+
+
+# ---------------------------------------------------------------------------
+# The llama tier and the native codec on the card's machine (no kernel of
+# their own: the products are cuBLAS calls under device.exact_matmuls).
+# ---------------------------------------------------------------------------
+
+_DATA = Path(__file__).resolve().parent / "data"
+
+
+@pytest.mark.gpu
+def test_llama_golden_on_the_card_with_tf32_left_on(cuda_device):
+    """The golden model on the card by default: float32 logits within 1e-5 of
+    the float64 oracle's goldens even with the caller's TF32 flag on (the
+    forward turns it off for its products), bf16 within 5e-3, greedy ids
+    exactly; the caller's flags come back."""
+    from eoc_tfhe_tpu_torch.models import checkpoint, llama
+
+    gold = np.load(_DATA / "llama_tiny_golden.npz")
+    cfg, np_params = checkpoint.load_llama2c(str(_DATA / "llama_tiny_v0.bin"))
+    p = llama.params_from_numpy(np_params)
+    assert p["wq"].device.type == "cuda"
+    prompt = torch.from_numpy(gold["token_ids"][None].astype(np.int32)).to(cuda_device)
+    flags = torch.backends.cuda.matmul
+    old = flags.allow_tf32, flags.allow_bf16_reduced_precision_reduction
+    flags.allow_tf32 = flags.allow_bf16_reduced_precision_reduction = True
+    try:
+        logits32 = llama.forward(p, prompt, cfg, compute_dtype=torch.float32)
+        logits_bf = llama.forward(p, prompt, cfg)
+        gen = llama.generate(p, prompt, 8, cfg)
+        assert flags.allow_tf32 and flags.allow_bf16_reduced_precision_reduction
+    finally:
+        flags.allow_tf32, flags.allow_bf16_reduced_precision_reduction = old
+    np.testing.assert_allclose(logits32.cpu().numpy(), gold["logits"], atol=1e-5, rtol=0)
+    np.testing.assert_allclose(logits_bf.cpu().numpy(), gold["logits"], atol=5e-3, rtol=0)
+    np.testing.assert_array_equal(gen.cpu().numpy(), gold["generated"])
+
+
+@pytest.mark.gpu
+def test_llama_init_params_on_the_card_by_default(cuda_device):
+    """init_params puts the weights on the card unless told otherwise and
+    refuses a generator on the CPU; the forward then runs there."""
+    from eoc_tfhe_tpu_torch.models import llama
+
+    cfg = llama.LlamaConfig(dim=64, hidden_dim=128, n_layers=2, n_heads=4, n_kv_heads=2,
+                            vocab_size=96, max_seq_len=32)
+    p = llama.init_params(torch.Generator(device=cuda_device).manual_seed(0), cfg)
+    assert all(v.device.type == "cuda" for v in p.values())
+    with pytest.raises(ValueError, match="generator is on cpu"):
+        llama.init_params(torch.Generator().manual_seed(0), cfg)
+    logits = llama.forward(p, torch.zeros((1, 4), dtype=torch.int32, device=cuda_device), cfg)
+    assert logits.shape == (1, 4, 96) and bool(torch.isfinite(logits).all())
+
+
+@pytest.mark.gpu
+def test_process_llama_serves_the_golden_on_the_card(cuda_device, tmp_path):
+    """Process's Llama table on the card by default, over the virtual FS:
+    the oracle's greedy continuation, and a prefill equal to the decode
+    loop's continuation."""
+    import json
+
+    from eoc_tfhe_tpu_torch.io.virtualfs import LocalBackend, VirtualFS
+    from eoc_tfhe_tpu_torch.models import tokenizer
+    from eoc_tfhe_tpu_torch.process import Process
+
+    (tmp_path / "m1").write_bytes((_DATA / "llama_tiny_v0.bin").read_bytes())
+    (tmp_path / "m1.tokenizer").write_bytes((_DATA / "llama_tiny_tok.bin").read_bytes())
+    gold = np.load(_DATA / "llama_tiny_golden.npz")
+    tok = tokenizer.Tokenizer.load(str(_DATA / "llama_tiny_tok.bin"))
+    text = "".join(tok.decode([int(t)]) for t in gold["generated"][0])
+    proc = Process(params=params.test_params(), vfs=VirtualFS(LocalBackend(str(tmp_path))))
+    env = json.dumps({"Process": {"Id": "AOS", "Owner": "FOOBAR", "Module": "M1"}})
+    outs = []
+    for src in ('Llama.load("m1")', 'Llama.setPrompt("hello world")', "return Llama.run(8)"):
+        r = json.loads(proc.handle(json.dumps({
+            "Tags": [{"name": "Action", "value": "Eval"}], "Data": src,
+            "Block-Height": 100}), env))
+        assert r["Error"] is None, r["Error"]
+        outs.append(r["Output"]["data"]["output"])
+    assert outs[-1] == text
+    assert proc._llama_backend.model.params["wq"].device.type == "cuda"
+    np.testing.assert_array_equal(proc._llama_backend.generated_ids("hello world", 8),
+                                  gold["generated"][0])
+
+
+@pytest.mark.gpu
+def test_native_codec_builds_on_the_card_machine(cuda_device):
+    from eoc_tfhe_tpu_torch import native
+    from eoc_tfhe_tpu_torch.io import tfhe_io
+
+    assert native.available(), "the native codec did not build (g++) or load"
+    blob = (_DATA / "golden_lwesample_630.bin").read_bytes()
+    assert tfhe_io.pack_lwe_samples(*native.unpack_lwe_array(blob, 1, 630)) == blob
+    assert native.b64decode(base64.b64encode(blob).decode()) == blob

@@ -518,14 +518,46 @@ def test_seed_matches_reference_and_fits_a_generator():
         torch.Generator().manual_seed(seed)
 
 
-def test_llama_is_registered_and_refuses_deterministically():
-    p = Process(params=params.test_params(), device="cpu")
-    assert out(json.loads(p.handle(eval_msg("return Llama.info()"), ENV))).startswith(
-        "A decentralized LLM")
-    errs = [json.loads(p.handle(eval_msg(src), ENV))
-            for src in ("return Llama.load('model')", "return Llama.load('model')")]
-    assert errs[0] == errs[1]
-    assert errs[0]["Error"].startswith("NotImplementedError") and "models/" in errs[0]["Error"]
-    caught = out(json.loads(p.handle(eval_msg(
-        "local ok, e = pcall(Llama.run, 3); return tostring(ok) .. ':' .. e"), ENV)))
-    assert caught.startswith("false:") and "not ported" in caught
+def test_llama_is_registered_and_refuses_deterministically(tmp_path):
+    """The twin of tests/test_ao_llama.py::test_llama_error_surface: with no
+    model loaded, an id that no backend resolves, and no prompt, the port's
+    process answers with the reference's exact error strings, the same on a
+    repeat, and keeps evaluating afterwards."""
+    from eoc_tfhe_tpu_torch.io.virtualfs import LocalBackend, VirtualFS
+    from eoc_tfhe_tpu_torch.models.ao_llama import LlamaBackend, LlamaBackendError
+
+    data = Path(__file__).resolve().parent / "data"
+    (tmp_path / "m1").write_bytes((data / "llama_tiny_v0.bin").read_bytes())
+    (tmp_path / "m1.tokenizer").write_bytes((data / "llama_tiny_tok.bin").read_bytes())
+    vfs = VirtualFS(LocalBackend(str(tmp_path)))
+    chunks = ("return Llama.info()",
+              "Llama.load('nope')",                                  # no backend
+              "local ok, e = pcall(Llama.run, 3); return tostring(ok) .. ':' .. e",
+              "return 1 + 1")
+    seen = []
+    for kw, srcs in (({}, chunks), ({"vfs": vfs}, chunks[1:2] + (
+            "Llama.load('m1')",
+            "local ok, e = pcall(Llama.next); return tostring(ok) .. ':' .. e",
+            "return 1 + 1"))):
+        p = Process(params=params.test_params(), device="cpu", **kw)
+        q = JProcess(params=jtest_params(), **kw)
+        replies = [json.loads(p.handle(eval_msg(src), ENV)) for src in srcs]
+        assert replies == [json.loads(q.handle(eval_msg(src), ENV)) for src in srcs]
+        assert json.loads(p.handle(eval_msg(srcs[0]), ENV)) == replies[0]
+        assert out(replies[-1]) == "2"
+        seen.append(replies)
+    assert out(seen[0][0]).startswith("A decentralized LLM")
+    assert seen[0][1]["Error"].startswith("LlamaBackendError: cannot resolve model id")
+    assert out(seen[0][2]).startswith("false:") and "no model loaded" in out(seen[0][2])
+    assert seen[1][0]["Error"].startswith("FileNotFoundError")
+    assert out(seen[1][2]).startswith("false:") and "no prompt set" in out(seen[1][2])
+
+    be = LlamaBackend(device="cpu")
+    with pytest.raises(LlamaBackendError, match="cannot resolve"):
+        be.load("nope")
+    with pytest.raises(LlamaBackendError, match="no model loaded"):
+        be.next()
+    be = LlamaBackend(vfs=vfs, device="cpu")
+    be.load("m1")
+    with pytest.raises(LlamaBackendError, match="no prompt set"):
+        be.next()
