@@ -84,7 +84,24 @@ Phases, in order; any failure exits non-zero:
      ``tests/data/golden_*.bin`` fixtures round-tripped byte for byte through
      the native path and through the numpy path, and base64 decoding of
      phase 14's key blob and the record functions at the 128-bit keys'
-     sizes timed on both paths.
+     sizes timed on both paths;
+ 19. the parallel tier (``parallel/``, ``io/native_keys``, the llama's tp
+     plan) at 128-bit on phase 4's keyset.  (a) A one-rank NCCL group on the
+     card, ``FrameworkConfig(mesh_dp=1, mesh_tp=1).make_mesh()``: the dp NAND
+     (``make_sharded_nand``, K2 on the compact key) at B=BATCH, words and
+     variance equal to the direct ``gates.nand`` over the same key, every
+     output decrypted, timed, K2's launches counted, an NCCL all-reduce, and
+     ``scaling_report``'s point (one rank: the sharded path's overhead, not
+     scaling).  (b) PAR_RANKS ranks spawned on the one card under gloo (NCCL
+     refuses two ranks on one GPU; gloo moves the ranks' CUDA tensors through
+     the host): the dp NAND at (dp, tp) = (2, 1) and (1, 2), B=BATCH, the
+     TGSW-row ``blind_rotate_ntt_tp`` and the frequency-split
+     ``make_sharded_nand_freq`` at tp=2 and B=PAR_TP_BATCH over the
+     "ntt_scan" key, a ``native_keys`` round trip of the row-sharded key
+     (each rank writes its shard), and the stories110M-width llama forward
+     at tp=2 (random weights as in phase 17, float32 compute) within the
+     reference's 1e-4 of the one-rank forward; every result word-identical
+     to the one-rank result the parent computed first.
 The three kernels are printed as one ``{"kernels": [...]}`` line.  The last
 line is {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
@@ -132,6 +149,16 @@ LLAMA_PROMPT, LLAMA_RUN, LLAMA_CHUNK = 128, 64, 16 << 20
 GEN_BATCH, GEN_PROMPT, GEN_NEW = 8, 16, 128
 #: Phase 18: timed repeats of each codec function on each path.
 CODEC_REPEATS = 5
+#: Phase 19: ranks spawned on the one card, the tp rotations' batch, and the
+#: llama forward's (batch, tokens) and tolerance (``tests/test_llama.py``'s
+#: tp forward against the unsharded one).
+PAR_RANKS, PAR_TP_BATCH = 2, 8
+PAR_LLAMA_TOKENS, PAR_LLAMA_ATOL = (2, 16), 1e-4
+#: Phase 19 (b)'s layouts: PAR_RANKS ranks share cuda:0 under gloo (NCCL
+#: refuses two ranks on one GPU).  ``parallel_times.py`` runs the same rank
+#: body with one NCCL rank a card and its own plan.
+ONE_CARD_PLAN = {"backend": "gloo", "rank_card": False, "nand": ((2, 1), (1, 2)),
+                 "rows": (1, 2), "freq": (1, 2), "llama": (1, 2), "scaling": None}
 
 
 def c5_params(params):
@@ -870,6 +897,295 @@ def codec_smoke(key_blob: str, smi: str) -> None:
           f"median of {CODEC_REPEATS}: " + "; ".join(rows), flush=True)
 
 
+def _llama_weights(cfg, dev):
+    """Phase 17's random stories110M weights (seed 0 on the card)."""
+    from eoc_tfhe_tpu_torch.models import llama
+    return llama.init_params(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+
+
+def _probe(weights: dict) -> torch.Tensor:
+    """The last 16 values of each weight tensor: the generator's last draws."""
+    return torch.cat([weights[k].flatten()[-16:] for k in sorted(weights)])
+
+
+def _parallel_rank(rank: int, world: int, workdir: str, plan: dict) -> None:
+    """Phase 19 (b), one rank of ``plan`` (``ONE_CARD_PLAN``, or one NCCL
+    rank a card from ``parallel_times.py``).  Writes what it held against the
+    parent's one-rank results to ``out<rank>.pt``; an exception ends the run."""
+    from eoc_tfhe_tpu_torch.core import bootstrap, gates, keys, lwe, params
+    from eoc_tfhe_tpu_torch.io import native_keys
+    from eoc_tfhe_tpu_torch.models import llama
+    from eoc_tfhe_tpu_torch.ops import blind_rotate, blind_rotate_compact, blind_rotate_v1
+    from eoc_tfhe_tpu_torch.parallel import distributed, mesh, sharded
+
+    dev = torch.device("cuda", rank if plan["rank_card"] else 0)
+    distributed.initialize(f"file://{workdir}/store", world, rank, backend=plan["backend"],
+                           device=dev)
+    host = torch.load(os.path.join(workdir, "inputs.pt"))
+    p = params.default_128bit_params()
+    ks = keys.keyset_from_numpy(*(host[k].numpy() for k in ("lwe_s", "tgsw_key", "bk", "bk_var",
+                                                              "ks", "ks_var")), device=dev)
+    inp = {k: v.to(dev) for k, v in host.items()}
+    ca = [inp[f"ca_{f}"] for f in ("a", "b", "var")]
+    cb = [inp[f"cb_{f}"] for f in ("a", "b", "var")]
+    want = [inp[f"ref_{f}"] for f in ("a", "b", "var")]
+    ks_var = ks.cloud.bk.ks.variance
+    out = {}
+
+    def same(got, ref):
+        return all(torch.equal(g, r) for g, r in zip(got, ref))
+
+    def count(fn):
+        """(seconds, result, K1/K2/K3 launches) of one call after one warm call."""
+        fn()
+        blind_rotate.launches = blind_rotate_compact.launches = blind_rotate_v1.launches = 0
+        secs, res = timed(fn)
+        return secs, res, (blind_rotate.launches, blind_rotate_compact.launches,
+                           blind_rotate_v1.launches)
+
+    ek = bootstrap.prepare_eval_key(ks.cloud, p)
+    for dp, tp in plan["nand"]:
+        m = mesh.make_mesh(dp, tp, device=dev)
+        fn = sharded.make_sharded_nand(m, p)
+        secs, res, launches = count(lambda: fn(*ca, *cb, ek.bk_rows, ek.bk_variance,
+                                               ek.ks_prepared, ks_var))
+        out[f"nand_{dp}x{tp}"] = (same(res, want), secs, launches)
+    if plan["scaling"]:
+        B = ca[1].shape[0]
+
+        def run_fn(m, batch):
+            idx = torch.arange(batch, device=dev) % B
+            xa, xb = ([x[idx] for x in c] for c in (ca, cb))
+            if m is None:
+                return lambda: gates.nand(lwe.LweCiphertext(*xa), lwe.LweCiphertext(*xb), ek, p)
+            f = sharded.make_sharded_nand(m, p)
+            return lambda: f(*xa, *xb, ek.bk_rows, ek.bk_variance, ek.ks_prepared, ks_var)
+        out["scaling"] = distributed.scaling_report(
+            run_fn, [plan["scaling"]], mesh.make_mesh(world, 1, device=dev), iters=ITERS)
+    del ek
+
+    eks = bootstrap.prepare_eval_key_ntt(ks.cloud, p, kernel=False)
+    ctx = eks.ntt_ctx
+    m_rows, m_freq = (mesh.make_mesh(*plan[k], device=dev) for k in ("rows", "freq"))
+    rows = sharded.shard_ntt_key_rows(eks.bk_ntt, m_rows)
+    key_f = sharded.shard_ntt_key_freq(eks.bk_ntt, m_freq)
+    bk_var, ks_prepared = eks.bk_variance, eks.ks_prepared
+    del eks
+    torch.cuda.empty_cache()
+    secs, res, launches = count(lambda: sharded.blind_rotate_ntt_tp(
+        inp["acc0"], inp["bara"], rows, p, ctx, m_rows))
+    out["rows"] = (torch.equal(res, inp["ref_rot"]), secs, launches)
+    fn = sharded.make_sharded_nand_freq(m_freq, p, ctx)
+    B8 = PAR_TP_BATCH
+    secs, res, launches = count(lambda: fn(*(x[:B8] for x in ca), *(x[:B8] for x in cb),
+                                           key_f, bk_var, ks_prepared, ks_var))
+    out["freq_nand"] = (same(res, [x[:B8] for x in want]), secs, launches)
+
+    kdir = os.path.join(workdir, "keys")
+    tree = {"key": rows, "variance": bk_var}
+    secs_w, man = timed(lambda: native_keys.save_pytree(kdir, tree, mesh=m_rows))
+    secs_r, got = timed(lambda: native_keys.load_pytree(kdir, tree, mesh=m_rows))
+    files = ["MANIFEST.json", *(f"t0.shard{k}.bin" for k in range(m_rows.tp)), "t1.shard0.bin"]
+    out["native_keys"] = (man["tensors"]["t0"]["shards"] == m_rows.tp
+                          and torch.equal(got["key"].local, rows.local)
+                          and torch.equal(got["variance"], bk_var)
+                          and sorted(os.listdir(kdir)) == files,
+                          secs_w, secs_r, rows.local.numel())
+    del rows, key_f, got
+    torch.cuda.empty_cache()
+
+    cfg = llama.LlamaConfig(**STORIES110M)
+    weights = _llama_weights(cfg, dev)
+    check(torch.equal(_probe(weights), inp["llama_probe"]),
+          f"rank {rank}: the llama weights differ from the parent's")
+    m = mesh.make_mesh(*plan["llama"], device=dev)
+    local = llama.shard_params(weights, llama.llama_param_specs(cfg), m)
+    del weights
+
+    def forward():
+        return llama.forward(local, inp["tokens"], cfg, compute_dtype=torch.float32,
+                             tp_group=m.tp_group)
+    forward()                                                     # warm
+    secs, logits = timed(forward)
+    out["llama"] = (float((logits - inp["ref_logits"]).abs().max()), secs,
+                    local["wq"].shape[-1])
+    torch.save(out, os.path.join(workdir, f"out{rank}.pt"))
+    torch.distributed.destroy_process_group()
+
+
+def parallel_inputs(ks, p, gen: torch.Generator, ca, cb, ref, workdir: str) -> dict:
+    """Phase 19's one-rank results, written with the keys and ciphertexts to
+    ``workdir/inputs.pt`` for the ranks: the "ntt_scan" rotation of random
+    inputs at B=PAR_TP_BATCH (K3) and the float32 stories110M forward.
+    Returns the one-rank seconds of the tp rotations (tp=1: every collective
+    an identity) and of the forward."""
+    from eoc_tfhe_tpu_torch.core import bootstrap
+    from eoc_tfhe_tpu_torch.models import llama
+    from eoc_tfhe_tpu_torch.ops import blind_rotate_v1
+    from eoc_tfhe_tpu_torch.parallel import mesh, sharded
+
+    dev = ca.a.device
+    eks = bootstrap.prepare_eval_key_ntt(ks.cloud, p, kernel=False)
+    tl = p.tgsw_params.tlwe_params
+    acc0 = torch.randint(-2**31, 2**31, (PAR_TP_BATCH, tl.k + 1, tl.N), generator=gen,
+                         dtype=torch.int64, device=dev).to(torch.int32)
+    bara = torch.randint(0, 2 * tl.N, (p.n, PAR_TP_BATCH), generator=gen,
+                         dtype=torch.int32, device=dev)
+    ref_rot = blind_rotate_v1.blind_rotate_ntt_v1(acc0, bara, eks.bk_ntt, eks.ntt_ctx, p)
+    one = mesh.make_mesh(1, 1, device=dev)
+    secs = {}
+    for name, rotate, cut in (
+            ("blind_rotate_ntt_tp", sharded.blind_rotate_ntt_tp, sharded.shard_ntt_key_rows),
+            ("blind_rotate_ntt_freq_tp", sharded.blind_rotate_ntt_freq_tp,
+             sharded.shard_ntt_key_freq)):
+        key1 = cut(eks.bk_ntt, one)
+        rotate(acc0, bara[:2], key1, p, eks.ntt_ctx, one)         # warm, two steps
+        secs[name], got = timed(lambda: rotate(acc0, bara, key1, p, eks.ntt_ctx, one))
+        check(torch.equal(got, ref_rot), f"{name} on one rank differs from K3")
+    del eks, key1
+    cfg = llama.LlamaConfig(**STORIES110M)
+    weights = _llama_weights(cfg, dev)
+    toks = torch.randint(0, cfg.vocab_size, PAR_LLAMA_TOKENS, generator=gen, device=dev)
+    llama.forward(weights, toks, cfg, compute_dtype=torch.float32)   # warm
+    secs["llama"], ref_logits = timed(lambda: llama.forward(weights, toks, cfg,
+                                                            compute_dtype=torch.float32))
+    probe = _probe(weights)
+    del weights
+    bk = ks.cloud.bk
+    inputs = dict(lwe_s=ks.lwe_key.s, tgsw_key=ks.tgsw_key.key, bk=bk.bk,
+                  bk_var=bk.bk_variance, ks=bk.ks.ks, ks_var=bk.ks.variance,
+                  acc0=acc0, bara=bara, ref_rot=ref_rot, tokens=toks,
+                  ref_logits=ref_logits, llama_probe=probe)
+    for name, ct in (("ca", ca), ("cb", cb), ("ref", ref)):
+        inputs.update({f"{name}_a": ct.a, f"{name}_b": ct.b, f"{name}_var": ct.current_variance})
+    torch.save({k: v.cpu() for k, v in inputs.items()}, os.path.join(workdir, "inputs.pt"))
+    torch.cuda.empty_cache()
+    return secs
+
+
+def run_parallel_ranks(plan: dict, world: int, workdir: str, B: int, one_rank: dict,
+                       smi: str, label: str = "") -> list[dict]:
+    """Spawn ``world`` ranks of ``plan`` (the kernels built already), hold
+    every rank's results, print them (``label`` after "parallel"), and
+    return each rank's outputs."""
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    mp.spawn(_parallel_rank, args=(world, workdir, plan), nprocs=world, join=True)
+    ranks_s = time.perf_counter() - t0
+    outs = [torch.load(os.path.join(workdir, f"out{r}.pt")) for r in range(world)]
+    nands = [f"nand_{dp}x{tp}" for dp, tp in plan["nand"]]
+    for r, out in enumerate(outs):
+        for key in (*nands, "rows", "freq_nand"):
+            ok, _, (k1, k2, k3) = out[key]
+            check(ok, f"rank {r}: {key} differs from the one-rank result")
+            check(k1 == 0 and k3 == 0 and (k2 == 1 if key in nands else k2 == 0),
+                  f"rank {r}: {key} launches K1, K2, K3 = {k1}, {k2}, {k3}")
+        check(out["native_keys"][0], f"rank {r}: the native_keys round trip differs")
+        err = out["llama"][0]
+        check(err <= PAR_LLAMA_ATOL, f"rank {r}: the tp llama forward is {err:.3e} off the "
+              f"one-rank forward (tolerance {PAR_LLAMA_ATOL})")
+    o = outs[0]
+    where = ("NCCL, one a card" if plan["rank_card"] else f"{plan['backend']}, sharing cuda:0")
+    (rdp, rtp), (_, ftp), (_, ltp) = plan["rows"], plan["freq"], plan["llama"]
+    print(f"parallel{label} ({smi}): {world} ranks ({where}), {ranks_s:.2f} s with spawning; rank "
+          f"0's host seconds: dp NAND B={B} at (dp, tp) = "
+          + ", ".join(f"({dp}, {tp}) {o[f'nand_{dp}x{tp}'][1]:.3f} s" for dp, tp in plan["nand"])
+          + f" (K2 once a rank); blind_rotate_ntt_tp at ({rdp}, {rtp}) B={PAR_TP_BATCH} "
+          f"{o['rows'][1]:.3f} s (one rank, no collective: "
+          f"{one_rank['blind_rotate_ntt_tp']:.3f} s); make_sharded_nand_freq tp={ftp} "
+          f"B={PAR_TP_BATCH} {o['freq_nand'][1]:.3f} s (blind_rotate_ntt_freq_tp on one rank: "
+          f"{one_rank['blind_rotate_ntt_freq_tp']:.3f} s); all word-identical to the "
+          f"one-rank results on every rank", flush=True)
+    print(f"parallel{label} ({smi}): native_keys of the row-sharded ntt_scan key "
+          f"({o['native_keys'][3]} bytes a rank), written {o['native_keys'][1]:.3f} s, read "
+          f"{o['native_keys'][2]:.3f} s, read back equal on every rank; stories110M forward "
+          f"{PAR_LLAMA_TOKENS} tokens float32 at tp={ltp} ({o['llama'][2]} wq columns a rank) "
+          f"{o['llama'][1]:.3f} s, max |logit - one rank| "
+          f"{max(out['llama'][0] for out in outs):.3e} (tolerance {PAR_LLAMA_ATOL}; "
+          f"one rank {one_rank['llama']:.3f} s)", flush=True)
+    if plan["scaling"]:
+        print(f"parallel{label} ({smi}): scaling_report of the dp NAND over {world} ranks: "
+              f"{json.dumps(o['scaling']['points'][0])}", flush=True)
+    return outs
+
+
+def parallel_smoke(ks, p, gen: torch.Generator, smi: str) -> None:
+    """Phase 19: the parallel tier on the card at 128-bit on phase 4's keyset."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from eoc_tfhe_tpu_torch.config import FrameworkConfig
+    from eoc_tfhe_tpu_torch.core import bootstrap, gates
+    from eoc_tfhe_tpu_torch.core.lwe import LweCiphertext as lwe_ct
+    from eoc_tfhe_tpu_torch.ops import blind_rotate, blind_rotate_compact, blind_rotate_v1
+    from eoc_tfhe_tpu_torch.parallel import distributed, sharded
+
+    dev = torch.device("cuda", 0)
+    B = FrameworkConfig().batch_size
+    ek = bootstrap.prepare_eval_key(ks.cloud, p)
+    a = torch.randint(0, 2, (B,), generator=gen, device=dev).bool()
+    b = torch.randint(0, 2, (B,), generator=gen, device=dev).bool()
+    ca, cb = (gates.encrypt_bit(gen, x, ks.lwe_key, p) for x in (a, b))
+    ks_var = ks.cloud.bk.ks.variance
+    gates.nand(ca, cb, ek, p)                                     # warm
+    direct_ms, ref = cuda_ms(lambda: gates.nand(ca, cb, ek, p), ITERS)
+
+    def counts():
+        return {"blind_rotate_ntt": blind_rotate.launches,
+                "blind_rotate_compact": blind_rotate_compact.launches,
+                "blind_rotate_ntt_v1": blind_rotate_v1.launches}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) one NCCL rank
+        check(distributed.initialize(f"file://{tmp}/nccl", 1, 0) is False,
+              "a one-rank group reported more ranks")
+        check(dist.get_backend() == "nccl", f"backend {dist.get_backend()} on the card")
+        mesh1 = FrameworkConfig(mesh_dp=1, mesh_tp=1).make_mesh()
+        fn = sharded.make_sharded_nand(mesh1, p)
+
+        def sharded_nand():
+            return fn(ca.a, ca.b, ca.current_variance, cb.a, cb.b, cb.current_variance,
+                      ek.bk_rows, ek.bk_variance, ek.ks_prepared, ks_var)
+        blind_rotate.launches = blind_rotate_compact.launches = blind_rotate_v1.launches = 0
+        sharded_nand()                                            # warm
+        nccl_ms, got = cuda_ms(sharded_nand, ITERS)
+        launches = counts()
+        check(launches == {"blind_rotate_ntt": 0, "blind_rotate_compact": ITERS + 1,
+                           "blind_rotate_ntt_v1": 0}, f"sharded NAND launches {launches}")
+        for name, g, r in zip(("a", "b", "variance"), got, (ref.a, ref.b, ref.current_variance)):
+            check(torch.equal(g, r), f"one-rank NCCL sharded NAND {name} differs from gates.nand")
+        n_wrong = int((gates.decrypt_bit(ref, ks.lwe_key) != ~(a & b)).sum())
+        check(n_wrong == 0, f"{n_wrong} of {B} sharded NAND outputs decrypt wrong")
+        ones = torch.ones(4, device=dev)
+        dist.all_reduce(ones)
+        torch.cuda.synchronize()
+        check(ones.tolist() == [1.0] * 4, "the NCCL all-reduce on one rank changed its input")
+
+        def run_fn(m, batch):
+            idx = torch.arange(batch, device=dev) % B
+            xa, xb = ([c.a[idx], c.b[idx], c.current_variance[idx]] for c in (ca, cb))
+            if m is None:
+                return lambda: gates.nand(lwe_ct(*xa), lwe_ct(*xb), ek, p)
+            f = sharded.make_sharded_nand(m, p)
+            return lambda: f(*xa, *xb, ek.bk_rows, ek.bk_variance, ek.ks_prepared, ks_var)
+        rep = distributed.scaling_report(run_fn, [B], mesh1, iters=ITERS)
+        dist.destroy_process_group()
+        print(f"parallel (a) ({smi}): one NCCL rank, FrameworkConfig(mesh_dp=1, mesh_tp=1)"
+              f".make_mesh() on {mesh1.device}: make_sharded_nand B={B} {nccl_ms:.2f} ms/call "
+              f"(gates.nand over the same compact key {direct_ms:.2f} ms/call); words and "
+              f"variance equal to gates.nand, {B} of {B} decrypt correctly; launches "
+              f"{launches}; NCCL all-reduce ran", flush=True)
+        print(f"parallel (a) ({smi}): scaling_report on one rank (the sharded path's "
+              f"overhead, not scaling): {json.dumps(rep['points'][0])}", flush=True)
+        del ek
+
+        # (b) ranks sharing the one card under gloo; the kernels are built already
+        one_rank = parallel_inputs(ks, p, gen, ca, cb, ref, tmp)
+        run_parallel_ranks(ONE_CARD_PLAN, PAR_RANKS, tmp, B, one_rank, smi, " (b)")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of keys and data")
@@ -1198,12 +1514,15 @@ def main() -> int:
     # 15. the served path; 16. the process runtime
     served_smoke(ks, ek, p, gen)
     process_smoke()
-    del ks, ek, ca, cb, ca8, cb8, api, eck
+    del ek, ca, cb, ca8, cb8, api, eck
     torch.cuda.empty_cache()
 
     # 17. the llama tier at stories110M widths; 18. the native codec
     llama_smoke(smi)
     codec_smoke(key_blob, smi)
+
+    # 19. the parallel tier on phase 4's keyset
+    parallel_smoke(ks, p, gen, smi)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

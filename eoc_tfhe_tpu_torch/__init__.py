@@ -13,11 +13,16 @@ reference's module layout and names:
   core.keys / bootstrap / gates    keygen, gate bootstrapping, boolean gates, MUX/MAJ/refresh
   circuits.adder                   integer circuits: add, sub, mul, compare, equals, select
   io.tfhe_io                       the reference-compatible wire codec
+  io.native_keys                   the sharded key directory format, each rank its own shards
+  io.virtualfs / models            the virtual FS and the llama tier
+  parallel.mesh / distributed      (dp, tp) meshes of torch.distributed ranks, their collectives
+  parallel.sharded                 the dp gate and the tp blind rotations across ranks
   api.tfhe / api.jwt               the ``Tfhe.*`` string API and its JWT gate
   serving                          the batching gate server (GateServer)
   lua / process                    the Lua interpreter and the AO process runtime (Process, Router)
   utils.profiling                  per-op timers and torch.profiler regions
-  config                           FrameworkConfig: parameter set, eval-key form, JWT, echo, serving
+  config                           FrameworkConfig: parameter set, eval-key form, JWT, echo,
+                                   serving, mesh
   kernels.build                    builds ``csrc/*.cu`` with nvcc at first use
 
 Entry points that create tensors take ``device=`` and default to the card;

@@ -19,11 +19,9 @@ Port of ``eoc_tfhe_tpu/config.py``: the same fields, choices and JSON form.  Wha
   * ``serving_max_batch`` / ``serving_max_delay_s`` /
     ``serving_pipeline_chunk`` -> :meth:`make_gate_server`
     (``serving.GateServer``'s flush policy and chunked pipeline)
-
-The consumer of ``mesh_dp`` and ``mesh_tp`` (``make_mesh``, the parallel
-paths) is not ported yet.  Those fields keep the reference's defaults, so
-the JSON form matches the reference's, and a config that sets either to
-another value is refused rather than silently ignored.
+  * ``mesh_dp`` / ``mesh_tp`` -> :meth:`make_mesh` (a (dp, tp) layout of
+    the process group's ranks, ``parallel.mesh``; 0 = every remaining rank
+    on dp)
 """
 
 from __future__ import annotations
@@ -41,12 +39,6 @@ EVAL_KEY_FORM_CHOICES = ("ntt", "ntt_rounded", "fused", "rows")
 
 #: Valid ``rotation_impl`` values (the reference's names).
 ROTATION_IMPL_CHOICES = ("auto", "gather", "onehot", "barrel")
-
-#: Fields whose consumer is not ported yet -> what it waits for.
-NOT_PORTED = {
-    "mesh_dp": "make_mesh (parallel)",
-    "mesh_tp": "make_mesh (parallel)",
-}
 
 _GATES = ("nand", "and_", "or_", "nor", "xor_", "xnor", "andny", "andyn", "orny", "oryn",
           "mux")
@@ -76,11 +68,6 @@ class FrameworkConfig:
         if self.rotation_impl not in ROTATION_IMPL_CHOICES:
             raise ValueError(f"rotation_impl {self.rotation_impl!r} not in "
                              f"{ROTATION_IMPL_CHOICES}")
-        for f in dataclasses.fields(self):
-            if f.name in NOT_PORTED and getattr(self, f.name) != f.default:
-                raise ValueError(f"{f.name}={getattr(self, f.name)!r}: its consumer, "
-                                 f"{NOT_PORTED[f.name]}, is not ported yet; only the "
-                                 f"default {f.default!r} is accepted")
 
     def params(self) -> GateBootstrappingParams:
         return {"128": default_128bit_params, "80": default_80bit_params,
@@ -127,6 +114,12 @@ class FrameworkConfig:
                   pipeline_chunk=self.serving_pipeline_chunk)
         kw.update(overrides)
         return GateServer(ek, params, **kw)
+
+    def make_mesh(self, device=None):
+        """(dp, tp) mesh of the process group's ranks from the configured axis
+        sizes; ``device`` is this rank's (the card unless named)."""
+        from .parallel.mesh import make_mesh
+        return make_mesh(dp=self.mesh_dp or None, tp=self.mesh_tp, device=device)
 
     def apply_profiling(self) -> None:
         """Apply the profiling echo flag to the process profiler."""

@@ -5,12 +5,15 @@ Each ``csrc/<name>.cu`` exposes a plain C launch function; it is compiled for
 of every ``csrc/`` header it includes, so an edited source or header is
 rebuilt) at first use and loaded once per process.  A lock makes the first
 use from several threads (the gate server's worker and its callers) build
-once.  Nothing is built when a module is imported.
+once, and a file lock (``flock`` on ``_build/build.lock``, released when its
+holder exits) makes the first use from several processes (the ranks of one
+card) build once.  Nothing is built when a module is imported.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -126,7 +129,11 @@ def load(name: str) -> ctypes.CDLL:
 def _load(name: str) -> ctypes.CDLL:
     out = _target(name)
     if not out.exists():
-        build_all()
+        BUILD_DIR.mkdir(exist_ok=True)
+        with open(BUILD_DIR / "build.lock", "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)       # the other processes wait here
+            if not out.exists():
+                build_all()
     lib = ctypes.CDLL(str(out))
     fn_name, argtypes = SIGNATURES[name]
     fn = getattr(lib, fn_name)

@@ -27,9 +27,14 @@ a whole pass.
 The reference's function names are kept as plain functions on tensors
 (``init_params``, ``rope_tables``, ``forward``, ``prefill``,
 ``init_kv_cache``, ``decode_step``, ``generate``, ...); :class:`Llama` is
-the ``nn.Module`` that holds the stacked tensors and calls them.  The tensor
-parallel plan (``llama_param_specs``) belongs to the parallel tier and is
-not ported with this module.
+the ``nn.Module`` that holds the stacked tensors and calls them.
+
+Tensor parallelism is an annotation in the reference (:func:`llama_param_specs`,
+which GSPMD turns into code); here it is code.  :func:`shard_params` keeps
+this rank's slices (QKV, w1 and w3 cut by columns, QKV by whole heads; wo
+and w2 by rows), and ``forward`` / ``prefill`` / ``decode_step`` given a tp
+process group run the local heads and sum the wo and w2 products over the
+group: one all-reduce after each, two a layer.
 """
 
 from __future__ import annotations
@@ -39,9 +44,11 @@ import functools
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from ..device import exact_matmuls, resolve_device
+from ..parallel.mesh import psum
 
 #: The stacked per-layer tensors, in the reference's order.
 LAYER_KEYS = ("attention_norm", "wq", "wk", "wv", "wo", "ffn_norm", "w1", "w2", "w3")
@@ -121,6 +128,56 @@ def _einsum_f32(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return torch.einsum(eq, a.float(), b.float())
 
 
+def llama_param_specs(cfg: LlamaConfig) -> dict:
+    """Per-dimension specs for tensor parallelism over a mesh "tp" axis (the
+    reference's PartitionSpecs as tuples).
+
+    Megatron-style: QKV/w1/w3 column-sharded, wo/w2 row-sharded, so each
+    layer needs exactly one all-reduce per block.
+    """
+    col, row = (None, None, "tp"), (None, "tp", None)
+    return {"tok_embeddings": (None, None), "attention_norm": (None, None),
+            "wq": col, "wk": col, "wv": col, "wo": row, "ffn_norm": (None, None),
+            "w1": col, "w2": row, "w3": col, "norm": (None,), "output": (None, None)}
+
+
+def _tp_size(cfg: LlamaConfig, tp: int) -> int:
+    """``tp``, checked against whole heads: both head counts divide by it."""
+    if cfg.n_heads % tp or cfg.n_kv_heads % tp:
+        raise ValueError(f"tp={tp} must divide n_heads={cfg.n_heads} and "
+                         f"n_kv_heads={cfg.n_kv_heads}")
+    return tp
+
+
+def shard_params(params: dict, specs: dict, mesh) -> dict:
+    """This rank's tp slices of the layer-stacked params (``specs`` from
+    :func:`llama_param_specs`): a dimension marked "tp" keeps block
+    ``mesh.index("tp")`` of ``mesh.tp``; the others stay whole.  The QKV
+    columns and the wo rows are (head, hd) major, so the blocks are whole
+    heads when the head counts divide by tp (checked by ``forward``)."""
+    tp, idx = mesh.size("tp"), mesh.index("tp")
+    out = {}
+    for name, x in params.items():
+        for d, axis in enumerate(specs[name]):
+            if axis == "tp":
+                if x.shape[d] % tp:
+                    raise ValueError(f"{name} dimension {d} ({x.shape[d]}) does not "
+                                     f"split over tp={tp}")
+                blk = x.shape[d] // tp
+                x = x.narrow(d, idx * blk, blk).contiguous()
+        out[name] = x
+    return out
+
+
+def _tp_sum(x: torch.Tensor, tp_group) -> torch.Tensor:
+    """The sum over the tp group of each rank's partial product."""
+    return x if tp_group is None else psum(x, tp_group)
+
+
+def _group_size(tp_group) -> int:
+    return 1 if tp_group is None else dist.get_world_size(tp_group)
+
+
 def _rmsnorm(x, g, eps):
     x = x.float()
     return (x * torch.rsqrt(torch.mean(x * x, -1, keepdim=True) + eps)) * g
@@ -168,16 +225,21 @@ def _attn(q, k, v, mask):
     return out.to(q.dtype)
 
 
-def _block(x, lp, cfg: LlamaConfig, cos, sin, kv_cache, pos, mask, compute_dtype):
+def _block(x, lp, cfg: LlamaConfig, cos, sin, kv_cache, pos, mask, compute_dtype,
+           tp_group=None):
     """One decoder layer. kv_cache: None or (k, v) each (B, S, Hkv, hd),
-    written at ``pos`` in place."""
-    B, T, D = x.shape
+    written at ``pos`` in place.  With a tp group, ``lp`` holds this rank's
+    slices (:func:`shard_params`): its heads, and the wo and w2 products'
+    partial sums are summed over the group."""
+    B, T, _ = x.shape
     hd = cfg.head_dim
+    tp = _tp_size(cfg, _group_size(tp_group))
+    Hq, Hkv = cfg.n_heads // tp, cfg.n_kv_heads // tp
 
     h = _rmsnorm(x, lp["attention_norm"], cfg.norm_eps).to(compute_dtype)
-    q = matmul(h, lp["wq"]).reshape(B, T, cfg.n_heads, hd)
-    k = matmul(h, lp["wk"]).reshape(B, T, cfg.n_kv_heads, hd)
-    v = matmul(h, lp["wv"]).reshape(B, T, cfg.n_kv_heads, hd)
+    q = matmul(h, lp["wq"]).reshape(B, T, Hq, hd)
+    k = matmul(h, lp["wk"]).reshape(B, T, Hkv, hd)
+    v = matmul(h, lp["wv"]).reshape(B, T, Hkv, hd)
     q = _apply_rope(q, cos, sin).to(compute_dtype)
     k = _apply_rope(k, cos, sin).to(compute_dtype)
 
@@ -190,11 +252,11 @@ def _block(x, lp, cfg: LlamaConfig, cos, sin, kv_cache, pos, mask, compute_dtype
     else:
         att = _attn(q, k, v, mask)
         new_cache = (k, v)      # this call's keys/values (prefill collects)
-    x = x + matmul(att.reshape(B, T, D), lp["wo"]).float()
+    x = x + _tp_sum(matmul(att.reshape(B, T, Hq * hd), lp["wo"]).float(), tp_group)
 
     h = _rmsnorm(x, lp["ffn_norm"], cfg.norm_eps).to(compute_dtype)
     gate = torch.nn.functional.silu(matmul(h, lp["w1"]).float()).to(compute_dtype)
-    x = x + matmul(gate * matmul(h, lp["w3"]), lp["w2"]).float()
+    x = x + _tp_sum(matmul(gate * matmul(h, lp["w3"]), lp["w2"]).float(), tp_group)
     return x, new_cache
 
 
@@ -213,8 +275,10 @@ def _causal(T: int, device) -> torch.Tensor:
 
 
 def forward(params: dict, tokens: torch.Tensor, cfg: LlamaConfig,
-            compute_dtype=torch.bfloat16) -> torch.Tensor:
-    """Full-sequence causal forward: (B, T) int -> (B, T, V) float32 logits."""
+            compute_dtype=torch.bfloat16, tp_group=None) -> torch.Tensor:
+    """Full-sequence causal forward: (B, T) int -> (B, T, V) float32 logits.
+    With ``tp_group``, ``params`` are this rank's :func:`shard_params` and
+    every rank of the group gets the whole logits."""
     T = tokens.shape[1]
     emb = params["tok_embeddings"]
     cos, sin = rope_tables(cfg, device=emb.device)
@@ -222,15 +286,16 @@ def forward(params: dict, tokens: torch.Tensor, cfg: LlamaConfig,
     x = emb[tokens].float()
     for li in range(cfg.n_layers):
         x, _ = _block(x, _layer(params, li), cfg, cos[:T], sin[:T], None, 0, mask,
-                      compute_dtype)
+                      compute_dtype, tp_group)
     x = _rmsnorm(x, params["norm"], cfg.norm_eps)
     return _classify(x, params, compute_dtype)
 
 
 def prefill(params: dict, tokens: torch.Tensor, cfg: LlamaConfig,
-            compute_dtype=torch.bfloat16):
+            compute_dtype=torch.bfloat16, tp_group=None):
     """One full-sequence pass that POPULATES the KV cache: (B, Tp) int ->
     (last-position logits (B, V) float32, cache (L, 2, B, S, Hkv, hd)).
+    With ``tp_group`` the cache holds this rank's Hkv / tp heads.
 
     Prompt ingestion as one batched causal forward instead of Tp sequential
     :func:`decode_step` calls.  The returned cache is ``init_kv_cache``-shaped
@@ -243,11 +308,13 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: LlamaConfig,
     emb = params["tok_embeddings"]
     cos, sin = rope_tables(cfg, device=emb.device)
     mask = _causal(T, emb.device)
-    cache = init_kv_cache(cfg, B, compute_dtype, device=emb.device)
+    tp = _tp_size(cfg, _group_size(tp_group))
+    cache = init_kv_cache(dataclasses.replace(cfg, n_kv_heads=cfg.n_kv_heads // tp), B,
+                          compute_dtype, device=emb.device)
     x = emb[tokens].float()
     for li in range(cfg.n_layers):
         x, (k, v) = _block(x, _layer(params, li), cfg, cos[:T], sin[:T], None, 0, mask,
-                           compute_dtype)
+                           compute_dtype, tp_group)
         cache[li, 0, :, :T] = k.to(compute_dtype)
         cache[li, 1, :, :T] = v.to(compute_dtype)
     x = _rmsnorm(x[:, -1], params["norm"], cfg.norm_eps)
@@ -262,11 +329,12 @@ def init_kv_cache(cfg: LlamaConfig, batch: int, dtype=torch.bfloat16, device=Non
 
 
 def decode_step(params: dict, cache: torch.Tensor, pos: int, tokens: torch.Tensor,
-                cfg: LlamaConfig, compute_dtype=torch.bfloat16):
+                cfg: LlamaConfig, compute_dtype=torch.bfloat16, tp_group=None):
     """One token for the whole batch. tokens: (B,) int; pos: int.
 
     Writes the token's keys and values into ``cache`` at ``pos`` (in place)
-    and returns (logits (B, V) float32, cache).
+    and returns (logits (B, V) float32, cache).  With ``tp_group``, ``params``
+    and ``cache`` are this rank's (:func:`shard_params`, ``prefill``).
     """
     pos = int(pos)
     emb = params["tok_embeddings"]
@@ -276,7 +344,7 @@ def decode_step(params: dict, cache: torch.Tensor, pos: int, tokens: torch.Tenso
     x = emb[tokens][:, None, :].float()
     for li in range(cfg.n_layers):
         x, _ = _block(x, _layer(params, li), cfg, cos[pos:pos + 1], sin[pos:pos + 1],
-                      (cache[li, 0], cache[li, 1]), pos, mask, compute_dtype)
+                      (cache[li, 0], cache[li, 1]), pos, mask, compute_dtype, tp_group)
     x = _rmsnorm(x[:, 0], params["norm"], cfg.norm_eps)
     return _classify(x, params, compute_dtype), cache
 

@@ -22,7 +22,7 @@ import torch
 from ..core.numeric import wrap32
 from ..core.tgsw import decompose_h
 from . import rotate
-from .ntt import NttContext, balanced_mod, pad16, unpack_kernel_key
+from .ntt import NttContext, external_product_ntt, pad16, unpack_kernel_key
 
 #: Number of launches of the CUDA kernel in this process.
 launches = 0
@@ -31,51 +31,18 @@ launches = 0
 SMEM_PER_BLOCK = 232_448
 
 
-def external_product_plain(digits: torch.Tensor, key_step: torch.Tensor,
-                           ctx: NttContext) -> torch.Tensor:
-    """Exact  sum_j digits[b, j] (negacyclic*) bk_step[j, u]  mod 2^32.
-
-    The ``ops/ntt.py`` algorithm of the reference in torch.  Each modular
-    product is a float64 matmul of exact integers below 2^53 (|digit| <=
-    halfBg, |residue| < 2^15, so forward < 2^31, pointwise K*2^30 and inverse
-    F*2^30), followed by an integer reduction.
-
-    Args:
-      digits: (B, J, N) int32 gadget digits.
-      key_step: (P, F, K, M) int16, one step of the prepared key.
-    Returns (B, U, N) int32.
-    """
-    B, J, N = digits.shape
-    R, F, L = ctx.R, ctx.F, ctx.key_limbs
-    P, _, K, M = key_step.shape
-    U = M // (L * R)
-    sub = digits.reshape(B, J, F, R).transpose(-1, -2).to(torch.float64)   # (B,J,R,F)
-    res = []
-    for pi, p in enumerate(ctx.primes):
-        dhat = balanced_mod(sub @ ctx.W[pi].to(torch.float64), p)          # (B,J,R,F)
-        dhat = dhat.reshape(B, K, F).permute(2, 0, 1).to(torch.float64)    # (F,B,K)
-        chat = balanced_mod(torch.bmm(dhat, key_step[pi].to(torch.float64)), p)
-        chat = chat.permute(1, 2, 0).to(torch.float64)                     # (B,M,F)
-        res.append(balanced_mod(chat @ ctx.Winv[pi].to(torch.float64), p))
-    p1, p2 = ctx.primes
-    t = balanced_mod((res[1] - res[0]) * ctx.crt_inv, p2)
-    V = (res[0] + t * p1).reshape(B, L, U, R, F)      # exact integer, |V| < p1*p2/2
-    out = torch.zeros((B, U, R, F), dtype=torch.int64, device=digits.device)
-    for li in range(L):
-        out = out + (V[:, li] << (ctx.key_limb_bits * li))
-    return wrap32(out).transpose(-1, -2).reshape(B, U, N)    # index m = t*R + s
-
-
 def cmux_ntt_step(acc: torch.Tensor, key_step: torch.Tensor, bara_i: torch.Tensor,
                   ctx: NttContext, params) -> torch.Tensor:
-    """One CMux step over the NTT-domain key: acc + bk_i (.) ((X^a - 1) acc).
+    """One CMux step over the NTT-domain key: acc + bk_i (.) ((X^a - 1) acc),
+    the external product by the stages of ``ntt.external_product_ntt`` (the
+    ``ops/ntt.py`` algorithm of the reference in torch).
 
     Args:
       acc: (B, k+1, N) int32; key_step: (P, F, K, M) int16; bara_i: (B,) int32.
     """
     rot = rotate.mul_by_xai(acc, bara_i[:, None])
     d = wrap32(rot.to(torch.int64) - acc.to(torch.int64))
-    delta = external_product_plain(decompose_h(d, params.tgsw_params), key_step, ctx)
+    delta = external_product_ntt(decompose_h(d, params.tgsw_params), key_step, ctx)
     return wrap32(acc.to(torch.int64) + delta.to(torch.int64))
 
 

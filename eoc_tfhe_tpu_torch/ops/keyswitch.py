@@ -62,6 +62,18 @@ def _onehot_product(digits: torch.Tensor, prepared: torch.Tensor, base: int) -> 
         return onehot @ prepared
 
 
+def keyswitch_delta(digits: torch.Tensor, prepared: torch.Tensor, base: int) -> torch.Tensor:
+    """sum over (i, j) of the table row that digit[i, j] selects, mod 2^32:
+    (..., n_in, t) digits and the prepared rows of those n_in -> (..., m) int32."""
+    n_in, t = digits.shape[-2:]
+    flat = digits.reshape((-1, n_in, t))
+    z = torch.cat([_onehot_product(flat[c:c + _CHUNK], prepared, base)
+                   for c in range(0, flat.shape[0], _CHUNK)])
+    m = prepared.shape[-1] // polymul.LIMBS
+    z = z.to(torch.int32).reshape(digits.shape[:-2] + (m, polymul.LIMBS))
+    return polymul.recombine_limbs(z, dim=-1)
+
+
 def keyswitch_apply(ct_extracted: LweCiphertext, ks: KeySwitchKey, t: int, basebit: int,
                     prepared: torch.Tensor | None = None) -> LweCiphertext:
     """``lweKeySwitch``: (a over n_in, b) -> LWE over n_out.
@@ -75,12 +87,7 @@ def keyswitch_apply(ct_extracted: LweCiphertext, ks: KeySwitchKey, t: int, baseb
         prepared = prepare_keyswitch_matmul(ks)
 
     digits = keyswitch_digits(ct_extracted.a, t, basebit)      # (..., n_in, t)
-    batch_shape = digits.shape[:-2]
-    flat = digits.reshape((-1, n_in, t))
-    z = torch.cat([_onehot_product(flat[c:c + _CHUNK], prepared, base)
-                   for c in range(0, flat.shape[0], _CHUNK)])
-    z = z.to(torch.int32).reshape(batch_shape + (m, polymul.LIMBS))
-    delta = polymul.recombine_limbs(z, dim=-1).to(torch.int64)  # (..., m)
+    delta = keyswitch_delta(digits, prepared, base).to(torch.int64)   # (..., m)
 
     a = wrap32(-delta[..., :n_out])
     b = wrap32(ct_extracted.b.to(torch.int64) - delta[..., n_out])

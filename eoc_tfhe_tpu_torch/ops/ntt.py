@@ -35,6 +35,7 @@ import functools
 import numpy as np
 import torch
 
+from ..core.numeric import wrap32
 from ..device import resolve_device
 
 #: The "ntt_kernel" form's prime pair (the reference's ``KERNEL_PRIMES``).
@@ -217,6 +218,90 @@ def _bal_f64(z: torch.Tensor, p: int) -> torch.Tensor:
     """z - rint(z / p) * p for float64 z holding exact integers: the
     reference's rounding step, kept so the prepared key matches it bit for bit."""
     return z - torch.round(z * (1.0 / p)) * p
+
+
+# --------------------------------------------------------------------------
+# The external product's stages as torch ops (the reference's XLA path,
+# ``ops/ntt.py:331-480, 654-700``).  Every product is a float64 matmul of
+# exact integers below 2^53 followed by an integer reduction, so each stage
+# gives the reference's balanced residues; the reference's int8 limb split
+# (``split_i8``) and its float32 ``balanced_reduce`` are how its matrix unit
+# reaches the same residues, and are ``split_bytes`` and ``balanced_mod`` here.
+# --------------------------------------------------------------------------
+
+def mod_matmul(x: torch.Tensor, W: torch.Tensor, p: int) -> torch.Tensor:
+    """Balanced (x @ W) mod p as int64, batched as ``torch.matmul`` batches.
+
+    ``W`` may be any column slice of a transform matrix (the frequency-split
+    tp path takes its frequencies' columns).  Exact in float64 while
+    K * max|x| * max|W| < 2^53: residues below 2^15 and K <= 2^22.
+    """
+    return balanced_mod(x.to(torch.float64) @ W.to(torch.float64), p)
+
+
+def to_subpolys(x: torch.Tensor, R: int) -> torch.Tensor:
+    """(..., N) -> (..., R, F): subpoly r holds the coefficients of X^(tR+r)."""
+    N = x.shape[-1]
+    return x.reshape(x.shape[:-1] + (N // R, R)).transpose(-1, -2)
+
+
+def from_subpolys(x: torch.Tensor) -> torch.Tensor:
+    """(..., R, F) -> (..., N): inverse of :func:`to_subpolys`."""
+    R, F = x.shape[-2:]
+    return x.transpose(-1, -2).reshape(x.shape[:-2] + (R * F,))
+
+
+def ntt_inverse_prime(xhat: torch.Tensor, ctx: NttContext, prime_idx: int) -> torch.Tensor:
+    """Inverse negacyclic NTT along the last axis for one prime (int64)."""
+    return mod_matmul(xhat, ctx.Winv[prime_idx], ctx.primes[prime_idx])
+
+
+def crt_pair(r0: torch.Tensor, r1: torch.Tensor, ctx: NttContext) -> torch.Tensor:
+    """The exact integer (|V| < p1 p2 / 2) of balanced residues mod p1, p2, int64."""
+    p1, p2 = ctx.primes
+    return r0 + balanced_mod((r1 - r0) * ctx.crt_inv, p2) * p1
+
+
+def limb_sum(V: torch.Tensor, ctx: NttContext, dim: int) -> torch.Tensor:
+    """sum_l V[l] * 2^(key_limb_bits * l) mod 2^32 over the key-limb axis
+    ``dim`` of the CRT'd values: the product with the whole 32-bit key."""
+    parts = torch.movedim(V, dim, 0)
+    out = torch.zeros_like(parts[0])
+    for li in range(parts.shape[0]):
+        out = out + (parts[li] << (ctx.key_limb_bits * li))
+    return wrap32(out)
+
+
+def external_product_ntt(digits: torch.Tensor, key_step: torch.Tensor,
+                         ctx: NttContext) -> torch.Tensor:
+    """Exact  sum_j digits[b, j] (negacyclic*) bk_step[j, u]  mod 2^32.
+
+    ``digits`` may hold any run of whole gadget rows j and ``key_step`` the
+    matching key rows: K = (j, r1) is j-major, so the rows of J' digits are a
+    contiguous J'*R of K, and the product over them is the partial sum the
+    TGSW-row tp path reduces across ranks.  Every stage is exact in float64
+    (|digit| <= halfBg and |residue| < 2^15: forward < 2^31, pointwise
+    K 2^30, inverse F 2^30).
+
+    Args:
+      digits: (B, J', N) int32 gadget digits, |digit| <= halfBg.
+      key_step: (P, F, J'*R, M) int16, one step of the prepared key's rows.
+    Returns (B, U, N) int32, U = M / (L*R).
+    """
+    B, J, _ = digits.shape
+    R, F, L = ctx.R, ctx.F, ctx.key_limbs
+    K, M = key_step.shape[2:]
+    if K != J * R:
+        raise ValueError(f"key rows {K} != {J} digit rows x R={R}")
+    U = M // (L * R)
+    sub = to_subpolys(digits, R)                                       # (B,J,R,F)
+    res = []
+    for pi, p in enumerate(ctx.primes):
+        dhat = mod_matmul(sub, ctx.W[pi], p).reshape(B, K, F).permute(2, 0, 1)   # (F,B,K)
+        chat = mod_matmul(dhat, key_step[pi], p).permute(1, 2, 0)      # (B,M,F)
+        res.append(ntt_inverse_prime(chat, ctx, pi))
+    V = crt_pair(res[0], res[1], ctx).reshape(B, L, U, R, F)
+    return from_subpolys(limb_sum(V, ctx, dim=1))                      # index m = t*R + s
 
 
 def kernel_key_residues(bk_rows: torch.Tensor, ctx: NttContext) -> torch.Tensor:

@@ -449,3 +449,45 @@ def test_native_codec_builds_on_the_card_machine(cuda_device):
     blob = (_DATA / "golden_lwesample_630.bin").read_bytes()
     assert tfhe_io.pack_lwe_samples(*native.unpack_lwe_array(blob, 1, 630)) == blob
     assert native.b64decode(base64.b64encode(blob).decode()) == blob
+
+
+# ---------------------------------------------------------------------------
+# The parallel tier on one card.
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+def test_sharded_nand_on_one_nccl_rank_matches_gates_nand(cuda_device, tmp_path):
+    """A one-rank NCCL group on the card: the dp NAND of
+    FrameworkConfig(mesh_dp=1, mesh_tp=1).make_mesh() launches K2 and gives
+    the words and variance of the direct ``gates.nand`` over the same key."""
+    import torch.distributed as dist
+    from eoc_tfhe_tpu_torch.config import FrameworkConfig
+    from eoc_tfhe_tpu_torch.parallel import distributed, sharded
+    p = COMPACT_CASES["toy"]()
+    gen = torch.Generator(device=cuda_device).manual_seed(71)
+    ks = keys.new_random_gate_bootstrapping_secret_keyset(gen, p)
+    ek = bootstrap.prepare_eval_key(ks.cloud, p)
+    B = 19
+    a = torch.randint(0, 2, (B,), generator=gen, device=cuda_device).bool()
+    b = torch.randint(0, 2, (B,), generator=gen, device=cuda_device).bool()
+    ca, cb = (gates.encrypt_bit(gen, x, ks.lwe_key, p) for x in (a, b))
+    assert distributed.initialize(f"file://{tmp_path / 'store'}", 1, 0) is False
+    try:
+        assert dist.get_backend() == "nccl"
+        m = FrameworkConfig(mesh_dp=1, mesh_tp=1).make_mesh()
+        assert m.device == torch.device("cuda", 0)
+        before = blind_rotate_compact.launches
+        out = sharded.make_sharded_nand(m, p)(
+            ca.a, ca.b, ca.current_variance, cb.a, cb.b, cb.current_variance,
+            ek.bk_rows, ek.bk_variance, ek.ks_prepared, ks.cloud.bk.ks.variance)
+        torch.cuda.synchronize()
+        assert blind_rotate_compact.launches == before + 1
+        ones = torch.ones(3, device=cuda_device)
+        dist.all_reduce(ones)                       # the NCCL communicator runs
+        assert ones.tolist() == [1.0, 1.0, 1.0]
+    finally:
+        dist.destroy_process_group()
+    ref = gates.nand(ca, cb, ek, p)
+    for got, want in zip(out, (ref.a, ref.b, ref.current_variance)):
+        assert torch.equal(got, want)
+    assert torch.equal(gates.decrypt_bit(ref, ks.lwe_key), ~(a & b))

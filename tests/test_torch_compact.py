@@ -266,13 +266,16 @@ def test_config_fields_validate_and_roundtrip_like_reference():
                                  rotation_impl="gather")
     assert config.FrameworkConfig.from_json(cfg.to_json()) == cfg
     assert jconfig.FrameworkConfig.from_json(cfg.to_json()).to_json() == cfg.to_json()
-    # fields whose consumer is not ported yet keep their default or are refused
-    changed = dict(mesh_dp=4, mesh_tp=4)
-    assert changed.keys() == config.NOT_PORTED.keys()
-    for name, value in changed.items():
-        jconfig.FrameworkConfig(**{name: value})
-        with pytest.raises(ValueError, match=f"{name}=.*not ported yet"):
-            config.FrameworkConfig(**{name: value})
+    # the mesh fields round-trip like the reference's and reach make_mesh: one
+    # process is a world of one rank, so (4, 4) is refused by make_mesh itself
+    meshed = dict(mesh_dp=4, mesh_tp=4)
+    assert config.FrameworkConfig(**meshed).to_json() == \
+        jconfig.FrameworkConfig(**meshed).to_json()
+    with pytest.raises(ValueError, match="dp=4 x tp=4 != 1 ranks"):
+        config.FrameworkConfig(**meshed).make_mesh(device="cpu")
+    mesh = config.FrameworkConfig(mesh_dp=1, mesh_tp=1).make_mesh(device="cpu")
+    assert (mesh.dp, mesh.tp, mesh.coords, mesh.device.type) == (1, 1, (0, 0), "cpu")
+    assert config.DEFAULT_CONFIG.make_mesh(device="cpu").shape == {"dp": 1, "tp": 1}
     # the serving fields and the batch have their consumers (make_gate_server,
     # chip_smoke.py) and round-trip like the reference's
     served = dict(batch_size=512, serving_max_batch=64, serving_max_delay_s=0.1,

@@ -517,3 +517,50 @@ def test_prefill_matches_decode_loop():
             logits, c = llama.decode_step(p, c, pos, torch.tensor([tok]), cfg)
             pos += 1
         np.testing.assert_array_equal(np.asarray(got, np.int32), gold["generated"][0])
+
+
+def test_param_specs_cover_params(params):
+    """The port's tp plan covers every param and is the reference's, entry for
+    entry (its PartitionSpecs as tuples)."""
+    specs = llama.llama_param_specs(CFG)
+    for k in params:
+        assert k in specs, k
+    jspecs = jllama.llama_param_specs(jcfg(CFG))
+    assert specs.keys() == jspecs.keys()
+    for k, spec in specs.items():
+        assert spec == tuple(jspecs[k]), k
+
+
+def test_sharded_forward_tp(params, tmp_path):
+    """The float32 forward at tp=2 on two gloo ranks (whole heads per rank,
+    one sum after wo and one after w2) within 1e-4 of the port's unsharded
+    forward and of JAX's, as tests/test_llama.py holds the reference's."""
+    from eoc_tfhe_tpu_torch.parallel import mesh
+    from torch_parallel_worker import run_ranks
+    toks = tokens((2, 5), seed=6)
+    inputs = {f"p_{k}": v for k, v in params.items()}
+    inputs.update({f"cfg_{k}": np.array(v) for k, v in dataclasses.asdict(CFG).items()
+                   if isinstance(v, int) and not isinstance(v, bool)}, tokens=toks)
+    outs = run_ranks("llama", 2, tmp_path, inputs)
+    jp, tp_ = both(params)
+    want_jax = np.asarray(jllama.forward(jp, jnp.asarray(toks), jcfg(CFG),
+                                         compute_dtype=jnp.float32))
+    want = llama.forward(tp_, torch.from_numpy(toks), CFG, compute_dtype=torch.float32).numpy()
+    last, cache = llama.prefill(tp_, torch.from_numpy(toks), CFG, compute_dtype=torch.float32)
+    nxt, _ = llama.decode_step(tp_, cache, toks.shape[1], torch.from_numpy(toks[:, 0]), CFG,
+                               compute_dtype=torch.float32)
+    for out in outs:
+        assert out["local_wq_cols"] == CFG.dim // 2 and not out["imported_jax"]
+        np.testing.assert_allclose(out["logits"], want, atol=1e-4, rtol=0)
+        np.testing.assert_allclose(out["logits"], want_jax, atol=1e-4, rtol=0)
+        # prefill and a decode step at tp=2, the cache holding this rank's kv heads
+        assert tuple(out["cache_shape"]) == cache.shape[:4] + (CFG.n_kv_heads // 2,
+                                                               CFG.head_dim)
+        np.testing.assert_allclose(out["prefill_last"], last.numpy(), atol=1e-4, rtol=0)
+        np.testing.assert_allclose(out["decode_next"], nxt.numpy(), atol=1e-4, rtol=0)
+    rank1 = mesh.Mesh(dp=1, tp=2, rank=1, device=torch.device("cpu"))   # its layout only
+    shard = llama.shard_params(tp_, llama.llama_param_specs(CFG), rank1)
+    assert torch.equal(shard["wo"], tp_["wo"][:, CFG.dim // 2:])
+    assert torch.equal(shard["w1"], tp_["w1"][:, :, CFG.hidden_dim // 2:])
+    with pytest.raises(ValueError, match="tp=3 must divide"):
+        llama._tp_size(CFG, 3)
