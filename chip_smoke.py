@@ -11,8 +11,11 @@ Phases, in order; any failure exits non-zero:
      family for ``wgmma``), which must be nonzero for all three;
   3. each kernel against its plain PyTorch version on the card, bit for bit,
      at ``test_params()`` (B=63), at the 128-bit (B=4) and 80-bit (B=4)
-     shapes over all their steps, and at the three shapes of ROADMAP C5
-     (k=2 l=2 N=64, k=1 l=4 N=64, k=1 l=2 N=128) and at k=1 l=2 N=32 (B=7);
+     shapes over all their steps, at the three shapes of ROADMAP C5
+     (k=2 l=2 N=64, k=1 l=4 N=64, k=1 l=2 N=128) and at k=1 l=2 N=32 (B=7),
+     and at the five shapes of ROADMAP C7 (N=2048 k=1 l=3, N=1024 k=2 l=3,
+     N=512 k=3 l=3, N=1024 k=1 l=5, N=1024 k=2 l=1 Bgbit=10; n=8) at B=7
+     and B=C7_RAGGED;
   4. the main path: 128-bit keygen on the card, ``prepare_eval_key_ntt``,
      encryption of BATCH random bit pairs, one warm and ITERS timed
      batched NAND calls, decryption checked against ~(a & b);
@@ -20,8 +23,9 @@ Phases, in order; any failure exits non-zero:
      API's): timed, held against its plain version, with its bound;
   6. the compact-key kernel against its plain version on the card, bit for
      bit, at ``test_params()`` (B=63) and at 128-bit B=4 over all 630 steps
-     with the exact and the rounded (limbs=3) stored key, and at the C5
-     shapes (B=7);
+     with the exact and the rounded (limbs=3) stored key, at the C5
+     shapes (B=7), and at the C7 shapes whose digits are int8 (B=7 and
+     B=C7_RAGGED);
   7. the circuit path: ``FrameworkConfig(eval_key_form="fused")`` over phase
      4's keyset, 8-bit ripple add and subtract (mode fast) over B=CIRCUIT_BATCH
      random byte pairs and the classic add over B=CLASSIC_BATCH, every output
@@ -33,7 +37,8 @@ Phases, in order; any failure exits non-zero:
  10. the "ntt_scan" form's kernel against its plain version on the card, bit
      for bit, at ``test_params()`` (B=63), at 128-bit B=4 over all 630 steps
      over either prime pair, at the 80-bit set (halfBg = 512) B=4 over all
-     its steps, and at the C5 shapes (B=7) over either prime pair;
+     its steps, at the C5 shapes (B=7) and at the C7 shapes (B=7 and
+     B=C7_RAGGED) over either prime pair;
  11. NAND through the "ntt_scan" key (``prepare_eval_key_ntt(kernel=False)``)
      at B=BATCH on phase 4's keyset, decrypted and checked;
  12. the 8-bit fast add and subtract over the "ntt_scan" key on phase 7's
@@ -101,7 +106,16 @@ Phases, in order; any failure exits non-zero:
      (each rank writes its shard), and the stories110M-width llama forward
      at tp=2 (random weights as in phase 17, float32 compute) within the
      reference's 1e-4 of the one-rank forward; every result word-identical
-     to the one-rank result the parent computed first.
+     to the one-rank result the parent computed first;
+ 20. one NAND at full depth (n=630, B=C7_BATCH, keys made on the card) at
+     two ROADMAP C7 shapes: N=2048 k=1 l=3 Bgbit=7 over the "ntt_kernel"
+     (K1) and "ntt_scan" (K3) keys, N=512 k=3 l=3 over the compact key (K2)
+     at Bgbit=7 (at Bgbit=6 and n=630 both packages' noise-budget rail,
+     ``gates.check_noise_budget``, refuses the gate: its 18 gadget bits
+     leave a worst-case rounding variance of 6.8e-4, over the set's
+     1.6e-4); each decrypted and checked, its kernel's launches counted,
+     timed, and the kernel at its inputs timed, held against its plain
+     version and printed with its bound.
 The three kernels are printed as one ``{"kernels": [...]}`` line.  The last
 line is {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
@@ -134,6 +148,9 @@ CIRCUIT_BATCH = 1024
 CLASSIC_BATCH = 32
 #: Batch of the ROADMAP C5 shape cases (not a multiple of a block's 8 samples).
 C5_BATCH = 7
+#: ROADMAP C7: a second batch of its shape cases (a ragged last block at 8
+#: and at 4 samples a block), its steps, and the full-depth NANDs' batch.
+C7_RAGGED, C7_STEPS, C7_BATCH = 13, 8, 1024
 #: The served path: client threads, and the chunk timed beside the default.
 CLIENTS = 8
 WIDE_CHUNK = 2048
@@ -168,6 +185,16 @@ def c5_params(params):
             ("C5 k=1 l=4 N=64", params.test_params(k=1, l=4, N=64)),
             ("C5 k=1 l=2 N=128", params.test_params(k=1, l=2, N=128)),
             ("k=1 l=2 N=32", params.test_params(k=1, l=2, N=32)))
+
+
+def c7_params(params):
+    """The shapes of ROADMAP C7 (n = C7_STEPS): N = 2048 (F = 256), k = 2 at
+    N = 1024 (K = 72), k = 3 (K = 96), l = 5 (K = 80) and halfBg = 512 at
+    k = 2 (the compact form refuses it: C1)."""
+    return tuple((f"C7 N={N} k={k} l={l} Bgbit={bg}",
+                  params.test_params(N=N, k=k, l=l, Bgbit=bg, n=C7_STEPS))
+                 for N, k, l, bg in ((2048, 1, 3, 7), (1024, 2, 3, 7), (512, 3, 3, 6),
+                                     (1024, 1, 5, 5), (1024, 2, 1, 10)))
 
 
 class SmokeFailure(RuntimeError):
@@ -1186,6 +1213,84 @@ def parallel_smoke(ks, p, gen: torch.Generator, smi: str) -> None:
         run_parallel_ranks(ONE_CARD_PLAN, PAR_RANKS, tmp, B, one_rank, smi, " (b)")
 
 
+def c7_smoke(gen: torch.Generator, smi: str) -> None:
+    """Phase 20: one NAND at full depth at two ROADMAP C7 shapes, each through
+    the kernel of its eval-key form, with that kernel timed at its inputs."""
+    from eoc_tfhe_tpu_torch.core import bootstrap, gates, keys, params
+    from eoc_tfhe_tpu_torch.core.numeric import mod_switch_to_torus32_np
+    from eoc_tfhe_tpu_torch.ops import blind_rotate, blind_rotate_compact, blind_rotate_v1, ntt
+
+    dev = torch.device("cuda")
+    modules = {"blind_rotate_ntt": blind_rotate, "blind_rotate_compact": blind_rotate_compact,
+               "blind_rotate_ntt_v1": blind_rotate_v1}
+    B = C7_BATCH
+    for (N, k, l, bg), forms in (((2048, 1, 3, 7), ("ntt_kernel", "ntt_scan")),
+                                 ((512, 3, 3, 7), ("compact",))):
+        p = params.test_params(N=N, k=k, l=l, Bgbit=bg, n=630)
+        shape = f"N={N} k={k} l={l} Bgbit={bg} n={p.n}"
+        t0 = time.perf_counter()
+        ks = keys.new_random_gate_bootstrapping_secret_keyset(gen, p, device=dev)
+        torch.cuda.synchronize()
+        keygen_s = time.perf_counter() - t0
+        a = torch.randint(0, 2, (B,), generator=gen, device=dev).bool()
+        b = torch.randint(0, 2, (B,), generator=gen, device=dev).bool()
+        ca = gates.encrypt_bit(gen, a, ks.lwe_key, p)
+        cb = gates.encrypt_bit(gen, b, ks.lwe_key, p)
+        temp = gates.linear_input(int(mod_switch_to_torus32_np(1, 8)), ca, cb, -1, -1)
+        acc0, bara = bootstrap.blind_rotate_inputs(gates.MU_BOOL, temp, p)
+        for form in forms:
+            t0 = time.perf_counter()
+            if form == "compact":
+                ek = bootstrap.prepare_eval_key_fused(ks.cloud, p)
+                name, key = "blind_rotate_compact", ek.bk_compact
+                run = lambda: blind_rotate_compact.blind_rotate_compact(acc0, bara, key, p)
+                plain = lambda: blind_rotate_compact.blind_rotate_compact_plain(acc0, bara, key, p)
+                plan = "{} samples a block, {} key limb(s) a pass".format(
+                    *blind_rotate_compact.kernel_plan(k + 1, N, p.tgsw_params.kpl))
+            else:
+                ek = bootstrap.prepare_eval_key_ntt(ks.cloud, p, kernel=form == "ntt_kernel")
+                ctx = ek.ntt_ctx
+                if form == "ntt_kernel":
+                    name, key, stage = "blind_rotate_ntt", ek.bk_ntt_kernel, 0
+                    run = lambda: blind_rotate.blind_rotate_ntt(acc0, bara, key, ctx, p)
+                    plain = lambda: blind_rotate.blind_rotate_ntt_plain(acc0, bara, key, ctx, p)
+                else:
+                    name, key, stage = "blind_rotate_ntt_v1", ek.bk_ntt, blind_rotate_v1.STAGE_BYTES
+                    run = lambda: blind_rotate_v1.blind_rotate_ntt_v1(acc0, bara, key, ctx, p)
+                    plain = lambda: blind_rotate_v1.blind_rotate_ntt_v1_plain(acc0, bara, key,
+                                                                              ctx, p)
+                samples, general = blind_rotate.crt_mma_plan(k + 1, ctx, p.tgsw_params, stage)
+                plan = f"{samples} samples a block, {'general' if general else 'shipped'} " \
+                       f"instantiation"
+            torch.cuda.synchronize()
+            prep_s = time.perf_counter() - t0
+            check(ek.form == form, f"C7 {shape}: eval key form {ek.form}, wanted {form}")
+            for m in modules.values():
+                m.launches = 0
+            gates.nand(ca, cb, ek, p)                          # warm
+            nand_ms, out = cuda_ms(lambda: gates.nand(ca, cb, ek, p), 1)
+            n_wrong = int((gates.decrypt_bit(out, ks.lwe_key) != ~(a & b)).sum())
+            launches = {nm: m.launches for nm, m in modules.items()}
+            check(n_wrong == 0, f"C7 {shape} {form}: {n_wrong} of {B} NAND outputs decrypt wrong")
+            check(launches == {nm: 2 if nm == name else 0 for nm in modules},
+                  f"C7 {shape} {form}: launches {launches}")
+            k_ms, k_out = cuda_ms(run, 1)
+            p_ms, p_out = cuda_ms(plain, 1)
+            err = int((k_out.to(torch.int64) - p_out.to(torch.int64)).abs().max())
+            check(err == 0, f"{name} differs from plain at C7 {shape} (max {err})")
+            if form == "compact":
+                b_ms, b_by = compact_bound(B, p.n, key, ntt.kernel_context_for_params(p, dev), p)
+            else:
+                b_ms, b_by = rotation_bound(B, p.n, key, p)
+            print(f"C7 {shape} ({smi}): keygen {keygen_s:.3f} s, {form} key {prep_s:.3f} s; "
+                  f"nand B={B} {nand_ms:.2f} ms/call, {B} of {B} decrypt correctly, launches "
+                  f"{launches}; {name} {k_ms:.2f} ms ({plan}; bound {b_ms:.2f} ms, {b_by}; "
+                  f"plain {p_ms:.2f} ms), bit-identical to plain", flush=True)
+            del ek, key, k_out, p_out, out
+            torch.cuda.empty_cache()
+        del ks
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of keys and data")
@@ -1238,7 +1343,9 @@ def main() -> int:
     for label, p, n_steps, B in (("test_params", params.test_params(), None, 63),
                                  ("128-bit", params.default_128bit_params(), None, 4),
                                  ("80-bit", params.default_80bit_params(), None, 4),
-                                 *((lb, pc, None, C5_BATCH) for lb, pc in c5_params(params))):
+                                 *((lb, pc, None, C5_BATCH) for lb, pc in c5_params(params)),
+                                 *((lb, pc, None, Bc) for lb, pc in c7_params(params)
+                                   for Bc in (C5_BATCH, C7_RAGGED))):
         n_steps = p.n if n_steps is None else n_steps
         rows, acc0, bara = random_rotation_inputs(gen, p, n_steps, B, dev)
         ctx = ntt.kernel_context_for_params(p, device=dev)
@@ -1247,7 +1354,9 @@ def main() -> int:
         plain = blind_rotate.blind_rotate_ntt_plain(acc0, bara, key, ctx, p)
         torch.cuda.synchronize()
         check(torch.equal(out, plain), f"blind_rotate_ntt differs from plain at {label}")
-        print(f"kernel == plain at {label}: B={B}, n={n_steps}, bit-identical", flush=True)
+        samples, general = blind_rotate.crt_mma_plan(p.k + 1, ctx, p.tgsw_params)
+        print(f"kernel == plain at {label}: B={B}, n={n_steps}, {samples} samples a block"
+              f"{' (general instantiation)' if general else ''}, bit-identical", flush=True)
         del rows, key, out, plain
 
     # 4. main path: 128-bit gate bootstrapping at full batch
@@ -1318,15 +1427,19 @@ def main() -> int:
     for label, pc, B6, limbs in (("test_params", params.test_params(), 63, 4),
                                  ("128-bit", params.default_128bit_params(), 4, 4),
                                  ("128-bit rounded", params.default_128bit_params(), 4, 3),
-                                 *((lb, pc, C5_BATCH, 4) for lb, pc in c5_params(params))):
+                                 *((lb, pc, C5_BATCH, 4) for lb, pc in c5_params(params)),
+                                 *((lb, pc, Bc, 4) for lb, pc in c7_params(params)
+                                   for Bc in (C5_BATCH, C7_RAGGED)
+                                   if pc.tgsw_params.halfBg <= 128)):
         rows, acc6, bara6 = random_rotation_inputs(gen, pc, pc.n, B6, dev)
         key6 = blind_rotate_compact.prepare_compact_bk(rows, limbs)
         out6 = blind_rotate_compact.blind_rotate_compact(acc6, bara6, key6, pc)
         plain6 = blind_rotate_compact.blind_rotate_compact_plain(acc6, bara6, key6, pc)
         torch.cuda.synchronize()
         check(torch.equal(out6, plain6), f"blind_rotate_compact differs from plain at {label}")
+        samples, lp = blind_rotate_compact.kernel_plan(pc.k + 1, pc.N, pc.tgsw_params.kpl)
         print(f"compact kernel == plain at {label}: B={B6}, n={pc.n}, limbs={limbs}, "
-              f"bit-identical", flush=True)
+              f"{samples} samples a block, {lp} key limb(s) a pass, bit-identical", flush=True)
         del rows, key6, out6, plain6
 
     # 7. the circuit path: 8-bit add and subtract over the compact key
@@ -1420,6 +1533,10 @@ def main() -> int:
             ("80-bit", params.default_80bit_params(), 4, ntt.DEFAULT_PRIMES),
             *((f"{lb} {tag}", pc, C5_BATCH, pr) for lb, pc in c5_params(params)
               for tag, pr in (("DEFAULT_PRIMES", ntt.DEFAULT_PRIMES),
+                              ("KERNEL_PRIMES", ntt.KERNEL_PRIMES))),
+            *((f"{lb} {tag}", pc, Bc, pr) for lb, pc in c7_params(params)
+              for Bc in (C5_BATCH, C7_RAGGED)
+              for tag, pr in (("DEFAULT_PRIMES", ntt.DEFAULT_PRIMES),
                               ("KERNEL_PRIMES", ntt.KERNEL_PRIMES)))):
         tg = pv.tgsw_params
         rows, acc10, bara10 = random_rotation_inputs(gen, pv, pv.n, B10, dev)
@@ -1429,8 +1546,11 @@ def main() -> int:
         plain10 = blind_rotate_v1.blind_rotate_ntt_v1_plain(acc10, bara10, key10, ctx10, pv)
         torch.cuda.synchronize()
         check(torch.equal(out10, plain10), f"blind_rotate_ntt_v1 differs from plain at {label}")
+        samples, general = blind_rotate.crt_mma_plan(pv.k + 1, ctx10, tg,
+                                                     blind_rotate_v1.STAGE_BYTES)
         print(f"v1 kernel == plain at {label}: B={B10}, n={pv.n}, halfBg={tg.halfBg}, "
               f"primes={primes}, key limbs {ctx10.key_limbs}x{ctx10.key_limb_bits}, "
+              f"{samples} samples a block{' (general instantiation)' if general else ''}, "
               f"bit-identical", flush=True)
         del rows, key10, out10, plain10
 
@@ -1523,6 +1643,11 @@ def main() -> int:
 
     # 19. the parallel tier on phase 4's keyset
     parallel_smoke(ks, p, gen, smi)
+
+    # 20. full-depth NANDs at the ROADMAP C7 shapes
+    del ks
+    torch.cuda.empty_cache()
+    c7_smoke(gen, smi)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

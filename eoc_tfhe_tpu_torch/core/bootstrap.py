@@ -23,6 +23,8 @@ beyond that, so the port refuses those parameter sets for these forms.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import os
 
 import numpy as np
 import torch
@@ -118,6 +120,37 @@ def prepare_eval_key_chunked(cloud: CloudKeySet, params: GateBootstrappingParams
     return prepare_eval_key_fused(cloud, params)
 
 
+def _cached_key(build, rows: torch.Tensor, ctx: ntt.NttContext, form: str,
+                shape: tuple[int, ...]) -> torch.Tensor:
+    """The prepared key ``build()`` gives, through the disk cache in the
+    directory ``EOC_NTT_KEY_CACHE`` names, where it is set (the reference's
+    switch).  A file is named by the form, the port's key layout version, the
+    plan (primes, R, key limbs) and a hash of the raw TGSW rows and the plan;
+    it is loaded only if it holds int8 of ``shape``, else the key is rebuilt
+    and the file replaced.  Files are written to a temporary name and moved
+    into place, so a reader never sees half a file.  The samples a kernel
+    block holds do not change the stored key, so they are not in the name."""
+    cache_dir = os.environ.get("EOC_NTT_KEY_CACHE")
+    if not cache_dir:
+        return build()
+    plan = (f"v{ntt.KEY_LAYOUT_VERSION}-p{'.'.join(map(str, ctx.primes))}-R{ctx.R}"
+            f"-L{ctx.key_limbs}b{ctx.key_limb_bits}")
+    digest = hashlib.sha1(rows.cpu().numpy().tobytes() + plan.encode()).hexdigest()[:16]
+    path = os.path.join(cache_dir, f"ntt-{form}-{plan}-{digest}.npy")
+    try:
+        cached = np.load(path)
+    except (OSError, ValueError, EOFError):
+        cached = None
+    if cached is not None and cached.dtype == np.int8 and cached.shape == shape:
+        return torch.from_numpy(cached).to(rows.device)
+    key = build()
+    os.makedirs(cache_dir, exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp.npy"
+    np.save(tmp, key.cpu().numpy())
+    os.replace(tmp, path)
+    return key
+
+
 def prepare_eval_key_ntt(cloud: CloudKeySet, params: GateBootstrappingParams,
                          kernel: str | bool = "auto") -> EvalKey:
     """Evaluation key in CRT-NTT form, built on the cloud key's device (the
@@ -129,7 +162,8 @@ def prepare_eval_key_ntt(cloud: CloudKeySet, params: GateBootstrappingParams,
     card is the kernel's device.  ``False`` gives the "ntt_scan" form (the
     v1 byte-pair key over ``DEFAULT_PRIMES``, kernel K3).  Both are exact.
     On a CUDA device a shape the form's kernel does not take is refused here
-    with a ``ValueError`` that names the limit.
+    with a ``ValueError`` that names the limit.  ``EOC_NTT_KEY_CACHE=<dir>``
+    keeps the prepared key on disk (:func:`_cached_key`).
     """
     if kernel not in ("auto", True, False):
         raise ValueError(f"kernel must be 'auto', True or False, got {kernel!r}")
@@ -138,17 +172,23 @@ def prepare_eval_key_ntt(cloud: CloudKeySet, params: GateBootstrappingParams,
     common = dict(bk_rows=bk.bk, bk_variance=bk.bk_variance,
                   ks_prepared=prepare_keyswitch_matmul(bk.ks), ks=bk.ks)
     tg, U = params.tgsw_params, params.tgsw_params.tlwe_params.k + 1
+    n = bk.bk.shape[0]
     if kernel is False:
         ctx = ntt.context_for_params(params, device=dev)
         if dev.type == "cuda":
             check_k3_domain(U, ctx, tg)
-        return _check_eval_key(EvalKey(**common, form="ntt_scan", ntt_ctx=ctx,
-                                       bk_ntt=ntt.prepare_key_ntt(bk.bk, ctx)))
+        K, M = tg.kpl * ctx.R, ctx.key_limbs * U * ctx.R
+        key = _cached_key(lambda: ntt.prepare_key_ntt(bk.bk, ctx), bk.bk, ctx, "scan",
+                          (n, 2, ctx.F, K, 2 * M))
+        return _check_eval_key(EvalKey(**common, form="ntt_scan", ntt_ctx=ctx, bk_ntt=key))
     ctx = ntt.kernel_context_for_params(params, device=dev)
     if dev.type == "cuda":
         check_k1_domain(U, ctx, tg)
+    Kp, Mp = ntt.pad16(tg.kpl * ctx.R), ntt.pad16(ctx.key_limbs * U * ctx.R)
+    key = _cached_key(lambda: ntt.prepare_kernel_key(bk.bk, ctx), bk.bk, ctx, "kern",
+                      (n, 2, ctx.F, Mp // 16, Kp // 16, 32, 16))
     return _check_eval_key(EvalKey(**common, form="ntt_kernel", ntt_ctx=ctx,
-                                   bk_ntt_kernel=ntt.prepare_kernel_key(bk.bk, ctx)))
+                                   bk_ntt_kernel=key))
 
 
 def blind_rotate(acc0: torch.Tensor, bara: torch.Tensor, bk_rows: torch.Tensor,

@@ -22,26 +22,31 @@
 // of a step (the low limb of the rounded limbs=3 key) is skipped, so that
 // form costs 3/4 of the MACs and still gives the plain version's bits.
 //
-// Design. A block holds kSamples = 8 samples (the MMA's N) for all n steps:
-// their accumulators (U*N uint32) and int8 digits (J*N) stay in shared
-// memory. Each step the block converts the key step (J*U*N int32 from L2;
-// by instruction count about 2% of a step, which is why the stored key stays
-// int32 rows) into byte rows rev[t][j][u][y] =
+// Design. A block holds ns = 8 samples (the MMA's N; 4 or 2 where 8 do not
+// fit in shared memory, the MMA's other columns repeating sample 0 and never
+// stored) for all n steps: their accumulators (U*N uint32) and int8 digits
+// (J*N) stay in shared memory. Each step the block converts the key step
+// (J*U*N int32 from L2; by instruction count about 2% of a step, which is
+// why the stored key stays int32 rows) into byte rows rev[t][j][u][y] =
 // limb_t(T[c][r]) at y = N-1-c+r, that is [k reversed | -k reversed], so the
 // Toeplitz block is read along increasing addresses and never leaves the SM.
+// Where the rows of all four limbs do not fit (k = 2 at N = 1024, k = 3, l =
+// 5, N = 2048), the step is converted and consumed one limb at a time: four
+// passes, each converting the words again and keeping one limb's rows.
 // Warp w owns CT = max(1, N/64) output tiles of 16 coefficients of one
-// output polynomial, so a block has U*N/(16*CT) warps: 8 at U = 2 and N >= 64,
-// 12 at U = 3, U*2 at N = 32. A fragment row of 4 consecutive input coefficients is 4 bytes
+// output polynomial, so a block has U*N/(16*CT) warps: 4U at N >= 64, U*2
+// at N = 32. A fragment row of 4 consecutive input coefficients is 4 bytes
 // at an offset that is fixed per lane mod 4: two aligned 32-bit loads and a
 // __byte_perm. The A fragment depends only on the diagonal d = c0 - r0, so
 // the warp walks the diagonals: for each d it builds A once (two new words
 // of the sliding window, four loads) and runs every (c-tile, r-tile) pair
-// on that diagonal, with the digit fragments of all N/32 r-tiles and the
+// on that diagonal, with the digit fragments of up to 32 r-tiles and the
 // accumulators of its CT tiles in registers (64 + 64 at N = 1024): about 0.7
-// shared-memory loads per MMA. The walk is unrolled at compile time, so the
-// kernel is instantiated per (N, U): every power of two N from 32 to 1024 at
-// U = 2 and U = 3 (k = 1, 2); a shape whose shared memory does not fit is
-// refused (U = 3, N = 1024 needs 393,488 bytes at l = 3).
+// shared-memory loads per MMA. At N = 2048 the 64 r-tiles go in two passes
+// of 32 (64 + 128 registers). The walk is unrolled at compile time, so the
+// kernel is instantiated per (N, U): every power of two N from 32 to 2048 at
+// U = 2, 3 and 4 (k = 1, 2, 3); a shape whose shared memory does not fit at
+// 2 samples and one limb a pass is refused.
 //
 // Bound on an H100 at the 128-bit set (chip_smoke.py compact_bound): the
 // same function by the cheapest exact dataflow the repo has, the CRT-NTT one
@@ -59,12 +64,13 @@
 // path.
 
 #include <cstdint>
+#include <initializer_list>
 #include <type_traits>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kSamples = 8;   // samples per block: the MMA's N
+constexpr int kMaxSamples = 8;   // samples per block: the MMA's N
 constexpr int kLimbs = 4;
 
 // Output tiles of 16 coefficients per warp, and warps per block, at (N, U).
@@ -78,6 +84,8 @@ struct Tiling {
 
 struct Shape {
   int B, n, U, N, l, J, Bgbit, halfBg;
+  int ns;      // samples a block: 8, 4 or 2
+  int lp;      // limbs converted a pass: 4, or 1 where four limbs' rows do not fit
   uint32_t offset, mask;
   int acc_s;   // words per sample of acc: U*N + 4 (bank spread of the flush)
   int dig_s;   // bytes per sample of dig: J*N + 16 (bank spread of the B loads)
@@ -105,6 +113,35 @@ __device__ __forceinline__ void limbs(uint32_t v, int (&b)[kLimbs]) {
   }
 }
 
+// The diagonal walk of r-tiles Q0 .. Q0+RG-1 of digit row j (dgj: this
+// lane's digit bytes of row j) against the byte rows rv of one limb: for
+// each diagonal e build A once and add every (c-tile, r-tile) pair on it.
+template <int CT, int Q0, int RG>
+__device__ __forceinline__ void diagonal_walk(int (&c)[CT][4], const int8_t* dgj,
+                                              const int8_t* rv, uint32_t sel) {
+  constexpr int E0 = -(2 * (Q0 + RG) - 2), E1 = CT - 1 - 2 * Q0;   // diagonals e = i - 2q
+  uint32_t bf[RG][2];
+#pragma unroll
+  for (int q = 0; q < RG; ++q) {
+    bf[q][0] = lds32(dgj + 32 * (Q0 + q));
+    bf[q][1] = lds32(dgj + 32 * (Q0 + q) + 16);
+  }
+  // U_m = the 4 bytes at base - 8m; A(e) = (U_2e, U_2e+1, U_2e-2, U_2e-1).
+  auto word = [&](int m) { return __byte_perm(lds32(rv - 8 * m), lds32(rv - 8 * m + 4), sel); };
+  uint32_t um2 = word(2 * E0 - 2), um1 = word(2 * E0 - 1);
+#pragma unroll
+  for (int e = E0; e <= E1; ++e) {
+    const uint32_t u0 = word(2 * e), u1 = word(2 * e + 1);
+#pragma unroll
+    for (int q = 0; q < RG; ++q) {
+      const int ii = e + 2 * (Q0 + q);
+      if (ii >= 0 && ii < CT) mma_k32(c[ii], u0, u1, um2, um1, bf[q][0], bf[q][1]);
+    }
+    um2 = u0;
+    um1 = u1;
+  }
+}
+
 template <int N, int U>
 __global__ void __launch_bounds__(Tiling<N, U>::kThreads, 1) blind_rotate_compact_kernel(
     const int32_t* __restrict__ acc0, const int32_t* __restrict__ bara,
@@ -114,20 +151,21 @@ __global__ void __launch_bounds__(Tiling<N, U>::kThreads, 1) blind_rotate_compac
   constexpr int CT = Tiling<N, U>::kCT;       // tiles per warp
   constexpr int kThreads = Tiling<N, U>::kThreads;
   constexpr int RT = N / 32;                  // 32-coefficient input tiles
+  constexpr int RG = RT < 32 ? RT : 32;       // r-tiles a pass of the walk
   static_assert(CT >= 1 && TPP % CT == 0 && RT >= 1, "a warp's tiles lie in one polynomial");
-  constexpr int E0 = -(2 * RT - 2), E1 = CT - 1;   // diagonals e = i - 2q
+  static_assert(RT == RG || RT == 2 * RG, "one or two passes of the walk");
 
   extern __shared__ __align__(16) unsigned char smem[];
   uint32_t* acc = reinterpret_cast<uint32_t*>(smem);          // [s][acc_s]
   int8_t* dig = reinterpret_cast<int8_t*>(smem + S.dig_off);  // [s][j][N] + pad
-  int8_t* rev = reinterpret_cast<int8_t*>(smem + S.rev_off);  // [t][j][u][2N]
+  int8_t* rev = reinterpret_cast<int8_t*>(smem + S.rev_off);  // [t - t0][j][u][2N]
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, tig = lane & 3;
-  const int J = S.J;
-  const int b0 = blockIdx.x * kSamples;
-  const int nvalid = min(kSamples, S.B - b0);
+  const int J = S.J, ns = S.ns;
+  const int b0 = blockIdx.x * ns;
+  const int nvalid = min(ns, S.B - b0);
 
-  for (int x = tid; x < kSamples * UN; x += kThreads) {
+  for (int x = tid; x < ns * UN; x += kThreads) {
     const int s = x / UN, y = x - s * UN;
     acc[s * S.acc_s + y] =
         s < nvalid ? static_cast<uint32_t>(acc0[static_cast<size_t>(b0) * UN + x]) : 0u;
@@ -140,100 +178,90 @@ __global__ void __launch_bounds__(Tiling<N, U>::kThreads, 1) blind_rotate_compac
   const uint32_t sel = 0x3210u + 0x1111u * sh;
   const int pb = base - sh;
 
+  // Lanes past the block's samples read sample 0's digits (columns never stored).
+  const int8_t* dg = dig + (g < ns ? g : 0) * S.dig_s + 4 * tig;
   for (int i = 0; i < S.n; ++i) {
-    __syncthreads();   // the previous step no longer reads dig or rev; acc is updated
-    // Key step i as byte rows: rev[t][j][u][N-1-m] = limb_t(k[m]),
-    // rev[t][j][u][2N-1-m] = limb_t(-k[m]); four words of k a thread.
     const int32_t* key_i = key + static_cast<size_t>(i) * J * UN;
-    int nz = 0;
-    for (int x = tid; x < J * UN / 4; x += kThreads) {
-      const int ju = x / (N / 4), m0 = (x - ju * (N / 4)) * 4;
-      const int4 kv = *reinterpret_cast<const int4*>(key_i + ju * N + m0);
-      const uint32_t v[4] = {static_cast<uint32_t>(kv.x), static_cast<uint32_t>(kv.y),
-                             static_cast<uint32_t>(kv.z), static_cast<uint32_t>(kv.w)};
-      uint32_t pos[kLimbs] = {}, neg[kLimbs] = {};
+    for (int t0 = 0; t0 < kLimbs; t0 += S.lp) {
+      __syncthreads();   // the previous pass no longer reads dig or rev; acc is updated
+      // Limbs t0 .. t0+lp-1 of key step i as byte rows: rev[t-t0][j][u][N-1-m]
+      // = limb_t(k[m]), rev[t-t0][j][u][2N-1-m] = limb_t(-k[m]); four words of
+      // k a thread.
+      int nz = 0;
+      for (int x = tid; x < J * UN / 4; x += kThreads) {
+        const int ju = x / (N / 4), m0 = (x - ju * (N / 4)) * 4;
+        const int4 kv = *reinterpret_cast<const int4*>(key_i + ju * N + m0);
+        const uint32_t v[4] = {static_cast<uint32_t>(kv.x), static_cast<uint32_t>(kv.y),
+                               static_cast<uint32_t>(kv.z), static_cast<uint32_t>(kv.w)};
+        uint32_t pos[kLimbs] = {}, neg[kLimbs] = {};
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        int bp[kLimbs], bn[kLimbs];
-        limbs(v[e], bp);
-        limbs(0u - v[e], bn);
+        for (int e = 0; e < 4; ++e) {
+          int bp[kLimbs], bn[kLimbs];
+          limbs(v[e], bp);
+          limbs(0u - v[e], bn);
+#pragma unroll
+          for (int t = 0; t < kLimbs; ++t) {
+            pos[t] |= static_cast<uint32_t>(bp[t] & 255) << (8 * (3 - e));
+            neg[t] |= static_cast<uint32_t>(bn[t] & 255) << (8 * (3 - e));
+          }
+        }
 #pragma unroll
         for (int t = 0; t < kLimbs; ++t) {
-          pos[t] |= static_cast<uint32_t>(bp[t] & 255) << (8 * (3 - e));
-          neg[t] |= static_cast<uint32_t>(bn[t] & 255) << (8 * (3 - e));
+          if (t < t0 || t >= t0 + S.lp) continue;
+          int8_t* row = rev + static_cast<size_t>((t - t0) * J * U + ju) * twoN;
+          *reinterpret_cast<uint32_t*>(row + N - 4 - m0) = pos[t];
+          *reinterpret_cast<uint32_t*>(row + twoN - 4 - m0) = neg[t];
+          nz |= (pos[t] | neg[t]) != 0u ? 1 << t : 0;
         }
       }
-#pragma unroll
-      for (int t = 0; t < kLimbs; ++t) {
-        int8_t* row = rev + static_cast<size_t>(t * J * U + ju) * twoN;
-        *reinterpret_cast<uint32_t*>(row + N - 4 - m0) = pos[t];
-        *reinterpret_cast<uint32_t*>(row + twoN - 4 - m0) = neg[t];
-        nz |= (pos[t] | neg[t]) != 0u ? 1 << t : 0;
-      }
-    }
-    // d = X^a * acc - acc, then its signed gadget digits (offset trick).
-    for (int x = tid; x < kSamples * UN; x += kThreads) {
-      const int s = x / UN, y = x - s * UN;
-      const int u = y / N, c = y - u * N;
-      uint32_t du = S.offset;
-      if (s < nvalid) {
-        const uint32_t* as = acc + s * S.acc_s + u * N;
-        const int a = bara[static_cast<size_t>(i) * S.B + b0 + s];
-        const int src = (c - a + twoN) & (twoN - 1);    // a in [0, 2N)
-        const uint32_t v = src < N ? as[src] : 0u - as[src - N];
-        du = v - as[c] + S.offset;
-      }
-      int8_t* ds = dig + s * S.dig_s + c;
-      for (int li = 0; li < S.l; ++li) {
-        const int shift = 32 - (li + 1) * S.Bgbit;
-        ds[(u * S.l + li) * N] = static_cast<int8_t>(static_cast<int>((du >> shift) & S.mask) -
-                                                     S.halfBg);
-      }
-    }
-    // Barriers that also tell every thread which limbs are nonzero this step.
-    int live[kLimbs];
-#pragma unroll
-    for (int t = 0; t < kLimbs; ++t) live[t] = __syncthreads_or(nz & (1 << t));
-
-    const int8_t* dg = dig + g * S.dig_s + 4 * tig;
-#pragma unroll 1
-    for (int t = 0; t < kLimbs; ++t) {
-      if (!live[t]) continue;
-      int c[CT][4] = {};
-#pragma unroll 1
-      for (int j = 0; j < J; ++j) {
-        uint32_t bf[RT][2];
-#pragma unroll
-        for (int q = 0; q < RT; ++q) {
-          bf[q][0] = lds32(dg + j * N + 32 * q);
-          bf[q][1] = lds32(dg + j * N + 32 * q + 16);
-        }
-        const int8_t* rv = rev + static_cast<size_t>((t * J + j) * U + u_out) * twoN + pb;
-        // U_m = the 4 bytes at base - 8m; A(e) = (U_2e, U_2e+1, U_2e-2, U_2e-1).
-        auto word = [&](int m) {
-          return __byte_perm(lds32(rv - 8 * m), lds32(rv - 8 * m + 4), sel);
-        };
-        uint32_t um2 = word(2 * E0 - 2), um1 = word(2 * E0 - 1);
-#pragma unroll
-        for (int e = E0; e <= E1; ++e) {
-          const uint32_t u0 = word(2 * e), u1 = word(2 * e + 1);
-#pragma unroll
-          for (int q = 0; q < RT; ++q) {
-            const int ii = e + 2 * q;
-            if (ii >= 0 && ii < CT) mma_k32(c[ii], u0, u1, um2, um1, bf[q][0], bf[q][1]);
+      // d = X^a * acc - acc, then its signed gadget digits (offset trick),
+      // once a step, before any limb updates acc.
+      if (t0 == 0) {
+        for (int x = tid; x < ns * UN; x += kThreads) {
+          const int s = x / UN, y = x - s * UN;
+          const int u = y / N, c = y - u * N;
+          uint32_t du = S.offset;
+          if (s < nvalid) {
+            const uint32_t* as = acc + s * S.acc_s + u * N;
+            const int a = bara[static_cast<size_t>(i) * S.B + b0 + s];
+            const int src = (c - a + twoN) & (twoN - 1);    // a in [0, 2N)
+            const uint32_t v = src < N ? as[src] : 0u - as[src - N];
+            du = v - as[c] + S.offset;
           }
-          um2 = u0;
-          um1 = u1;
+          int8_t* ds = dig + s * S.dig_s + c;
+          for (int li = 0; li < S.l; ++li) {
+            const int shift = 32 - (li + 1) * S.Bgbit;
+            ds[(u * S.l + li) * N] =
+                static_cast<int8_t>(static_cast<int>((du >> shift) & S.mask) - S.halfBg);
+          }
         }
       }
-      // acc += limb sum << 8t (mod 2^32): rows cb + 16 ii + g (+8), samples 2 tig (+1).
+      // Barriers that also tell every thread which limbs are nonzero this step.
+      int live = 0;
+      for (int t = t0; t < t0 + S.lp; ++t) live |= __syncthreads_or(nz & (1 << t)) ? 1 << t : 0;
+
+#pragma unroll 1
+      for (int t = t0; t < t0 + S.lp; ++t) {
+        if (!(live & (1 << t))) continue;
+        int c[CT][4] = {};
+#pragma unroll 1
+        for (int j = 0; j < J; ++j) {
+          const int8_t* rv =
+              rev + static_cast<size_t>(((t - t0) * J + j) * U + u_out) * twoN + pb;
+          diagonal_walk<CT, 0, RG>(c, dg + j * N, rv, sel);
+          if constexpr (RT > RG) diagonal_walk<CT, RG, RG>(c, dg + j * N, rv, sel);
+        }
+        // acc += limb sum << 8t (mod 2^32): rows cb + 16 ii + g (+8), samples 2 tig (+1).
+        if (2 * tig < ns) {
 #pragma unroll
-      for (int ii = 0; ii < CT; ++ii) {
-        uint32_t* a = acc + 2 * tig * S.acc_s + u_out * N + cb + 16 * ii + g;
-        a[0] += static_cast<uint32_t>(c[ii][0]) << (8 * t);
-        a[S.acc_s] += static_cast<uint32_t>(c[ii][1]) << (8 * t);
-        a[8] += static_cast<uint32_t>(c[ii][2]) << (8 * t);
-        a[S.acc_s + 8] += static_cast<uint32_t>(c[ii][3]) << (8 * t);
+          for (int ii = 0; ii < CT; ++ii) {
+            uint32_t* a = acc + 2 * tig * S.acc_s + u_out * N + cb + 16 * ii + g;
+            a[0] += static_cast<uint32_t>(c[ii][0]) << (8 * t);
+            a[S.acc_s] += static_cast<uint32_t>(c[ii][1]) << (8 * t);
+            a[8] += static_cast<uint32_t>(c[ii][2]) << (8 * t);
+            a[S.acc_s + 8] += static_cast<uint32_t>(c[ii][3]) << (8 * t);
+          }
+        }
       }
     }
   }
@@ -252,7 +280,7 @@ int launch_n(const Shape& S, size_t smem, const void* acc0, const void* bara, co
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int grid = (S.B + kSamples - 1) / kSamples;
+  const int grid = (S.B + S.ns - 1) / S.ns;
   kernel<<<grid, Tiling<N, U>::kThreads, smem, stream>>>(
       static_cast<const int32_t*>(acc0), static_cast<const int32_t*>(bara),
       static_cast<const int32_t*>(key), static_cast<int32_t*>(out), S);
@@ -261,18 +289,32 @@ int launch_n(const Shape& S, size_t smem, const void* acc0, const void* bara, co
 
 }  // namespace
 
+// Shared memory of a block of `ns` samples with `lp` limbs' byte rows: the
+// accumulators, the digits and the rows, + 16 (ops/blind_rotate_compact.smem_bytes).
+// Sets S's layout fields.
+static size_t plan(Shape& S, int ns, int lp) {
+  S.ns = ns;
+  S.lp = lp;
+  S.acc_s = S.U * S.N + 4;
+  S.dig_s = S.J * S.N + 16;
+  S.dig_off = ns * S.acc_s * 4;
+  S.rev_off = S.dig_off + ns * S.dig_s;
+  return static_cast<size_t>(S.rev_off) + static_cast<size_t>(lp) * S.J * S.U * 2 * S.N + 16;
+}
+
 // Launches the blind rotation on `stream`.  acc0, out: (B, U, N) int32;
 // bara: (n, B) int32 in [0, 2N); key: (n, U*l, U, N) int32, the stored key.
-// Supported: U = 2 or 3 and N a power of two from 32 to 1024, with the
-// shared memory below the card's limit (the Python wrapper refuses the rest
-// first, by name: ops/blind_rotate_compact.check_kernel_domain).  Returns a
-// cudaError_t (0 on success); allocates nothing and does not sync.
+// Supported: U = 2, 3 or 4 and N a power of two from 32 to 2048, at the
+// first of (samples, limbs a pass) = (8, 4), (8, 1), (4, 4), (4, 1), (2, 4),
+// (2, 1) whose shared memory is below the card's limit (the Python wrapper
+// refuses the rest first, by name: ops/blind_rotate_compact.check_kernel_domain).
+// Returns a cudaError_t (0 on success); allocates nothing and does not sync.
 extern "C" int blind_rotate_compact_launch(const void* acc0, const void* bara, const void* key,
                                            void* out, int B, int n, int U, int N, int l,
                                            int Bgbit, void* stream) {
   Shape S;
   S.B = B; S.n = n; S.U = U; S.N = N; S.l = l; S.J = U * l; S.Bgbit = Bgbit;
-  if (B <= 0 || n < 0 || (U != 2 && U != 3) || N < 32 || N > 1024 || (N & (N - 1)) != 0 ||
+  if (B <= 0 || n < 0 || U < 2 || U > 4 || N < 32 || N > 2048 || (N & (N - 1)) != 0 ||
       l <= 0 || Bgbit <= 0 || Bgbit > 8 || l * Bgbit > 32)
     return static_cast<int>(cudaErrorInvalidValue);
   S.halfBg = 1 << (Bgbit - 1);   // <= 128: int8 digits, the reference's exact domain
@@ -283,18 +325,17 @@ extern "C" int blind_rotate_compact_launch(const void* acc0, const void* bara, c
   S.offset = 0;
   for (int p = 0; p < l; ++p)
     S.offset += static_cast<uint32_t>(S.halfBg) << (32 - (p + 1) * Bgbit);
-  S.acc_s = U * N + 4;
-  S.dig_s = S.J * N + 16;
-  S.dig_off = kSamples * S.acc_s * 4;
-  S.rev_off = S.dig_off + kSamples * S.dig_s;
-  const size_t smem = static_cast<size_t>(S.rev_off) + static_cast<size_t>(kLimbs) * S.J * U *
-                      2 * N + 16;
   int device = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (smem > static_cast<size_t>(optin)) return static_cast<int>(cudaErrorInvalidValue);
+  size_t smem = 0;
+  bool fits = false;
+  for (int ns = kMaxSamples; ns >= 2 && !fits; ns /= 2)
+    for (int lp : {kLimbs, 1})
+      if (!fits) fits = (smem = plan(S, ns, lp)) <= static_cast<size_t>(optin);
+  if (!fits) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto at_u = [&](auto u) {
     constexpr int kU = decltype(u)::value;
@@ -304,10 +345,13 @@ extern "C" int blind_rotate_compact_launch(const void* acc0, const void* bara, c
       case 128: return launch_n<128, kU>(S, smem, acc0, bara, key, out, st);
       case 256: return launch_n<256, kU>(S, smem, acc0, bara, key, out, st);
       case 512: return launch_n<512, kU>(S, smem, acc0, bara, key, out, st);
-      default: return launch_n<1024, kU>(S, smem, acc0, bara, key, out, st);
+      case 1024: return launch_n<1024, kU>(S, smem, acc0, bara, key, out, st);
+      default: return launch_n<2048, kU>(S, smem, acc0, bara, key, out, st);
     }
   };
-  return U == 2 ? at_u(std::integral_constant<int, 2>{}) : at_u(std::integral_constant<int, 3>{});
+  if (U == 2) return at_u(std::integral_constant<int, 2>{});
+  if (U == 3) return at_u(std::integral_constant<int, 3>{});
+  return at_u(std::integral_constant<int, 4>{});
 }
 
 extern "C" const char* kernel_error_string(int err) {

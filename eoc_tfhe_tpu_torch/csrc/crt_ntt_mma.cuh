@@ -27,8 +27,10 @@
 //            C2 = hi.hi, combined with c16 = 2^16 mod p balanced. A key
 //            without Key::kReduceC2 (K1, over KERNEL_PRIMES, |c16| = 1023)
 //            takes C0 + 256 C1 + c16 C2: |.| <= Kp 2^14 (1 + 512 + |c16|),
-//            1.21e9 at Kp = 48. A key with it (K3, either prime pair) first
-//            reduces C2 to a balanced residue: |.| <= Kp 2^14 513 +
+//            1.21e9 at Kp = 48 (2.4e9 at Kp = 96, so the general
+//            instantiation reduces C2 for K1 too). A key with it (K3,
+//            either prime pair) first reduces C2 to a balanced residue:
+//            |.| <= Kp 2^14 513 +
 //            max_p |c16_p| (p-1)/2, 7.4e8 at Kp = 48 over DEFAULT_PRIMES
 //            (c16 = -16386 mod 40961), where the plain sum would be 1.33e10.
 //            The launcher checks the bound of the key's kind against the
@@ -38,7 +40,9 @@
 //            stage costs; so the key stays [lo | hi] planes of A.
 //   inverse  res = chat Winv with V = 256 Winv mod p: C0 = sum c_lo Wi_lo +
 //            c_hi V_lo, C1 = sum c_lo Wi_hi + c_hi V_hi; |C0 + 256 C1| <=
-//            257 FP 2^15 < 2^31 (FP <= 128), checked by the launcher.
+//            257 FP 2^15 < 2^31 (FP <= 128), checked by the launcher. At F =
+//            256 that bound is 2.16e9, so C1 is reduced first: |C0 + 256
+//            (C1 mod p)| <= FP 2^15 + 256 (p-1)/2 < 2^31.
 // Each stage ends in one reduction of an int32 sum to a balanced residue on
 // the CUDA cores (a float quotient corrected by one conditional step),
 // followed by the byte split for the next stage. CRT, key-limb
@@ -47,42 +51,55 @@
 //
 // Shapes. K = J*R and M = L*U*R are padded to Kp, Mp, multiples of 16; the
 // key reads as zero in the padding, so padded rows and columns add nothing.
-// A block holds kSamples = 8 samples and kWarps = 16 warps. The forward and
-// inverse stages are m16n8k32 products: rows k or m of one sample, columns f
-// or t, contraction t or f over FP = max(F, 32) (the matrices are
-// zero-padded, so stale padding columns contribute nothing). Warp w owns n8
-// tile w of the columns for every live sample: it loads its B fragments (W,
-// Winv and their 256-multiples, byte planes in fragment order,
-// NttContext.W_mma / Winv_mma, 32 bytes a lane per tile) once per prime into
-// registers and walks the samples, so at batch 1 the warps share the one
-// sample. The pointwise stage is m16n8k16 per frequency: A is the key (Mp x
-// Kp, Key::load gives a lane's fragment of one tile, through a per-warp
-// staging tile where the key is transposed on the chip), the eight samples
-// are N; warps take four frequencies at a time. Where U*R = 16 (k = 1,
-// N >= 64: the shipped sets) the rows of one m-tile of the inverse are the (u, r)
+// A block holds kS samples and kWarps = 16 warps. The forward and inverse
+// stages are m16n8k32 products: rows k or m of one sample, columns f or t,
+// contraction t or f over FP = max(F, 32) (the matrices are zero-padded, so
+// stale padding columns contribute nothing). Warp w owns n8 tiles w + 16 jj
+// of the columns for every live sample (one tile at F <= 128, two at F =
+// 256). At F <= 128 it loads its B fragments (W, Winv and their
+// 256-multiples, byte planes in fragment order, NttContext.W_mma /
+// Winv_mma, 32 bytes a lane per tile) once per prime into registers and
+// walks the samples, so at batch 1 the warps share the one sample; at F =
+// 256 (kWide) twice the fragments would not fit in registers, so each is
+// read from L1/L2 at its use. The pointwise stage is m16n8k16 per
+// frequency: A is the key (Mp x Kp, Key::load gives a lane's fragment of
+// one tile, through a per-warp staging tile where the key is transposed on
+// the chip), the samples are N (columns past the block's kS samples repeat
+// sample 0 and are not stored); warps take four frequencies at a time.
+//
+// Two families of instantiations. The shipped sets (F <= 128, Kp <= 64, 8
+// samples fitting in shared memory) take kS = 8 at compile time and the
+// m-tile count of Kp (MTK, 3 or 4) as a template parameter. Where U*R = 16
+// (k = 1, N >= 64) the rows of one m-tile of the inverse are the (u, r)
 // pairs of one key limb and a thread recombines the limbs of its outputs in
-// registers (MTM = Mp/16 m-tiles, a template parameter). Other shapes (k >=
+// registers (MTM = Mp/16 m-tiles, a template parameter); other shapes (k >=
 // 2, or N = 32 where R = 4) take the scatter path (MTM = 0): each m-tile in
 // turn, and the second prime's CRT'd value of row m = (limb, u, r) is added
 // into acc[u][t*R + r] shifted by its limb with a uint32 atomicAdd (mod 2^32,
-// so the order of the limbs does not matter). The m-tile count of Kp (MTK, 3
-// or 4) is a template parameter too, so the shipped sets keep their
-// registers.
+// so the order of the limbs does not matter). Every other shape (F = 256,
+// Kp up to 128, or shared memory that 8 samples overflow: ROADMAP C7) takes
+// the general instantiation: MTK = 8 (the forward walks the m-tiles of Kp
+// four at a time), the scatter path, and kS = 0, the samples a block a
+// run-time value (8, 4, 2 or 1, the most that fit). Its pointwise sum always
+// reduces C2 first (above), since at Kp = 96 K1's plain sum would leave
+// int32 (2.4e9); at F = 256 the inverse reduces C1 before the product by
+// 256, since 257 FP 2^15 would too. The shipped sets keep their
+// instantiations and their registers.
 //
-// Shared memory (128-bit set: F = 128, K = M = 48): dig [DL][s][k][t] and
-// chat [2][s][m][f] share one buffer, rows padded to FP + 16 bytes so that
-// fragment loads hit 32 banks: 110,592 bytes; dhat [f][2][s][k], each
-// frequency padded by 16 bytes against bank conflicts of the forward's
-// stores: 100,352 bytes; then Key::kStageBytes per warp for a key that is
-// transposed on the chip (K3: 8,704); 210,944 (K1) or 219,648 (K3) of the
-// 232,448 bytes a block may use (80-bit set: 215,040, 223,744). A shape
-// that needs more is refused. The accumulators live in the output tensor
-// (global memory, L2-resident, each word read once and updated once a
-// step); a per-block scratch tensor holds the first prime's inverse
-// residues (in a thread-private order) and a copy of the digits, which the
-// second prime reads back instead of recomputing them.
+// Shared memory, per block of kS samples (128-bit set: F = 128, K = M = 48,
+// kS = 8): dig [DL][s][k][t] and chat [2][s][m][f] share one buffer, rows
+// padded to FP + 16 bytes so that fragment loads hit 32 banks: 110,592
+// bytes; dhat [f][2][s][k], each frequency padded by 16 bytes against bank
+// conflicts of the forward's stores: 100,352 bytes; then Key::kStageBytes per
+// warp for a key that is transposed on the chip (K3: 8,704); 210,944 (K1) or
+// 219,648 (K3) of the 232,448 bytes a block may use (80-bit set: 215,040,
+// 223,744). A shape that needs more at 1 sample is refused. The accumulators
+// live in the output tensor (global memory, L2-resident, each word read once
+// and updated once a step); a per-block scratch tensor holds the first
+// prime's inverse residues (in a thread-private order) and a copy of the
+// digits, which the second prime reads back instead of recomputing them.
 //
-// L2 key traffic and occupancy. Every key byte a block reads serves its 8
+// L2 key traffic and occupancy. Every key byte a block reads serves its kS
 // samples (the CUDA-core kernel served 2): 1.18 MB per step and block at the
 // 128-bit set, B/8 * n * 1.18 MB per launch. More samples per key read need a
 // thread-block cluster with the key multicast into each block (later work).
@@ -104,25 +121,34 @@
 
 namespace crt_mma {
 
-constexpr int kSamples = 8;   // samples per block: the pointwise MMA's N
 constexpr int kWarps = 16;    // warps per block: 128 registers each
 constexpr int kThreads = 32 * kWarps;
-constexpr int kMaxKT = 4;     // k32 tiles of FP (FP <= 128)
-constexpr int kNJ = (16 + kWarps - 1) / kWarps;   // n8 tiles of F a warp owns (F <= 128)
+constexpr int kMaxSamples = 8;   // samples per block: the pointwise MMA's N
+
+// The n8 tiles of F a warp owns and the k32 tiles of FP, at F <= 128 or at
+// F = 256 (kWide).
+template <bool kWide>
+struct Freq {
+  static constexpr int kNJ = kWide ? 2 : 1;
+  static constexpr int kKT = kWide ? 8 : 4;
+};
+constexpr int kNJ = Freq<false>::kNJ;      // held in registers: F <= 128
+constexpr int kMaxKT = Freq<false>::kKT;
 
 struct Shape {
   int B, n, U, N, R, F, FP, l, J, K, M, L, Bgbit, kbits, halfBg, crt_inv;
   int Kp, Mp, UR;     // K and M padded to multiples of 16; U*R
+  int ns;             // samples per block: 8, 4, 2 or 1
   int log_n, log_r;   // log2 N, log2 R
   int p0, p1, half0, half1;
   int c16_0, c16_1;   // balanced 2^16 mod p
   float finv0, finv1;
   uint32_t offset, mask;
   int DS;        // byte stride of a dig or chat row: FP + 16
-  int dig_plane; // bytes of one digit plane: kSamples * Kp * DS
-  int y_plane;   // bytes of one chat plane: kSamples * Mp * DS
+  int dig_plane; // bytes of one digit plane: ns * Kp * DS
+  int y_plane;   // bytes of one chat plane: ns * Mp * DS
   int buf2;      // byte offset of dhat
-  int xs;        // bytes per frequency of dhat: 2 * kSamples * Kp + 16 (bank spread)
+  int xs;        // bytes per frequency of dhat: 2 * ns * Kp + 16 (bank spread)
   int stage;     // byte offset of the per-warp key staging tiles
   int res0_16, dig16, scratch16;   // 16-byte words of a block's scratch: res0, digits, all
 };
@@ -166,14 +192,16 @@ __device__ __forceinline__ uint32_t lds32(const int8_t* p) {
 
 // Gadget digits of d = X^a acc - acc (offset trick) into dig [DL][s][k][t],
 // k = (u*l + li)*R + r for coefficient c = t*R + r. Dead samples get digit 0;
-// the padding rows K <= k < Kp are zeroed.
-template <int DL>
+// the padding rows K <= k < Kp are zeroed. kS: samples a block, or 0 for
+// S.ns (the general instantiation).
+template <int DL, int kS>
 __device__ __forceinline__ void digit_pass(const Shape& S, int i, const uint32_t* acc,
                                            const int32_t* __restrict__ bara, int b0, int nvalid,
                                            int8_t* dig, int tid) {
   constexpr int kItems = 8;   // coefficients a thread loads before it computes
+  const int ns = kS ? kS : S.ns;
   const int lun = S.log_n + (S.U == 2 ? 1 : 0);
-  const int UN = S.U * S.N, twoN = 2 * S.N, total = kSamples * UN;
+  const int UN = S.U * S.N, twoN = 2 * S.N, total = ns * UN;
   for (int x0 = tid; x0 < total; x0 += kItems * kThreads) {
     uint32_t du[kItems];
 #pragma unroll
@@ -214,8 +242,8 @@ __device__ __forceinline__ void digit_pass(const Shape& S, int i, const uint32_t
   }
   if (S.Kp > S.K) {
     const int pad = S.Kp - S.K, w16 = S.FP / 16;
-    for (int x = tid; x < DL * kSamples * pad * w16; x += kThreads) {
-      const int row = x / w16, q = row / (kSamples * pad), sr = row - q * kSamples * pad;
+    for (int x = tid; x < DL * ns * pad * w16; x += kThreads) {
+      const int row = x / w16, q = row / (ns * pad), sr = row - q * ns * pad;
       const int s = sr / pad, k = S.K + sr - s * pad;
       *reinterpret_cast<uint4*>(dig + q * S.dig_plane + (s * S.Kp + k) * S.DS +
                                 16 * (x - row * w16)) = make_uint4(0, 0, 0, 0);
@@ -224,78 +252,99 @@ __device__ __forceinline__ void digit_pass(const Shape& S, int i, const uint32_t
 }
 
 // Forward NTT: dhat[f][plane][s][k] = balanced residue (byte planes) of
-// sum_t dig[s][k][t] W[t][f]. Warp w owns the n8 tiles nt = w + 8 jj of f for
-// every live sample: it loads their W fragments once per prime and reuses
-// them for each sample, and at batch 1 the eight warps share the one sample.
-template <int DL, int PI, int MTK>
+// sum_t dig[s][k][t] W[t][f]. Warp w owns the n8 tiles nt = w + 16 jj of f
+// for every live sample: at F <= 128 it loads their W fragments once per
+// prime and reuses them for each sample, and at batch 1 the warps share the
+// one sample; at F = 256 (kWide) it reads each at its use. The m-tiles of Kp
+// go four at a time (MTK = 8: the general instantiation).
+template <int DL, int PI, int MTK, int kS, bool kWide>
 __device__ __forceinline__ void forward(const Shape& S, const int8_t* dig, int8_t* X,
                                         const uint4* __restrict__ Wf, int nvalid, int warp,
                                         int lane) {
+  constexpr int NJ = Freq<kWide>::kNJ, KTM = Freq<kWide>::kKT;
+  constexpr int MTG = MTK < 4 ? MTK : 4;   // m-tiles a pass
   const int g = lane >> 2, tig = lane & 3;
   const int p = PI ? S.p1 : S.p0, half = PI ? S.half1 : S.half0;
   const float inv_p = PI ? S.finv1 : S.finv0;
+  const int ns = kS ? kS : S.ns;
   const int MT = S.Kp / 16, FN = S.F / 8, NT = S.FP / 8, KT = S.FP / 32;
   if (warp >= FN) return;
-  uint4 w[kNJ][kMaxKT][DL];
+  auto frag_ptr = [&](int jj, int kt) {
+    return Wf + ((static_cast<size_t>(PI * NT + warp + kWarps * jj) * KT + kt) * 32 + lane) * 2;
+  };
+  uint4 w[kWide ? 1 : NJ][kWide ? 1 : KTM][DL];   // held: F <= 128
+  if constexpr (!kWide) {
 #pragma unroll
-  for (int jj = 0; jj < kNJ; ++jj)
+    for (int jj = 0; jj < NJ; ++jj)
 #pragma unroll
-    for (int kt = 0; kt < kMaxKT; ++kt) {
-      const int nt = warp + kWarps * jj;
-      if (nt >= FN || kt >= KT) continue;
-      const uint4* wp = Wf + ((static_cast<size_t>(PI * NT + nt) * KT + kt) * 32 + lane) * 2;
+      for (int kt = 0; kt < KTM; ++kt) {
+        const int nt = warp + kWarps * jj;
+        if (nt >= FN || kt >= KT) continue;
+        const uint4* wp = frag_ptr(jj, kt);
 #pragma unroll
-      for (int q = 0; q < DL; ++q) w[jj][kt][q] = __ldg(wp + q);
-    }
+        for (int q = 0; q < DL; ++q) w[jj][kt][q] = __ldg(wp + q);
+      }
+  }
   for (int s = 0; s < nvalid; ++s) {
     const int8_t* ds = dig + static_cast<size_t>(s) * S.Kp * S.DS;
-    int c0[MTK][kNJ][4] = {}, c1[MTK][kNJ][4] = {};
 #pragma unroll
-    for (int kt = 0; kt < kMaxKT; ++kt) {
-      if (kt >= KT) continue;
-      uint32_t a[DL][MTK][4];
+    for (int mg = 0; mg < MTK; mg += MTG) {
+      if (mg > 0 && mg >= MT) break;
+      int c0[MTG][NJ][4] = {}, c1[MTG][NJ][4] = {};
 #pragma unroll
-      for (int q = 0; q < DL; ++q)
+      for (int kt = 0; kt < KTM; ++kt) {
+        if (kt >= KT) continue;
+        uint32_t a[DL][MTG][4];
 #pragma unroll
-        for (int mt = 0; mt < MTK; ++mt) {
-          if (mt >= MT) continue;
-          const int8_t* base = ds + q * S.dig_plane + (mt * 16 + g) * S.DS + kt * 32 + 4 * tig;
-          a[q][mt][0] = lds32(base);
-          a[q][mt][1] = lds32(base + 8 * S.DS);
-          a[q][mt][2] = lds32(base + 16);
-          a[q][mt][3] = lds32(base + 8 * S.DS + 16);
-        }
+        for (int q = 0; q < DL; ++q)
 #pragma unroll
-      for (int jj = 0; jj < kNJ; ++jj) {
-        if (warp + kWarps * jj >= FN) continue;
+          for (int mt = 0; mt < MTG; ++mt) {
+            if (mg + mt >= MT) continue;
+            const int8_t* base =
+                ds + q * S.dig_plane + ((mg + mt) * 16 + g) * S.DS + kt * 32 + 4 * tig;
+            a[q][mt][0] = lds32(base);
+            a[q][mt][1] = lds32(base + 8 * S.DS);
+            a[q][mt][2] = lds32(base + 16);
+            a[q][mt][3] = lds32(base + 8 * S.DS + 16);
+          }
 #pragma unroll
-        for (int mt = 0; mt < MTK; ++mt) {
-          if (mt >= MT) continue;
-          mma_k32(c0[mt][jj], a[0][mt], w[jj][kt][0].x, w[jj][kt][0].y);
-          mma_k32(c1[mt][jj], a[0][mt], w[jj][kt][0].z, w[jj][kt][0].w);
-          if (DL == 2) {
-            mma_k32(c0[mt][jj], a[DL - 1][mt], w[jj][kt][DL - 1].x, w[jj][kt][DL - 1].y);
-            mma_k32(c1[mt][jj], a[DL - 1][mt], w[jj][kt][DL - 1].z, w[jj][kt][DL - 1].w);
+        for (int jj = 0; jj < NJ; ++jj) {
+          if (warp + kWarps * jj >= FN) continue;
+          uint4 wf[DL];
+#pragma unroll
+          for (int q = 0; q < DL; ++q) {
+            if constexpr (kWide) wf[q] = __ldg(frag_ptr(jj, kt) + q);
+            else wf[q] = w[jj][kt][q];
+          }
+#pragma unroll
+          for (int mt = 0; mt < MTG; ++mt) {
+            if (mg + mt >= MT) continue;
+            mma_k32(c0[mt][jj], a[0][mt], wf[0].x, wf[0].y);
+            mma_k32(c1[mt][jj], a[0][mt], wf[0].z, wf[0].w);
+            if (DL == 2) {
+              mma_k32(c0[mt][jj], a[DL - 1][mt], wf[DL - 1].x, wf[DL - 1].y);
+              mma_k32(c1[mt][jj], a[DL - 1][mt], wf[DL - 1].z, wf[DL - 1].w);
+            }
           }
         }
       }
-    }
 #pragma unroll
-    for (int jj = 0; jj < kNJ; ++jj) {
-      const int nt = warp + kWarps * jj;
-      if (nt >= FN) continue;
+      for (int jj = 0; jj < NJ; ++jj) {
+        const int nt = warp + kWarps * jj;
+        if (nt >= FN) continue;
 #pragma unroll
-      for (int mt = 0; mt < MTK; ++mt) {
-        if (mt >= MT) continue;
+        for (int mt = 0; mt < MTG; ++mt) {
+          if (mg + mt >= MT) continue;
 #pragma unroll
-        for (int r4 = 0; r4 < 4; ++r4) {
-          const int k = mt * 16 + g + 8 * (r4 >> 1), f = nt * 8 + 2 * tig + (r4 & 1);
-          const int res = reduce32(c0[mt][jj][r4] + c1[mt][jj][r4] * 256, p, half, inv_p);
-          int lo, hi;
-          split8(res, lo, hi);
-          int8_t* xf = X + static_cast<size_t>(f) * S.xs + s * S.Kp + k;
-          xf[0] = static_cast<int8_t>(lo);
-          xf[kSamples * S.Kp] = static_cast<int8_t>(hi);
+          for (int r4 = 0; r4 < 4; ++r4) {
+            const int k = (mg + mt) * 16 + g + 8 * (r4 >> 1), f = nt * 8 + 2 * tig + (r4 & 1);
+            const int res = reduce32(c0[mt][jj][r4] + c1[mt][jj][r4] * 256, p, half, inv_p);
+            int lo, hi;
+            split8(res, lo, hi);
+            int8_t* xf = X + static_cast<size_t>(f) * S.xs + s * S.Kp + k;
+            xf[0] = static_cast<int8_t>(lo);
+            xf[ns * S.Kp] = static_cast<int8_t>(hi);
+          }
         }
       }
     }
@@ -305,15 +354,20 @@ __device__ __forceinline__ void forward(const Shape& S, const int8_t* dig, int8_
 // Pointwise product for the frequencies of this warp: chat[plane][s][m][f] =
 // balanced residue of sum_k T[f][k][m] dhat[f][s][k]. Four frequencies a
 // pass, so that each thread stores whole 32-bit words of chat. `stage` is
-// this warp's Key::kStageBytes of shared memory.
-template <class Key, int PI, int MTK>
+// this warp's Key::kStageBytes of shared memory. C2 is reduced before its
+// c16 product for a key with kReduceC2 and in the general instantiation
+// (MTK = 8: Kp up to 128).
+template <class Key, int PI, int MTK, int kS>
 __device__ __forceinline__ void pointwise(const Shape& S, int i, const typename Key::Elem* key,
                                           const int8_t* X, int8_t* Y, int8_t* stage, int warp,
                                           int lane) {
+  constexpr bool kReduceC2 = Key::kReduceC2 || MTK > 4;
   const int g = lane >> 2, tig = lane & 3;
   const int p = PI ? S.p1 : S.p0, half = PI ? S.half1 : S.half0;
   const int c16 = PI ? S.c16_1 : S.c16_0;
   const float inv_p = PI ? S.finv1 : S.finv0;
+  const int ns = kS ? kS : S.ns;
+  const int gs = kS ? g : (g < ns ? g : 0);   // columns past the block's samples: sample 0
   const int MT = S.Mp / 16, KT = S.Kp / 16;
   for (int f0 = 4 * warp; f0 < S.F; f0 += 4 * kWarps) {
     for (int mt = 0; mt < MT; ++mt) {
@@ -321,13 +375,13 @@ __device__ __forceinline__ void pointwise(const Shape& S, int i, const typename 
 #pragma unroll
       for (int fi = 0; fi < 4; ++fi) {
         const int f = f0 + fi;
-        const int8_t* xf = X + static_cast<size_t>(f) * S.xs + g * S.Kp + 4 * tig;
+        const int8_t* xf = X + static_cast<size_t>(f) * S.xs + gs * S.Kp + 4 * tig;
 #pragma unroll
         for (int kt = 0; kt < MTK; ++kt) {
           if (kt >= KT) continue;
           // lo a0 a1, hi a0 a1
           const uint4 a = Key::load(key, S, i, PI, f, mt, kt, lane, stage);
-          const uint32_t blo = lds32(xf + kt * 16), bhi = lds32(xf + kSamples * S.Kp + kt * 16);
+          const uint32_t blo = lds32(xf + kt * 16), bhi = lds32(xf + ns * S.Kp + kt * 16);
           mma_k16(c[fi][0], a.x, a.y, blo);
           mma_k16(c[fi][1], a.x, a.y, bhi);
           mma_k16(c[fi][1], a.z, a.w, blo);
@@ -337,11 +391,12 @@ __device__ __forceinline__ void pointwise(const Shape& S, int i, const typename 
 #pragma unroll
       for (int r4 = 0; r4 < 4; ++r4) {
         const int m = mt * 16 + g + 8 * (r4 >> 1), s = 2 * tig + (r4 & 1);
+        if (kS == 0 && s >= ns) continue;
         uint32_t wlo = 0, whi = 0;
 #pragma unroll
         for (int fi = 0; fi < 4; ++fi) {
           // 2^16 == c16 (mod p): the sum stays in int32 (bound checked at launch)
-          const int c2 = Key::kReduceC2 ? reduce32(c[fi][2][r4], p, half, inv_p) : c[fi][2][r4];
+          const int c2 = kReduceC2 ? reduce32(c[fi][2][r4], p, half, inv_p) : c[fi][2][r4];
           const int z = c[fi][0][r4] + c[fi][1][r4] * 256 + c2 * c16;
           int lo, hi;
           split8(reduce32(z, p, half, inv_p), lo, hi);
@@ -475,28 +530,32 @@ __device__ __forceinline__ void inverse(const Shape& S, const int8_t* Y,
   }
 }
 
-// The inverse NTT of the scatter path (U*R != 16): one m-tile at a time; the
-// second prime adds V << (kbits * limb) of row m = (limb, u, r) into
-// acc[s][u][t*R + r] with a uint32 atomicAdd. Padding rows m >= M are skipped.
-template <int PI>
+// The inverse NTT of the scatter path (U*R != 16, and the general
+// instantiation): one m-tile at a time; the second prime adds V << (kbits *
+// limb) of row m = (limb, u, r) into acc[s][u][t*R + r] with a uint32
+// atomicAdd. Padding rows m >= M are skipped. At F = 256 (kWide) the B
+// fragments are read at their use, and C1 is reduced before its product by
+// 256 (257 FP 2^15 would leave int32).
+template <int PI, bool kWide>
 __device__ __forceinline__ void inverse_scatter(const Shape& S, const int8_t* Y,
                                                 const uint4* __restrict__ Wi, int16_t* res0,
                                                 uint32_t* acc, int nvalid, int warp, int lane) {
+  constexpr int NJ = Freq<kWide>::kNJ, KTM = Freq<kWide>::kKT;
   const int g = lane >> 2, tig = lane & 3;
   const int p = PI ? S.p1 : S.p0, half = PI ? S.half1 : S.half0;
   const float inv_p = PI ? S.finv1 : S.finv0;
-  const int MT = S.Mp / 16, TN = S.F / 8, KT = S.FP / 32;
+  const int MT = S.Mp / 16, TN = S.F / 8, NT = S.FP / 8, KT = S.FP / 32;
   if (warp >= TN) return;
-  uint4 w[kNJ][kMaxKT][2];
-  load_winv<PI>(S, Wi, w, warp, lane);
+  uint4 w[kNJ][kMaxKT][2];   // held: F <= 128
+  if constexpr (!kWide) load_winv<PI>(S, Wi, w, warp, lane);
   for (int s = 0; s < nvalid; ++s) {
     const int8_t* ys = Y + static_cast<size_t>(s) * S.Mp * S.DS;
     int16_t* slots = res0 + static_cast<size_t>(s) * S.Mp * S.F + lane;
     uint32_t* acc_s = acc + static_cast<size_t>(s) * S.U * S.N;
     for (int mt = 0; mt < MT; ++mt) {
-      int c0[kNJ][4] = {}, c1[kNJ][4] = {};
+      int c0[NJ][4] = {}, c1[NJ][4] = {};
 #pragma unroll
-      for (int kt = 0; kt < kMaxKT; ++kt) {
+      for (int kt = 0; kt < KTM; ++kt) {
         if (kt >= KT) continue;
         uint32_t a[2][4];
 #pragma unroll
@@ -508,21 +567,32 @@ __device__ __forceinline__ void inverse_scatter(const Shape& S, const int8_t* Y,
           a[q][3] = lds32(base + 8 * S.DS + 16);
         }
 #pragma unroll
-        for (int jj = 0; jj < kNJ; ++jj) {
+        for (int jj = 0; jj < NJ; ++jj) {
           if (warp + kWarps * jj >= TN) continue;
-          mma_k32(c0[jj], a[0], w[jj][kt][0].x, w[jj][kt][0].y);
-          mma_k32(c1[jj], a[0], w[jj][kt][0].z, w[jj][kt][0].w);
-          mma_k32(c0[jj], a[1], w[jj][kt][1].x, w[jj][kt][1].y);
-          mma_k32(c1[jj], a[1], w[jj][kt][1].z, w[jj][kt][1].w);
+          uint4 w0, w1;
+          if constexpr (kWide) {
+            const size_t nt = PI * NT + warp + kWarps * jj;
+            const uint4* wp = Wi + ((nt * KT + kt) * 32 + lane) * 2;
+            w0 = __ldg(wp);
+            w1 = __ldg(wp + 1);
+          } else {
+            w0 = w[jj][kt][0];
+            w1 = w[jj][kt][1];
+          }
+          mma_k32(c0[jj], a[0], w0.x, w0.y);
+          mma_k32(c1[jj], a[0], w0.z, w0.w);
+          mma_k32(c0[jj], a[1], w1.x, w1.y);
+          mma_k32(c1[jj], a[1], w1.z, w1.w);
         }
       }
 #pragma unroll
-      for (int jj = 0; jj < kNJ; ++jj) {
+      for (int jj = 0; jj < NJ; ++jj) {
         const int nt = warp + kWarps * jj;
         if (nt >= TN) continue;
 #pragma unroll
         for (int r4 = 0; r4 < 4; ++r4) {
-          const int v = reduce32(c0[jj][r4] + c1[jj][r4] * 256, p, half, inv_p);
+          const int c1r = kWide ? reduce32(c1[jj][r4], p, half, inv_p) : c1[jj][r4];
+          const int v = reduce32(c0[jj][r4] + c1r * 256, p, half, inv_p);
           int16_t* slot = slots + ((nt * MT + mt) * 4 + r4) * 32;
           if (PI == 0) {
             *slot = static_cast<int16_t>(v);
@@ -555,9 +625,11 @@ __device__ unsigned long long phase_clocks[8];
 #define CRT_MMA_PHASE(k)
 #endif
 
-// MTK: m16 tiles of Kp (3 or 4); MTM: m16 tiles of Mp on the register path
-// (3 or 4), or 0 for the scatter path.
-template <class Key, int DL, int MTK, int MTM>
+// MTK: m16 tiles of Kp (3 or 4; 8 in the general instantiation); MTM: m16
+// tiles of Mp on the register path (3 or 4), or 0 for the scatter path; kS:
+// samples a block (8), or 0 for S.ns (the general instantiation); kWide:
+// F = 256.
+template <class Key, int DL, int MTK, int MTM, int kS, bool kWide>
 __global__ void __launch_bounds__(kThreads, 1) rotate_kernel(
     const int32_t* __restrict__ acc0, const int32_t* __restrict__ bara,
     const typename Key::Elem* __restrict__ key, const uint4* __restrict__ Wf,
@@ -569,8 +641,9 @@ __global__ void __launch_bounds__(kThreads, 1) rotate_kernel(
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   int8_t* stage = reinterpret_cast<int8_t*>(smem + S.stage) + warp * Key::kStageBytes;
   const int UN = S.U * S.N;
-  const int b0 = blockIdx.x * kSamples;
-  const int nvalid = min(kSamples, S.B - b0);
+  const int ns = kS ? kS : S.ns;
+  const int b0 = blockIdx.x * ns;
+  const int nvalid = min(ns, S.B - b0);
   uint32_t* acc = reinterpret_cast<uint32_t*>(out) + static_cast<size_t>(b0) * UN;
   // This block's scratch: the first prime's inverse residues, then the digits.
   uint4* scratch_b = scratch + static_cast<size_t>(blockIdx.x) * S.scratch16;
@@ -587,35 +660,50 @@ __global__ void __launch_bounds__(kThreads, 1) rotate_kernel(
 
   for (int i = 0; i < S.n; ++i) {
     // first prime
-    digit_pass<DL>(S, i, acc, bara, b0, nvalid, buf1, tid);
+    digit_pass<DL, kS>(S, i, acc, bara, b0, nvalid, buf1, tid);
     __syncthreads();
     CRT_MMA_PHASE(0);
     copy16(dig_g, reinterpret_cast<const uint4*>(buf1), dig16, tid);   // kept for the second
-    forward<DL, 0, MTK>(S, buf1, X, Wf, nvalid, warp, lane);
+    forward<DL, 0, MTK, kS, kWide>(S, buf1, X, Wf, nvalid, warp, lane);
     __syncthreads();
     CRT_MMA_PHASE(1);
-    pointwise<Key, 0, MTK>(S, i, key, X, buf1, stage, warp, lane);
+    pointwise<Key, 0, MTK, kS>(S, i, key, X, buf1, stage, warp, lane);
     __syncthreads();
     CRT_MMA_PHASE(2);
     if constexpr (MTM > 0) inverse<0, MTM>(S, buf1, Wi, res0_b, acc, nvalid, warp, lane);
-    else inverse_scatter<0>(S, buf1, Wi, res0_b, acc, nvalid, warp, lane);
+    else inverse_scatter<0, kWide>(S, buf1, Wi, res0_b, acc, nvalid, warp, lane);
     __syncthreads();
     CRT_MMA_PHASE(3);
     // second prime, then the accumulator update
     copy16(reinterpret_cast<uint4*>(buf1), dig_g, dig16, tid);
     __syncthreads();
     CRT_MMA_PHASE(4);
-    forward<DL, 1, MTK>(S, buf1, X, Wf, nvalid, warp, lane);
+    forward<DL, 1, MTK, kS, kWide>(S, buf1, X, Wf, nvalid, warp, lane);
     __syncthreads();
     CRT_MMA_PHASE(5);
-    pointwise<Key, 1, MTK>(S, i, key, X, buf1, stage, warp, lane);
+    pointwise<Key, 1, MTK, kS>(S, i, key, X, buf1, stage, warp, lane);
     __syncthreads();
     CRT_MMA_PHASE(6);
     if constexpr (MTM > 0) inverse<1, MTM>(S, buf1, Wi, res0_b, acc, nvalid, warp, lane);
-    else inverse_scatter<1>(S, buf1, Wi, res0_b, acc, nvalid, warp, lane);
+    else inverse_scatter<1, kWide>(S, buf1, Wi, res0_b, acc, nvalid, warp, lane);
     __syncthreads();
     CRT_MMA_PHASE(7);
   }
+}
+
+// Shared memory of a block of `ns` samples (S.DS, Kp, Mp, F set): dig and
+// chat in one buffer, dhat, and Key::kStageBytes per warp. Sets the layout
+// fields of S that depend on ns. (ops/blind_rotate.crt_mma_smem_bytes.)
+template <class Key>
+size_t plan_samples(Shape& S, int DL, int ns) {
+  S.ns = ns;
+  S.dig_plane = ns * S.Kp * S.DS;
+  S.y_plane = ns * S.Mp * S.DS;
+  const int buf1 = DL * S.dig_plane > 2 * S.y_plane ? DL * S.dig_plane : 2 * S.y_plane;
+  S.buf2 = (buf1 + 15) / 16 * 16;
+  S.xs = 2 * ns * S.Kp + 16;
+  S.stage = S.buf2 + S.F * S.xs;
+  return static_cast<size_t>(S.stage) + static_cast<size_t>(kWarps) * Key::kStageBytes;
 }
 
 // Checks the shape and the stated bounds, sizes shared memory and launches
@@ -623,10 +711,12 @@ __global__ void __launch_bounds__(kThreads, 1) rotate_kernel(
 // (n, B) int32 in [0, 2N); key: the NTT-domain key as Key reads it; Wf, Wi:
 // (2, FP/8, FP/32, 32, 4, 8) int8 B fragments of W [t][f] and Winv [f][t]
 // (ntt.NttContext.W_mma / Winv_mma); scratch: scratch_bytes of device
-// memory, 16-byte aligned, at least ceil(B/8) * (2*8*Mp*F + DL*8*Kp*(FP+16))
-// rounded up per part to 16 bytes. Returns a cudaError_t (0 on success);
+// memory, 16-byte aligned, at least ceil(B/ns) * (2*ns*Mp*F + DL*ns*Kp*(FP+16))
+// rounded up per part to 16 bytes, ns the samples a block (8, or 4, 2 or 1
+// where 8 do not fit in shared memory). Returns a cudaError_t (0 on success);
 // allocates nothing and does not sync. The Python wrappers refuse the same
-// shapes first, by name (ops/blind_rotate.check_kernel_domain).
+// shapes first, by name (ops/blind_rotate.check_crt_mma_domain), and size
+// the scratch by the same plan (ops/blind_rotate.crt_mma_plan).
 template <class Key>
 int launch(const void* acc0, const void* bara, const void* key, const void* Wf,
            const void* Wi, void* scratch, long long scratch_bytes, void* out, int B, int n,
@@ -648,8 +738,9 @@ int launch(const void* acc0, const void* bara, const void* key, const void* Wf,
   S.c16_0 = bal16(p0); S.c16_1 = bal16(p1);
   if (B <= 0 || n < 0 || U <= 0 || l <= 0 || Bgbit <= 0 || Bgbit > 15 || l * Bgbit > 32 ||
       R <= 0 || N % R != 0 || (N & (N - 1)) != 0 || (R & (R - 1)) != 0 ||
-      S.F % 8 != 0 || S.FP % 32 != 0 || S.FP > 32 * kMaxKT || S.F > 8 * kWarps * kNJ ||
-      S.Kp > 16 * 4 || L * kbits < 32 || kbits * (L - 1) >= 32 ||
+      S.F % 8 != 0 || S.FP % 32 != 0 || S.FP > 32 * Freq<true>::kKT ||
+      S.F > 8 * kWarps * Freq<true>::kNJ || S.Kp > 16 * 8 || L * kbits < 32 ||
+      kbits * (L - 1) >= 32 ||
       p0 < 1024 || p1 < 1024 || (p0 & 1) == 0 || (p1 & 1) == 0)   // reduce32: |z/p| < 2^22
     return static_cast<int>(cudaErrorInvalidValue);
   S.halfBg = 1 << (Bgbit - 1);
@@ -659,6 +750,20 @@ int launch(const void* acc0, const void* bara, const void* key, const void* Wf,
     S.offset += static_cast<uint32_t>(S.halfBg) << (32 - (p + 1) * Bgbit);
   const int DL = S.halfBg <= 128 ? 1 : 2;
   const long long dhi = DL == 1 ? 0 : (S.halfBg + 255) / 256;
+  S.DS = S.FP + 16;
+  int device = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // The shipped instantiations where they apply (F <= 128, Kp <= 64, 8
+  // samples fitting), else the general one at the most samples that fit.
+  const bool wide = S.FP > 32 * kMaxKT;
+  size_t smem = plan_samples<Key>(S, DL, kMaxSamples);
+  const bool general = wide || S.Kp > 64 || smem > static_cast<size_t>(optin);
+  for (int ns = kMaxSamples / 2; general && ns >= 1 && smem > static_cast<size_t>(optin); ns /= 2)
+    smem = plan_samples<Key>(S, DL, ns);
+  if (smem > static_cast<size_t>(optin)) return static_cast<int>(cudaErrorInvalidValue);
   // Residues split into bytes with |hi| <= 127; the forward, pointwise and
   // inverse int32 sums stay below 2^31 (see the note at the head of this
   // file); the CRT product (v1 - v0) * crt_inv and V = v0 + q p0 fit int32.
@@ -668,36 +773,22 @@ int launch(const void* acc0, const void* bara, const void* key, const void* Wf,
                                      abs(S.c16_1) * static_cast<long long>(S.half1)
                                  ? abs(S.c16_0) * static_cast<long long>(S.half0)
                                  : abs(S.c16_1) * static_cast<long long>(S.half1);
-  const long long pointwise_sum = Key::kReduceC2
+  const long long pointwise_sum = Key::kReduceC2 || general
       ? static_cast<long long>(S.Kp) * 128 * 128 * (1 + 2 * 256) + c16_half
       : static_cast<long long>(S.Kp) * 128 * 128 * (1 + 2 * 256 + c16);
+  const long long inverse_sum = wide ? S.FP * 2LL * 128 * 128 + 256LL * hmax
+                                     : 257LL * S.FP * 2 * 128 * 128;
   if (hmax > 127 * 256 + 127 || dhi > 127 || pointwise_sum >= (1LL << 31) ||
-      257LL * S.FP * 128 * (128 + dhi) >= (1LL << 31) ||
-      257LL * S.FP * 2 * 128 * 128 >= (1LL << 31) ||
+      257LL * S.FP * 128 * (128 + dhi) >= (1LL << 31) || inverse_sum >= (1LL << 31) ||
       static_cast<long long>(S.half0 + S.half1) * abs(crt_inv) >= (1LL << 31) ||
       static_cast<long long>(S.half1) * p0 + S.half0 >= (1LL << 31))
     return static_cast<int>(cudaErrorInvalidValue);
-  S.DS = S.FP + 16;
-  S.dig_plane = kSamples * S.Kp * S.DS;
-  S.y_plane = kSamples * S.Mp * S.DS;
-  const int buf1 = DL * S.dig_plane > 2 * S.y_plane ? DL * S.dig_plane : 2 * S.y_plane;
-  S.buf2 = (buf1 + 15) / 16 * 16;
-  S.xs = 2 * kSamples * S.Kp + 16;
-  S.stage = S.buf2 + S.F * S.xs;
-  const int grid = (B + kSamples - 1) / kSamples;
-  S.res0_16 = (kSamples * S.Mp * S.F * 2 + 15) / 16;
+  const int grid = (B + S.ns - 1) / S.ns;
+  S.res0_16 = (S.ns * S.Mp * S.F * 2 + 15) / 16;
   S.dig16 = (DL * S.dig_plane + 15) / 16;
   S.scratch16 = S.res0_16 + S.dig16;
   if (scratch_bytes < static_cast<long long>(grid) * S.scratch16 * 16)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = static_cast<size_t>(S.stage) + static_cast<size_t>(kWarps) *
-                                                        Key::kStageBytes;
-  int device = 0, optin = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (smem > static_cast<size_t>(optin)) return static_cast<int>(cudaErrorInvalidValue);
   auto args = [&](auto kernel) {
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
@@ -709,21 +800,30 @@ int launch(const void* acc0, const void* bara, const void* key, const void* Wf,
         static_cast<int32_t*>(out), S);
     err = cudaGetLastError();
   };
-  // Compile-time tile counts: (MTK, MTM) = (3, 3), (3, 4) or (4, 4) on the
-  // register path (U*R = 16, Mp <= 64), (4, 0) on the scatter path.
+  // Compile-time tile counts of the shipped instantiations: (MTK, MTM) =
+  // (3, 3), (3, 4) or (4, 4) on the register path (U*R = 16, Mp <= 64), (4,
+  // 0) on the scatter path; the general one is (8, 0) at kS = 0.
   const bool reg = S.UR == 16 && S.Mp <= 64;
-  if (reg && S.Kp <= 48 && S.Mp <= 48) {
-    if (DL == 1) args(rotate_kernel<Key, 1, 3, 3>);
-    else args(rotate_kernel<Key, 2, 3, 3>);
+  if (general) {
+    if (wide) {
+      if (DL == 1) args(rotate_kernel<Key, 1, 8, 0, 0, true>);
+      else args(rotate_kernel<Key, 2, 8, 0, 0, true>);
+    } else {
+      if (DL == 1) args(rotate_kernel<Key, 1, 8, 0, 0, false>);
+      else args(rotate_kernel<Key, 2, 8, 0, 0, false>);
+    }
+  } else if (reg && S.Kp <= 48 && S.Mp <= 48) {
+    if (DL == 1) args(rotate_kernel<Key, 1, 3, 3, 8, false>);
+    else args(rotate_kernel<Key, 2, 3, 3, 8, false>);
   } else if (reg && S.Kp <= 48) {
-    if (DL == 1) args(rotate_kernel<Key, 1, 3, 4>);
-    else args(rotate_kernel<Key, 2, 3, 4>);
+    if (DL == 1) args(rotate_kernel<Key, 1, 3, 4, 8, false>);
+    else args(rotate_kernel<Key, 2, 3, 4, 8, false>);
   } else if (reg) {
-    if (DL == 1) args(rotate_kernel<Key, 1, 4, 4>);
-    else args(rotate_kernel<Key, 2, 4, 4>);
+    if (DL == 1) args(rotate_kernel<Key, 1, 4, 4, 8, false>);
+    else args(rotate_kernel<Key, 2, 4, 4, 8, false>);
   } else {
-    if (DL == 1) args(rotate_kernel<Key, 1, 4, 0>);
-    else args(rotate_kernel<Key, 2, 4, 0>);
+    if (DL == 1) args(rotate_kernel<Key, 1, 4, 0, 8, false>);
+    else args(rotate_kernel<Key, 2, 4, 0, 8, false>);
   }
   return static_cast<int>(err);
 }

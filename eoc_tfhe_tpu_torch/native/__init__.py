@@ -15,6 +15,10 @@ numpy path on the card's host) and keeps numpy for machines without
 vectorized pass, so ``tfhe_io`` keeps numpy for records and ``chip_smoke.py``
 times the two against each other; base64 encoding stays with CPython's
 ``binascii``, which was faster than the reference's encoder (PERF.md).
+
+Setting ``EOC_TFHE_NO_NATIVE`` (to any non-empty value) before the first use
+keeps the library unloaded and unbuilt, as in the reference: the numpy path
+runs, and :data:`build_error` stays None.
 """
 
 from __future__ import annotations
@@ -67,12 +71,15 @@ def _build(out: Path) -> bool:
 
 
 def get_lib() -> ctypes.CDLL | None:
-    """Load (building if needed) the native codec; None if unavailable."""
+    """Load (building if needed) the native codec; None if unavailable or
+    switched off by ``EOC_TFHE_NO_NATIVE``."""
     global _lib, _tried, build_error
     with _LOCK:
         if _tried:
             return _lib
         _tried = True
+        if os.environ.get("EOC_TFHE_NO_NATIVE"):
+            return None
         out = _target()
         if not out.exists() and not _build(out):
             return None

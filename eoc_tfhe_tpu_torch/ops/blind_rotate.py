@@ -98,25 +98,49 @@ def launch_error(name: str, lib, err: int) -> RuntimeError:
                         f"({lib.kernel_error_string(err).decode()})")
 
 
-def kernel_scratch_bytes(B: int, U: int, ctx: NttContext, tg) -> int:
+#: Samples a ``crt_ntt_mma.cuh`` block holds: 8 (the pointwise MMA's N), or
+#: 4, 2 or 1 where 8 do not fit in shared memory.
+SAMPLES = (8, 4, 2, 1)
+
+
+def kernel_scratch_bytes(B: int, U: int, ctx: NttContext, tg, samples: int) -> int:
     """Device scratch of the kernels on ``crt_ntt_mma.cuh`` (K1, K3): per block
-    of 8 samples, the first prime's inverse residues (8, Mp, F) int16 and the
-    digits (DL, 8, Kp, FP + 16) int8, each rounded up to 16 bytes."""
+    of ``samples`` samples, the first prime's inverse residues (samples, Mp,
+    F) int16 and the digits (DL, samples, Kp, FP + 16) int8, each rounded up
+    to 16 bytes."""
     Kp, Mp, F = pad16(tg.kpl * ctx.R), pad16(ctx.key_limbs * U * ctx.R), ctx.F
     DL = 1 if tg.halfBg <= 128 else 2
-    per_block = -(-8 * Mp * F * 2 // 16) * 16 + -(-DL * 8 * Kp * (max(F, 32) + 16) // 16) * 16
-    return -(-B // 8) * per_block
+    per_block = (-(-samples * Mp * F * 2 // 16) * 16
+                 + -(-DL * samples * Kp * (max(F, 32) + 16) // 16) * 16)
+    return -(-B // samples) * per_block
 
 
-def crt_mma_smem_bytes(U: int, ctx: NttContext, tg, stage_bytes: int = 0) -> int:
-    """Shared memory of a ``crt_ntt_mma.cuh`` block: dig and chat in one
-    buffer, dhat, and ``stage_bytes`` per warp (16 warps) for a key that is
-    transposed on the chip."""
+def crt_mma_smem_bytes(U: int, ctx: NttContext, tg, stage_bytes: int, samples: int) -> int:
+    """Shared memory of a ``crt_ntt_mma.cuh`` block of ``samples`` samples:
+    dig and chat in one buffer, dhat, and ``stage_bytes`` per warp (16 warps)
+    for a key that is transposed on the chip."""
     Kp, Mp, F = pad16(tg.kpl * ctx.R), pad16(ctx.key_limbs * U * ctx.R), ctx.F
     DL = 1 if tg.halfBg <= 128 else 2
     DS = max(F, 32) + 16
-    buf1 = -(-max(DL * 8 * Kp * DS, 2 * 8 * Mp * DS) // 16) * 16
-    return buf1 + F * (2 * 8 * Kp + 16) + 16 * stage_bytes
+    buf1 = -(-max(DL * samples * Kp * DS, 2 * samples * Mp * DS) // 16) * 16
+    return buf1 + F * (2 * samples * Kp + 16) + 16 * stage_bytes
+
+
+def crt_mma_plan(U: int, ctx: NttContext, tg, stage_bytes: int = 0) -> tuple[int, bool]:
+    """The instantiation ``crt_mma::launch`` picks: (samples a block, general).
+
+    The shipped sets (F <= 128, Kp <= 64, 8 samples within the card's shared
+    memory) take their compile-time instantiations; every other shape takes
+    the general one at the most samples that fit (``samples`` is then the
+    largest of :data:`SAMPLES` that fits, or 1 where none does, which the
+    domain check refuses).
+    """
+    Kp = pad16(tg.kpl * ctx.R)
+    smem = {s: crt_mma_smem_bytes(U, ctx, tg, stage_bytes, s) for s in SAMPLES}
+    general = max(ctx.F, 32) > 128 or Kp > 64 or smem[8] > SMEM_PER_BLOCK
+    if not general:
+        return 8, False
+    return next((s for s in SAMPLES if smem[s] <= SMEM_PER_BLOCK), SAMPLES[-1]), True
 
 
 def check_crt_mma_domain(name: str, U: int, ctx: NttContext, tg, *, reduce_c2: bool,
@@ -125,7 +149,7 @@ def check_crt_mma_domain(name: str, U: int, ctx: NttContext, tg, *, reduce_c2: b
     ``crt_mma::launch`` refuses: its launcher's conditions, shared memory
     included, in Python, so that the refusal comes before any launch.
     ``reduce_c2`` and ``stage_bytes`` are the key loader's ``kReduceC2`` and
-    ``kStageBytes``."""
+    ``kStageBytes``; the general instantiation reduces C2 for every key."""
     N, R, F, L, kbits = ctx.N, ctx.R, ctx.F, ctx.key_limbs, ctx.key_limb_bits
     K, M = tg.kpl * ctx.R, L * U * R
     p0, p1 = ctx.primes
@@ -135,34 +159,35 @@ def check_crt_mma_domain(name: str, U: int, ctx: NttContext, tg, *, reduce_c2: b
         raise ValueError(f"{name} {what} (N={N}, k={U - 1}, l={tg.l}, Bgbit={tg.Bgbit}, "
                          f"primes {ctx.primes})")
 
-    if F % 8 or not 8 <= F <= 128:
-        refuse(f"takes F = N/R a multiple of 8 from 8 to 128; N={N}, R={R} give F={F}")
-    if pad16(K) > 64:
-        refuse(f"takes K = kpl*R up to 64 rows; kpl={tg.kpl}, R={R} give K={K}")
+    if F % 8 or not 8 <= F <= 256:
+        refuse(f"takes F = N/R a multiple of 8 from 8 to 256; N={N}, R={R} give F={F}")
+    if pad16(K) > 128:
+        refuse(f"takes K = kpl*R up to 128 rows; kpl={tg.kpl}, R={R} give K={K}")
     if tg.Bgbit > 15 or tg.l * tg.Bgbit > 32:
         refuse(f"takes Bgbit <= 15 and l*Bgbit <= 32; got Bgbit={tg.Bgbit}, l={tg.l}")
     if L * kbits < 32 or kbits * (L - 1) >= 32:
         refuse(f"takes key limbs covering 32 bits once; got {L} x {kbits} bits")
     if min(p0, p1) < 1024 or not (p0 & p1 & 1) or max(half0, half1) > 127 * 256 + 127:
         refuse(f"takes odd primes from 1024 to 65279; got {ctx.primes}")
+    samples, general = crt_mma_plan(U, ctx, tg, stage_bytes)
+    smem = crt_mma_smem_bytes(U, ctx, tg, stage_bytes, samples)
+    if smem > SMEM_PER_BLOCK:
+        refuse(f"needs {smem:,} bytes of shared memory for U={U}, N={N}, K={K}, M={M} "
+               f"at {samples} samples a block; the card allows {SMEM_PER_BLOCK:,}")
 
     def c16(p):
         r = (1 << 16) % p
         return abs(r - p if r > p // 2 else r)
     kp = pad16(K) * 128 * 128
-    if reduce_c2:
+    if reduce_c2 or general:
         pointwise = kp * 513 + max(c16(p0) * half0, c16(p1) * half1)
     else:
         pointwise = kp * (513 + max(c16(p0), c16(p1)))
     if pointwise >= 1 << 31:
         refuse(f"pointwise int32 sum reaches {pointwise:,} >= 2^31 (Kp={pad16(K)}, "
-               f"c16 = {c16(p0)}, {c16(p1)}{', C2 reduced' if reduce_c2 else ''})")
+               f"c16 = {c16(p0)}, {c16(p1)}{', C2 reduced' if reduce_c2 or general else ''})")
     if (half0 + half1) * abs(ctx.crt_inv) >= 1 << 31 or half1 * p0 + half0 >= 1 << 31:
         refuse(f"CRT sums leave int32 for primes {ctx.primes}")
-    smem = crt_mma_smem_bytes(U, ctx, tg, stage_bytes)
-    if smem > SMEM_PER_BLOCK:
-        refuse(f"needs {smem:,} bytes of shared memory for U={U}, N={N}, K={K}, M={M}; "
-               f"the card allows {SMEM_PER_BLOCK:,}")
 
 
 def check_kernel_domain(U: int, ctx: NttContext, tg) -> None:
@@ -184,7 +209,8 @@ def _launch(acc0: torch.Tensor, bara: torch.Tensor, key: torch.Tensor,
                            ("key", key, torch.int8), ("W_mma", ctx.W_mma, torch.int8),
                            ("Winv_mma", ctx.Winv_mma, torch.int8)))
     out = torch.empty_like(acc0)
-    scratch = torch.empty(kernel_scratch_bytes(B, U, ctx, tg), dtype=torch.uint8,
+    samples = crt_mma_plan(U, ctx, tg)[0]
+    scratch = torch.empty(kernel_scratch_bytes(B, U, ctx, tg, samples), dtype=torch.uint8,
                           device=acc0.device)
     lib = build.load("blind_rotate_ntt")
     stream = torch.cuda.current_stream(acc0.device).cuda_stream

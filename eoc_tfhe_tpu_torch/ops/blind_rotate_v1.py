@@ -23,7 +23,7 @@ from __future__ import annotations
 import torch
 
 from .blind_rotate import (check_crt_mma_domain, check_operands, cmux_ntt_step,
-                           kernel_scratch_bytes, launch_error)
+                           crt_mma_plan, kernel_scratch_bytes, launch_error)
 from .ntt import NttContext, join_key_bytes
 
 #: Number of launches of the CUDA kernel in this process.
@@ -103,7 +103,8 @@ def _launch(acc0: torch.Tensor, bara: torch.Tensor, key: torch.Tensor,
                           ("key", key, torch.int8), ("W_mma", ctx.W_mma, torch.int8),
                           ("Winv_mma", ctx.Winv_mma, torch.int8)))
     out = torch.empty_like(acc0)
-    scratch = torch.empty(kernel_scratch_bytes(B, U, ctx, tg), dtype=torch.uint8,
+    samples = crt_mma_plan(U, ctx, tg, STAGE_BYTES)[0]
+    scratch = torch.empty(kernel_scratch_bytes(B, U, ctx, tg, samples), dtype=torch.uint8,
                           device=acc0.device)
     lib = build.load("blind_rotate_ntt_v1")
     stream = torch.cuda.current_stream(acc0.device).cuda_stream

@@ -47,6 +47,12 @@ DEFAULT_PRIMES = (40961, 61441)
 #: Outer split width; 8 keeps the inner NTT length at 128 for N=1024.
 DEFAULT_R = 8
 
+#: Version of the port's prepared-key layouts (the "ntt_kernel" form's
+#: fragment-order byte planes, the "ntt_scan" form's v1 byte pairs).  The
+#: prepared-key cache (``core/bootstrap``) names its files by it, so a file of
+#: another layout is never loaded.
+KEY_LAYOUT_VERSION = 1
+
 
 # --------------------------------------------------------------------------
 # Host-side number theory (numpy / python ints; runs once per context).
@@ -311,7 +317,7 @@ def kernel_key_residues(bk_rows: torch.Tensor, ctx: NttContext) -> torch.Tensor:
     Z^{wrap} * limb_l(bk[i, j, u])_{(s - r1) mod R}: the outer-twisted
     contraction tensor the blind rotation multiplies the digit transforms by.
     Runs on the rows' device.  Every float64 step holds exact integers
-    (|limb| <= 2^10 + 1, |W| < 2^15, F <= 128 => |sum| < 2^32).
+    (|limb| <= 2^10 + 1, |W| < 2^15, F <= 256 => |sum| < 2^33).
     """
     n, J, U, N = bk_rows.shape
     R, F, L, bits = ctx.R, ctx.F, ctx.key_limbs, ctx.key_limb_bits

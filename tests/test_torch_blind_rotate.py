@@ -5,7 +5,9 @@ against the reference's XLA scan (``ntt.blind_rotate_ntt``) and its Pallas
 kernel in interpret mode.  The rotation is exact for any TGSW rows, so the
 full-width case uses random rows instead of a 128-bit keygen.  The C5 cases
 (ROADMAP) hold the padded key at shapes whose K or M is no multiple of 16,
-and the kernels' domain checks.
+and the kernels' domain checks; the C7 cases the shapes that the kernels took
+only after C7 (N = 2048, k = 3, k = 2 at N = 1024, l = 5), each against the
+reference's NAND or its scan and Pallas kernels.
 """
 
 import jax
@@ -19,6 +21,7 @@ from eoc_tfhe_tpu.core import gates as jgates
 from eoc_tfhe_tpu.core import keys as jkeys
 from eoc_tfhe_tpu.core import params as jparams
 from eoc_tfhe_tpu.ops import ntt as jntt
+from eoc_tfhe_tpu.ops import pallas_blindrot as jpb
 from eoc_tfhe_tpu.ops import pallas_ntt_blindrot2 as jpnb2
 
 from eoc_tfhe_tpu_torch.core import bootstrap, gates, keys, lwe, params
@@ -175,6 +178,110 @@ def test_c5_default_eval_key_at_k2_matches_reference_nand():
     np.testing.assert_array_equal(gates.decrypt_bit(out, tk.lwe_key).numpy(), [False, True, False])
 
 
+# --- C7: the shapes the reference computes that the card refused --------------
+
+#: ROADMAP C7: the four probe shapes, and the fifth row of its table (halfBg =
+#: 512: the compact form stays refused there, C1).
+C7_CASES = {
+    "N2048_k1_l3": lambda: jparams.test_params(N=2048, k=1, l=3, Bgbit=7, n=4),
+    "N1024_k2_l3": lambda: jparams.test_params(N=1024, k=2, l=3, Bgbit=7, n=4),
+    "N512_k3_l3": lambda: jparams.test_params(N=512, k=3, l=3, Bgbit=6, n=4),
+    "N1024_k1_l5": lambda: jparams.test_params(N=1024, k=1, l=5, Bgbit=5, n=4),
+    "N1024_k2_l1_bg10": lambda: jparams.test_params(N=1024, k=2, l=1, Bgbit=10, n=4),
+}
+#: The C7 shapes whose NAND is held word for word against the reference's.
+C7_NAND = ("N2048_k1_l3", "N512_k3_l3")
+
+
+def _torch_keyset(jk):
+    bk = jk.cloud.bk
+    return keys.keyset_from_numpy(
+        np.asarray(jk.lwe_key.s), np.asarray(jk.tgsw_key.key), np.asarray(bk.bk),
+        np.asarray(bk.bk_variance), np.asarray(bk.ks.ks), np.asarray(bk.ks.variance),
+        device="cpu")
+
+
+@pytest.fixture(scope="module", params=C7_NAND)
+def c7_nand(request):
+    """One JAX keyset per C7 NAND shape, carried to the port, two encrypted
+    bit vectors and the reference's NAND of them over its exact "ntt_scan"
+    form (its "ntt_kernel" form gives the same words: the forms are exact)."""
+    p = C7_CASES[request.param]()
+    jk = jkeys.new_random_gate_bootstrapping_secret_keyset(jax.random.key(71), p)
+    a = np.array([False, False, True, True, False])
+    b = np.array([False, True, False, True, True])
+    ca = jgates.encrypt_bit(jax.random.key(72), jnp.asarray(a), jk.lwe_key, p)
+    cb = jgates.encrypt_bit(jax.random.key(73), jnp.asarray(b), jk.lwe_key, p)
+    ref = jgates.nand(ca, cb, jboot.prepare_eval_key_ntt(jk.cloud, p, kernel=False), p)
+    return p, _torch_keyset(jk), (a, ca), (b, cb), ref
+
+
+@pytest.mark.parametrize("kernel", ["auto", False])
+def test_c7_nand_matches_reference_word_for_word(c7_nand, kernel):
+    """ROADMAP C7: at N = 2048 (F = 256) and at k = 3 (K = 96) the port's NAND
+    over both "ntt" forms has the reference's words, its variance rail and
+    its decryption."""
+    p, tk, (a, ca), (b, cb), ref = c7_nand
+    ek = bootstrap.prepare_eval_key_ntt(tk.cloud, p, kernel=kernel)
+    assert ek.form == ("ntt_kernel" if kernel == "auto" else "ntt_scan")
+
+    def t(x):
+        return torch.from_numpy(np.array(x))
+
+    def ct(c):
+        return lwe.LweCiphertext(a=t(c.a), b=t(c.b), current_variance=t(c.current_variance))
+    out = gates.nand(ct(ca), ct(cb), ek, p)
+    np.testing.assert_array_equal(out.a.numpy(), np.asarray(ref.a))
+    np.testing.assert_array_equal(out.b.numpy(), np.asarray(ref.b))
+    np.testing.assert_allclose(out.current_variance.numpy(), np.asarray(ref.current_variance),
+                               rtol=1e-6)        # both sides compute it in float32
+    np.testing.assert_array_equal(gates.decrypt_bit(out, tk.lwe_key).numpy(), ~(a & b))
+
+
+def test_c7_k3_shape_at_full_depth_needs_more_gadget_bits():
+    """At n = 630 the k = 3 shape's 18 gadget bits (l = 3, Bgbit = 6) exceed
+    the gate noise budget in both packages alike, so its full-depth NAND on
+    the card runs at Bgbit = 7 (the same kernel plan)."""
+    for pkg in (jparams, params):
+        with pytest.raises(ValueError, match="gate noise budget exceeded"):
+            (jgates if pkg is jparams else gates).check_noise_budget(
+                pkg.test_params(N=512, k=3, l=3, Bgbit=6, n=630), -1, -1)
+        (jgates if pkg is jparams else gates).check_noise_budget(
+            pkg.test_params(N=512, k=3, l=3, Bgbit=7, n=630), -1, -1)
+    assert blind_rotate_compact.kernel_plan(4, 512, 12) == (8, 1)
+
+
+@pytest.mark.parametrize("case", [c for c in C7_CASES if c not in C7_NAND])
+def test_c7_plain_rotations_match_reference_scan_and_kernels(case):
+    """ROADMAP C7, the other shapes: the port's rotations over both "ntt"
+    keys and the compact key (halfBg <= 128) at n = 2, B = 3 against the
+    reference's scan, and the compact one against its Pallas K2 in interpret
+    mode."""
+    p = C7_CASES[case]()
+    tg = p.tgsw_params
+    rows, acc0, bara = _inputs(p, 2, 3, seed=74)
+    sctx = jntt.context_for_params(p)
+    want = np.asarray(jntt.blind_rotate_ntt(
+        jnp.asarray(acc0), jnp.asarray(bara), jntt.prepare_key_ntt_np(rows, sctx), p, sctx))
+    acc, ba, rw = (torch.from_numpy(x) for x in (acc0, bara, rows))
+    kctx = ntt.kernel_context_for_params(p, device="cpu")
+    np.testing.assert_array_equal(blind_rotate.blind_rotate_ntt(
+        acc, ba, ntt.prepare_kernel_key(rw, kctx), kctx, p).numpy(), want)
+    ctx = ntt.context_for_params(p, device="cpu")
+    np.testing.assert_array_equal(blind_rotate_v1.blind_rotate_ntt_v1(
+        acc, ba, ntt.prepare_key_ntt(rw, ctx), ctx, p).numpy(), want)
+    if tg.halfBg > 128:                        # C1: the compact form refuses
+        with pytest.raises(ValueError, match="halfBg = 512 > 128"):
+            blind_rotate_compact.check_kernel_domain(p)
+        return
+    key = blind_rotate_compact.prepare_compact_bk(rw)
+    out = blind_rotate_compact.blind_rotate_compact(acc, ba, key, p)
+    np.testing.assert_array_equal(out.numpy(), want)
+    np.testing.assert_array_equal(out.numpy(), np.asarray(jpb.blind_rotate_pallas(
+        jnp.asarray(acc0), jnp.asarray(bara), jpb.prepare_compact_bk(jnp.asarray(rows)), p,
+        interpret=True)))
+
+
 DOMAIN_SETS = {
     "test_params": lambda: params.test_params(),
     "128-bit": lambda: params.default_128bit_params(),
@@ -183,38 +290,73 @@ DOMAIN_SETS = {
     "k1_l4_N64": lambda: params.test_params(k=1, l=4, N=64),
     "k1_l2_N128": lambda: params.test_params(k=1, l=2, N=128),
     "k1_l2_N32": lambda: params.test_params(k=1, l=2, N=32),
+    **{case: (lambda f=f: params.test_params(**f)) for case, f in (
+        ("N2048_k1_l3", dict(N=2048, k=1, l=3, Bgbit=7)),
+        ("N1024_k2_l3", dict(N=1024, k=2, l=3, Bgbit=7)),
+        ("N512_k3_l3", dict(N=512, k=3, l=3, Bgbit=6)),
+        ("N1024_k1_l5", dict(N=1024, k=1, l=5, Bgbit=5)),
+        ("N1024_k2_l1_bg10", dict(N=1024, k=2, l=1, Bgbit=10)))},
 }
 
 
 @pytest.mark.parametrize("case", list(DOMAIN_SETS))
 def test_kernel_domains_take_the_shipped_sets_and_the_c5_shapes(case):
+    """The shipped sets and the C5 shapes keep the 8-sample instantiations;
+    the C7 shapes take the general one, at the samples a block that fit."""
     p = DOMAIN_SETS[case]()
     tg = p.tgsw_params
     U = tg.tlwe_params.k + 1
-    blind_rotate.check_kernel_domain(U, ntt.kernel_context_for_params(p, device="cpu"), tg)
-    blind_rotate_v1.check_kernel_domain(U, ntt.context_for_params(p, device="cpu"), tg)
+    kctx, sctx = (ntt.kernel_context_for_params(p, device="cpu"),
+                  ntt.context_for_params(p, device="cpu"))
+    blind_rotate.check_kernel_domain(U, kctx, tg)
+    blind_rotate_v1.check_kernel_domain(U, sctx, tg)
     if tg.halfBg <= 128:           # the compact form's own digit domain (ROADMAP C1)
         blind_rotate_compact.check_kernel_domain(p)
+    else:
+        with pytest.raises(ValueError, match=r"halfBg = 512 > 128"):
+            blind_rotate_compact.check_kernel_domain(p)
+    samples, general = blind_rotate.crt_mma_plan(U, sctx, tg, blind_rotate_v1.STAGE_BYTES)
     assert blind_rotate.crt_mma_smem_bytes(
-        U, ntt.context_for_params(p, device="cpu"), tg,
-        blind_rotate_v1.STAGE_BYTES) <= blind_rotate.SMEM_PER_BLOCK
+        U, sctx, tg, blind_rotate_v1.STAGE_BYTES, samples) <= blind_rotate.SMEM_PER_BLOCK
+    assert general == case.startswith("N") and (samples == 8 or general)
+    K2_PLAN = {"N2048_k1_l3": (4, 1), "N1024_k2_l3": (8, 1), "N512_k3_l3": (8, 1),
+               "N1024_k1_l5": (8, 1)}
+    assert blind_rotate_compact.kernel_plan(U, tg.tlwe_params.N, tg.kpl) == \
+        K2_PLAN.get(case, (8, 4))
 
 
 def test_kernel_domains_refuse_by_name():
-    big = params.test_params(N=1024, k=2, l=3, Bgbit=7)       # U = 3, K = 72
-    with pytest.raises(ValueError, match=r"K2 \(blind_rotate_compact\) needs 393,488 bytes "
-                                         r"of shared memory for U=3, N=1024; the card allows "
-                                         r"232,448"):
-        blind_rotate_compact.check_kernel_domain(big)
-    tg = big.tgsw_params
-    with pytest.raises(ValueError, match=r"K1 .* takes K = kpl\*R up to 64 rows; .* K=72"):
-        blind_rotate.check_kernel_domain(3, ntt.kernel_context_for_params(big, device="cpu"), tg)
-    wide = params.test_params(N=1024, k=2, l=1, Bgbit=8)      # U = 3, K = 24, M = 72
-    tg = wide.tgsw_params
-    with pytest.raises(ValueError, match=r"K3 .* needs 260,608 bytes of shared memory .* "
-                                         r"the card allows 232,448"):
-        blind_rotate_v1.check_kernel_domain(3, ntt.context_for_params(wide, device="cpu"), tg)
-    with pytest.raises(ValueError, match=r"K2 .* takes k = 1 or 2"):
-        blind_rotate_compact.check_kernel_domain(params.test_params(k=3, l=2, N=64))
-    with pytest.raises(ValueError, match=r"K2 .* takes N a power of two from 32 to 1024"):
+    """What stays outside the domains (ROADMAP C7) is refused by name."""
+    huge = params.test_params(N=4096, k=1, l=3, Bgbit=7)      # F = 512
+    tg = huge.tgsw_params
+    with pytest.raises(ValueError, match=r"1024 does not divide 32257-1"):
+        ntt.kernel_context_for_params(huge, device="cpu")     # as in the reference
+    sctx = ntt.context_for_params(huge, device="cpu")
+    with pytest.raises(ValueError, match=r"K1 .* takes F = N/R a multiple of 8 from 8 to 256; "
+                                         r"N=4096, R=8 give F=512"):
+        blind_rotate.check_kernel_domain(2, sctx, tg)
+    with pytest.raises(ValueError, match=r"K3 .* takes F = N/R a multiple of 8 from 8 to 256"):
+        blind_rotate_v1.check_kernel_domain(2, sctx, tg)
+    with pytest.raises(ValueError, match=r"K2 .* takes N a power of two from 32 to 2048; "
+                                         r"got N=4096"):
+        blind_rotate_compact.check_kernel_domain(huge)
+    with pytest.raises(ValueError, match=r"K2 .* takes N a power of two from 32 to 2048"):
         blind_rotate_compact.check_kernel_domain(params.test_params(N=16))
+    tall = params.test_params(N=512, k=3, l=5, Bgbit=6)       # K = 160
+    tg = tall.tgsw_params
+    with pytest.raises(ValueError, match=r"K1 .* takes K = kpl\*R up to 128 rows; .* K=160"):
+        blind_rotate.check_kernel_domain(4, ntt.kernel_context_for_params(tall, device="cpu"), tg)
+    with pytest.raises(ValueError, match=r"K2 .* takes k = 1, 2 or 3"):
+        blind_rotate_compact.check_kernel_domain(params.test_params(k=4, l=2, N=64))
+    wide = params.test_params(N=2048, k=3, l=3, Bgbit=7)      # U = 4, K = 96, F = 256
+    tg = wide.tgsw_params
+    with pytest.raises(ValueError, match=r"K2 \(blind_rotate_compact\) needs 311,376 bytes "
+                                         r"of shared memory for U=4, N=2048 at 2 samples and "
+                                         r"1 key limb a pass; the card allows 232,448"):
+        blind_rotate_compact.check_kernel_domain(wide)
+    deep = params.test_params(N=1024, k=1, l=5, Bgbit=7)      # l*Bgbit = 35
+    tg = deep.tgsw_params
+    with pytest.raises(ValueError, match=r"K3 .* takes Bgbit <= 15 and l\*Bgbit <= 32"):
+        blind_rotate_v1.check_kernel_domain(2, ntt.context_for_params(deep, device="cpu"), tg)
+    with pytest.raises(ValueError, match=r"halfBg = 512 > 128"):   # C1 stays refused
+        blind_rotate_compact.check_kernel_domain(params.test_params(N=1024, k=2, l=1, Bgbit=10))

@@ -239,10 +239,10 @@ C5_CASES = {
 }
 
 
-def _c5_rotation(kernel, p, device):
-    """The kernel's wrapper and plain version and their inputs at (p, B=7)."""
+def _shape_rotation(kernel, p, device, B=7):
+    """The kernel's wrapper and plain version and their inputs at (p, B)."""
     tg = p.tgsw_params
-    rows, acc0, bara = _rotation_inputs(p, 7, 40, device)
+    rows, acc0, bara = _rotation_inputs(p, B, 40 + B, device)
     if kernel == "K1":
         ctx = ntt.kernel_context_for_params(p, device=device)
         key = ntt.prepare_kernel_key(rows, ctx)
@@ -267,7 +267,39 @@ def _c5_rotation(kernel, p, device):
 def test_kernels_match_plain_at_the_c5_shapes(case, kernel, cuda_device):
     """Each kernel takes the C5 shapes (part A widened all three), bit for
     bit against its plain version."""
-    module, run, plain = _c5_rotation(kernel, C5_CASES[case](), cuda_device)
+    module, run, plain = _shape_rotation(kernel, C5_CASES[case](), cuda_device)
+    before = module.launches
+    out = run()
+    torch.cuda.synchronize()
+    assert module.launches == before + 1
+    assert torch.equal(out, plain())
+
+
+#: ROADMAP C7: N = 2048 (F = 256), k = 2 at N = 1024 (K = 72), k = 3 (K = 96,
+#: U = 4), l = 5 (K = 80), and halfBg = 512 at k = 2 (K1 and K3 only: C1).
+C7_CASES = {
+    "N2048_k1_l3": lambda: params.test_params(N=2048, k=1, l=3, Bgbit=7, n=8),
+    "N1024_k2_l3": lambda: params.test_params(N=1024, k=2, l=3, Bgbit=7, n=8),
+    "N512_k3_l3": lambda: params.test_params(N=512, k=3, l=3, Bgbit=6, n=8),
+    "N1024_k1_l5": lambda: params.test_params(N=1024, k=1, l=5, Bgbit=5, n=8),
+    "N1024_k2_l1_bg10": lambda: params.test_params(N=1024, k=2, l=1, Bgbit=10, n=8),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [7, 13])
+@pytest.mark.parametrize("kernel", ["K1", "K2", "K3"])
+@pytest.mark.parametrize("case", list(C7_CASES))
+def test_kernels_match_plain_at_the_c7_shapes(case, kernel, B, cuda_device):
+    """Each kernel takes the C7 shapes (all 8 steps; B = 13 leaves a ragged
+    last block at 8 and at 4 samples a block), bit for bit against its plain
+    version; the compact form still refuses halfBg = 512 (C1)."""
+    p = C7_CASES[case]()
+    if kernel == "K2" and p.tgsw_params.halfBg > 128:
+        with pytest.raises(ValueError, match="halfBg = 512 > 128"):
+            blind_rotate_compact.check_kernel_domain(p)
+        return
+    module, run, plain = _shape_rotation(kernel, p, cuda_device, B)
     before = module.launches
     out = run()
     torch.cuda.synchronize()
@@ -277,19 +309,24 @@ def test_kernels_match_plain_at_the_c5_shapes(case, kernel, cuda_device):
 
 @pytest.mark.gpu
 def test_kernels_refuse_by_name_before_any_launch(cuda_device):
-    big = params.test_params(N=1024, k=2, l=3, Bgbit=7, n=2)    # K2: 393,488 bytes of smem
-    rows, acc0, bara = _rotation_inputs(big, 3, 50, cuda_device)
+    """Shapes outside the domains after C7 raise by name, before any launch."""
+    wide = params.test_params(N=2048, k=3, l=3, Bgbit=7, n=2)    # K2: 311,376 bytes of smem
+    rows, acc0, bara = _rotation_inputs(wide, 3, 50, cuda_device)
     key = blind_rotate_compact.prepare_compact_bk(rows, 4)
     before = blind_rotate_compact.launches
-    with pytest.raises(ValueError, match="K2 .* needs 393,488 bytes of shared memory"):
-        blind_rotate_compact.blind_rotate_compact(acc0, bara, key, big)
+    with pytest.raises(ValueError, match="K2 .* needs 311,376 bytes of shared memory"):
+        blind_rotate_compact.blind_rotate_compact(acc0, bara, key, wide)
     assert blind_rotate_compact.launches == before
     gen = torch.Generator(device=cuda_device).manual_seed(51)
-    ks = keys.new_random_gate_bootstrapping_secret_keyset(gen, big)
-    with pytest.raises(ValueError, match="K1 .* takes K = kpl\\*R up to 64 rows"):
-        bootstrap.prepare_eval_key_ntt(ks.cloud, big)
-    with pytest.raises(ValueError, match="K2 .* needs 393,488 bytes"):
-        bootstrap.prepare_eval_key_fused(ks.cloud, big)
+    ks = keys.new_random_gate_bootstrapping_secret_keyset(gen, wide)
+    with pytest.raises(ValueError, match="K2 .* needs 311,376 bytes"):
+        bootstrap.prepare_eval_key_fused(ks.cloud, wide)
+    tall = params.test_params(N=512, k=3, l=5, Bgbit=6, n=2)     # K = 160
+    ks = keys.new_random_gate_bootstrapping_secret_keyset(gen, tall)
+    with pytest.raises(ValueError, match="K1 .* takes K = kpl\\*R up to 128 rows"):
+        bootstrap.prepare_eval_key_ntt(ks.cloud, tall)
+    with pytest.raises(ValueError, match="K3 .* takes K = kpl\\*R up to 128 rows"):
+        bootstrap.prepare_eval_key_ntt(ks.cloud, tall, kernel=False)
 
 
 @pytest.mark.gpu

@@ -38,6 +38,16 @@ C5_CASES = {
     "k1_l4_N64": lambda: jparams.test_params(k=1, l=4, N=64),          # K = 64
     "k1_l2_N128": lambda: jparams.test_params(k=1, l=2, N=128),        # F = 16
 }
+#: ROADMAP C7: shapes that the shipped instantiations do not take, each in the
+#: general one (K1/K3: 4 or 8 samples a block, F = 256, Kp up to 96, C2
+#: reduced; K2: U = 4, N = 2048, 4 samples, one key limb a pass).
+C7_CASES = {
+    "N2048_k1_l3": lambda: jparams.test_params(N=2048, k=1, l=3, Bgbit=7),   # F = 256
+    "N1024_k2_l3": lambda: jparams.test_params(N=1024, k=2, l=3, Bgbit=7),   # K = 72
+    "N512_k3_l3": lambda: jparams.test_params(N=512, k=3, l=3, Bgbit=6),     # K = 96, U = 4
+    "N1024_k1_l5": lambda: jparams.test_params(N=1024, k=1, l=5, Bgbit=5),   # K = 80
+    "N1024_k2_l1_bg10": lambda: jparams.test_params(N=1024, k=2, l=1, Bgbit=10),   # DL = 2
+}
 
 
 def _inputs(p, n_steps, B, seed):
@@ -128,8 +138,12 @@ def _v1_loader(key8_step: torch.Tensor, K: int, M: int) -> torch.Tensor:
 
 
 def emulate_k1_step(acc, key_step, bara_i, ctx, params):
-    """One CMux step as K1 computes it (``crt_ntt_mma.cuh`` over the packed key)."""
-    return _emulate_crt_step(acc, _key_planes(key_step), bara_i, ctx, params, reduce_c2=False)
+    """One CMux step as K1 computes it (``crt_ntt_mma.cuh`` over the packed
+    key) in the instantiation its launcher picks: the general one reduces C2
+    before the c16 product."""
+    samples, general = blind_rotate.crt_mma_plan(acc.shape[1], ctx, params.tgsw_params)
+    return _emulate_crt_step(acc, _key_planes(key_step), bara_i, ctx, params,
+                             reduce_c2=general, samples=samples)
 
 
 def emulate_k3_step(acc, key8_step, bara_i, ctx, params):
@@ -138,14 +152,31 @@ def emulate_k3_step(acc, key8_step, bara_i, ctx, params):
     tg = params.tgsw_params
     K, M = tg.kpl * ctx.R, ctx.key_limbs * acc.shape[1] * ctx.R
     keyp = _key_planes(_v1_loader(key8_step, K, M))
-    return _emulate_crt_step(acc, keyp, bara_i, ctx, params, reduce_c2=True)
+    samples = blind_rotate.crt_mma_plan(acc.shape[1], ctx, tg, blind_rotate_v1.STAGE_BYTES)[0]
+    return _emulate_crt_step(acc, keyp, bara_i, ctx, params, reduce_c2=True, samples=samples)
 
 
-def _emulate_crt_step(acc, keyp, bara_i, ctx, params, reduce_c2):
+def _mma_columns(x: torch.Tensor, samples: int) -> torch.Tensor:
+    """The pointwise MMA's 8 columns for each block of ``samples`` samples:
+    (B, ...) -> (blocks, 8, ...), columns past the block's samples (and past
+    a ragged last block's) repeating the block's sample 0, as the kernel's
+    lanes past its samples read sample 0."""
+    B = x.shape[0]
+    nb = -(-B // samples)
+    idx = torch.arange(nb * samples).reshape(nb, samples)
+    idx = torch.where(idx < B, idx, idx[:, :1])                      # ragged: sample 0
+    cols = torch.cat([idx, idx[:, :1].expand(nb, 8 - samples)], dim=1)
+    return x[cols]
+
+
+def _emulate_crt_step(acc, keyp, bara_i, ctx, params, reduce_c2, samples=8):
     """One CMux step of ``crt_ntt_mma.cuh``; keyp: (2, P, F, Kp, Mp) int8
     [lo, hi] planes of T[f][k][m] as the pointwise stage's A fragments hold
     them.  The digits are zero-padded to Kp rows, as the digit pass does;
-    rows m >= M of the inverse are dropped, as the accumulator update does."""
+    rows m >= M of the inverse are dropped, as the accumulator update does.
+    The pointwise stage runs per block of ``samples`` samples on the MMA's 8
+    columns (only the block's own are kept); at F = 256 the inverse reduces
+    C1 before its product by 256, as the kernel's wide instantiation does."""
     tg = params.tgsw_params
     B, U, N = acc.shape
     R, F, L = ctx.R, ctx.F, ctx.key_limbs
@@ -168,20 +199,24 @@ def _emulate_crt_step(acc, keyp, bara_i, ctx, params, reduce_c2):
         dhat = ntt.balanced_mod(_int32_sum(c0 + 256 * _int32_sum(c1)), p)
         lo, hi = (x.to(torch.int8) for x in ntt.split_bytes(dhat))   # (B, K, f)
         Alo, Ahi = keyp[0, pi], keyp[1, pi]                   # (f, K, M)
-        eq = "bkf,fkm->bfm"
+        lo, hi = _mma_columns(lo, samples), _mma_columns(hi, samples)   # (blocks, 8, K, f)
+        eq = "nbkf,fkm->nbfm"
         c0 = _int32_sum(_mma(lo, Alo, eq))
         c1 = _int32_sum(_mma(hi, Alo, eq) + _mma(lo, Ahi, eq))
         c2 = _int32_sum(_mma(hi, Ahi, eq))
         c16 = int(ntt.balanced_mod(torch.tensor(1 << 16), p))     # 2^16 mod p
-        if reduce_c2:                     # K3: |c16| up to 16386 over DEFAULT_PRIMES
+        if reduce_c2:       # K3 (|c16| up to 16386) and the general instantiation (Kp > 80)
             c2 = ntt.balanced_mod(c2, p)
-        chat = ntt.balanced_mod(_int32_sum(c0 + 256 * c1 + c16 * c2), p)   # (B, f, Mp)
+        chat = ntt.balanced_mod(_int32_sum(c0 + 256 * c1 + c16 * c2), p)
+        chat = chat[:, :samples].reshape(-1, *chat.shape[2:])[:B]   # (B, f, Mp)
         clo, chi = (x.to(torch.int8) for x in ntt.split_bytes(chat))
         Vp = _b_planes(ctx.Winv_mma[pi])[:, :F, :F]           # (4, f, t)
         eq = "bfm,ft->bmt"
-        c0 = _mma(clo, Vp[0], eq) + _mma(chi, Vp[2], eq)
-        c1 = _mma(clo, Vp[1], eq) + _mma(chi, Vp[3], eq)
-        res.append(ntt.balanced_mod(_int32_sum(c0 + 256 * _int32_sum(c1)), p)[:, :M])
+        c0 = _int32_sum(_mma(clo, Vp[0], eq) + _mma(chi, Vp[2], eq))
+        c1 = _int32_sum(_mma(clo, Vp[1], eq) + _mma(chi, Vp[3], eq))
+        if F > 128:                       # 257 F 2^15 would leave int32
+            c1 = ntt.balanced_mod(c1, p)
+        res.append(ntt.balanced_mod(_int32_sum(c0 + 256 * c1), p)[:, :M])
     p0, p1 = ctx.primes
     q = ntt.balanced_mod(_int32_sum((res[1] - res[0]) * ctx.crt_inv), p1)
     V = _int32_sum(res[0] + q * p0).reshape(B, L, U, R, F)
@@ -191,13 +226,13 @@ def _emulate_crt_step(acc, keyp, bara_i, ctx, params, reduce_c2):
 
 
 K1_STEPS = {"full_width_128": 3, "full_width_80": 2}
-K1_CASES = {**CASES, **{c: C5_CASES[c] for c in ("k2_l2_N64", "k1_l4_N64")}}
+K1_CASES = {**CASES, **{c: C5_CASES[c] for c in ("k2_l2_N64", "k1_l4_N64")}, **C7_CASES}
 
 
 @pytest.mark.parametrize("case", list(K1_CASES))
 def test_k1_emulation_matches_reference_scan(case):
     p = K1_CASES[case]()
-    n_steps = K1_STEPS.get(case, min(p.n, 6))
+    n_steps = K1_STEPS.get(case, 2 if case in C7_CASES else min(p.n, 6))
     rows, acc0, bara = _inputs(p, n_steps, 3, seed=21)
     sctx = jntt.context_for_params(p)
     want = np.asarray(jntt.blind_rotate_ntt(
@@ -233,15 +268,15 @@ K3_STEPS = {"full_width_128": 2, "full_width_80": 2}
 
 
 @pytest.mark.parametrize("primes", ["default", "kernel"])
-@pytest.mark.parametrize("case", list(CASES) + ["k2_l2_N64"])
+@pytest.mark.parametrize("case", list(CASES) + ["k2_l2_N64"] + list(C7_CASES))
 def test_k3_emulation_matches_reference_scan(case, primes):
     """K3's arithmetic over its own v1 key, either prime pair: over
     DEFAULT_PRIMES c16 = -16386 (mod 40961), so the plain pointwise sum would
     leave int32; with C2 reduced first every MMA sum stays inside it."""
-    p = {**CASES, **C5_CASES}[case]()
+    p = {**CASES, **C5_CASES, **C7_CASES}[case]()
     tg = p.tgsw_params
     pr = ntt.DEFAULT_PRIMES if primes == "default" else ntt.KERNEL_PRIMES
-    n_steps = K3_STEPS.get(case, min(p.n, 6))
+    n_steps = K3_STEPS.get(case, 2 if case in C7_CASES else min(p.n, 6))
     rows, acc0, bara = _inputs(p, n_steps, 3, seed=23)
     sctx = jntt.make_context(N=tg.tlwe_params.N, J=tg.kpl, halfBg=tg.halfBg, primes=pr)
     want = np.asarray(jntt.blind_rotate_ntt(
@@ -300,6 +335,30 @@ def test_pointwise_bound_is_a_function_of_the_primes(case):
     assert Kp * 2**14 * 513 + max(c * (q - 1) // 2 for c, q in zip(c16, sctx.primes)) < 2**31
 
 
+@pytest.mark.parametrize("case", list(C7_CASES))
+def test_general_instantiation_keeps_every_sum_in_int32(case):
+    """Why the general instantiation reduces C2 (pointwise) and, at F = 256,
+    C1 (inverse) first: the worst-case plain sums leave int32 at these
+    shapes, the reduced ones do not (the launcher's and
+    ``check_crt_mma_domain``'s bounds)."""
+    p = C7_CASES[case]()
+    tg = p.tgsw_params
+    U = tg.tlwe_params.k + 1
+    ctx = ntt.kernel_context_for_params(p, device="cpu")
+    samples, general = blind_rotate.crt_mma_plan(U, ctx, tg)
+    assert general and samples in blind_rotate.SAMPLES
+    Kp, FP = ntt.pad16(tg.kpl * ctx.R), max(ctx.F, 32)
+    c16 = max(abs(int(ntt.balanced_mod(torch.tensor(1 << 16), q))) for q in ctx.primes)
+    half = max((q - 1) // 2 for q in ctx.primes)
+    assert Kp * 2**14 * 513 + c16 * half < I32                 # C2 reduced
+    assert (Kp * 2**14 * (513 + c16) >= I32) == (Kp > 80)      # plain: K1 at Kp = 96
+    if FP > 128:
+        assert 257 * FP * 2**15 >= I32                          # the plain inverse sum
+        assert FP * 2**15 + 256 * half < I32                    # C1 reduced
+    else:
+        assert 257 * FP * 2**15 < I32
+
+
 # --- K2: the direct negacyclic product on byte limbs -------------------------
 
 def _byte_limbs(v: torch.Tensor) -> torch.Tensor:
@@ -314,8 +373,11 @@ def _byte_limbs(v: torch.Tensor) -> torch.Tensor:
 
 
 def emulate_k2_step(acc, key_step, bara_i, params):
-    """One CMux step as ``blind_rotate_compact.cu`` computes it: the Toeplitz
-    block of every limb from the byte rows [k reversed | -k reversed]."""
+    """One CMux step as ``blind_rotate_compact.cu`` computes it: the digits
+    once, then the Toeplitz block of every limb from the byte rows [k
+    reversed | -k reversed], each limb's int32 sum over (j, r) added into acc
+    before the next limb (the same sums whether the kernel converts four
+    limbs a pass or one)."""
     tg = params.tgsw_params
     B, U, N = acc.shape
     dig = _digits(acc, bara_i, tg)
@@ -324,16 +386,21 @@ def emulate_k2_step(acc, key_step, bara_i, params):
     J = dig.shape[1]
     pos, neg = _byte_limbs(key_step), _byte_limbs(-key_step.to(torch.int64))   # (4, J, U, N)
     rev = torch.cat([pos.flip(-1), neg.flip(-1)], dim=-1)     # y = N-1-m | 2N-1-m
-    c = torch.arange(N)[:, None]
-    r = torch.arange(N)[None, :]
-    toeplitz = rev[..., N - 1 - c + r]                         # (4, J, U, c, r)
-    upd = torch.zeros((B, U, N), dtype=torch.int64)
+    # The Toeplitz block T[c][r] = rev[N-1-c+r] times the digits, summed over
+    # r: a correlation of the byte row with the digits, exact in float64
+    # (|sum| <= J N 128 128 < 2^53); row c of the block is output N-1-c.
+    rows, digs = rev.to(torch.float64), dig.to(torch.float64)
+    out = acc.to(torch.int64)
     for t in range(4):
         if not (pos[t].any() or neg[t].any()):
             continue                                           # the kernel skips it
-        s = _int32_sum(_mma(dig, toeplitz[t], "bjr,jucr->buc"))
-        upd = upd + (s << (8 * t))
-    return wrap32(acc.to(torch.int64) + upd)
+        s = torch.zeros((B, U, N), dtype=torch.float64)
+        for j in range(J):
+            for u in range(U):
+                corr = torch.nn.functional.conv1d(rows[t, j, u][None, None], digs[:, j, None])
+                s[:, u] += corr[0, :, :N].flip(-1)
+        out = wrap32(out + (_int32_sum(s.to(torch.int64)) << (8 * t)))
+    return out
 
 
 @pytest.mark.parametrize("case,limbs,n_steps", [
@@ -350,5 +417,21 @@ def test_k2_emulation_matches_reference(case, limbs, n_steps):
                                          jnp.asarray(key.numpy()), p, rotation_impl="gather"))
     acc = torch.from_numpy(acc0)
     for i in range(n_steps):
+        acc = emulate_k2_step(acc, key[i], torch.from_numpy(bara[i]), p)
+    np.testing.assert_array_equal(acc.numpy(), want)
+
+
+@pytest.mark.parametrize("case", ["N2048_k1_l3", "N1024_k2_l3", "N512_k3_l3", "N1024_k1_l5"])
+def test_k2_emulation_matches_reference_at_the_c7_shapes(case):
+    """K2 at U = 4, N = 2048, fewer samples a block and one key limb a pass,
+    against the reference's exact scan."""
+    p = C7_CASES[case]()
+    rows, acc0, bara = _inputs(p, 2, 3, seed=25)
+    sctx = jntt.context_for_params(p)
+    want = np.asarray(jntt.blind_rotate_ntt(
+        jnp.asarray(acc0), jnp.asarray(bara), jntt.prepare_key_ntt_np(rows, sctx), p, sctx))
+    key = blind_rotate_compact.prepare_compact_bk(torch.from_numpy(rows))
+    acc = torch.from_numpy(acc0)
+    for i in range(2):
         acc = emulate_k2_step(acc, key[i], torch.from_numpy(bara[i]), p)
     np.testing.assert_array_equal(acc.numpy(), want)
