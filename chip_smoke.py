@@ -13,9 +13,12 @@ Phases, in order; any failure exits non-zero:
      at ``test_params()`` (B=63), at the 128-bit (B=4) and 80-bit (B=4)
      shapes over all their steps, at the three shapes of ROADMAP C5
      (k=2 l=2 N=64, k=1 l=4 N=64, k=1 l=2 N=128) and at k=1 l=2 N=32 (B=7),
-     and at the five shapes of ROADMAP C7 (N=2048 k=1 l=3, N=1024 k=2 l=3,
-     N=512 k=3 l=3, N=1024 k=1 l=5, N=1024 k=2 l=1 Bgbit=10; n=8) at B=7
-     and B=C7_RAGGED;
+     at the five shapes of ROADMAP C7 (N=2048 k=1 l=3, N=1024 k=2 l=3,
+     N=512 k=3 l=3, N=1024 k=1 l=5, N=1024 k=2 l=1 Bgbit=10; n=8), the
+     shapes of ROADMAP C8 (N=1024 k=3 l=5, N=512 k=4 l=3, N=2048 k=3 l=3,
+     N=512 k=3 l=8 Bgbit=4, N=1024 k=1 l=16 Bgbit=2; n=8; at N=4096 K1's
+     refusal by name, as in the reference) and the rounded-key plans of
+     ROADMAP C9 (rb > 0 where the plan rounds; n=8) at B=7 and B=C7_RAGGED;
   4. the main path: 128-bit keygen on the card, ``prepare_eval_key_ntt``,
      encryption of BATCH random bit pairs, one warm and ITERS timed
      batched NAND calls, decryption checked against ~(a & b);
@@ -24,8 +27,8 @@ Phases, in order; any failure exits non-zero:
   6. the compact-key kernel against its plain version on the card, bit for
      bit, at ``test_params()`` (B=63) and at 128-bit B=4 over all 630 steps
      with the exact and the rounded (limbs=3) stored key, at the C5
-     shapes (B=7), and at the C7 shapes whose digits are int8 (B=7 and
-     B=C7_RAGGED);
+     shapes (B=7), and at the C7 and C8 shapes whose digits are int8 (N=4096
+     k=1 l=3 among them; B=7 and B=C7_RAGGED);
   7. the circuit path: ``FrameworkConfig(eval_key_form="fused")`` over phase
      4's keyset, 8-bit ripple add and subtract (mode fast) over B=CIRCUIT_BATCH
      random byte pairs and the classic add over B=CLASSIC_BATCH, every output
@@ -37,8 +40,9 @@ Phases, in order; any failure exits non-zero:
  10. the "ntt_scan" form's kernel against its plain version on the card, bit
      for bit, at ``test_params()`` (B=63), at 128-bit B=4 over all 630 steps
      over either prime pair, at the 80-bit set (halfBg = 512) B=4 over all
-     its steps, at the C5 shapes (B=7) and at the C7 shapes (B=7 and
-     B=C7_RAGGED) over either prime pair;
+     its steps, at the C5 shapes (B=7), at the C7 and C8 shapes (B=7 and
+     B=C7_RAGGED) over either prime pair (DEFAULT_PRIMES alone at N=4096)
+     and at the C9 rounded plans over DEFAULT_PRIMES;
  11. NAND through the "ntt_scan" key (``prepare_eval_key_ntt(kernel=False)``)
      at B=BATCH on phase 4's keyset, decrypted and checked;
  12. the 8-bit fast add and subtract over the "ntt_scan" key on phase 7's
@@ -113,9 +117,12 @@ Phases, in order; any failure exits non-zero:
      at Bgbit=7 (at Bgbit=6 and n=630 both packages' noise-budget rail,
      ``gates.check_noise_budget``, refuses the gate: its 18 gadget bits
      leave a worst-case rounding variance of 6.8e-4, over the set's
-     1.6e-4); each decrypted and checked, its kernel's launches counted,
-     timed, and the kernel at its inputs timed, held against its plain
-     version and printed with its bound.
+     1.6e-4); and at two ROADMAP C8 shapes: N=4096 k=1 l=3 Bgbit=7 (F=512)
+     over the "ntt_scan" (K3) and compact (K2) keys, N=1024 k=3 l=5 Bgbit=5
+     (K=160) over the "ntt_kernel" key (K1), both taken by the rail; each
+     decrypted and checked, its kernel's launches counted, timed, and the
+     kernel at its inputs timed, held against its plain version and
+     printed with its bound.
 The three kernels are printed as one ``{"kernels": [...]}`` line.  The last
 line is {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
@@ -185,6 +192,29 @@ def c5_params(params):
             ("C5 k=1 l=4 N=64", params.test_params(k=1, l=4, N=64)),
             ("C5 k=1 l=2 N=128", params.test_params(k=1, l=2, N=128)),
             ("k=1 l=2 N=32", params.test_params(k=1, l=2, N=32)))
+
+
+def c8_params(params):
+    """The shapes of ROADMAP C8 (n = C7_STEPS): N = 4096 (F = 512; no K1
+    context), k = 3 l = 5 (K = 160), k = 4 (U = 5), k = 3 at N = 2048 (K2's
+    row-share plan), K = 256 (k = 3 l = 8, k = 1 l = 16) and halfBg = 512 at
+    F = 512 (K3 only: C1)."""
+    return tuple((f"C8 N={N} k={k} l={l} Bgbit={bg}",
+                  params.test_params(N=N, k=k, l=l, Bgbit=bg, n=C7_STEPS))
+                 for N, k, l, bg in ((4096, 1, 3, 7), (1024, 3, 5, 5), (512, 4, 3, 7),
+                                     (2048, 3, 3, 7), (512, 3, 8, 4), (1024, 1, 16, 2),
+                                     (4096, 1, 1, 10)))
+
+
+def c9_params(params):
+    """ROADMAP C9: sets whose rounded-key plan rounds (rb = 2) on K1's and
+    K3's register path (k = 1), scatter path (k = 2 l = 2) and general
+    instantiation (k = 2 l = 3, and N = 4096 over DEFAULT_PRIMES); n =
+    C7_STEPS."""
+    return tuple((f"C9 rounded N={N} k={k} l={l} Bgbit={bg}",
+                  params.test_params(N=N, k=k, l=l, Bgbit=bg, n=C7_STEPS))
+                 for N, k, l, bg in ((64, 1, 3, 7), (128, 1, 3, 7), (64, 2, 2, 7), (64, 2, 3, 7),
+                                     (4096, 1, 3, 7)))
 
 
 def c7_params(params):
@@ -1213,9 +1243,10 @@ def parallel_smoke(ks, p, gen: torch.Generator, smi: str) -> None:
         run_parallel_ranks(ONE_CARD_PLAN, PAR_RANKS, tmp, B, one_rank, smi, " (b)")
 
 
-def c7_smoke(gen: torch.Generator, smi: str) -> None:
-    """Phase 20: one NAND at full depth at two ROADMAP C7 shapes, each through
-    the kernel of its eval-key form, with that kernel timed at its inputs."""
+def wide_shapes_smoke(gen: torch.Generator, smi: str) -> None:
+    """Phase 20: one NAND at full depth at two ROADMAP C7 shapes and two C8
+    shapes, each through the kernel of its eval-key form, with that kernel
+    timed at its inputs."""
     from eoc_tfhe_tpu_torch.core import bootstrap, gates, keys, params
     from eoc_tfhe_tpu_torch.core.numeric import mod_switch_to_torus32_np
     from eoc_tfhe_tpu_torch.ops import blind_rotate, blind_rotate_compact, blind_rotate_v1, ntt
@@ -1224,10 +1255,14 @@ def c7_smoke(gen: torch.Generator, smi: str) -> None:
     modules = {"blind_rotate_ntt": blind_rotate, "blind_rotate_compact": blind_rotate_compact,
                "blind_rotate_ntt_v1": blind_rotate_v1}
     B = C7_BATCH
-    for (N, k, l, bg), forms in (((2048, 1, 3, 7), ("ntt_kernel", "ntt_scan")),
-                                 ((512, 3, 3, 7), ("compact",))):
+    for fault, (N, k, l, bg), forms in (
+            ("C7", (2048, 1, 3, 7), ("ntt_kernel", "ntt_scan")),
+            ("C7", (512, 3, 3, 7), ("compact",)),
+            ("C8", (4096, 1, 3, 7), ("ntt_scan", "compact")),     # F = 512; no K1 context
+            ("C8", (1024, 3, 5, 5), ("ntt_kernel",))):            # K = 160
         p = params.test_params(N=N, k=k, l=l, Bgbit=bg, n=630)
-        shape = f"N={N} k={k} l={l} Bgbit={bg} n={p.n}"
+        gates.check_noise_budget(p, -1, -1)                    # the gate's rail takes the shape
+        shape = f"{fault} N={N} k={k} l={l} Bgbit={bg} n={p.n}"
         t0 = time.perf_counter()
         ks = keys.new_random_gate_bootstrapping_secret_keyset(gen, p, device=dev)
         torch.cuda.synchronize()
@@ -1245,7 +1280,7 @@ def c7_smoke(gen: torch.Generator, smi: str) -> None:
                 name, key = "blind_rotate_compact", ek.bk_compact
                 run = lambda: blind_rotate_compact.blind_rotate_compact(acc0, bara, key, p)
                 plain = lambda: blind_rotate_compact.blind_rotate_compact_plain(acc0, bara, key, p)
-                plan = "{} samples a block, {} key limb(s) a pass".format(
+                plan = "{} samples a block, {} key limb(s) and {} digit rows a pass".format(
                     *blind_rotate_compact.kernel_plan(k + 1, N, p.tgsw_params.kpl))
             else:
                 ek = bootstrap.prepare_eval_key_ntt(ks.cloud, p, kernel=form == "ntt_kernel")
@@ -1264,25 +1299,27 @@ def c7_smoke(gen: torch.Generator, smi: str) -> None:
                        f"instantiation"
             torch.cuda.synchronize()
             prep_s = time.perf_counter() - t0
-            check(ek.form == form, f"C7 {shape}: eval key form {ek.form}, wanted {form}")
+            check(ek.form == form, f"{shape}: eval key form {ek.form}, wanted {form}")
             for m in modules.values():
                 m.launches = 0
             gates.nand(ca, cb, ek, p)                          # warm
             nand_ms, out = cuda_ms(lambda: gates.nand(ca, cb, ek, p), 1)
             n_wrong = int((gates.decrypt_bit(out, ks.lwe_key) != ~(a & b)).sum())
             launches = {nm: m.launches for nm, m in modules.items()}
-            check(n_wrong == 0, f"C7 {shape} {form}: {n_wrong} of {B} NAND outputs decrypt wrong")
+            check(n_wrong == 0, f"{shape} {form}: {n_wrong} of {B} NAND outputs decrypt wrong")
             check(launches == {nm: 2 if nm == name else 0 for nm in modules},
-                  f"C7 {shape} {form}: launches {launches}")
+                  f"{shape} {form}: launches {launches}")
             k_ms, k_out = cuda_ms(run, 1)
             p_ms, p_out = cuda_ms(plain, 1)
             err = int((k_out.to(torch.int64) - p_out.to(torch.int64)).abs().max())
-            check(err == 0, f"{name} differs from plain at C7 {shape} (max {err})")
-            if form == "compact":
-                b_ms, b_by = compact_bound(B, p.n, key, ntt.kernel_context_for_params(p, dev), p)
+            check(err == 0, f"{name} differs from plain at {shape} (max {err})")
+            if form == "compact":      # K1's plan where it has one (N <= 2048), else K3's
+                bctx = (ntt.context_for_params(p, device=dev) if N == 4096
+                        else ntt.kernel_context_for_params(p, device=dev))
+                b_ms, b_by = compact_bound(B, p.n, key, bctx, p)
             else:
                 b_ms, b_by = rotation_bound(B, p.n, key, p)
-            print(f"C7 {shape} ({smi}): keygen {keygen_s:.3f} s, {form} key {prep_s:.3f} s; "
+            print(f"{shape} ({smi}): keygen {keygen_s:.3f} s, {form} key {prep_s:.3f} s; "
                   f"nand B={B} {nand_ms:.2f} ms/call, {B} of {B} decrypt correctly, launches "
                   f"{launches}; {name} {k_ms:.2f} ms ({plan}; bound {b_ms:.2f} ms, {b_by}; "
                   f"plain {p_ms:.2f} ms), bit-identical to plain", flush=True)
@@ -1344,11 +1381,21 @@ def main() -> int:
                                  ("128-bit", params.default_128bit_params(), None, 4),
                                  ("80-bit", params.default_80bit_params(), None, 4),
                                  *((lb, pc, None, C5_BATCH) for lb, pc in c5_params(params)),
-                                 *((lb, pc, None, Bc) for lb, pc in c7_params(params)
+                                 *((lb, pc, None, Bc)
+                                   for lb, pc in (*c7_params(params), *c8_params(params),
+                                                  *c9_params(params))
                                    for Bc in (C5_BATCH, C7_RAGGED))):
         n_steps = p.n if n_steps is None else n_steps
+        if p.N == 4096:          # no context over KERNEL_PRIMES, as in the reference
+            try:
+                ntt.kernel_context_for_params(p, device=dev)
+            except ValueError as e:
+                check("K1 (blind_rotate_ntt) has no context at N=4096" in str(e), str(e))
+                print(f"K1 refuses {label} by name: {e}", flush=True)
+                continue
+            raise SmokeFailure(f"K1 has a context at {label}")
         rows, acc0, bara = random_rotation_inputs(gen, p, n_steps, B, dev)
-        ctx = ntt.kernel_context_for_params(p, device=dev)
+        ctx = ntt.kernel_context_for_params(p, label.startswith("C9"), device=dev)
         key = ntt.prepare_kernel_key(rows, ctx)
         out = blind_rotate.blind_rotate_ntt(acc0, bara, key, ctx, p)
         plain = blind_rotate.blind_rotate_ntt_plain(acc0, bara, key, ctx, p)
@@ -1356,7 +1403,9 @@ def main() -> int:
         check(torch.equal(out, plain), f"blind_rotate_ntt differs from plain at {label}")
         samples, general = blind_rotate.crt_mma_plan(p.k + 1, ctx, p.tgsw_params)
         print(f"kernel == plain at {label}: B={B}, n={n_steps}, {samples} samples a block"
-              f"{' (general instantiation)' if general else ''}, bit-identical", flush=True)
+              f"{' (general instantiation)' if general else ''}, key limbs "
+              f"{ctx.key_limbs}x{ctx.key_limb_bits}, rb={ctx.key_round_bits}, bit-identical",
+              flush=True)
         del rows, key, out, plain
 
     # 4. main path: 128-bit gate bootstrapping at full batch
@@ -1428,7 +1477,8 @@ def main() -> int:
                                  ("128-bit", params.default_128bit_params(), 4, 4),
                                  ("128-bit rounded", params.default_128bit_params(), 4, 3),
                                  *((lb, pc, C5_BATCH, 4) for lb, pc in c5_params(params)),
-                                 *((lb, pc, Bc, 4) for lb, pc in c7_params(params)
+                                 *((lb, pc, Bc, 4)
+                                   for lb, pc in (*c7_params(params), *c8_params(params))
                                    for Bc in (C5_BATCH, C7_RAGGED)
                                    if pc.tgsw_params.halfBg <= 128)):
         rows, acc6, bara6 = random_rotation_inputs(gen, pc, pc.n, B6, dev)
@@ -1437,9 +1487,10 @@ def main() -> int:
         plain6 = blind_rotate_compact.blind_rotate_compact_plain(acc6, bara6, key6, pc)
         torch.cuda.synchronize()
         check(torch.equal(out6, plain6), f"blind_rotate_compact differs from plain at {label}")
-        samples, lp = blind_rotate_compact.kernel_plan(pc.k + 1, pc.N, pc.tgsw_params.kpl)
+        samples, lp, jp = blind_rotate_compact.kernel_plan(pc.k + 1, pc.N, pc.tgsw_params.kpl)
         print(f"compact kernel == plain at {label}: B={B6}, n={pc.n}, limbs={limbs}, "
-              f"{samples} samples a block, {lp} key limb(s) a pass, bit-identical", flush=True)
+              f"{samples} samples a block, {lp} key limb(s) and {jp} of {pc.tgsw_params.kpl} "
+              f"digit rows a pass, bit-identical", flush=True)
         del rows, key6, out6, plain6
 
     # 7. the circuit path: 8-bit add and subtract over the compact key
@@ -1534,13 +1585,21 @@ def main() -> int:
             *((f"{lb} {tag}", pc, C5_BATCH, pr) for lb, pc in c5_params(params)
               for tag, pr in (("DEFAULT_PRIMES", ntt.DEFAULT_PRIMES),
                               ("KERNEL_PRIMES", ntt.KERNEL_PRIMES))),
-            *((f"{lb} {tag}", pc, Bc, pr) for lb, pc in c7_params(params)
+            *((f"{lb} {tag}", pc, Bc, pr)
+              for lb, pc in (*c7_params(params), *c8_params(params))
               for Bc in (C5_BATCH, C7_RAGGED)
               for tag, pr in (("DEFAULT_PRIMES", ntt.DEFAULT_PRIMES),
-                              ("KERNEL_PRIMES", ntt.KERNEL_PRIMES)))):
+                              ("KERNEL_PRIMES", ntt.KERNEL_PRIMES))
+              if pc.N < 4096 or pr == ntt.DEFAULT_PRIMES),
+            *((lb, pc, Bc, None) for lb, pc in c9_params(params)
+              for Bc in (C5_BATCH, C7_RAGGED))):
         tg = pv.tgsw_params
         rows, acc10, bara10 = random_rotation_inputs(gen, pv, pv.n, B10, dev)
-        ctx10 = ntt.make_context(tg.tlwe_params.N, tg.kpl, tg.halfBg, primes, device=dev)
+        if primes is None:       # the rounded plan over the form's DEFAULT_PRIMES
+            ctx10 = ntt.context_for_params(pv, rounded=True, device=dev)
+            primes = ctx10.primes
+        else:
+            ctx10 = ntt.make_context(tg.tlwe_params.N, tg.kpl, tg.halfBg, primes, device=dev)
         key10 = ntt.prepare_key_ntt(rows, ctx10)
         out10 = blind_rotate_v1.blind_rotate_ntt_v1(acc10, bara10, key10, ctx10, pv)
         plain10 = blind_rotate_v1.blind_rotate_ntt_v1_plain(acc10, bara10, key10, ctx10, pv)
@@ -1550,6 +1609,7 @@ def main() -> int:
                                                      blind_rotate_v1.STAGE_BYTES)
         print(f"v1 kernel == plain at {label}: B={B10}, n={pv.n}, halfBg={tg.halfBg}, "
               f"primes={primes}, key limbs {ctx10.key_limbs}x{ctx10.key_limb_bits}, "
+              f"rb={ctx10.key_round_bits}, "
               f"{samples} samples a block{' (general instantiation)' if general else ''}, "
               f"bit-identical", flush=True)
         del rows, key10, out10, plain10
@@ -1644,10 +1704,10 @@ def main() -> int:
     # 19. the parallel tier on phase 4's keyset
     parallel_smoke(ks, p, gen, smi)
 
-    # 20. full-depth NANDs at the ROADMAP C7 shapes
+    # 20. full-depth NANDs at the ROADMAP C7 and C8 shapes
     del ks
     torch.cuda.empty_cache()
-    c7_smoke(gen, smi)
+    wide_shapes_smoke(gen, smi)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -4,8 +4,10 @@ Port of ``eoc_tfhe_tpu/config.py``: the same fields, choices and JSON form.  Wha
 
   * ``param_set``     -> :meth:`FrameworkConfig.params`
   * ``eval_key_form`` -> :meth:`FrameworkConfig.prepare_eval_key`:
-    "ntt" and "ntt_rounded" -> the exact "ntt_kernel" form (the reference
-    resolves "ntt_rounded" to the exact plan at every parameter set),
+    "ntt" -> the "ntt_kernel" form, "ntt_rounded" -> the "ntt_kernel" form
+    with the reference's rounded-key plan (``prepare_eval_key_ntt(
+    rounded=True)``: exact at the shipped sets, rounded where
+    ``ntt.choose_rounded_plan`` accepts a rounding, e.g. ``test_params(n=4)``),
     "fused" -> "compact", "rows" -> "compact" with the exact key (the same
     rows and bits as the reference's "rows" form)
   * ``rotation_impl`` -> bound into every gate and circuit call (by
@@ -79,8 +81,10 @@ class FrameworkConfig:
         (the 80-bit set)."""
         from .core import bootstrap
         params = params or self.params()
-        if self.eval_key_form in ("ntt", "ntt_rounded"):
+        if self.eval_key_form == "ntt":
             return bootstrap.prepare_eval_key_ntt(cloud, params)
+        if self.eval_key_form == "ntt_rounded":
+            return bootstrap.prepare_eval_key_ntt(cloud, params, rounded=True)
         if self.eval_key_form == "fused":
             return bootstrap.prepare_eval_key_fused(cloud, params)
         return bootstrap.prepare_eval_key(cloud, params)

@@ -125,7 +125,7 @@ def _cached_key(build, rows: torch.Tensor, ctx: ntt.NttContext, form: str,
     """The prepared key ``build()`` gives, through the disk cache in the
     directory ``EOC_NTT_KEY_CACHE`` names, where it is set (the reference's
     switch).  A file is named by the form, the port's key layout version, the
-    plan (primes, R, key limbs) and a hash of the raw TGSW rows and the plan;
+    plan (primes, R, key limbs, key rounding) and a hash of the raw TGSW rows and the plan;
     it is loaded only if it holds int8 of ``shape``, else the key is rebuilt
     and the file replaced.  Files are written to a temporary name and moved
     into place, so a reader never sees half a file.  The samples a kernel
@@ -134,7 +134,7 @@ def _cached_key(build, rows: torch.Tensor, ctx: ntt.NttContext, form: str,
     if not cache_dir:
         return build()
     plan = (f"v{ntt.KEY_LAYOUT_VERSION}-p{'.'.join(map(str, ctx.primes))}-R{ctx.R}"
-            f"-L{ctx.key_limbs}b{ctx.key_limb_bits}")
+            f"-L{ctx.key_limbs}b{ctx.key_limb_bits}-rb{ctx.key_round_bits}")
     digest = hashlib.sha1(rows.cpu().numpy().tobytes() + plan.encode()).hexdigest()[:16]
     path = os.path.join(cache_dir, f"ntt-{form}-{plan}-{digest}.npy")
     try:
@@ -152,7 +152,8 @@ def _cached_key(build, rows: torch.Tensor, ctx: ntt.NttContext, form: str,
 
 
 def prepare_eval_key_ntt(cloud: CloudKeySet, params: GateBootstrappingParams,
-                         kernel: str | bool = "auto") -> EvalKey:
+                         kernel: str | bool = "auto", rounded: bool = False,
+                         small_batch: str | bool = "auto") -> EvalKey:
     """Evaluation key in CRT-NTT form, built on the cloud key's device (the
     analog of upstream's FFT-converted ``LweBootstrappingKeyFFT``).
 
@@ -161,12 +162,21 @@ def prepare_eval_key_ntt(cloud: CloudKeySet, params: GateBootstrappingParams,
     of kernel K1's tensor-core fragments): the
     card is the kernel's device.  ``False`` gives the "ntt_scan" form (the
     v1 byte-pair key over ``DEFAULT_PRIMES``, kernel K3).  Both are exact.
+    ``rounded=True`` takes the reference's rounded-key plan of the form's
+    prime pair (``ntt.choose_rounded_plan``: the key rounded to its top
+    32 - rb bits; rb = 0, the exact plan, at the shipped sets); the rounding
+    error is accounted in the output variance (:func:`bootstrap_woKS`).
+    ``small_batch`` ("auto", True or False) is the reference's choice of a
+    second key layout for small batches on the TPU; it is checked and
+    changes no bits (the card takes every batch through the form's kernel).
     On a CUDA device a shape the form's kernel does not take is refused here
     with a ``ValueError`` that names the limit.  ``EOC_NTT_KEY_CACHE=<dir>``
     keeps the prepared key on disk (:func:`_cached_key`).
     """
     if kernel not in ("auto", True, False):
         raise ValueError(f"kernel must be 'auto', True or False, got {kernel!r}")
+    if small_batch not in ("auto", True, False):
+        raise ValueError(f"small_batch must be 'auto', True or False, got {small_batch!r}")
     bk = cloud.bk
     dev = bk.bk.device
     common = dict(bk_rows=bk.bk, bk_variance=bk.bk_variance,
@@ -174,14 +184,14 @@ def prepare_eval_key_ntt(cloud: CloudKeySet, params: GateBootstrappingParams,
     tg, U = params.tgsw_params, params.tgsw_params.tlwe_params.k + 1
     n = bk.bk.shape[0]
     if kernel is False:
-        ctx = ntt.context_for_params(params, device=dev)
+        ctx = ntt.context_for_params(params, rounded, device=dev)
         if dev.type == "cuda":
             check_k3_domain(U, ctx, tg)
         K, M = tg.kpl * ctx.R, ctx.key_limbs * U * ctx.R
         key = _cached_key(lambda: ntt.prepare_key_ntt(bk.bk, ctx), bk.bk, ctx, "scan",
                           (n, 2, ctx.F, K, 2 * M))
         return _check_eval_key(EvalKey(**common, form="ntt_scan", ntt_ctx=ctx, bk_ntt=key))
-    ctx = ntt.kernel_context_for_params(params, device=dev)
+    ctx = ntt.kernel_context_for_params(params, rounded, device=dev)
     if dev.type == "cuda":
         check_k1_domain(U, ctx, tg)
     Kp, Mp = ntt.pad16(tg.kpl * ctx.R), ntt.pad16(ctx.key_limbs * U * ctx.R)
@@ -252,7 +262,9 @@ def bootstrap_woKS(mu: int, ct: LweCiphertext, ek: EvalKey,
     acc = acc.reshape(batch_shape + (tl.k + 1, tl.N))
     zeros = torch.zeros(batch_shape, dtype=torch.float32, device=acc.device)
     out = tlwe_extract_lwe_sample(TLweCiphertext(a=acc, current_variance=zeros))
-    var = blind_rotate_output_variance(params, ek.bk_variance)
+    var = blind_rotate_output_variance(
+        params, ek.bk_variance,
+        key_round_bits=ek.ntt_ctx.key_round_bits if ek.ntt_ctx is not None else 0)
     if ek.compact_limbs < polymul.LIMBS:
         var = var + torch.tensor(compact_round_variance(params, ek.compact_limbs),
                                  dtype=torch.float32, device=var.device)

@@ -30,6 +30,22 @@ class KeySwitchKey:
     ks: torch.Tensor        # (n_in, t, base, n_out + 1) int32
     variance: torch.Tensor  # () float32 — noise variance of each entry
 
+    @property
+    def n_in(self) -> int:
+        return self.ks.shape[0]
+
+    @property
+    def t(self) -> int:
+        return self.ks.shape[1]
+
+    @property
+    def base(self) -> int:
+        return self.ks.shape[2]
+
+    @property
+    def n_out(self) -> int:
+        return self.ks.shape[3] - 1
+
 
 @dataclasses.dataclass
 class BootstrappingKey:
@@ -38,6 +54,10 @@ class BootstrappingKey:
     bk: torch.Tensor           # (n, kpl, k+1, N) int32
     bk_variance: torch.Tensor  # () float32
     ks: KeySwitchKey
+
+    @property
+    def n(self) -> int:
+        return self.bk.shape[0]
 
 
 @dataclasses.dataclass

@@ -45,6 +45,10 @@ class LweCiphertext:
     def n(self) -> int:
         return self.a.shape[-1]
 
+    @property
+    def batch_shape(self) -> torch.Size:
+        return self.b.shape
+
 
 def _dot_key(a: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     """<a, s> mod 2^32 for binary s: a masked int64 sum (|sum| < n * 2^31)."""
@@ -82,6 +86,10 @@ class SeededLweCiphertext:
     seed: torch.Tensor  # (..., 4) int64 holding uint32 words
     b: torch.Tensor     # (...)    int32
     current_variance: torch.Tensor  # (...) float32
+
+    @property
+    def batch_shape(self) -> torch.Size:
+        return self.b.shape
 
 
 _M32 = 0xFFFFFFFF

@@ -26,6 +26,18 @@ class TGswCiphertext:
     rows: torch.Tensor  # (..., kpl, k+1, N) int32
     current_variance: torch.Tensor  # (...) float32
 
+    @property
+    def kpl(self) -> int:
+        return self.rows.shape[-3]
+
+    @property
+    def k(self) -> int:
+        return self.rows.shape[-2] - 1
+
+    @property
+    def N(self) -> int:
+        return self.rows.shape[-1]
+
 
 def tgsw_sym_encrypt_int(generator: torch.Generator, messages: torch.Tensor,
                          alpha: float, tgsw_key: TLweKey,

@@ -23,6 +23,14 @@ class TLweKey:
 
     key: torch.Tensor  # (k, N) int32 in {0,1}
 
+    @property
+    def k(self) -> int:
+        return self.key.shape[0]
+
+    @property
+    def N(self) -> int:
+        return self.key.shape[1]
+
 
 @dataclasses.dataclass
 class TLweCiphertext:
@@ -30,6 +38,14 @@ class TLweCiphertext:
 
     a: torch.Tensor  # (..., k+1, N) int32
     current_variance: torch.Tensor  # (...) float32
+
+    @property
+    def k(self) -> int:
+        return self.a.shape[-2] - 1
+
+    @property
+    def N(self) -> int:
+        return self.a.shape[-1]
 
     @property
     def b(self) -> torch.Tensor:

@@ -33,6 +33,10 @@
 // Where the rows of all four limbs do not fit (k = 2 at N = 1024, k = 3, l =
 // 5, N = 2048), the step is converted and consumed one limb at a time: four
 // passes, each converting the words again and keeping one limb's rows.
+// Where even one limb's J rows do not fit (k = 3 l = 5 at N = 1024, k = 3 at
+// N = 2048, k = 2 at N = 4096), each limb pass goes over the rows jp at a
+// time and adds each share's partial sums into acc (mod 2^32 the shifted
+// sum of the parts is the shifted sum), so no share costs more conversion.
 // Warp w owns CT = max(1, N/64) output tiles of 16 coefficients of one
 // output polynomial, so a block has U*N/(16*CT) warps: 4U at N >= 64, U*2
 // at N = 32. A fragment row of 4 consecutive input coefficients is 4 bytes
@@ -43,10 +47,13 @@
 // on that diagonal, with the digit fragments of up to 32 r-tiles and the
 // accumulators of its CT tiles in registers (64 + 64 at N = 1024): about 0.7
 // shared-memory loads per MMA. At N = 2048 the 64 r-tiles go in two passes
-// of 32 (64 + 128 registers). The walk is unrolled at compile time, so the
-// kernel is instantiated per (N, U): every power of two N from 32 to 2048 at
-// U = 2, 3 and 4 (k = 1, 2, 3); a shape whose shared memory does not fit at
-// 2 samples and one limb a pass is refused.
+// of 32 (64 + 128 registers); at N = 4096 the 128 r-tiles go in four, and a
+// warp's 64 tiles in two walks of 32 (CG), each walk adding its sums into
+// acc. The walk is unrolled at compile time, so the kernel is instantiated
+// per (N, U): every power of two N from 32 to 4096 at U = 2 to 5 (k = 1 to
+// 4; at N = 4096 U = 2 to 4, since no plan fits U = 5 there); a shape whose
+// shared memory does not fit at 2 samples, one limb and one row a pass is
+// refused.
 //
 // Bound on an H100 at the 128-bit set (chip_smoke.py compact_bound): the
 // same function by the cheapest exact dataflow the repo has, the CRT-NTT one
@@ -73,11 +80,13 @@ namespace {
 constexpr int kMaxSamples = 8;   // samples per block: the MMA's N
 constexpr int kLimbs = 4;
 
-// Output tiles of 16 coefficients per warp, and warps per block, at (N, U).
+// Output tiles of 16 coefficients per warp, the tiles a warp's walk holds
+// in registers at once, and warps per block, at (N, U).
 template <int N, int U>
 struct Tiling {
   static constexpr int kTPP = N / 16;                        // tiles per polynomial
   static constexpr int kCT = kTPP >= 4 ? kTPP / 4 : 1;       // tiles per warp
+  static constexpr int kCG = kCT < 32 ? kCT : 32;            // tiles a walk (N = 4096: 2 walks)
   static constexpr int kWarps = U * kTPP / kCT;
   static constexpr int kThreads = 32 * kWarps;
 };
@@ -86,6 +95,7 @@ struct Shape {
   int B, n, U, N, l, J, Bgbit, halfBg;
   int ns;      // samples a block: 8, 4 or 2
   int lp;      // limbs converted a pass: 4, or 1 where four limbs' rows do not fit
+  int jp;      // digit rows j converted a pass: J, or fewer where all J rows do not fit
   uint32_t offset, mask;
   int acc_s;   // words per sample of acc: U*N + 4 (bank spread of the flush)
   int dig_s;   // bytes per sample of dig: J*N + 16 (bank spread of the B loads)
@@ -149,11 +159,12 @@ __global__ void __launch_bounds__(Tiling<N, U>::kThreads, 1) blind_rotate_compac
   constexpr int UN = U * N, twoN = 2 * N;
   constexpr int TPP = Tiling<N, U>::kTPP;     // 16-coefficient tiles per polynomial
   constexpr int CT = Tiling<N, U>::kCT;       // tiles per warp
+  constexpr int CG = Tiling<N, U>::kCG;       // tiles a walk
   constexpr int kThreads = Tiling<N, U>::kThreads;
   constexpr int RT = N / 32;                  // 32-coefficient input tiles
   constexpr int RG = RT < 32 ? RT : 32;       // r-tiles a pass of the walk
   static_assert(CT >= 1 && TPP % CT == 0 && RT >= 1, "a warp's tiles lie in one polynomial");
-  static_assert(RT == RG || RT == 2 * RG, "one or two passes of the walk");
+  static_assert(CT % CG == 0 && RT % RG == 0 && RT <= 4 * RG, "one to four passes of the walk");
 
   extern __shared__ __align__(16) unsigned char smem[];
   uint32_t* acc = reinterpret_cast<uint32_t*>(smem);          // [s][acc_s]
@@ -182,15 +193,17 @@ __global__ void __launch_bounds__(Tiling<N, U>::kThreads, 1) blind_rotate_compac
   const int8_t* dg = dig + (g < ns ? g : 0) * S.dig_s + 4 * tig;
   for (int i = 0; i < S.n; ++i) {
     const int32_t* key_i = key + static_cast<size_t>(i) * J * UN;
-    for (int t0 = 0; t0 < kLimbs; t0 += S.lp) {
+    for (int t0 = 0; t0 < kLimbs; t0 += S.lp)
+    for (int j0 = 0; j0 < J; j0 += S.jp) {
+      const int jn = min(S.jp, J - j0);
       __syncthreads();   // the previous pass no longer reads dig or rev; acc is updated
-      // Limbs t0 .. t0+lp-1 of key step i as byte rows: rev[t-t0][j][u][N-1-m]
-      // = limb_t(k[m]), rev[t-t0][j][u][2N-1-m] = limb_t(-k[m]); four words of
-      // k a thread.
+      // Limbs t0 .. t0+lp-1 of rows j0 .. j0+jn-1 of key step i as byte rows:
+      // rev[t-t0][j-j0][u][N-1-m] = limb_t(k[m]), rev[..][2N-1-m] =
+      // limb_t(-k[m]); four words of k a thread.
       int nz = 0;
-      for (int x = tid; x < J * UN / 4; x += kThreads) {
+      for (int x = tid; x < jn * UN / 4; x += kThreads) {
         const int ju = x / (N / 4), m0 = (x - ju * (N / 4)) * 4;
-        const int4 kv = *reinterpret_cast<const int4*>(key_i + ju * N + m0);
+        const int4 kv = *reinterpret_cast<const int4*>(key_i + (j0 * U + ju) * N + m0);
         const uint32_t v[4] = {static_cast<uint32_t>(kv.x), static_cast<uint32_t>(kv.y),
                                static_cast<uint32_t>(kv.z), static_cast<uint32_t>(kv.w)};
         uint32_t pos[kLimbs] = {}, neg[kLimbs] = {};
@@ -208,7 +221,7 @@ __global__ void __launch_bounds__(Tiling<N, U>::kThreads, 1) blind_rotate_compac
 #pragma unroll
         for (int t = 0; t < kLimbs; ++t) {
           if (t < t0 || t >= t0 + S.lp) continue;
-          int8_t* row = rev + static_cast<size_t>((t - t0) * J * U + ju) * twoN;
+          int8_t* row = rev + static_cast<size_t>((t - t0) * S.jp * U + ju) * twoN;
           *reinterpret_cast<uint32_t*>(row + N - 4 - m0) = pos[t];
           *reinterpret_cast<uint32_t*>(row + twoN - 4 - m0) = neg[t];
           nz |= (pos[t] | neg[t]) != 0u ? 1 << t : 0;
@@ -216,7 +229,7 @@ __global__ void __launch_bounds__(Tiling<N, U>::kThreads, 1) blind_rotate_compac
       }
       // d = X^a * acc - acc, then its signed gadget digits (offset trick),
       // once a step, before any limb updates acc.
-      if (t0 == 0) {
+      if (t0 == 0 && j0 == 0) {
         for (int x = tid; x < ns * UN; x += kThreads) {
           const int s = x / UN, y = x - s * UN;
           const int u = y / N, c = y - u * N;
@@ -236,30 +249,40 @@ __global__ void __launch_bounds__(Tiling<N, U>::kThreads, 1) blind_rotate_compac
           }
         }
       }
-      // Barriers that also tell every thread which limbs are nonzero this step.
+      // Barriers that also tell every thread which limbs are nonzero in this
+      // pass's rows.
       int live = 0;
       for (int t = t0; t < t0 + S.lp; ++t) live |= __syncthreads_or(nz & (1 << t)) ? 1 << t : 0;
 
 #pragma unroll 1
       for (int t = t0; t < t0 + S.lp; ++t) {
         if (!(live & (1 << t))) continue;
-        int c[CT][4] = {};
 #pragma unroll 1
-        for (int j = 0; j < J; ++j) {
-          const int8_t* rv =
-              rev + static_cast<size_t>(((t - t0) * J + j) * U + u_out) * twoN + pb;
-          diagonal_walk<CT, 0, RG>(c, dg + j * N, rv, sel);
-          if constexpr (RT > RG) diagonal_walk<CT, RG, RG>(c, dg + j * N, rv, sel);
-        }
-        // acc += limb sum << 8t (mod 2^32): rows cb + 16 ii + g (+8), samples 2 tig (+1).
-        if (2 * tig < ns) {
+        for (int g0 = 0; g0 < CT; g0 += CG) {
+          // The rows' partial sums are added into acc pass by pass: mod 2^32
+          // the shifted sum of the parts is the shifted sum.
+          int c[CG][4] = {};
+#pragma unroll 1
+          for (int j = j0; j < j0 + jn; ++j) {
+            const int8_t* rv = rev +
+                static_cast<size_t>(((t - t0) * S.jp + j - j0) * U + u_out) * twoN + pb - 16 * g0;
+            const int8_t* dgj = dg + j * N;
+            diagonal_walk<CG, 0, RG>(c, dgj, rv, sel);
+            if constexpr (RT > RG) diagonal_walk<CG, RG, RG>(c, dgj, rv, sel);
+            if constexpr (RT > 2 * RG) diagonal_walk<CG, 2 * RG, RG>(c, dgj, rv, sel);
+            if constexpr (RT > 3 * RG) diagonal_walk<CG, 3 * RG, RG>(c, dgj, rv, sel);
+          }
+          // acc += limb sum << 8t (mod 2^32): rows cb + 16 (g0 + ii) + g (+8),
+          // samples 2 tig (+1).
+          if (2 * tig < ns) {
 #pragma unroll
-          for (int ii = 0; ii < CT; ++ii) {
-            uint32_t* a = acc + 2 * tig * S.acc_s + u_out * N + cb + 16 * ii + g;
-            a[0] += static_cast<uint32_t>(c[ii][0]) << (8 * t);
-            a[S.acc_s] += static_cast<uint32_t>(c[ii][1]) << (8 * t);
-            a[8] += static_cast<uint32_t>(c[ii][2]) << (8 * t);
-            a[S.acc_s + 8] += static_cast<uint32_t>(c[ii][3]) << (8 * t);
+            for (int ii = 0; ii < CG; ++ii) {
+              uint32_t* a = acc + 2 * tig * S.acc_s + u_out * N + cb + 16 * (g0 + ii) + g;
+              a[0] += static_cast<uint32_t>(c[ii][0]) << (8 * t);
+              a[S.acc_s] += static_cast<uint32_t>(c[ii][1]) << (8 * t);
+              a[8] += static_cast<uint32_t>(c[ii][2]) << (8 * t);
+              a[S.acc_s + 8] += static_cast<uint32_t>(c[ii][3]) << (8 * t);
+            }
           }
         }
       }
@@ -289,32 +312,35 @@ int launch_n(const Shape& S, size_t smem, const void* acc0, const void* bara, co
 
 }  // namespace
 
-// Shared memory of a block of `ns` samples with `lp` limbs' byte rows: the
-// accumulators, the digits and the rows, + 16 (ops/blind_rotate_compact.smem_bytes).
-// Sets S's layout fields.
-static size_t plan(Shape& S, int ns, int lp) {
+// Shared memory of a block of `ns` samples with the byte rows of `lp` limbs
+// and `jp` digit rows: the accumulators, the digits and the rows, + 16
+// (ops/blind_rotate_compact.smem_bytes). Sets S's layout fields.
+static size_t plan(Shape& S, int ns, int lp, int jp) {
   S.ns = ns;
   S.lp = lp;
+  S.jp = jp;
   S.acc_s = S.U * S.N + 4;
   S.dig_s = S.J * S.N + 16;
   S.dig_off = ns * S.acc_s * 4;
   S.rev_off = S.dig_off + ns * S.dig_s;
-  return static_cast<size_t>(S.rev_off) + static_cast<size_t>(lp) * S.J * S.U * 2 * S.N + 16;
+  return static_cast<size_t>(S.rev_off) + static_cast<size_t>(lp) * jp * S.U * 2 * S.N + 16;
 }
 
 // Launches the blind rotation on `stream`.  acc0, out: (B, U, N) int32;
 // bara: (n, B) int32 in [0, 2N); key: (n, U*l, U, N) int32, the stored key.
-// Supported: U = 2, 3 or 4 and N a power of two from 32 to 2048, at the
-// first of (samples, limbs a pass) = (8, 4), (8, 1), (4, 4), (4, 1), (2, 4),
-// (2, 1) whose shared memory is below the card's limit (the Python wrapper
-// refuses the rest first, by name: ops/blind_rotate_compact.check_kernel_domain).
+// Supported: U = 2 to 5 and N a power of two from 32 to 4096, at the first
+// of (samples, limbs a pass, rows a pass) = (8, 4, J), (8, 1, J), (4, 4, J),
+// (4, 1, J), (2, 4, J), (2, 1, J), then (8, 1, jp), (4, 1, jp), (2, 1, jp)
+// with the most rows jp < J that fit, whose shared memory is below the
+// card's limit (the Python wrapper refuses the rest first, by name:
+// ops/blind_rotate_compact.check_kernel_domain).
 // Returns a cudaError_t (0 on success); allocates nothing and does not sync.
 extern "C" int blind_rotate_compact_launch(const void* acc0, const void* bara, const void* key,
                                            void* out, int B, int n, int U, int N, int l,
                                            int Bgbit, void* stream) {
   Shape S;
   S.B = B; S.n = n; S.U = U; S.N = N; S.l = l; S.J = U * l; S.Bgbit = Bgbit;
-  if (B <= 0 || n < 0 || U < 2 || U > 4 || N < 32 || N > 2048 || (N & (N - 1)) != 0 ||
+  if (B <= 0 || n < 0 || U < 2 || U > 5 || N < 32 || N > 4096 || (N & (N - 1)) != 0 ||
       l <= 0 || Bgbit <= 0 || Bgbit > 8 || l * Bgbit > 32)
     return static_cast<int>(cudaErrorInvalidValue);
   S.halfBg = 1 << (Bgbit - 1);   // <= 128: int8 digits, the reference's exact domain
@@ -334,7 +360,10 @@ extern "C" int blind_rotate_compact_launch(const void* acc0, const void* bara, c
   bool fits = false;
   for (int ns = kMaxSamples; ns >= 2 && !fits; ns /= 2)
     for (int lp : {kLimbs, 1})
-      if (!fits) fits = (smem = plan(S, ns, lp)) <= static_cast<size_t>(optin);
+      if (!fits) fits = (smem = plan(S, ns, lp, S.J)) <= static_cast<size_t>(optin);
+  for (int ns = kMaxSamples; ns >= 2 && !fits; ns /= 2)
+    for (int jp = S.J - 1; jp >= 1 && !fits; --jp)
+      fits = (smem = plan(S, ns, 1, jp)) <= static_cast<size_t>(optin);
   if (!fits) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto at_u = [&](auto u) {
@@ -346,12 +375,16 @@ extern "C" int blind_rotate_compact_launch(const void* acc0, const void* bara, c
       case 256: return launch_n<256, kU>(S, smem, acc0, bara, key, out, st);
       case 512: return launch_n<512, kU>(S, smem, acc0, bara, key, out, st);
       case 1024: return launch_n<1024, kU>(S, smem, acc0, bara, key, out, st);
-      default: return launch_n<2048, kU>(S, smem, acc0, bara, key, out, st);
+      case 2048: return launch_n<2048, kU>(S, smem, acc0, bara, key, out, st);
+      default:   // N = 4096: no plan fits at U = 5 (acc and digits alone at 2 samples)
+        if constexpr (kU < 5) return launch_n<4096, kU>(S, smem, acc0, bara, key, out, st);
+        return static_cast<int>(cudaErrorInvalidValue);
     }
   };
   if (U == 2) return at_u(std::integral_constant<int, 2>{});
   if (U == 3) return at_u(std::integral_constant<int, 3>{});
-  return at_u(std::integral_constant<int, 4>{});
+  if (U == 4) return at_u(std::integral_constant<int, 4>{});
+  return at_u(std::integral_constant<int, 5>{});
 }
 
 extern "C" const char* kernel_error_string(int err) {

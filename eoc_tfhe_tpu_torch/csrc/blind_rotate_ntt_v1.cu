@@ -82,16 +82,17 @@ struct V1Key {
 // Launches the blind rotation on `stream`.  acc0, out: (B, U, N) int32;
 // bara: (n, B) int32 in [0, 2N); key: (n, 2, F, K, 2M) int8, [lo | hi] bytes
 // of the balanced residues; Wf, Wi: (2, FP/8, FP/32, 32, 4, 8) int8 B
-// fragments; scratch: scratch_bytes of device memory (see crt_mma::launch).
+// fragments; scratch: scratch_bytes of device memory (see crt_mma::launch);
+// L limbs of kbits bits and rb rounding bits: the key's plan.
 // Returns a cudaError_t (0 on success); allocates nothing and does not sync.
 extern "C" int blind_rotate_ntt_v1_launch(const void* acc0, const void* bara, const void* key,
                                           const void* Wf, const void* Wi, void* scratch,
                                           long long scratch_bytes, void* out, int B, int n,
                                           int U, int N, int R, int l, int Bgbit, int L,
-                                          int kbits, int p0, int p1, int crt_inv,
+                                          int kbits, int rb, int p0, int p1, int crt_inv,
                                           void* stream) {
   return crt_mma::launch<V1Key>(acc0, bara, key, Wf, Wi, scratch, scratch_bytes, out, B, n, U,
-                                N, R, l, Bgbit, L, kbits, p0, p1, crt_inv, stream);
+                                N, R, l, Bgbit, L, kbits, rb, p0, p1, crt_inv, stream);
 }
 
 #ifdef CRT_MMA_PROFILE

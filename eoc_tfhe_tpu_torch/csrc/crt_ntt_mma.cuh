@@ -10,7 +10,9 @@
 // by the reference's CRT-NTT dataflow: R-way Nussbaumer split, a length-F
 // negacyclic NTT per prime as an F x F matrix product, the pointwise
 // contraction over K = J*R rows against the NTT-domain key, the inverse NTT,
-// CRT over the two primes and the recombination of the L key limbs. Every
+// CRT over the two primes and the recombination of the L key limbs (limb l
+// shifted by rb + kbits l, rb > 0 for the reference's rounded-key plans,
+// whose key was rounded to its top 32 - rb bits before the split). Every
 // step is an exact integer sum followed by an exact reduction, so the output
 // has the reference's bits.
 //
@@ -22,7 +24,9 @@
 //   forward  dhat = dig W: C0 = sum d_lo W_lo + d_hi V_lo, C1 = sum d_lo W_hi
 //            + d_hi V_hi, with V = 256 W mod p (d_hi terms only for DL = 2),
 //            so dhat == C0 + 256 C1 (mod p); |C0 + 256 C1| <= 257 FP 128
-//            (128 + |d_hi|) < 2^31, checked by the launcher.
+//            (128 + |d_hi|) < 2^31, checked by the launcher. At F = 512 that
+//            is 2.16e9, so C1 is reduced first: |C0 + 256 (C1 mod p)| <= FP
+//            128 (128 + |d_hi|) + 256 (p-1)/2.
 //   pointwise chat = T dhat: three int32 sums C0 = lo.lo, C1 = lo.hi + hi.lo,
 //            C2 = hi.hi, combined with c16 = 2^16 mod p balanced. A key
 //            without Key::kReduceC2 (K1, over KERNEL_PRIMES, |c16| = 1023)
@@ -33,6 +37,9 @@
 //            |.| <= Kp 2^14 513 +
 //            max_p |c16_p| (p-1)/2, 7.4e8 at Kp = 48 over DEFAULT_PRIMES
 //            (c16 = -16386 mod 40961), where the plain sum would be 1.33e10.
+//            At Kp > 128 (up to 256 in the general instantiation) Kp 2^14
+//            513 reaches 2.15e9, so C1 is reduced too: |.| <= Kp 2^14 +
+//            256 (p-1)/2 + max_p |c16_p| (p-1)/2.
 //            The launcher checks the bound of the key's kind against the
 //            primes it is given. The reference's [A; 256A] key
 //            (expand_kernel_key_256) would drop the c16 term, but it doubles
@@ -56,12 +63,14 @@
 // contraction t or f over FP = max(F, 32) (the matrices are zero-padded, so
 // stale padding columns contribute nothing). Warp w owns n8 tiles w + 16 jj
 // of the columns for every live sample (one tile at F <= 128, two at F =
-// 256). At F <= 128 it loads its B fragments (W, Winv and their
-// 256-multiples, byte planes in fragment order, NttContext.W_mma /
+// 256, four at F = 512). At F <= 128 it loads its B fragments (W, Winv and
+// their 256-multiples, byte planes in fragment order, NttContext.W_mma /
 // Winv_mma, 32 bytes a lane per tile) once per prime into registers and
-// walks the samples, so at batch 1 the warps share the one sample; at F =
-// 256 (kWide) twice the fragments would not fit in registers, so each is
-// read from L1/L2 at its use. The pointwise stage is m16n8k16 per
+// walks the samples, so at batch 1 the warps share the one sample; at F >=
+// 256 (kFW > 1) the fragments would not fit in registers, so each is read
+// from L1/L2 at its use (at F = 512 the matrices are 512 x 512 byte planes
+// per prime, 1 MB in all: they stream from L2), and the forward takes a
+// warp's tiles two at a time. The pointwise stage is m16n8k16 per
 // frequency: A is the key (Mp x Kp, Key::load gives a lane's fragment of
 // one tile, through a per-warp staging tile where the key is transposed on
 // the chip), the samples are N (columns past the block's kS samples repeat
@@ -76,15 +85,20 @@
 // 2, or N = 32 where R = 4) take the scatter path (MTM = 0): each m-tile in
 // turn, and the second prime's CRT'd value of row m = (limb, u, r) is added
 // into acc[u][t*R + r] shifted by its limb with a uint32 atomicAdd (mod 2^32,
-// so the order of the limbs does not matter). Every other shape (F = 256,
-// Kp up to 128, or shared memory that 8 samples overflow: ROADMAP C7) takes
-// the general instantiation: MTK = 8 (the forward walks the m-tiles of Kp
-// four at a time), the scatter path, and kS = 0, the samples a block a
-// run-time value (8, 4, 2 or 1, the most that fit). Its pointwise sum always
-// reduces C2 first (above), since at Kp = 96 K1's plain sum would leave
-// int32 (2.4e9); at F = 256 the inverse reduces C1 before the product by
-// 256, since 257 FP 2^15 would too. The shipped sets keep their
-// instantiations and their registers.
+// so the order of the limbs does not matter). Every other shape (F = 256 or
+// 512, Kp up to 256, shared memory that 8 samples overflow, or a rounded
+// key, rb > 0: ROADMAP C7, C8, C9) takes the general instantiation, one per
+// (digit limbs, F/128), with stages of its own (forward_general,
+// pointwise_general): MTK = 16, the m-tiles of Kp four at a time and a
+// warp's n8 tiles two at a time in loops, the scatter path with the rb
+// shift, and kS = 0, the samples a block a run-time value (8, 4, 2 or 1,
+// the most that fit). Its pointwise sum always reduces C2 first (above),
+// since at Kp = 96 K1's plain sum would leave int32 (2.4e9), and C1 too at
+// Kp > 128; at F >= 256 the inverse reduces C1 before the product by 256,
+// since 257 FP 2^15 would leave it too, and at F = 512 the forward does the
+// same. The shipped sets keep their stages' code, instantiations and
+// registers (their times move by registers alone: a shared stage that
+// grew the loops and the rb shift cost K3 10% at the 128-bit set).
 //
 // Shared memory, per block of kS samples (128-bit set: F = 128, K = M = 48,
 // kS = 8): dig [DL][s][k][t] and chat [2][s][m][f] share one buffer, rows
@@ -93,7 +107,10 @@
 // conflicts of the forward's stores: 100,352 bytes; then Key::kStageBytes per
 // warp for a key that is transposed on the chip (K3: 8,704); 210,944 (K1) or
 // 219,648 (K3) of the 232,448 bytes a block may use (80-bit set: 215,040,
-// 223,744). A shape that needs more at 1 sample is refused. The accumulators
+// 223,744). At F = 512 (N = 4096, K = 48, M = 64 over DEFAULT_PRIMES) one
+// sample needs 133,632 bytes (K3) and two 250,368, so those blocks hold
+// one. A shape that needs more at 1 sample is refused (at F = 512: Kp >=
+// 144). The accumulators
 // live in the output tensor (global memory, L2-resident, each word read once
 // and updated once a step); a per-block scratch tensor holds the first
 // prime's inverse residues (in a thread-private order) and a copy of the
@@ -125,15 +142,16 @@ constexpr int kWarps = 16;    // warps per block: 128 registers each
 constexpr int kThreads = 32 * kWarps;
 constexpr int kMaxSamples = 8;   // samples per block: the pointwise MMA's N
 
-// The n8 tiles of F a warp owns and the k32 tiles of FP, at F <= 128 or at
-// F = 256 (kWide).
-template <bool kWide>
+// The n8 tiles of F a warp owns and the k32 tiles of FP, at F <= 128 (kFW =
+// 1), F = 256 (2) or F = 512 (4).
+template <int kFW>
 struct Freq {
-  static constexpr int kNJ = kWide ? 2 : 1;
-  static constexpr int kKT = kWide ? 8 : 4;
+  static constexpr int kNJ = kFW;
+  static constexpr int kKT = 4 * kFW;
 };
-constexpr int kNJ = Freq<false>::kNJ;      // held in registers: F <= 128
-constexpr int kMaxKT = Freq<false>::kKT;
+constexpr int kNJ = Freq<1>::kNJ;      // held in registers: F <= 128
+constexpr int kMaxKT = Freq<1>::kKT;
+constexpr int kMaxFW = 4;              // F up to 512
 
 struct Shape {
   int B, n, U, N, R, F, FP, l, J, K, M, L, Bgbit, kbits, halfBg, crt_inv;
@@ -151,6 +169,7 @@ struct Shape {
   int xs;        // bytes per frequency of dhat: 2 * ns * Kp + 16 (bank spread)
   int stage;     // byte offset of the per-warp key staging tiles
   int res0_16, dig16, scratch16;   // 16-byte words of a block's scratch: res0, digits, all
+  int rb;        // key rounding bits: limb l carries scale 2^(rb + kbits l); general only
 };
 
 
@@ -251,17 +270,16 @@ __device__ __forceinline__ void digit_pass(const Shape& S, int i, const uint32_t
   }
 }
 
-// Forward NTT: dhat[f][plane][s][k] = balanced residue (byte planes) of
-// sum_t dig[s][k][t] W[t][f]. Warp w owns the n8 tiles nt = w + 16 jj of f
-// for every live sample: at F <= 128 it loads their W fragments once per
-// prime and reuses them for each sample, and at batch 1 the warps share the
-// one sample; at F = 256 (kWide) it reads each at its use. The m-tiles of Kp
-// go four at a time (MTK = 8: the general instantiation).
-template <int DL, int PI, int MTK, int kS, bool kWide>
+// Forward NTT of the shipped instantiations (F <= 128, MTK = 3 or 4, kS =
+// 8): dhat[f][plane][s][k] = balanced residue (byte planes) of sum_t
+// dig[s][k][t] W[t][f]. Warp w owns the n8 tile nt = w of f for every live
+// sample: it loads its W fragments once per prime and reuses them for each
+// sample, and at batch 1 the warps share the one sample.
+template <int DL, int PI, int MTK, int kS>
 __device__ __forceinline__ void forward(const Shape& S, const int8_t* dig, int8_t* X,
                                         const uint4* __restrict__ Wf, int nvalid, int warp,
                                         int lane) {
-  constexpr int NJ = Freq<kWide>::kNJ, KTM = Freq<kWide>::kKT;
+  constexpr int NJ = kNJ, KTM = kMaxKT;
   constexpr int MTG = MTK < 4 ? MTK : 4;   // m-tiles a pass
   const int g = lane >> 2, tig = lane & 3;
   const int p = PI ? S.p1 : S.p0, half = PI ? S.half1 : S.half0;
@@ -272,19 +290,17 @@ __device__ __forceinline__ void forward(const Shape& S, const int8_t* dig, int8_
   auto frag_ptr = [&](int jj, int kt) {
     return Wf + ((static_cast<size_t>(PI * NT + warp + kWarps * jj) * KT + kt) * 32 + lane) * 2;
   };
-  uint4 w[kWide ? 1 : NJ][kWide ? 1 : KTM][DL];   // held: F <= 128
-  if constexpr (!kWide) {
+  uint4 w[NJ][KTM][DL];   // held
 #pragma unroll
-    for (int jj = 0; jj < NJ; ++jj)
+  for (int jj = 0; jj < NJ; ++jj)
 #pragma unroll
-      for (int kt = 0; kt < KTM; ++kt) {
-        const int nt = warp + kWarps * jj;
-        if (nt >= FN || kt >= KT) continue;
-        const uint4* wp = frag_ptr(jj, kt);
+    for (int kt = 0; kt < KTM; ++kt) {
+      const int nt = warp + kWarps * jj;
+      if (nt >= FN || kt >= KT) continue;
+      const uint4* wp = frag_ptr(jj, kt);
 #pragma unroll
-        for (int q = 0; q < DL; ++q) w[jj][kt][q] = __ldg(wp + q);
-      }
-  }
+      for (int q = 0; q < DL; ++q) w[jj][kt][q] = __ldg(wp + q);
+    }
   for (int s = 0; s < nvalid; ++s) {
     const int8_t* ds = dig + static_cast<size_t>(s) * S.Kp * S.DS;
 #pragma unroll
@@ -312,10 +328,7 @@ __device__ __forceinline__ void forward(const Shape& S, const int8_t* dig, int8_
           if (warp + kWarps * jj >= FN) continue;
           uint4 wf[DL];
 #pragma unroll
-          for (int q = 0; q < DL; ++q) {
-            if constexpr (kWide) wf[q] = __ldg(frag_ptr(jj, kt) + q);
-            else wf[q] = w[jj][kt][q];
-          }
+          for (int q = 0; q < DL; ++q) wf[q] = w[jj][kt][q];
 #pragma unroll
           for (int mt = 0; mt < MTG; ++mt) {
             if (mg + mt >= MT) continue;
@@ -351,12 +364,115 @@ __device__ __forceinline__ void forward(const Shape& S, const int8_t* dig, int8_
   }
 }
 
-// Pointwise product for the frequencies of this warp: chat[plane][s][m][f] =
-// balanced residue of sum_k T[f][k][m] dhat[f][s][k]. Four frequencies a
-// pass, so that each thread stores whole 32-bit words of chat. `stage` is
-// this warp's Key::kStageBytes of shared memory. C2 is reduced before its
-// c16 product for a key with kReduceC2 and in the general instantiation
-// (MTK = 8: Kp up to 128).
+// Forward NTT of the general instantiation (kS = 0, Kp up to 256, F up to
+// 512): as forward(), but the W fragments are read at their use where F >=
+// 256 (kFW > 1; at F = 512 the matrices are 1 MB of byte planes that stream
+// from L2), a warp takes its n8 tiles two at a time (the accumulators'
+// registers) and the m-tiles of Kp four at a time, both in loops (the
+// build time), and at F = 512 C1 is reduced before its product by 256 (257
+// FP 128^2 would leave int32).
+template <int DL, int PI, int kFW>
+__device__ __forceinline__ void forward_general(const Shape& S, const int8_t* dig, int8_t* X,
+                                                const uint4* __restrict__ Wf, int nvalid,
+                                                int warp, int lane) {
+  constexpr bool kWide = kFW > 1;
+  constexpr int NJ = Freq<kFW>::kNJ, KTM = Freq<kFW>::kKT;
+  constexpr int NJB = NJ < 2 ? NJ : 2;     // n8 tiles a pass
+  constexpr int MTG = 4;                   // m-tiles a pass
+  const int g = lane >> 2, tig = lane & 3;
+  const int p = PI ? S.p1 : S.p0, half = PI ? S.half1 : S.half0;
+  const float inv_p = PI ? S.finv1 : S.finv0;
+  const int ns = S.ns;
+  const int MT = S.Kp / 16, FN = S.F / 8, NT = S.FP / 8, KT = S.FP / 32;
+  if (warp >= FN) return;
+  auto frag_ptr = [&](int jj, int kt) {
+    return Wf + ((static_cast<size_t>(PI * NT + warp + kWarps * jj) * KT + kt) * 32 + lane) * 2;
+  };
+  uint4 w[kWide ? 1 : NJ][kWide ? 1 : KTM][DL];   // held: F <= 128
+  if constexpr (!kWide) {
+#pragma unroll
+    for (int kt = 0; kt < KTM; ++kt) {
+      if (kt >= KT) continue;
+#pragma unroll
+      for (int q = 0; q < DL; ++q) w[0][kt][q] = __ldg(frag_ptr(0, kt) + q);
+    }
+  }
+  for (int s = 0; s < nvalid; ++s) {
+    const int8_t* ds = dig + static_cast<size_t>(s) * S.Kp * S.DS;
+#pragma unroll 1
+    for (int mg = 0; mg < MT; mg += MTG) {
+#pragma unroll 1
+      for (int jb = 0; jb < NJ && warp + kWarps * jb < FN; jb += NJB) {
+        int c0[MTG][NJB][4] = {}, c1[MTG][NJB][4] = {};
+#pragma unroll
+        for (int kt = 0; kt < KTM; ++kt) {
+          if (kt >= KT) continue;
+          uint32_t a[DL][MTG][4];
+#pragma unroll
+          for (int q = 0; q < DL; ++q)
+#pragma unroll
+            for (int mt = 0; mt < MTG; ++mt) {
+              if (mg + mt >= MT) continue;
+              const int8_t* base =
+                  ds + q * S.dig_plane + ((mg + mt) * 16 + g) * S.DS + kt * 32 + 4 * tig;
+              a[q][mt][0] = lds32(base);
+              a[q][mt][1] = lds32(base + 8 * S.DS);
+              a[q][mt][2] = lds32(base + 16);
+              a[q][mt][3] = lds32(base + 8 * S.DS + 16);
+            }
+#pragma unroll
+          for (int jj = 0; jj < NJB; ++jj) {
+            if (warp + kWarps * (jb + jj) >= FN) continue;
+            uint4 wf[DL];
+#pragma unroll
+            for (int q = 0; q < DL; ++q) {
+              if constexpr (kWide) wf[q] = __ldg(frag_ptr(jb + jj, kt) + q);
+              else wf[q] = w[0][kt][q];
+            }
+#pragma unroll
+            for (int mt = 0; mt < MTG; ++mt) {
+              if (mg + mt >= MT) continue;
+              mma_k32(c0[mt][jj], a[0][mt], wf[0].x, wf[0].y);
+              mma_k32(c1[mt][jj], a[0][mt], wf[0].z, wf[0].w);
+              if (DL == 2) {
+                mma_k32(c0[mt][jj], a[DL - 1][mt], wf[DL - 1].x, wf[DL - 1].y);
+                mma_k32(c1[mt][jj], a[DL - 1][mt], wf[DL - 1].z, wf[DL - 1].w);
+              }
+            }
+          }
+        }
+#pragma unroll
+        for (int jj = 0; jj < NJB; ++jj) {
+          const int nt = warp + kWarps * (jb + jj);
+          if (nt >= FN) continue;
+#pragma unroll
+          for (int mt = 0; mt < MTG; ++mt) {
+            if (mg + mt >= MT) continue;
+#pragma unroll
+            for (int r4 = 0; r4 < 4; ++r4) {
+              const int k = (mg + mt) * 16 + g + 8 * (r4 >> 1), f = nt * 8 + 2 * tig + (r4 & 1);
+              const int c1r = kFW > 2 ? reduce32(c1[mt][jj][r4], p, half, inv_p)
+                                      : c1[mt][jj][r4];
+              const int res = reduce32(c0[mt][jj][r4] + c1r * 256, p, half, inv_p);
+              int lo, hi;
+              split8(res, lo, hi);
+              int8_t* xf = X + static_cast<size_t>(f) * S.xs + s * S.Kp + k;
+              xf[0] = static_cast<int8_t>(lo);
+              xf[ns * S.Kp] = static_cast<int8_t>(hi);
+            }
+          }
+        }
+      }
+    }
+  }
+}
+
+// Pointwise product for the frequencies of this warp, in the shipped
+// instantiations (Kp <= 64, kS = 8): chat[plane][s][m][f] = balanced residue
+// of sum_k T[f][k][m] dhat[f][s][k]. Four frequencies a pass, so that each
+// thread stores whole 32-bit words of chat. `stage` is this warp's
+// Key::kStageBytes of shared memory. C2 is reduced before its c16 product
+// for a key with kReduceC2.
 template <class Key, int PI, int MTK, int kS>
 __device__ __forceinline__ void pointwise(const Shape& S, int i, const typename Key::Elem* key,
                                           const int8_t* X, int8_t* Y, int8_t* stage, int warp,
@@ -398,6 +514,63 @@ __device__ __forceinline__ void pointwise(const Shape& S, int i, const typename 
           // 2^16 == c16 (mod p): the sum stays in int32 (bound checked at launch)
           const int c2 = kReduceC2 ? reduce32(c[fi][2][r4], p, half, inv_p) : c[fi][2][r4];
           const int z = c[fi][0][r4] + c[fi][1][r4] * 256 + c2 * c16;
+          int lo, hi;
+          split8(reduce32(z, p, half, inv_p), lo, hi);
+          wlo |= static_cast<uint32_t>(lo & 255) << (8 * fi);
+          whi |= static_cast<uint32_t>(hi & 255) << (8 * fi);
+        }
+        int8_t* y = Y + static_cast<size_t>(s * S.Mp + m) * S.DS + f0;
+        *reinterpret_cast<uint32_t*>(y) = wlo;
+        *reinterpret_cast<uint32_t*>(y + S.y_plane) = whi;
+      }
+    }
+  }
+}
+
+// The pointwise product of the general instantiation (kS = 0, Kp up to
+// 256): as pointwise(), its k-tiles in a loop (the build time), C2 always
+// reduced before its c16 product (at Kp = 96 K1's plain sum would leave
+// int32) and at Kp > 128 C1 before its product by 256 (Kp 2^15 256 would).
+template <class Key, int PI>
+__device__ __forceinline__ void pointwise_general(const Shape& S, int i,
+                                                  const typename Key::Elem* key, const int8_t* X,
+                                                  int8_t* Y, int8_t* stage, int warp, int lane) {
+  const int g = lane >> 2, tig = lane & 3;
+  const int p = PI ? S.p1 : S.p0, half = PI ? S.half1 : S.half0;
+  const int c16 = PI ? S.c16_1 : S.c16_0;
+  const float inv_p = PI ? S.finv1 : S.finv0;
+  const int ns = S.ns;
+  const int gs = g < ns ? g : 0;   // columns past the block's samples: sample 0
+  const int MT = S.Mp / 16, KT = S.Kp / 16;
+  for (int f0 = 4 * warp; f0 < S.F; f0 += 4 * kWarps) {
+    for (int mt = 0; mt < MT; ++mt) {
+      int c[4][3][4] = {};
+#pragma unroll
+      for (int fi = 0; fi < 4; ++fi) {
+        const int f = f0 + fi;
+        const int8_t* xf = X + static_cast<size_t>(f) * S.xs + gs * S.Kp + 4 * tig;
+#pragma unroll 2
+        for (int kt = 0; kt < KT; ++kt) {
+          // lo a0 a1, hi a0 a1
+          const uint4 a = Key::load(key, S, i, PI, f, mt, kt, lane, stage);
+          const uint32_t blo = lds32(xf + kt * 16), bhi = lds32(xf + ns * S.Kp + kt * 16);
+          mma_k16(c[fi][0], a.x, a.y, blo);
+          mma_k16(c[fi][1], a.x, a.y, bhi);
+          mma_k16(c[fi][1], a.z, a.w, blo);
+          mma_k16(c[fi][2], a.z, a.w, bhi);
+        }
+      }
+#pragma unroll
+      for (int r4 = 0; r4 < 4; ++r4) {
+        const int m = mt * 16 + g + 8 * (r4 >> 1), s = 2 * tig + (r4 & 1);
+        if (s >= ns) continue;
+        uint32_t wlo = 0, whi = 0;
+#pragma unroll
+        for (int fi = 0; fi < 4; ++fi) {
+          // 2^16 == c16 (mod p): the sum stays in int32 (bound checked at launch)
+          const int c2 = reduce32(c[fi][2][r4], p, half, inv_p);
+          const int c1 = S.Kp > 128 ? reduce32(c[fi][1][r4], p, half, inv_p) : c[fi][1][r4];
+          const int z = c[fi][0][r4] + c1 * 256 + c2 * c16;
           int lo, hi;
           split8(reduce32(z, p, half, inv_p), lo, hi);
           wlo |= static_cast<uint32_t>(lo & 255) << (8 * fi);
@@ -531,16 +704,18 @@ __device__ __forceinline__ void inverse(const Shape& S, const int8_t* Y,
 }
 
 // The inverse NTT of the scatter path (U*R != 16, and the general
-// instantiation): one m-tile at a time; the second prime adds V << (kbits *
-// limb) of row m = (limb, u, r) into acc[s][u][t*R + r] with a uint32
-// atomicAdd. Padding rows m >= M are skipped. At F = 256 (kWide) the B
+// instantiation): one m-tile at a time; the second prime adds V << (rb +
+// kbits * limb) of row m = (limb, u, r) into acc[s][u][t*R + r] with a uint32
+// atomicAdd (kRb: the general instantiation, which takes every rb > 0;
+// elsewhere rb = 0). Padding rows m >= M are skipped. At F >= 256 (kFW > 1) the B
 // fragments are read at their use, and C1 is reduced before its product by
 // 256 (257 FP 2^15 would leave int32).
-template <int PI, bool kWide>
+template <int PI, int kFW, bool kRb>
 __device__ __forceinline__ void inverse_scatter(const Shape& S, const int8_t* Y,
                                                 const uint4* __restrict__ Wi, int16_t* res0,
                                                 uint32_t* acc, int nvalid, int warp, int lane) {
-  constexpr int NJ = Freq<kWide>::kNJ, KTM = Freq<kWide>::kKT;
+  constexpr bool kWide = kFW > 1;
+  constexpr int NJ = Freq<kFW>::kNJ, KTM = Freq<kFW>::kKT;
   const int g = lane >> 2, tig = lane & 3;
   const int p = PI ? S.p1 : S.p0, half = PI ? S.half1 : S.half0;
   const float inv_p = PI ? S.finv1 : S.finv0;
@@ -605,7 +780,8 @@ __device__ __forceinline__ void inverse_scatter(const Shape& S, const int8_t* Y,
           const int V = v0 + q * S.p0;   // |V| < p0 p1 / 2 < 2^31
           const int limb = m / S.UR, ur = m - limb * S.UR, u = ur / S.R, r = ur - u * S.R;
           const int t = nt * 8 + 2 * tig + (r4 & 1);
-          atomicAdd(acc_s + u * S.N + t * S.R + r, static_cast<uint32_t>(V) << (S.kbits * limb));
+          atomicAdd(acc_s + u * S.N + t * S.R + r,
+                    static_cast<uint32_t>(V) << ((kRb ? S.rb : 0) + S.kbits * limb));
         }
       }
     }
@@ -625,11 +801,11 @@ __device__ unsigned long long phase_clocks[8];
 #define CRT_MMA_PHASE(k)
 #endif
 
-// MTK: m16 tiles of Kp (3 or 4; 8 in the general instantiation); MTM: m16
+// MTK: m16 tiles of Kp (3 or 4; 16 in the general instantiation); MTM: m16
 // tiles of Mp on the register path (3 or 4), or 0 for the scatter path; kS:
-// samples a block (8), or 0 for S.ns (the general instantiation); kWide:
-// F = 256.
-template <class Key, int DL, int MTK, int MTM, int kS, bool kWide>
+// samples a block (8), or 0 for S.ns (the general instantiation); kFW: FP/128
+// rounded up (1, 2 or 4).
+template <class Key, int DL, int MTK, int MTM, int kS, int kFW>
 __global__ void __launch_bounds__(kThreads, 1) rotate_kernel(
     const int32_t* __restrict__ acc0, const int32_t* __restrict__ bara,
     const typename Key::Elem* __restrict__ key, const uint4* __restrict__ Wf,
@@ -664,28 +840,32 @@ __global__ void __launch_bounds__(kThreads, 1) rotate_kernel(
     __syncthreads();
     CRT_MMA_PHASE(0);
     copy16(dig_g, reinterpret_cast<const uint4*>(buf1), dig16, tid);   // kept for the second
-    forward<DL, 0, MTK, kS, kWide>(S, buf1, X, Wf, nvalid, warp, lane);
+    if constexpr (kS > 0) forward<DL, 0, MTK, kS>(S, buf1, X, Wf, nvalid, warp, lane);
+    else forward_general<DL, 0, kFW>(S, buf1, X, Wf, nvalid, warp, lane);
     __syncthreads();
     CRT_MMA_PHASE(1);
-    pointwise<Key, 0, MTK, kS>(S, i, key, X, buf1, stage, warp, lane);
+    if constexpr (kS > 0) pointwise<Key, 0, MTK, kS>(S, i, key, X, buf1, stage, warp, lane);
+    else pointwise_general<Key, 0>(S, i, key, X, buf1, stage, warp, lane);
     __syncthreads();
     CRT_MMA_PHASE(2);
     if constexpr (MTM > 0) inverse<0, MTM>(S, buf1, Wi, res0_b, acc, nvalid, warp, lane);
-    else inverse_scatter<0, kWide>(S, buf1, Wi, res0_b, acc, nvalid, warp, lane);
+    else inverse_scatter<0, kFW, kS == 0>(S, buf1, Wi, res0_b, acc, nvalid, warp, lane);
     __syncthreads();
     CRT_MMA_PHASE(3);
     // second prime, then the accumulator update
     copy16(reinterpret_cast<uint4*>(buf1), dig_g, dig16, tid);
     __syncthreads();
     CRT_MMA_PHASE(4);
-    forward<DL, 1, MTK, kS, kWide>(S, buf1, X, Wf, nvalid, warp, lane);
+    if constexpr (kS > 0) forward<DL, 1, MTK, kS>(S, buf1, X, Wf, nvalid, warp, lane);
+    else forward_general<DL, 1, kFW>(S, buf1, X, Wf, nvalid, warp, lane);
     __syncthreads();
     CRT_MMA_PHASE(5);
-    pointwise<Key, 1, MTK, kS>(S, i, key, X, buf1, stage, warp, lane);
+    if constexpr (kS > 0) pointwise<Key, 1, MTK, kS>(S, i, key, X, buf1, stage, warp, lane);
+    else pointwise_general<Key, 1>(S, i, key, X, buf1, stage, warp, lane);
     __syncthreads();
     CRT_MMA_PHASE(6);
     if constexpr (MTM > 0) inverse<1, MTM>(S, buf1, Wi, res0_b, acc, nvalid, warp, lane);
-    else inverse_scatter<1, kWide>(S, buf1, Wi, res0_b, acc, nvalid, warp, lane);
+    else inverse_scatter<1, kFW, kS == 0>(S, buf1, Wi, res0_b, acc, nvalid, warp, lane);
     __syncthreads();
     CRT_MMA_PHASE(7);
   }
@@ -707,7 +887,9 @@ size_t plan_samples(Shape& S, int DL, int ns) {
 }
 
 // Checks the shape and the stated bounds, sizes shared memory and launches
-// rotate_kernel<Key, ...> on `stream`. acc0, out: (B, U, N) int32; bara:
+// rotate_kernel<Key, ...> on `stream`. rb: the key's rounding bits (0 for
+// the exact plan; the L limbs of kbits bits cover 32 - rb bits once).
+// acc0, out: (B, U, N) int32; bara:
 // (n, B) int32 in [0, 2N); key: the NTT-domain key as Key reads it; Wf, Wi:
 // (2, FP/8, FP/32, 32, 4, 8) int8 B fragments of W [t][f] and Winv [f][t]
 // (ntt.NttContext.W_mma / Winv_mma); scratch: scratch_bytes of device
@@ -720,10 +902,10 @@ size_t plan_samples(Shape& S, int DL, int ns) {
 template <class Key>
 int launch(const void* acc0, const void* bara, const void* key, const void* Wf,
            const void* Wi, void* scratch, long long scratch_bytes, void* out, int B, int n,
-           int U, int N, int R, int l, int Bgbit, int L, int kbits, int p0, int p1,
+           int U, int N, int R, int l, int Bgbit, int L, int kbits, int rb, int p0, int p1,
            int crt_inv, void* stream) {
   Shape S;
-  S.B = B; S.n = n; S.U = U; S.N = N; S.R = R; S.F = R > 0 ? N / R : 0; S.l = l;
+  S.B = B; S.n = n; S.U = U; S.N = N; S.R = R; S.F = R > 0 ? N / R : 0; S.l = l; S.rb = rb;
   S.FP = S.F > 32 ? S.F : 32;
   S.J = U * l; S.K = S.J * R; S.L = L; S.M = L * U * R; S.Bgbit = Bgbit; S.kbits = kbits;
   S.Kp = (S.K + 15) / 16 * 16; S.Mp = (S.M + 15) / 16 * 16; S.UR = U * R;
@@ -738,9 +920,9 @@ int launch(const void* acc0, const void* bara, const void* key, const void* Wf,
   S.c16_0 = bal16(p0); S.c16_1 = bal16(p1);
   if (B <= 0 || n < 0 || U <= 0 || l <= 0 || Bgbit <= 0 || Bgbit > 15 || l * Bgbit > 32 ||
       R <= 0 || N % R != 0 || (N & (N - 1)) != 0 || (R & (R - 1)) != 0 ||
-      S.F % 8 != 0 || S.FP % 32 != 0 || S.FP > 32 * Freq<true>::kKT ||
-      S.F > 8 * kWarps * Freq<true>::kNJ || S.Kp > 16 * 8 || L * kbits < 32 ||
-      kbits * (L - 1) >= 32 ||
+      S.F % 8 != 0 || S.FP % 32 != 0 || S.FP > 32 * Freq<kMaxFW>::kKT ||
+      S.F > 8 * kWarps * Freq<kMaxFW>::kNJ || S.Kp > 16 * 16 || rb < 0 || rb >= 32 ||
+      L * kbits < 32 - rb || kbits * (L - 1) >= 32 - rb ||
       p0 < 1024 || p1 < 1024 || (p0 & 1) == 0 || (p1 & 1) == 0)   // reduce32: |z/p| < 2^22
     return static_cast<int>(cudaErrorInvalidValue);
   S.halfBg = 1 << (Bgbit - 1);
@@ -758,9 +940,10 @@ int launch(const void* acc0, const void* bara, const void* key, const void* Wf,
   if (err != cudaSuccess) return static_cast<int>(err);
   // The shipped instantiations where they apply (F <= 128, Kp <= 64, 8
   // samples fitting), else the general one at the most samples that fit.
-  const bool wide = S.FP > 32 * kMaxKT;
+  const int fw = S.FP <= 128 ? 1 : S.FP <= 256 ? 2 : 4;
+  const bool wide = fw > 1;
   size_t smem = plan_samples<Key>(S, DL, kMaxSamples);
-  const bool general = wide || S.Kp > 64 || smem > static_cast<size_t>(optin);
+  const bool general = wide || S.Kp > 64 || rb > 0 || smem > static_cast<size_t>(optin);
   for (int ns = kMaxSamples / 2; general && ns >= 1 && smem > static_cast<size_t>(optin); ns /= 2)
     smem = plan_samples<Key>(S, DL, ns);
   if (smem > static_cast<size_t>(optin)) return static_cast<int>(cudaErrorInvalidValue);
@@ -773,13 +956,19 @@ int launch(const void* acc0, const void* bara, const void* key, const void* Wf,
                                      abs(S.c16_1) * static_cast<long long>(S.half1)
                                  ? abs(S.c16_0) * static_cast<long long>(S.half0)
                                  : abs(S.c16_1) * static_cast<long long>(S.half1);
-  const long long pointwise_sum = Key::kReduceC2 || general
-      ? static_cast<long long>(S.Kp) * 128 * 128 * (1 + 2 * 256) + c16_half
-      : static_cast<long long>(S.Kp) * 128 * 128 * (1 + 2 * 256 + c16);
+  // The general instantiation reduces C2 always and C1 at Kp > 128 in the
+  // pointwise sum, C1 at F = 512 in the forward and at F >= 256 in the inverse.
+  const long long pointwise_sum =
+      general && S.Kp > 128 ? static_cast<long long>(S.Kp) * 128 * 128 + 256LL * hmax + c16_half
+      : Key::kReduceC2 || general
+          ? static_cast<long long>(S.Kp) * 128 * 128 * (1 + 2 * 256) + c16_half
+          : static_cast<long long>(S.Kp) * 128 * 128 * (1 + 2 * 256 + c16);
+  const long long forward_sum = fw > 2 ? S.FP * 128LL * (128 + dhi) + 256LL * hmax
+                                       : 257LL * S.FP * 128 * (128 + dhi);
   const long long inverse_sum = wide ? S.FP * 2LL * 128 * 128 + 256LL * hmax
                                      : 257LL * S.FP * 2 * 128 * 128;
   if (hmax > 127 * 256 + 127 || dhi > 127 || pointwise_sum >= (1LL << 31) ||
-      257LL * S.FP * 128 * (128 + dhi) >= (1LL << 31) || inverse_sum >= (1LL << 31) ||
+      forward_sum >= (1LL << 31) || inverse_sum >= (1LL << 31) ||
       static_cast<long long>(S.half0 + S.half1) * abs(crt_inv) >= (1LL << 31) ||
       static_cast<long long>(S.half1) * p0 + S.half0 >= (1LL << 31))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -802,28 +991,31 @@ int launch(const void* acc0, const void* bara, const void* key, const void* Wf,
   };
   // Compile-time tile counts of the shipped instantiations: (MTK, MTM) =
   // (3, 3), (3, 4) or (4, 4) on the register path (U*R = 16, Mp <= 64), (4,
-  // 0) on the scatter path; the general one is (8, 0) at kS = 0.
+  // 0) on the scatter path; the general one is (16, 0) at kS = 0, per F/128.
   const bool reg = S.UR == 16 && S.Mp <= 64;
   if (general) {
-    if (wide) {
-      if (DL == 1) args(rotate_kernel<Key, 1, 8, 0, 0, true>);
-      else args(rotate_kernel<Key, 2, 8, 0, 0, true>);
+    if (fw == 4) {
+      if (DL == 1) args(rotate_kernel<Key, 1, 16, 0, 0, 4>);
+      else args(rotate_kernel<Key, 2, 16, 0, 0, 4>);
+    } else if (fw == 2) {
+      if (DL == 1) args(rotate_kernel<Key, 1, 16, 0, 0, 2>);
+      else args(rotate_kernel<Key, 2, 16, 0, 0, 2>);
     } else {
-      if (DL == 1) args(rotate_kernel<Key, 1, 8, 0, 0, false>);
-      else args(rotate_kernel<Key, 2, 8, 0, 0, false>);
+      if (DL == 1) args(rotate_kernel<Key, 1, 16, 0, 0, 1>);
+      else args(rotate_kernel<Key, 2, 16, 0, 0, 1>);
     }
   } else if (reg && S.Kp <= 48 && S.Mp <= 48) {
-    if (DL == 1) args(rotate_kernel<Key, 1, 3, 3, 8, false>);
-    else args(rotate_kernel<Key, 2, 3, 3, 8, false>);
+    if (DL == 1) args(rotate_kernel<Key, 1, 3, 3, 8, 1>);
+    else args(rotate_kernel<Key, 2, 3, 3, 8, 1>);
   } else if (reg && S.Kp <= 48) {
-    if (DL == 1) args(rotate_kernel<Key, 1, 3, 4, 8, false>);
-    else args(rotate_kernel<Key, 2, 3, 4, 8, false>);
+    if (DL == 1) args(rotate_kernel<Key, 1, 3, 4, 8, 1>);
+    else args(rotate_kernel<Key, 2, 3, 4, 8, 1>);
   } else if (reg) {
-    if (DL == 1) args(rotate_kernel<Key, 1, 4, 4, 8, false>);
-    else args(rotate_kernel<Key, 2, 4, 4, 8, false>);
+    if (DL == 1) args(rotate_kernel<Key, 1, 4, 4, 8, 1>);
+    else args(rotate_kernel<Key, 2, 4, 4, 8, 1>);
   } else {
-    if (DL == 1) args(rotate_kernel<Key, 1, 4, 0, 8, false>);
-    else args(rotate_kernel<Key, 2, 4, 0, 8, false>);
+    if (DL == 1) args(rotate_kernel<Key, 1, 4, 0, 8, 1>);
+    else args(rotate_kernel<Key, 2, 4, 0, 8, 1>);
   }
   return static_cast<int>(err);
 }

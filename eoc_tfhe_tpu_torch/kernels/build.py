@@ -33,10 +33,10 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 #: C entry point and ctypes argument types of each kernel source.
 SIGNATURES = {
     # acc0, bara, key, W_mma, Winv_mma, scratch, scratch_bytes, out; B, n, U, N,
-    # R, l, Bgbit, L, kbits, p0, p1, crt_inv; stream
-    "blind_rotate_ntt": ("blind_rotate_ntt_launch", [_P] * 6 + [_L, _P] + [_I] * 12 + [_P]),
+    # R, l, Bgbit, L, kbits, rb, p0, p1, crt_inv; stream
+    "blind_rotate_ntt": ("blind_rotate_ntt_launch", [_P] * 6 + [_L, _P] + [_I] * 13 + [_P]),
     # the same arguments; key (n, 2, F, K, 2M) int8
-    "blind_rotate_ntt_v1": ("blind_rotate_ntt_v1_launch", [_P] * 6 + [_L, _P] + [_I] * 12 + [_P]),
+    "blind_rotate_ntt_v1": ("blind_rotate_ntt_v1_launch", [_P] * 6 + [_L, _P] + [_I] * 13 + [_P]),
     # acc0, bara, key, out; B, n, U, N, l, Bgbit; stream
     "blind_rotate_compact": ("blind_rotate_compact_launch", [_P] * 4 + [_I] * 6 + [_P]),
 }

@@ -5,8 +5,8 @@ and the tfhe_io record streams); ``codec.cpp`` is the equivalent native tier
 here.  It is built with ``g++`` at first use (never at import) into the
 port's git-ignored ``_build/`` directory, named by a hash of the source, under
 a lock, so threads and processes that start together build it once and load
-only a finished file.  Every function here returns None when the library is
-unavailable, :func:`available` says whether it is loaded, and
+only a finished file.  Every function here but :func:`b64encode` (which
+``binascii`` computes) returns None when the library is unavailable, :func:`available` says whether it is loaded, and
 :data:`build_error` says why the build failed.
 
 ``io/tfhe_io`` routes only base64 decoding through it (2.2-2.5x faster than the
@@ -23,6 +23,7 @@ runs, and :data:`build_error` stays None.
 
 from __future__ import annotations
 
+import binascii
 import ctypes
 import hashlib
 import os
@@ -130,6 +131,13 @@ def _records(data: bytes, B: int, size: int, what: str) -> np.ndarray:
     if B < 0 or len(data) < B * size:
         raise ValueError(f"truncated stream: wanted {B} {what} records of {size} bytes")
     return np.frombuffer(data, np.uint8, count=B * size)
+
+
+def b64encode(data: bytes) -> str:
+    """Standard base64 of ``data`` with padding, the reference's
+    ``native.b64encode`` output.  ``binascii`` encodes it (faster than the
+    library's encoder was), so it needs no build and never returns None."""
+    return binascii.b2a_base64(data, newline=False).decode()
 
 
 def b64decode(s: str) -> bytes | None:

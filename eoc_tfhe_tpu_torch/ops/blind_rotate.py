@@ -129,18 +129,50 @@ def crt_mma_smem_bytes(U: int, ctx: NttContext, tg, stage_bytes: int, samples: i
 def crt_mma_plan(U: int, ctx: NttContext, tg, stage_bytes: int = 0) -> tuple[int, bool]:
     """The instantiation ``crt_mma::launch`` picks: (samples a block, general).
 
-    The shipped sets (F <= 128, Kp <= 64, 8 samples within the card's shared
-    memory) take their compile-time instantiations; every other shape takes
-    the general one at the most samples that fit (``samples`` is then the
-    largest of :data:`SAMPLES` that fits, or 1 where none does, which the
-    domain check refuses).
+    The shipped sets (F <= 128, Kp <= 64, an exact key, 8 samples within the
+    card's shared memory) take their compile-time instantiations; every
+    other shape, and every rounded plan (rb > 0), takes the general one at
+    the most samples that fit (``samples`` is then the largest of
+    :data:`SAMPLES` that fits, or 1 where none does, which the domain check
+    refuses).
     """
     Kp = pad16(tg.kpl * ctx.R)
     smem = {s: crt_mma_smem_bytes(U, ctx, tg, stage_bytes, s) for s in SAMPLES}
-    general = max(ctx.F, 32) > 128 or Kp > 64 or smem[8] > SMEM_PER_BLOCK
+    general = (max(ctx.F, 32) > 128 or Kp > 64 or ctx.key_round_bits > 0
+               or smem[8] > SMEM_PER_BLOCK)
     if not general:
         return 8, False
     return next((s for s in SAMPLES if smem[s] <= SMEM_PER_BLOCK), SAMPLES[-1]), True
+
+
+def _c16(p: int) -> int:
+    """|2^16 mod p|, balanced: the pointwise stage's factor of C2."""
+    r = (1 << 16) % p
+    return abs(r - p if r > p // 2 else r)
+
+
+def crt_mma_sums(U: int, ctx: NttContext, tg, *, reduce_c2: bool,
+                 stage_bytes: int = 0) -> dict[str, int]:
+    """Worst-case magnitudes of the int32 sums of ``crt_mma::launch``'s
+    stages in the instantiation it picks (the launcher's bounds): the forward
+    (C1 reduced before its product by 256 at F = 512), the pointwise (C2
+    reduced for a ``reduce_c2`` key and in the general instantiation, C1 too
+    there at Kp > 128) and the inverse (C1 reduced at F >= 256)."""
+    Kp, FP = pad16(tg.kpl * ctx.R), max(ctx.F, 32)
+    hmax = max((p - 1) // 2 for p in ctx.primes)
+    dhi = 0 if tg.halfBg <= 128 else -(-tg.halfBg // 256)
+    c16_half = max(_c16(p) * ((p - 1) // 2) for p in ctx.primes)
+    general = crt_mma_plan(U, ctx, tg, stage_bytes)[1]
+    if general and Kp > 128:
+        pointwise = Kp * 128 * 128 + 256 * hmax + c16_half
+    elif reduce_c2 or general:
+        pointwise = Kp * 128 * 128 * 513 + c16_half
+    else:
+        pointwise = Kp * 128 * 128 * (513 + max(_c16(p) for p in ctx.primes))
+    forward = (FP * 128 * (128 + dhi) + 256 * hmax if FP > 256
+               else 257 * FP * 128 * (128 + dhi))
+    inverse = FP * 2 * 128 * 128 + 256 * hmax if FP > 128 else 257 * FP * 2 * 128 * 128
+    return {"forward": forward, "pointwise": pointwise, "inverse": inverse}
 
 
 def check_crt_mma_domain(name: str, U: int, ctx: NttContext, tg, *, reduce_c2: bool,
@@ -151,6 +183,7 @@ def check_crt_mma_domain(name: str, U: int, ctx: NttContext, tg, *, reduce_c2: b
     ``reduce_c2`` and ``stage_bytes`` are the key loader's ``kReduceC2`` and
     ``kStageBytes``; the general instantiation reduces C2 for every key."""
     N, R, F, L, kbits = ctx.N, ctx.R, ctx.F, ctx.key_limbs, ctx.key_limb_bits
+    rb = ctx.key_round_bits
     K, M = tg.kpl * ctx.R, L * U * R
     p0, p1 = ctx.primes
     half0, half1 = (p0 - 1) // 2, (p1 - 1) // 2
@@ -159,14 +192,14 @@ def check_crt_mma_domain(name: str, U: int, ctx: NttContext, tg, *, reduce_c2: b
         raise ValueError(f"{name} {what} (N={N}, k={U - 1}, l={tg.l}, Bgbit={tg.Bgbit}, "
                          f"primes {ctx.primes})")
 
-    if F % 8 or not 8 <= F <= 256:
-        refuse(f"takes F = N/R a multiple of 8 from 8 to 256; N={N}, R={R} give F={F}")
-    if pad16(K) > 128:
-        refuse(f"takes K = kpl*R up to 128 rows; kpl={tg.kpl}, R={R} give K={K}")
+    if F % 8 or not 8 <= F <= 512:
+        refuse(f"takes F = N/R a multiple of 8 from 8 to 512; N={N}, R={R} give F={F}")
+    if pad16(K) > 256:
+        refuse(f"takes K = kpl*R up to 256 rows; kpl={tg.kpl}, R={R} give K={K}")
     if tg.Bgbit > 15 or tg.l * tg.Bgbit > 32:
         refuse(f"takes Bgbit <= 15 and l*Bgbit <= 32; got Bgbit={tg.Bgbit}, l={tg.l}")
-    if L * kbits < 32 or kbits * (L - 1) >= 32:
-        refuse(f"takes key limbs covering 32 bits once; got {L} x {kbits} bits")
+    if not 0 <= rb < 32 or L * kbits < 32 - rb or kbits * (L - 1) >= 32 - rb:
+        refuse(f"takes key limbs covering 32 - rb bits once; got {L} x {kbits} bits, rb={rb}")
     if min(p0, p1) < 1024 or not (p0 & p1 & 1) or max(half0, half1) > 127 * 256 + 127:
         refuse(f"takes odd primes from 1024 to 65279; got {ctx.primes}")
     samples, general = crt_mma_plan(U, ctx, tg, stage_bytes)
@@ -174,18 +207,12 @@ def check_crt_mma_domain(name: str, U: int, ctx: NttContext, tg, *, reduce_c2: b
     if smem > SMEM_PER_BLOCK:
         refuse(f"needs {smem:,} bytes of shared memory for U={U}, N={N}, K={K}, M={M} "
                f"at {samples} samples a block; the card allows {SMEM_PER_BLOCK:,}")
-
-    def c16(p):
-        r = (1 << 16) % p
-        return abs(r - p if r > p // 2 else r)
-    kp = pad16(K) * 128 * 128
-    if reduce_c2 or general:
-        pointwise = kp * 513 + max(c16(p0) * half0, c16(p1) * half1)
-    else:
-        pointwise = kp * (513 + max(c16(p0), c16(p1)))
-    if pointwise >= 1 << 31:
-        refuse(f"pointwise int32 sum reaches {pointwise:,} >= 2^31 (Kp={pad16(K)}, "
-               f"c16 = {c16(p0)}, {c16(p1)}{', C2 reduced' if reduce_c2 or general else ''})")
+    for stage, bound in crt_mma_sums(U, ctx, tg, reduce_c2=reduce_c2,
+                                     stage_bytes=stage_bytes).items():
+        if bound >= 1 << 31:
+            refuse(f"{stage} int32 sum reaches {bound:,} >= 2^31 (Kp={pad16(K)}, F={F}, "
+                   f"c16 = {_c16(p0)}, {_c16(p1)}"
+                   f"{', C2 reduced' if reduce_c2 or general else ''})")
     if (half0 + half1) * abs(ctx.crt_inv) >= 1 << 31 or half1 * p0 + half0 >= 1 << 31:
         refuse(f"CRT sums leave int32 for primes {ctx.primes}")
 
@@ -219,7 +246,7 @@ def _launch(acc0: torch.Tensor, bara: torch.Tensor, key: torch.Tensor,
             acc0.data_ptr(), bara.data_ptr(), key.data_ptr(), ctx.W_mma.data_ptr(),
             ctx.Winv_mma.data_ptr(), scratch.data_ptr(), scratch.numel(), out.data_ptr(),
             B, n, U, N, ctx.R, tg.l, tg.Bgbit, ctx.key_limbs, ctx.key_limb_bits,
-            ctx.primes[0], ctx.primes[1], ctx.crt_inv, stream)
+            ctx.key_round_bits, ctx.primes[0], ctx.primes[1], ctx.crt_inv, stream)
     if err != 0:
         raise launch_error("blind_rotate_ntt", lib, err)
     return out

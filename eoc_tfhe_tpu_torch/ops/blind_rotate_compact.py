@@ -14,9 +14,9 @@ unit, which gives the same bits.
 runs :func:`blind_rotate_compact_plain` (the rows scan); for a CUDA tensor it
 launches the hand-written kernel in ``csrc/blind_rotate_compact.cu`` or
 raises: :func:`check_kernel_domain` refuses, by name and before any launch, a
-shape the kernel does not take (it takes k = 1, 2 or 3 and every power-of-two
-N from 32 to 2048 whose block fits in shared memory at 2 samples and one key
-limb a pass).  ``launches`` counts
+shape the kernel does not take (it takes k = 1 to 4 and every power-of-two
+N from 32 to 4096 whose block fits in shared memory at 2 samples, one key
+limb and one digit row a pass).  ``launches`` counts
 kernel launches and nothing else.
 """
 
@@ -49,22 +49,33 @@ def check_digit_domain(params: GateBootstrappingParams) -> None:
             "only for int8 gadget digits; use the ntt_kernel form")
 
 
-def smem_bytes(U: int, N: int, J: int, samples: int, limbs: int) -> int:
+def smem_bytes(U: int, N: int, J: int, samples: int, limbs: int, rows: int | None = None) -> int:
     """Shared memory of a K2 block: the accumulators (samples, U*N + 4)
-    uint32, the digits (samples, J*N + 16) int8 and the byte rows (limbs, J,
-    U, 2N) int8 of the key limbs converted a pass, + 16."""
-    return samples * (U * N + 4) * 4 + samples * (J * N + 16) + limbs * J * U * 2 * N + 16
+    uint32, the digits (samples, J*N + 16) int8 and the byte rows (limbs,
+    rows, U, 2N) int8 of the key limbs and digit rows converted a pass (all
+    J rows unless ``rows`` is given), + 16."""
+    rows = J if rows is None else rows
+    return samples * (U * N + 4) * 4 + samples * (J * N + 16) + limbs * rows * U * 2 * N + 16
 
 
-#: K2's (samples a block, key limbs converted a pass), in the launcher's order
-#: of preference: the first whose block fits is taken.
+#: K2's (samples a block, key limbs converted a pass) with all J digit rows a
+#: pass, in the launcher's order of preference: the first whose block fits
+#: is taken; then (samples, 1 limb, the most rows below J that fit) for
+#: samples 8, 4, 2.
 PLANS = ((8, 4), (8, 1), (4, 4), (4, 1), (2, 4), (2, 1))
 
 
-def kernel_plan(U: int, N: int, J: int) -> tuple[int, int]:
-    """The (samples, limbs a pass) that the launcher takes, or the last of
-    :data:`PLANS` where none fits (which the domain check refuses)."""
-    return next((pl for pl in PLANS if smem_bytes(U, N, J, *pl) <= SMEM_PER_BLOCK), PLANS[-1])
+def kernel_plan(U: int, N: int, J: int) -> tuple[int, int, int]:
+    """The (samples, limbs a pass, digit rows a pass) that the launcher takes,
+    or (2, 1, 1) where none fits (which the domain check refuses)."""
+    for samples, limbs in PLANS:
+        if smem_bytes(U, N, J, samples, limbs) <= SMEM_PER_BLOCK:
+            return samples, limbs, J
+    for samples in (8, 4, 2):
+        for rows in range(J - 1, 0, -1):
+            if smem_bytes(U, N, J, samples, 1, rows) <= SMEM_PER_BLOCK:
+                return samples, 1, rows
+    return 2, 1, 1
 
 
 def check_kernel_domain(params: GateBootstrappingParams) -> None:
@@ -74,23 +85,24 @@ def check_kernel_domain(params: GateBootstrappingParams) -> None:
     tg = params.tgsw_params
     U, N, J = tg.tlwe_params.k + 1, tg.tlwe_params.N, tg.kpl
     where = f"(N={N}, k={U - 1}, l={tg.l}, Bgbit={tg.Bgbit})"
-    if U not in (2, 3, 4):
-        raise ValueError(f"K2 (blind_rotate_compact) takes k = 1, 2 or 3 (U = 2, 3, 4); "
+    if U not in (2, 3, 4, 5):
+        raise ValueError(f"K2 (blind_rotate_compact) takes k = 1 to 4 (U = 2 to 5); "
                          f"got U={U} {where}")
-    if N & (N - 1) or not 32 <= N <= 2048:
+    if N & (N - 1) or not 32 <= N <= 4096:
         raise ValueError(f"K2 (blind_rotate_compact) takes N a power of two from 32 to "
-                         f"2048; got N={N} {where}")
+                         f"4096; got N={N} {where}")
     if tg.l * tg.Bgbit > 32:
         raise ValueError(f"K2 (blind_rotate_compact) takes l*Bgbit <= 32 {where}")
     if J * N * tg.halfBg * 128 >= 1 << 31:
         raise ValueError(f"K2 (blind_rotate_compact) limb sum reaches "
                          f"{J * N * tg.halfBg * 128:,} >= 2^31 {where}")
-    samples, limbs = kernel_plan(U, N, J)
-    smem = smem_bytes(U, N, J, samples, limbs)
+    samples, limbs, rows = kernel_plan(U, N, J)
+    smem = smem_bytes(U, N, J, samples, limbs, rows)
     if smem > SMEM_PER_BLOCK:
         raise ValueError(f"K2 (blind_rotate_compact) needs {smem:,} bytes of shared memory "
-                         f"for U={U}, N={N} at {samples} samples and {limbs} key limb a "
-                         f"pass; the card allows {SMEM_PER_BLOCK:,} {where}")
+                         f"for U={U}, N={N}, J={J} at {samples} samples, {limbs} key limb "
+                         f"and {rows} digit row a pass; the card allows {SMEM_PER_BLOCK:,} "
+                         f"{where}")
 
 
 def prepare_compact_bk(bk_rows: torch.Tensor, limbs: int = polymul.LIMBS) -> torch.Tensor:

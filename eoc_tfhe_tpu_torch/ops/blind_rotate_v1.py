@@ -113,7 +113,7 @@ def _launch(acc0: torch.Tensor, bara: torch.Tensor, key: torch.Tensor,
             acc0.data_ptr(), bara.data_ptr(), key.data_ptr(), ctx.W_mma.data_ptr(),
             ctx.Winv_mma.data_ptr(), scratch.data_ptr(), scratch.numel(), out.data_ptr(),
             B, n, U, N, ctx.R, tg.l, tg.Bgbit, ctx.key_limbs, ctx.key_limb_bits,
-            ctx.primes[0], ctx.primes[1], ctx.crt_inv, stream)
+            ctx.key_round_bits, ctx.primes[0], ctx.primes[1], ctx.crt_inv, stream)
     if err != 0:
         raise launch_error("blind_rotate_ntt_v1", lib, err)
     return out

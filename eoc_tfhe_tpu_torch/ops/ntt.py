@@ -24,7 +24,12 @@ The "ntt_scan" form stores the same residues over
 the last axis the [lo | hi] bytes of each residue (:func:`prepare_key_ntt`),
 and :func:`scan_to_v1_key` / :func:`v1_key_to_scan` carry it to and from the
 reference's scan layout ``T8 (n, P, L, 2, F, J*R, U*R)``.
-Only the exact plans are ported; the rounded-key plans stay demoted.
+
+Both forms take the reference's rounded-key plans too
+(:func:`choose_rounded_plan`): the key rounded to its top 32 - rb bits
+(:func:`round_key`) before the limb split, so that fewer limbs meet the CRT
+bound; limb l then carries scale 2^(rb + bits*l) (``NttContext.key_round_bits``).
+At the shipped sets the plan is exact (rb = 0).
 """
 
 from __future__ import annotations
@@ -110,13 +115,15 @@ def _ntt_matrices_np(p: int, F: int) -> tuple[np.ndarray, np.ndarray]:
     return _balanced_np(W.astype(np.int64), p), _balanced_np(Winv.astype(np.int64), p)
 
 
-def _choose_key_limbs(J: int, N: int, halfBg: int,
-                      primes: tuple[int, ...]) -> tuple[int, int]:
-    """Smallest (limbs, bits) covering 32 bits with the CRT bound met:
-    2 * J * N * halfBg * limb_max < prod(primes), limb_max = 2^(bits-1) + 1."""
+def _choose_key_limbs(J: int, N: int, halfBg: int, primes: tuple[int, ...],
+                      cover_bits: int = 32) -> tuple[int, int]:
+    """Smallest (limbs, bits) covering ``cover_bits`` with the CRT bound met:
+    2 * J * N * halfBg * limb_max < prod(primes), limb_max = 2^(bits-1) + 1.
+    ``cover_bits < 32`` is the rounded-key plan: the key is first rounded to
+    its top ``cover_bits`` bits and the limbs cover only those."""
     P = int(np.prod([int(p) for p in primes], dtype=object))
     for limbs in (2, 3, 4, 6, 8):
-        bits = -(-32 // limbs)
+        bits = -(-cover_bits // limbs)
         limb_max = (1 << (bits - 1)) + 1
         if limb_max > 32639:
             continue
@@ -124,6 +131,52 @@ def _choose_key_limbs(J: int, N: int, halfBg: int,
             return limbs, bits
     raise ValueError(
         f"no key-limb split satisfies the CRT bound for J={J} N={N} halfBg={halfBg}")
+
+
+def choose_round_bits(J: int, N: int, halfBg: int,
+                      primes: tuple[int, ...] = DEFAULT_PRIMES, limbs: int = 2) -> int:
+    """Smallest key rounding ``rb`` such that ``limbs`` limbs of
+    ceil((32 - rb) / limbs) bits meet the CRT bound; raises if none does."""
+    P = int(np.prod([int(p) for p in primes], dtype=object))
+    for rb in range(0, 24):
+        bits = -(-(32 - rb) // limbs)
+        limb_max = (1 << (bits - 1)) + 1
+        if limb_max <= 32639 and 2 * J * N * halfBg * limb_max < P:
+            return rb
+    raise ValueError(
+        f"no {limbs}-limb rounded plan satisfies the CRT bound for "
+        f"J={J} N={N} halfBg={halfBg} primes={primes}")
+
+
+def choose_rounded_plan(J: int, N: int, halfBg: int, n_steps: int, bk_variance: float,
+                        primes: tuple[int, ...] = DEFAULT_PRIMES) -> int:
+    """Key rounding ``rb`` of the fewest-limb plan whose rounding noise is
+    acceptable, or 0 (exact).  The rounding error is fixed per key and the
+    digits it meets repeat across the n steps, so it adds coherently (~n^2):
+    a plan is taken where that variance is at most twice the inherent one
+    (the reference's rule, which rejects every sub-exact plan at the shipped
+    sets)."""
+    inherent = n_steps * J * N * ((2.0 * halfBg) ** 2 / 12.0) * bk_variance
+    for limbs in (2, 3, 4):
+        try:
+            rb = choose_round_bits(J, N, halfBg, primes, limbs)
+        except ValueError:
+            continue
+        if rb == 0:
+            return 0
+        round_var = (float(n_steps) ** 2 * J * N * float(halfBg ** 2)
+                     * (float(1 << (2 * rb)) / 12.0) / float(2 ** 64))
+        if round_var <= 2.0 * inherent:
+            return rb
+    return 0
+
+
+def round_key(bk: torch.Tensor, rb: int) -> torch.Tensor:
+    """A torus int32 key (any integer dtype) rounded to its top 32 - rb bits,
+    nearest with ties up: (bk >> rb) + bit rb-1 of bk.  rb = 0 returns ``bk``."""
+    if rb == 0:
+        return bk
+    return (bk >> rb) + ((bk >> (rb - 1)) & 1)
 
 
 # --------------------------------------------------------------------------
@@ -147,6 +200,10 @@ class NttContext:
     key_limb_bits: int
     halfBg: int
     J: int
+    #: Key rounding bits (0: exact mod 2^32).  When > 0 the key is rounded to
+    #: its top 32 - rb bits before the limb split, and limb l carries scale
+    #: 2^(rb + key_limb_bits * l) in the recombination.
+    key_round_bits: int = 0
 
     @property
     def crt_inv(self) -> int:
@@ -155,19 +212,27 @@ class NttContext:
         return int(_balanced_np(np.int64(pow(p1, p2 - 2, p2)), p2))
 
 
+def _outer_split(N: int) -> int:
+    """The reference's default outer split R for degree N (F = N/R >= R
+    where N allows it)."""
+    R = min(DEFAULT_R, N)
+    while N // R < R and R > 1:
+        R //= 2
+    return R
+
+
 def make_context(N: int, J: int, halfBg: int, primes: tuple[int, int],
-                 device=None) -> NttContext:
+                 device=None, key_round_bits: int = 0) -> NttContext:
     """NTT context for degree N, gadget width J = kpl, digit bound halfBg over
-    a CRT prime pair, with the reference's default outer split R."""
+    a CRT prime pair, with the reference's default outer split R.
+    ``key_round_bits > 0`` selects the rounded-key plan."""
     dev = resolve_device(device)
     primes = tuple(primes)
     if len(primes) != 2:
         raise ValueError("the CRT step takes exactly two primes")
-    R = min(DEFAULT_R, N)
-    while N // R < R and R > 1:
-        R //= 2
+    R = _outer_split(N)
     F = N // R
-    limbs, bits = _choose_key_limbs(J, N, halfBg, primes)
+    limbs, bits = _choose_key_limbs(J, N, halfBg, primes, cover_bits=32 - key_round_bits)
     mats = [_ntt_matrices_np(p, F) for p in primes]
     omegas = []
     for p in primes:
@@ -186,27 +251,54 @@ def make_context(N: int, J: int, halfBg: int, primes: tuple[int, int],
                       omega=torch.from_numpy(np.stack(omegas).astype(np.int32)).to(dev),
                       W_mma=frags(0), Winv_mma=frags(1),
                       N=N, R=R, F=F, primes=primes, key_limbs=limbs,
-                      key_limb_bits=bits, halfBg=halfBg, J=J)
+                      key_limb_bits=bits, halfBg=halfBg, J=J, key_round_bits=key_round_bits)
 
 
-def kernel_context(N: int, J: int, halfBg: int, device=None) -> NttContext:
-    """NttContext with the kernel's prime pair."""
-    return make_context(N, J, halfBg, KERNEL_PRIMES, device=device)
+def kernel_context(N: int, J: int, halfBg: int, device=None,
+                   key_round_bits: int = 0) -> NttContext:
+    """NttContext with the kernel's prime pair.  Raises, naming K1 and the
+    prime, where ``KERNEL_PRIMES`` has no 2F-th root of unity (N = 4096: F =
+    512 and 1024 does not divide 32257 - 1), as the reference's raises."""
+    F = N // _outer_split(N)
+    for p in KERNEL_PRIMES:
+        if (p - 1) % (2 * F):
+            raise ValueError(
+                f"K1 (blind_rotate_ntt) has no context at N={N}: its prime {p} has no "
+                f"{2 * F}th root of unity ({2 * F} does not divide {p}-1; F = N/R = {F}), "
+                f"as in the reference; the ntt_scan form's DEFAULT_PRIMES have one")
+    return make_context(N, J, halfBg, KERNEL_PRIMES, device=device,
+                        key_round_bits=key_round_bits)
 
 
-def kernel_context_for_params(params, device=None) -> NttContext:
-    """Kernel context for a GateBootstrappingParams (J = kpl, bound halfBg)."""
+def _rounded_bits(params, rounded: bool, primes: tuple[int, int]) -> int:
+    """The key rounding of ``params``'s plan over ``primes``: 0 unless
+    ``rounded``, then :func:`choose_rounded_plan` at the set's depth and key
+    noise."""
+    if not rounded:
+        return 0
     tg = params.tgsw_params
-    return kernel_context(N=tg.tlwe_params.N, J=tg.kpl, halfBg=tg.halfBg,
-                          device=device)
+    return choose_rounded_plan(tg.kpl, tg.tlwe_params.N, tg.halfBg, n_steps=params.n,
+                               bk_variance=float(tg.tlwe_params.alpha_min) ** 2,
+                               primes=primes)
 
 
-def context_for_params(params, device=None) -> NttContext:
-    """The "ntt_scan" form's context for a GateBootstrappingParams: the exact
-    plan over ``DEFAULT_PRIMES`` (the reference's ``context_for_params``)."""
+def kernel_context_for_params(params, rounded: bool = False, device=None) -> NttContext:
+    """Kernel context for a GateBootstrappingParams (J = kpl, bound halfBg);
+    ``rounded=True`` takes the rounded-key plan over ``KERNEL_PRIMES`` (the
+    reference's ``pallas_ntt_blindrot2.kernel_context_for_params``)."""
+    tg = params.tgsw_params
+    return kernel_context(N=tg.tlwe_params.N, J=tg.kpl, halfBg=tg.halfBg, device=device,
+                          key_round_bits=_rounded_bits(params, rounded, KERNEL_PRIMES))
+
+
+def context_for_params(params, rounded: bool = False, device=None) -> NttContext:
+    """The "ntt_scan" form's context for a GateBootstrappingParams over
+    ``DEFAULT_PRIMES``: the exact plan, or with ``rounded=True`` the
+    rounded-key one (the reference's ``context_for_params``)."""
     tg = params.tgsw_params
     return make_context(N=tg.tlwe_params.N, J=tg.kpl, halfBg=tg.halfBg,
-                        primes=DEFAULT_PRIMES, device=device)
+                        primes=DEFAULT_PRIMES, device=device,
+                        key_round_bits=_rounded_bits(params, rounded, DEFAULT_PRIMES))
 
 
 # --------------------------------------------------------------------------
@@ -269,12 +361,13 @@ def crt_pair(r0: torch.Tensor, r1: torch.Tensor, ctx: NttContext) -> torch.Tenso
 
 
 def limb_sum(V: torch.Tensor, ctx: NttContext, dim: int) -> torch.Tensor:
-    """sum_l V[l] * 2^(key_limb_bits * l) mod 2^32 over the key-limb axis
-    ``dim`` of the CRT'd values: the product with the whole 32-bit key."""
+    """sum_l V[l] * 2^(key_round_bits + key_limb_bits * l) mod 2^32 over the
+    key-limb axis ``dim`` of the CRT'd values: the product with the whole
+    (rounded) 32-bit key."""
     parts = torch.movedim(V, dim, 0)
     out = torch.zeros_like(parts[0])
     for li in range(parts.shape[0]):
-        out = out + (parts[li] << (ctx.key_limb_bits * li))
+        out = out + (parts[li] << (ctx.key_round_bits + ctx.key_limb_bits * li))
     return wrap32(out)
 
 
@@ -316,8 +409,9 @@ def kernel_key_residues(bk_rows: torch.Tensor, ctx: NttContext) -> torch.Tensor:
     key[i, p, f, (j, r1), (l, u, s)] is the NTT (prime p, frequency f) of
     Z^{wrap} * limb_l(bk[i, j, u])_{(s - r1) mod R}: the outer-twisted
     contraction tensor the blind rotation multiplies the digit transforms by.
-    Runs on the rows' device.  Every float64 step holds exact integers
-    (|limb| <= 2^10 + 1, |W| < 2^15, F <= 256 => |sum| < 2^33).
+    A rounded plan (``ctx.key_round_bits``) rounds the rows first
+    (:func:`round_key`).  Runs on the rows' device.  Every float64 step holds
+    exact integers (|limb| <= 2^15 + 1, |W| < 2^15, F <= 512 => |sum| < 2^40).
     """
     n, J, U, N = bk_rows.shape
     R, F, L, bits = ctx.R, ctx.F, ctx.key_limbs, ctx.key_limb_bits
@@ -325,7 +419,7 @@ def kernel_key_residues(bk_rows: torch.Tensor, ctx: NttContext) -> torch.Tensor:
     dev = bk_rows.device
 
     # signed base-2^bits limbs, borrow-carried (arithmetic shifts on int64)
-    out, c = [], bk_rows.to(torch.int64)
+    out, c = [], round_key(bk_rows.to(torch.int64), ctx.key_round_bits)
     base, half = 1 << bits, 1 << (bits - 1)
     for _ in range(L - 1):
         m = c & (base - 1)

@@ -7,8 +7,12 @@ full-width case uses random rows instead of a 128-bit keygen.  The C5 cases
 (ROADMAP) hold the padded key at shapes whose K or M is no multiple of 16,
 and the kernels' domain checks; the C7 cases the shapes that the kernels took
 only after C7 (N = 2048, k = 3, k = 2 at N = 1024, l = 5), each against the
-reference's NAND or its scan and Pallas kernels.
+reference's NAND or its scan and Pallas kernels; the C8 cases the shapes the
+kernels took only after C8 (N = 4096, K up to 256, k = 4, K2's wide shapes),
+and the C9 cases the reference's rounded-key NTT plans.
 """
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -248,16 +252,18 @@ def test_c7_k3_shape_at_full_depth_needs_more_gadget_bits():
                 pkg.test_params(N=512, k=3, l=3, Bgbit=6, n=630), -1, -1)
         (jgates if pkg is jparams else gates).check_noise_budget(
             pkg.test_params(N=512, k=3, l=3, Bgbit=7, n=630), -1, -1)
-    assert blind_rotate_compact.kernel_plan(4, 512, 12) == (8, 1)
+    assert blind_rotate_compact.kernel_plan(4, 512, 12) == (8, 1, 12)
 
 
-@pytest.mark.parametrize("case", [c for c in C7_CASES if c not in C7_NAND])
+@pytest.mark.parametrize("case", [c for c in C7_CASES if c not in C7_NAND]
+                         + ["N2048_k3_l3", "N512_k3_l8_bg4"])
 def test_c7_plain_rotations_match_reference_scan_and_kernels(case):
-    """ROADMAP C7, the other shapes: the port's rotations over both "ntt"
-    keys and the compact key (halfBg <= 128) at n = 2, B = 3 against the
-    reference's scan, and the compact one against its Pallas K2 in interpret
-    mode."""
-    p = C7_CASES[case]()
+    """ROADMAP C7, the other shapes, and two of C8 (K2's row-share plan at k =
+    3, N = 2048, and K = 256 at k = 3 l = 8): the port's rotations over both
+    "ntt" keys and the compact key (halfBg <= 128) at n = 2, B = 3 against
+    the reference's scan, and the compact one against its Pallas K2 in
+    interpret mode."""
+    p = {**C7_CASES, **C8_CASES}[case]()
     tg = p.tgsw_params
     rows, acc0, bara = _inputs(p, 2, 3, seed=74)
     sctx = jntt.context_for_params(p)
@@ -322,41 +328,302 @@ def test_kernel_domains_take_the_shipped_sets_and_the_c5_shapes(case):
     K2_PLAN = {"N2048_k1_l3": (4, 1), "N1024_k2_l3": (8, 1), "N512_k3_l3": (8, 1),
                "N1024_k1_l5": (8, 1)}
     assert blind_rotate_compact.kernel_plan(U, tg.tlwe_params.N, tg.kpl) == \
-        K2_PLAN.get(case, (8, 4))
+        (*K2_PLAN.get(case, (8, 4)), tg.kpl)       # all J digit rows a pass
 
 
 def test_kernel_domains_refuse_by_name():
-    """What stays outside the domains (ROADMAP C7) is refused by name."""
+    """What stays outside the domains (ROADMAP C8) is refused by name."""
     huge = params.test_params(N=4096, k=1, l=3, Bgbit=7)      # F = 512
-    tg = huge.tgsw_params
-    with pytest.raises(ValueError, match=r"1024 does not divide 32257-1"):
+    with pytest.raises(ValueError, match=r"K1 \(blind_rotate_ntt\) has no context at N=4096: "
+                                         r"its prime 32257 .*1024 does not divide 32257-1"):
         ntt.kernel_context_for_params(huge, device="cpu")     # as in the reference
-    sctx = ntt.context_for_params(huge, device="cpu")
-    with pytest.raises(ValueError, match=r"K1 .* takes F = N/R a multiple of 8 from 8 to 256; "
-                                         r"N=4096, R=8 give F=512"):
-        blind_rotate.check_kernel_domain(2, sctx, tg)
-    with pytest.raises(ValueError, match=r"K3 .* takes F = N/R a multiple of 8 from 8 to 256"):
-        blind_rotate_v1.check_kernel_domain(2, sctx, tg)
-    with pytest.raises(ValueError, match=r"K2 .* takes N a power of two from 32 to 2048; "
-                                         r"got N=4096"):
-        blind_rotate_compact.check_kernel_domain(huge)
-    with pytest.raises(ValueError, match=r"K2 .* takes N a power of two from 32 to 2048"):
-        blind_rotate_compact.check_kernel_domain(params.test_params(N=16))
-    tall = params.test_params(N=512, k=3, l=5, Bgbit=6)       # K = 160
+    with pytest.raises(ValueError, match=r"1024 does not divide 32257-1"):
+        jpnb2.kernel_context_for_params(huge)
+    # K1/K3 at F = 512 with Kp >= 144: one sample's buffers exceed the card
+    fat = params.test_params(N=4096, k=1, l=9, Bgbit=3)       # K = 144
+    tg = fat.tgsw_params
+    with pytest.raises(ValueError, match=r"K3 .* needs 240,384 bytes of shared memory for "
+                                         r"U=2, N=4096, K=144, M=48 at 1 samples a block"):
+        blind_rotate_v1.check_kernel_domain(2, ntt.context_for_params(fat, device="cpu"), tg)
+    tall = params.test_params(N=512, k=3, l=9, Bgbit=3)       # K = 288
     tg = tall.tgsw_params
-    with pytest.raises(ValueError, match=r"K1 .* takes K = kpl\*R up to 128 rows; .* K=160"):
+    with pytest.raises(ValueError, match=r"K1 .* takes K = kpl\*R up to 256 rows; .* K=288"):
         blind_rotate.check_kernel_domain(4, ntt.kernel_context_for_params(tall, device="cpu"), tg)
-    with pytest.raises(ValueError, match=r"K2 .* takes k = 1, 2 or 3"):
-        blind_rotate_compact.check_kernel_domain(params.test_params(k=4, l=2, N=64))
-    wide = params.test_params(N=2048, k=3, l=3, Bgbit=7)      # U = 4, K = 96, F = 256
-    tg = wide.tgsw_params
-    with pytest.raises(ValueError, match=r"K2 \(blind_rotate_compact\) needs 311,376 bytes "
-                                         r"of shared memory for U=4, N=2048 at 2 samples and "
-                                         r"1 key limb a pass; the card allows 232,448"):
+    with pytest.raises(ValueError, match=r"K3 .* takes K = kpl\*R up to 256 rows"):
+        blind_rotate_v1.check_kernel_domain(4, ntt.context_for_params(tall, device="cpu"), tg)
+    with pytest.raises(ValueError, match=r"K2 .* takes N a power of two from 32 to 4096; "
+                                         r"got N=8192"):
+        blind_rotate_compact.check_kernel_domain(params.test_params(N=8192, k=1, l=2))
+    with pytest.raises(ValueError, match=r"K2 .* takes N a power of two from 32 to 4096"):
+        blind_rotate_compact.check_kernel_domain(params.test_params(N=16))
+    with pytest.raises(ValueError, match=r"K2 .* takes k = 1 to 4"):
+        blind_rotate_compact.check_kernel_domain(params.test_params(k=5, l=2, N=64))
+    wide = params.test_params(N=4096, k=3, l=3, Bgbit=7)      # U = 4, J = 12
+    with pytest.raises(ValueError, match=r"K2 \(blind_rotate_compact\) needs 262,224 bytes "
+                                         r"of shared memory for U=4, N=4096, J=12 at 2 samples, "
+                                         r"1 key limb and 1 digit row a pass; the card allows "
+                                         r"232,448"):
         blind_rotate_compact.check_kernel_domain(wide)
+    with pytest.raises(ValueError, match=r"K2 .* needs 245,840 bytes .* U=5, N=4096"):
+        blind_rotate_compact.check_kernel_domain(params.test_params(N=4096, k=4, l=1, Bgbit=7))
     deep = params.test_params(N=1024, k=1, l=5, Bgbit=7)      # l*Bgbit = 35
     tg = deep.tgsw_params
     with pytest.raises(ValueError, match=r"K3 .* takes Bgbit <= 15 and l\*Bgbit <= 32"):
         blind_rotate_v1.check_kernel_domain(2, ntt.context_for_params(deep, device="cpu"), tg)
     with pytest.raises(ValueError, match=r"halfBg = 512 > 128"):   # C1 stays refused
         blind_rotate_compact.check_kernel_domain(params.test_params(N=1024, k=2, l=1, Bgbit=10))
+
+
+# --- C8: the shapes up to N = 4096 and K = 256 that the card refused ----------
+
+#: ROADMAP C8: the three probe shapes (N = 4096, F = 512; k = 3 l = 5, K =
+#: 160; k = 4, U = 5), and the shapes of K2's row-share plan and of K = 256.
+C8_CASES = {
+    "N4096_k1_l3": lambda: jparams.test_params(N=4096, k=1, l=3, Bgbit=7, n=4),
+    "N1024_k3_l5": lambda: jparams.test_params(N=1024, k=3, l=5, Bgbit=5, n=4),
+    "N512_k4_l3": lambda: jparams.test_params(N=512, k=4, l=3, Bgbit=7, n=4),
+    "N2048_k3_l3": lambda: jparams.test_params(N=2048, k=3, l=3, Bgbit=7, n=4),
+    "N512_k3_l8_bg4": lambda: jparams.test_params(N=512, k=3, l=8, Bgbit=4, n=4),
+}
+#: The C8 NANDs held word for word: (shape, the port's form, the reference's).
+C8_NAND = [("N4096_k1_l3", "ntt_scan", "scan"), ("N4096_k1_l3", "compact", "fused"),
+           ("N1024_k3_l5", "ntt_kernel", "kernel"), ("N1024_k3_l5", "ntt_scan", "scan"),
+           ("N1024_k3_l5", "compact", "fused"), ("N512_k4_l3", "compact", "fused")]
+
+
+@functools.lru_cache(maxsize=None)
+def _c8_reference(shape):
+    """A JAX keyset at a C8 shape (``jax.random.key(71)``), carried to the
+    port, two encrypted bit vectors, and the reference's NAND of them in each
+    form the shape is held in."""
+    p = C8_CASES[shape]()
+    jk = jkeys.new_random_gate_bootstrapping_secret_keyset(jax.random.key(71), p)
+    a = np.array([False, False, True, True, False])
+    b = np.array([False, True, False, True, True])
+    ca = jgates.encrypt_bit(jax.random.key(72), jnp.asarray(a), jk.lwe_key, p)
+    cb = jgates.encrypt_bit(jax.random.key(73), jnp.asarray(b), jk.lwe_key, p)
+    refs = {}
+    for _, form, ref_form in C8_NAND:
+        if _ != shape:
+            continue
+        ek = (jboot.prepare_eval_key_fused(jk.cloud) if ref_form == "fused" else
+              jboot.prepare_eval_key_ntt(jk.cloud, p, kernel=ref_form == "kernel"))
+        refs[form] = jgates.nand(ca, cb, ek, p)
+    return p, jk, _torch_keyset(jk), (a, ca), (b, cb), refs
+
+
+def _port_ct(c):
+    def t(x):
+        return torch.from_numpy(np.array(x))
+    return lwe.LweCiphertext(a=t(c.a), b=t(c.b), current_variance=t(c.current_variance))
+
+
+def _assert_nand(out, ref, tk, a, b):
+    np.testing.assert_array_equal(out.a.numpy(), np.asarray(ref.a))
+    np.testing.assert_array_equal(out.b.numpy(), np.asarray(ref.b))
+    np.testing.assert_allclose(out.current_variance.numpy(), np.asarray(ref.current_variance),
+                               rtol=1e-6)        # both sides compute it in float32
+    np.testing.assert_array_equal(gates.decrypt_bit(out, tk.lwe_key).numpy(), ~(a & b))
+
+
+@pytest.mark.parametrize("shape,form,ref_form", C8_NAND)
+def test_c8_nand_matches_reference_word_for_word(shape, form, ref_form):
+    """ROADMAP C8: at N = 4096 (F = 512; the ntt_scan form, K3, and the
+    compact form, K2), at k = 3 l = 5 (K = 160; both ntt forms and compact)
+    and at k = 4 (U = 5; compact) the port's NAND has the words, the variance
+    rail and the decryption of the reference's NAND in the matching form."""
+    _, _, tk, (a, ca), (b, cb), refs = _c8_reference(shape)
+    p = C8_CASES[shape]()
+    if form == "compact":
+        ek = bootstrap.prepare_eval_key_fused(tk.cloud, p)
+    else:
+        ek = bootstrap.prepare_eval_key_ntt(tk.cloud, p, kernel=form == "ntt_kernel")
+    assert ek.form == form
+    _assert_nand(gates.nand(_port_ct(ca), _port_ct(cb), ek, p), refs[form], tk, a, b)
+
+
+def test_c8_k1_refuses_n4096_as_the_reference_does():
+    """At N = 4096 the default ("auto") eval key, the ntt_kernel form, has no
+    context over KERNEL_PRIMES in either package; the port names K1 and the
+    prime, the reference the root of unity."""
+    p, jk, tk, *_ = _c8_reference("N4096_k1_l3")
+    with pytest.raises(ValueError, match=r"K1 \(blind_rotate_ntt\) has no context at N=4096"):
+        bootstrap.prepare_eval_key_ntt(tk.cloud, p)
+    with pytest.raises(ValueError, match=r"1024 does not divide 32257-1"):
+        jboot.prepare_eval_key_ntt(jk.cloud, p, kernel=True)
+
+
+C8_DOMAIN = {
+    # shape: (K1 plan or None where K1 has no context, K3 plan, K2 plan)
+    "N4096_k1_l3": (None, (1, True), (2, 1, 6)),
+    "N1024_k3_l5": ((2, True), (2, True), (4, 1, 10)),
+    "N512_k4_l3": ((4, True), (4, True), (8, 1, 15)),
+    "N2048_k3_l3": ((1, True), (1, True), (2, 1, 7)),
+    "N512_k3_l8_bg4": ((4, True), (4, True), (4, 1, 32)),
+}
+
+
+@pytest.mark.parametrize("case", list(C8_DOMAIN))
+def test_kernel_domains_take_the_c8_shapes(case):
+    """The C8 shapes are in every domain that has a context there, at the
+    plans the launchers pick (each plan's shared memory within the card's)."""
+    p = C8_CASES[case]()
+    tg = p.tgsw_params
+    U, N = tg.tlwe_params.k + 1, tg.tlwe_params.N
+    k1, k3, k2 = C8_DOMAIN[case]
+    sctx = ntt.context_for_params(p, device="cpu")
+    blind_rotate_v1.check_kernel_domain(U, sctx, tg)
+    assert blind_rotate.crt_mma_plan(U, sctx, tg, blind_rotate_v1.STAGE_BYTES) == k3
+    if k1 is not None:
+        kctx = ntt.kernel_context_for_params(p, device="cpu")
+        blind_rotate.check_kernel_domain(U, kctx, tg)
+        assert blind_rotate.crt_mma_plan(U, kctx, tg) == k1
+    blind_rotate_compact.check_kernel_domain(p)
+    assert blind_rotate_compact.kernel_plan(U, N, tg.kpl) == k2
+    assert blind_rotate_compact.smem_bytes(U, N, tg.kpl, *k2) <= blind_rotate.SMEM_PER_BLOCK
+
+
+# --- C9: the reference's rounded-key NTT plans --------------------------------
+
+#: ROADMAP C9: sets where ``choose_rounded_plan`` rounds the key (rb = 2 over
+#: both prime pairs at N = 64; at N = 128 over DEFAULT_PRIMES only).
+C9_CASES = {
+    "n4": lambda: jparams.test_params(n=4),
+    "N128_n4": lambda: jparams.test_params(N=128, n=4),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _c9_reference(case):
+    p = C9_CASES[case]()
+    jk = jkeys.new_random_gate_bootstrapping_secret_keyset(jax.random.key(91), p)
+    a = np.array([False, False, True, True, False, True])
+    b = np.array([False, True, False, True, True, True])
+    ca = jgates.encrypt_bit(jax.random.key(92), jnp.asarray(a), jk.lwe_key, p)
+    cb = jgates.encrypt_bit(jax.random.key(93), jnp.asarray(b), jk.lwe_key, p)
+    return p, jk, _torch_keyset(jk), (a, ca), (b, cb)
+
+
+@pytest.mark.parametrize("kernel", [True, False])
+@pytest.mark.parametrize("case", list(C9_CASES))
+def test_c9_rounded_nand_matches_reference(case, kernel):
+    """ROADMAP C9: ``prepare_eval_key_ntt(rounded=True)`` takes the
+    reference's rounded plan of the form's prime pair (its Pallas K1 in
+    interpret mode for ``kernel=True``, its scan otherwise): the same key
+    rounding, words, variance rail and decryption.  Where the plan rounds
+    (rb > 0), the exact plan's variance differs from it."""
+    p, jk, tk, (a, ca), (b, cb) = _c9_reference(case)
+    jek = jboot.prepare_eval_key_ntt(jk.cloud, p, kernel=kernel, rounded=True)
+    ref = jgates.nand(ca, cb, jek, p)
+    ek = bootstrap.prepare_eval_key_ntt(tk.cloud, p, kernel=kernel, rounded=True,
+                                        small_batch=False)
+    assert ek.form == ("ntt_kernel" if kernel else "ntt_scan")
+    rb = ek.ntt_ctx.key_round_bits
+    assert (rb, ek.ntt_ctx.key_limbs, ek.ntt_ctx.key_limb_bits) == (
+        jek.ntt_ctx.key_round_bits, jek.ntt_ctx.key_limbs, jek.ntt_ctx.key_limb_bits)
+    assert rb == (0 if case == "N128_n4" and kernel else 2)   # the pairs' plans differ at N=128
+    out = gates.nand(_port_ct(ca), _port_ct(cb), ek, p)
+    _assert_nand(out, ref, tk, a, b)
+    exact = gates.nand(_port_ct(ca), _port_ct(cb),
+                       bootstrap.prepare_eval_key_ntt(tk.cloud, p, kernel=kernel), p)
+    assert (float(exact.current_variance[0]) != float(out.current_variance[0])) == (rb > 0)
+
+
+def test_c9_small_batch_is_checked_and_changes_no_bits():
+    p, _, tk, (a, ca), (b, cb) = _c9_reference("n4")
+    outs = [gates.nand(_port_ct(ca), _port_ct(cb), bootstrap.prepare_eval_key_ntt(
+        tk.cloud, p, rounded=True, small_batch=sb), p) for sb in ("auto", True, False)]
+    for out in outs[1:]:
+        assert torch.equal(out.a, outs[0].a) and torch.equal(out.b, outs[0].b)
+    with pytest.raises(ValueError, match="small_batch must be"):
+        bootstrap.prepare_eval_key_ntt(tk.cloud, p, small_batch="yes")
+
+
+def test_c9_config_ntt_rounded_matches_reference():
+    """``FrameworkConfig(eval_key_form="ntt_rounded")`` gives the rounded
+    plan: on the card's form (the reference's choice on its own
+    accelerator, ``kernel=True``) with the reference's rounding, and at
+    ``test_params(n=4)`` the reference's config NAND words."""
+    from eoc_tfhe_tpu import config as jconfig
+    from eoc_tfhe_tpu_torch import config
+    p, jk, tk, (a, ca), (b, cb) = _c9_reference("n4")
+    ek = config.FrameworkConfig(param_set="test", eval_key_form="ntt_rounded").prepare_eval_key(
+        tk.cloud, p)
+    jek = jconfig.FrameworkConfig(param_set="test", eval_key_form="ntt_rounded").prepare_eval_key(
+        jk.cloud, p)
+    assert ek.form == "ntt_kernel" and ek.ntt_ctx.key_round_bits == 2
+    assert jek.ntt_ctx.key_round_bits == 2
+    assert ek.ntt_ctx.key_round_bits == jboot.prepare_eval_key_ntt(
+        jk.cloud, p, kernel=True, rounded=True).ntt_ctx.key_round_bits
+    _assert_nand(gates.nand(_port_ct(ca), _port_ct(cb), ek, p), jgates.nand(ca, cb, jek, p),
+                 tk, a, b)
+    exact = config.FrameworkConfig(param_set="test", eval_key_form="ntt").prepare_eval_key(
+        tk.cloud, p)
+    assert exact.ntt_ctx.key_round_bits == 0
+
+
+#: (N, k, l, Bgbit, n) of the grid on which the rounded plans are compared.
+C9_GRID = [(N, k, l, bg, n) for N in (32, 64, 128, 256, 1024, 2048) for k in (1, 2, 3)
+           for l, bg in ((2, 8), (3, 7), (4, 5)) for n in (4, 16, 64)]
+
+
+def test_key_round_bits_match_reference_on_a_grid():
+    """``choose_rounded_plan`` and the limb split it leads to, over both prime
+    pairs, on a grid of shapes (some round, most do not), and the contexts'
+    ``key_round_bits`` at the 128-bit and 80-bit sets (0: exact)."""
+    rounded = 0
+    for N, k, l, bg, n in C9_GRID:
+        p = params.test_params(N=N, k=k, l=l, Bgbit=bg, n=n)
+        tg = p.tgsw_params
+        var = float(tg.tlwe_params.alpha_min) ** 2
+        for primes in (ntt.DEFAULT_PRIMES, ntt.KERNEL_PRIMES):
+            args = (tg.kpl, N, tg.halfBg)
+            rb = ntt.choose_rounded_plan(*args, n_steps=n, bk_variance=var, primes=primes)
+            assert rb == jntt.choose_rounded_plan(*args, n_steps=n, bk_variance=var,
+                                                  primes=primes)
+            assert ntt._choose_key_limbs(*args, primes, cover_bits=32 - rb) == \
+                jntt._choose_key_limbs(*args, primes, cover_bits=32 - rb)
+            rounded += rb > 0
+    assert 0 < rounded < 2 * len(C9_GRID)
+    for name in ("default_128bit_params", "default_80bit_params"):
+        p = getattr(params, name)()
+        jp = getattr(jparams, name)()
+        for mine, ref in ((ntt.context_for_params(p, True, device="cpu"),
+                           jntt.context_for_params(jp, rounded=True)),
+                          (ntt.kernel_context_for_params(p, True, device="cpu"),
+                           jpnb2.kernel_context_for_params(jp, rounded=True))):
+            assert mine.key_round_bits == ref.key_round_bits == 0
+            assert (mine.key_limbs, mine.key_limb_bits) == (ref.key_limbs, ref.key_limb_bits)
+
+
+def test_round_key_matches_reference():
+    rng = np.random.default_rng(94)
+    bk = rng.integers(-2**31, 2**31, 4096, dtype=np.int64).astype(np.int32)
+    bk[:4] = [-2**31, 2**31 - 1, -1, 0]
+    for rb in range(0, 12):
+        np.testing.assert_array_equal(
+            ntt.round_key(torch.from_numpy(bk), rb).numpy(), jntt.round_key(bk, rb))
+
+
+@pytest.mark.parametrize("kernel", [True, False])
+def test_c9_rounded_key_matches_reference_key(kernel):
+    """The rounded plan's prepared key equals the reference's, byte for byte
+    (the residues of the rows rounded to their top 32 - rb bits)."""
+    p = C9_CASES["n4"]()
+    rows, _, _ = _inputs(p, 2, 1, seed=95)
+    if kernel:
+        jctx = jpnb2.kernel_context_for_params(p, rounded=True)
+        ctx = ntt.kernel_context_for_params(p, True, device="cpu")
+        T8k = jntt.prepare_kernel_key_fast_np(rows, jctx).astype(np.int64)
+        M = T8k.shape[-1] // 2
+        res = ntt.unpack_kernel_key(ntt.prepare_kernel_key(torch.from_numpy(rows), ctx),
+                                    T8k.shape[-2], M)
+        np.testing.assert_array_equal(res.numpy(), T8k[..., :M] + 256 * T8k[..., M:])
+    else:
+        jctx = jntt.context_for_params(p, rounded=True)
+        ctx = ntt.context_for_params(p, True, device="cpu")
+        want = ntt.scan_to_v1_key(torch.from_numpy(np.array(
+            jntt.prepare_key_ntt_np(rows, jctx).T8)))
+        np.testing.assert_array_equal(ntt.prepare_key_ntt(torch.from_numpy(rows), ctx).numpy(),
+                                      want.numpy())
+    assert ctx.key_round_bits == jctx.key_round_bits == 2

@@ -307,26 +307,112 @@ def test_kernels_match_plain_at_the_c7_shapes(case, kernel, B, cuda_device):
     assert torch.equal(out, plain())
 
 
+#: ROADMAP C8: N = 4096 (F = 512; K3 and K2, no K1 context), k = 3 l = 5 (K
+#: = 160), k = 4 (U = 5), k = 3 at N = 2048 (K2's row-share plan), K = 256
+#: (k = 3 l = 8, k = 1 l = 16) and halfBg = 512 at F = 512 (K3 only: C1).
+C8_CASES = {
+    "N4096_k1_l3": lambda: params.test_params(N=4096, k=1, l=3, Bgbit=7, n=8),
+    "N1024_k3_l5": lambda: params.test_params(N=1024, k=3, l=5, Bgbit=5, n=8),
+    "N512_k4_l3": lambda: params.test_params(N=512, k=4, l=3, Bgbit=7, n=8),
+    "N2048_k3_l3": lambda: params.test_params(N=2048, k=3, l=3, Bgbit=7, n=8),
+    "N512_k3_l8_bg4": lambda: params.test_params(N=512, k=3, l=8, Bgbit=4, n=8),
+    "N1024_k1_l16_bg2": lambda: params.test_params(N=1024, k=1, l=16, Bgbit=2, n=8),
+    "N4096_k1_l1_bg10": lambda: params.test_params(N=4096, k=1, l=1, Bgbit=10, n=8),
+}
+#: ROADMAP C9: the rounded-key plans (rb = 2) on the register path (k = 1),
+#: the scatter path (k = 2) and the general instantiation (k = 2 l = 3 over
+#: DEFAULT_PRIMES; N = 4096), over the form's own prime pair.
+C9_CASES = {
+    "n8": lambda: params.test_params(n=8),
+    "N128": lambda: params.test_params(N=128, n=8),
+    "k2_l2_N64": lambda: params.test_params(k=2, l=2, N=64, n=8),
+    "k2_l3_N64": lambda: params.test_params(k=2, l=3, N=64, n=8),
+    "N4096_k1_l3": lambda: params.test_params(N=4096, k=1, l=3, Bgbit=7, n=8),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [7, 13])
+@pytest.mark.parametrize("kernel", ["K1", "K2", "K3"])
+@pytest.mark.parametrize("case", list(C8_CASES))
+def test_kernels_match_plain_at_the_c8_shapes(case, kernel, B, cuda_device):
+    """Each kernel takes the C8 shapes (all 8 steps; B = 13 leaves a ragged
+    last block), bit for bit against its plain version; where the shape has
+    no K1 context (N = 4096) or halfBg > 128 (C1), the refusal is by name."""
+    p = C8_CASES[case]()
+    if kernel == "K1" and p.N == 4096:
+        with pytest.raises(ValueError, match="K1 .* has no context at N=4096"):
+            ntt.kernel_context_for_params(p, device=cuda_device)
+        return
+    if kernel == "K2" and p.tgsw_params.halfBg > 128:
+        with pytest.raises(ValueError, match="halfBg = 512 > 128"):
+            blind_rotate_compact.check_kernel_domain(p)
+        return
+    module, run, plain = _shape_rotation(kernel, p, cuda_device, B)
+    before = module.launches
+    out = run()
+    torch.cuda.synchronize()
+    assert module.launches == before + 1
+    assert torch.equal(out, plain())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [7, 13])
+@pytest.mark.parametrize("case,kernel", [(c, k) for c in C9_CASES for k in ("K1", "K3")
+                                         if (c, k) != ("N4096_k1_l3", "K1")])
+def test_kernels_match_plain_with_the_rounded_plans(case, kernel, B, cuda_device):
+    """K1 and K3 over a rounded-key plan's key and context (the limbs shifted
+    by rb + kbits l), bit for bit against the plain version (K1 has no
+    context at N = 4096)."""
+    p = C9_CASES[case]()
+    tg = p.tgsw_params
+    rows, acc0, bara = _rotation_inputs(p, B, 60 + B, cuda_device)
+    if kernel == "K1":
+        ctx = ntt.kernel_context_for_params(p, rounded=True, device=cuda_device)
+        key, module = ntt.prepare_kernel_key(rows, ctx), blind_rotate
+        run = lambda: blind_rotate.blind_rotate_ntt(acc0, bara, key, ctx, p)   # noqa: E731
+        plain = lambda: blind_rotate.blind_rotate_ntt_plain(acc0, bara, key, ctx, p)   # noqa: E731
+    else:
+        ctx = ntt.context_for_params(p, rounded=True, device=cuda_device)
+        key, module = ntt.prepare_key_ntt(rows, ctx), blind_rotate_v1
+        run = lambda: blind_rotate_v1.blind_rotate_ntt_v1(acc0, bara, key, ctx, p)   # noqa: E731
+        plain = lambda: blind_rotate_v1.blind_rotate_ntt_v1_plain(  # noqa: E731
+            acc0, bara, key, ctx, p)
+    assert ctx.key_round_bits == (0 if kernel == "K1" and case in ("N128", "k2_l3_N64")
+                                  else 2), tg
+    before = module.launches
+    out = run()
+    torch.cuda.synchronize()
+    assert module.launches == before + 1
+    assert torch.equal(out, plain())
+
+
 @pytest.mark.gpu
 def test_kernels_refuse_by_name_before_any_launch(cuda_device):
-    """Shapes outside the domains after C7 raise by name, before any launch."""
-    wide = params.test_params(N=2048, k=3, l=3, Bgbit=7, n=2)    # K2: 311,376 bytes of smem
+    """Shapes outside the domains after C8 raise by name, before any launch."""
+    wide = params.test_params(N=4096, k=3, l=3, Bgbit=7, n=2)    # K2: 262,224 bytes of smem
     rows, acc0, bara = _rotation_inputs(wide, 3, 50, cuda_device)
     key = blind_rotate_compact.prepare_compact_bk(rows, 4)
     before = blind_rotate_compact.launches
-    with pytest.raises(ValueError, match="K2 .* needs 311,376 bytes of shared memory"):
+    with pytest.raises(ValueError, match="K2 .* needs 262,224 bytes of shared memory"):
         blind_rotate_compact.blind_rotate_compact(acc0, bara, key, wide)
     assert blind_rotate_compact.launches == before
     gen = torch.Generator(device=cuda_device).manual_seed(51)
     ks = keys.new_random_gate_bootstrapping_secret_keyset(gen, wide)
-    with pytest.raises(ValueError, match="K2 .* needs 311,376 bytes"):
+    with pytest.raises(ValueError, match="K2 .* needs 262,224 bytes"):
         bootstrap.prepare_eval_key_fused(ks.cloud, wide)
-    tall = params.test_params(N=512, k=3, l=5, Bgbit=6, n=2)     # K = 160
+    with pytest.raises(ValueError, match="K1 .* has no context at N=4096"):
+        bootstrap.prepare_eval_key_ntt(ks.cloud, wide)
+    tall = params.test_params(N=512, k=3, l=9, Bgbit=3, n=2)     # K = 288
     ks = keys.new_random_gate_bootstrapping_secret_keyset(gen, tall)
-    with pytest.raises(ValueError, match="K1 .* takes K = kpl\\*R up to 128 rows"):
+    with pytest.raises(ValueError, match="K1 .* takes K = kpl\\*R up to 256 rows"):
         bootstrap.prepare_eval_key_ntt(ks.cloud, tall)
-    with pytest.raises(ValueError, match="K3 .* takes K = kpl\\*R up to 128 rows"):
+    with pytest.raises(ValueError, match="K3 .* takes K = kpl\\*R up to 256 rows"):
         bootstrap.prepare_eval_key_ntt(ks.cloud, tall, kernel=False)
+    fat = params.test_params(N=4096, k=1, l=9, Bgbit=3, n=2)     # F = 512, K = 144
+    ks = keys.new_random_gate_bootstrapping_secret_keyset(gen, fat)
+    with pytest.raises(ValueError, match="K3 .* needs 240,384 bytes of shared memory"):
+        bootstrap.prepare_eval_key_ntt(ks.cloud, fat, kernel=False)
 
 
 @pytest.mark.gpu

@@ -201,3 +201,53 @@ def test_entry_points_default_to_the_card(monkeypatch):
         gates.constant(np.array([True]), p)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ntt.kernel_context_for_params(p)
+
+
+def test_dataclass_accessors_match_reference():
+    """The reference's dataclass accessors (``KeySwitchKey.n_in/t/base/n_out``,
+    ``BootstrappingKey.n``, ``n`` and ``batch_shape`` of the LWE samples,
+    ``kpl/k/N`` of a TGSW sample, ``k/N`` of a TLWE sample and key) on a
+    JAX-made keyset carried across with ``keys.keyset_from_numpy``, and
+    ``native.b64encode`` against the reference's encoder (binascii's bytes)."""
+    import base64
+
+    import jax
+    from eoc_tfhe_tpu import native as jnative
+    from eoc_tfhe_tpu.core import gates as jgates
+    from eoc_tfhe_tpu.core import keys as jkeys
+    from eoc_tfhe_tpu_torch import native
+
+    p = jparams.test_params(k=2, l=2, N=64, n=8)     # k, N, kpl and n all differ
+    jk = jkeys.new_random_gate_bootstrapping_secret_keyset(jax.random.key(5), p)
+    jbk = jk.cloud.bk
+    tk = keys.keyset_from_numpy(
+        np.asarray(jk.lwe_key.s), np.asarray(jk.tgsw_key.key), np.asarray(jbk.bk),
+        np.asarray(jbk.bk_variance), np.asarray(jbk.ks.ks), np.asarray(jbk.ks.variance),
+        device="cpu")
+    bk = tk.cloud.bk
+    for name in ("n_in", "t", "base", "n_out"):
+        assert getattr(bk.ks, name) == getattr(jbk.ks, name), name
+    assert bk.n == jbk.n == 8
+    assert (tk.tgsw_key.k, tk.tgsw_key.N) == (jk.tgsw_key.k, jk.tgsw_key.N) == (2, 64)
+
+    def t(x):
+        return torch.from_numpy(np.array(x))
+    bits = jnp.asarray(np.array([[True, False, True], [False, False, True]]))
+    jct = jgates.encrypt_bit(jax.random.key(6), bits, jk.lwe_key, p)
+    ct = lwe.LweCiphertext(a=t(jct.a), b=t(jct.b), current_variance=t(jct.current_variance))
+    assert (ct.n, tuple(ct.batch_shape)) == (jct.n, tuple(jct.batch_shape)) == (8, (2, 3))
+    jsd = jgates.encrypt_bit_seeded(jax.random.key(7), bits, jk.lwe_key, p)
+    sd = lwe.SeededLweCiphertext(seed=t(np.asarray(jsd.seed).astype(np.int64)), b=t(jsd.b),
+                                 current_variance=t(jsd.current_variance))
+    assert tuple(sd.batch_shape) == tuple(jsd.batch_shape) == (2, 3)
+    var = np.zeros(jbk.bk.shape[:1], np.float32)
+    jg = jtgsw.TGswCiphertext(rows=jbk.bk, current_variance=jnp.asarray(var))
+    g = tgsw.TGswCiphertext(rows=bk.bk, current_variance=t(var))
+    assert (g.kpl, g.k, g.N) == (jg.kpl, jg.k, jg.N) == (6, 2, 64)
+    jr = jtlwe.TLweCiphertext(a=jbk.bk[:, 0], current_variance=jnp.asarray(var))
+    r = tlwe.TLweCiphertext(a=bk.bk[:, 0], current_variance=t(var))
+    assert (r.k, r.N) == (jr.k, jr.N) == (2, 64)
+    data = bytes(range(256)) * 3 + b"xy"
+    assert native.b64encode(data) == base64.b64encode(data).decode()
+    ref = jnative.b64encode(data)          # None where the reference's library is not built
+    assert ref is None or native.b64encode(data) == ref

@@ -48,6 +48,15 @@ C7_CASES = {
     "N1024_k1_l5": lambda: jparams.test_params(N=1024, k=1, l=5, Bgbit=5),   # K = 80
     "N1024_k2_l1_bg10": lambda: jparams.test_params(N=1024, k=2, l=1, Bgbit=10),   # DL = 2
 }
+#: ROADMAP C8: shapes only the widened general instantiation takes (F = 512,
+#: Kp = 160 and 256, DL = 2 at F = 512; K2 at U = 5, N = 4096 and its
+#: row-share plan).  N = 4096 has no K1 context (KERNEL_PRIMES).
+C8_CASES = {
+    "N4096_k1_l3": lambda: jparams.test_params(N=4096, k=1, l=3, Bgbit=7),   # F = 512
+    "N1024_k3_l5": lambda: jparams.test_params(N=1024, k=3, l=5, Bgbit=5),   # Kp = 160
+    "N512_k3_l8_bg4": lambda: jparams.test_params(N=512, k=3, l=8, Bgbit=4),  # Kp = 256
+    "N4096_k1_l1_bg10": lambda: jparams.test_params(N=4096, k=1, l=1, Bgbit=10),   # DL = 2
+}
 
 
 def _inputs(p, n_steps, B, seed):
@@ -143,7 +152,7 @@ def emulate_k1_step(acc, key_step, bara_i, ctx, params):
     before the c16 product."""
     samples, general = blind_rotate.crt_mma_plan(acc.shape[1], ctx, params.tgsw_params)
     return _emulate_crt_step(acc, _key_planes(key_step), bara_i, ctx, params,
-                             reduce_c2=general, samples=samples)
+                             reduce_c2=general, samples=samples, general=general)
 
 
 def emulate_k3_step(acc, key8_step, bara_i, ctx, params):
@@ -152,8 +161,10 @@ def emulate_k3_step(acc, key8_step, bara_i, ctx, params):
     tg = params.tgsw_params
     K, M = tg.kpl * ctx.R, ctx.key_limbs * acc.shape[1] * ctx.R
     keyp = _key_planes(_v1_loader(key8_step, K, M))
-    samples = blind_rotate.crt_mma_plan(acc.shape[1], ctx, tg, blind_rotate_v1.STAGE_BYTES)[0]
-    return _emulate_crt_step(acc, keyp, bara_i, ctx, params, reduce_c2=True, samples=samples)
+    samples, general = blind_rotate.crt_mma_plan(acc.shape[1], ctx, tg,
+                                                 blind_rotate_v1.STAGE_BYTES)
+    return _emulate_crt_step(acc, keyp, bara_i, ctx, params, reduce_c2=True, samples=samples,
+                             general=general)
 
 
 def _mma_columns(x: torch.Tensor, samples: int) -> torch.Tensor:
@@ -169,14 +180,17 @@ def _mma_columns(x: torch.Tensor, samples: int) -> torch.Tensor:
     return x[cols]
 
 
-def _emulate_crt_step(acc, keyp, bara_i, ctx, params, reduce_c2, samples=8):
+def _emulate_crt_step(acc, keyp, bara_i, ctx, params, reduce_c2, samples=8, general=False):
     """One CMux step of ``crt_ntt_mma.cuh``; keyp: (2, P, F, Kp, Mp) int8
     [lo, hi] planes of T[f][k][m] as the pointwise stage's A fragments hold
     them.  The digits are zero-padded to Kp rows, as the digit pass does;
     rows m >= M of the inverse are dropped, as the accumulator update does.
     The pointwise stage runs per block of ``samples`` samples on the MMA's 8
-    columns (only the block's own are kept); at F = 256 the inverse reduces
-    C1 before its product by 256, as the kernel's wide instantiation does."""
+    columns (only the block's own are kept); at F >= 256 the inverse reduces
+    C1 before its product by 256, as the kernel's wide instantiations do, and
+    at F = 512 the forward too; the general instantiation at Kp > 128
+    reduces the pointwise C1.  Limb l of the recombination is shifted by rb +
+    kbits l (``ctx.key_round_bits``)."""
     tg = params.tgsw_params
     B, U, N = acc.shape
     R, F, L = ctx.R, ctx.F, ctx.key_limbs
@@ -196,6 +210,8 @@ def _emulate_crt_step(acc, keyp, bara_i, ctx, params, reduce_c2, samples=8):
         if len(dplanes) == 2:
             c0 = c0 + _mma(dplanes[1], Wp[2], "bkt,tf->bkf")
             c1 = c1 + _mma(dplanes[1], Wp[3], "bkt,tf->bkf")
+        if F > 256:                       # 257 F 2^14 would leave int32
+            c1 = ntt.balanced_mod(_int32_sum(c1), p)
         dhat = ntt.balanced_mod(_int32_sum(c0 + 256 * _int32_sum(c1)), p)
         lo, hi = (x.to(torch.int8) for x in ntt.split_bytes(dhat))   # (B, K, f)
         Alo, Ahi = keyp[0, pi], keyp[1, pi]                   # (f, K, M)
@@ -207,6 +223,8 @@ def _emulate_crt_step(acc, keyp, bara_i, ctx, params, reduce_c2, samples=8):
         c16 = int(ntt.balanced_mod(torch.tensor(1 << 16), p))     # 2^16 mod p
         if reduce_c2:       # K3 (|c16| up to 16386) and the general instantiation (Kp > 80)
             c2 = ntt.balanced_mod(c2, p)
+        if general and keyp.shape[3] > 128:   # Kp 2^15 256 would leave int32
+            c1 = ntt.balanced_mod(c1, p)
         chat = ntt.balanced_mod(_int32_sum(c0 + 256 * c1 + c16 * c2), p)
         chat = chat[:, :samples].reshape(-1, *chat.shape[2:])[:B]   # (B, f, Mp)
         clo, chi = (x.to(torch.int8) for x in ntt.split_bytes(chat))
@@ -220,19 +238,20 @@ def _emulate_crt_step(acc, keyp, bara_i, ctx, params, reduce_c2, samples=8):
     p0, p1 = ctx.primes
     q = ntt.balanced_mod(_int32_sum((res[1] - res[0]) * ctx.crt_inv), p1)
     V = _int32_sum(res[0] + q * p0).reshape(B, L, U, R, F)
-    upd = sum((V[:, li] << (ctx.key_limb_bits * li)) for li in range(L))
+    upd = sum((V[:, li] << (ctx.key_round_bits + ctx.key_limb_bits * li)) for li in range(L))
     upd = upd.transpose(-1, -2).reshape(B, U, N)               # acc[u][t*R + r]
     return wrap32(acc.to(torch.int64) + upd)
 
 
 K1_STEPS = {"full_width_128": 3, "full_width_80": 2}
-K1_CASES = {**CASES, **{c: C5_CASES[c] for c in ("k2_l2_N64", "k1_l4_N64")}, **C7_CASES}
+K1_CASES = {**CASES, **{c: C5_CASES[c] for c in ("k2_l2_N64", "k1_l4_N64")}, **C7_CASES,
+            **{c: C8_CASES[c] for c in ("N1024_k3_l5", "N512_k3_l8_bg4")}}
 
 
 @pytest.mark.parametrize("case", list(K1_CASES))
 def test_k1_emulation_matches_reference_scan(case):
     p = K1_CASES[case]()
-    n_steps = K1_STEPS.get(case, 2 if case in C7_CASES else min(p.n, 6))
+    n_steps = K1_STEPS.get(case, 2 if case in C7_CASES or case in C8_CASES else min(p.n, 6))
     rows, acc0, bara = _inputs(p, n_steps, 3, seed=21)
     sctx = jntt.context_for_params(p)
     want = np.asarray(jntt.blind_rotate_ntt(
@@ -267,16 +286,17 @@ def test_k1_matrix_fragments_hold_the_context(case):
 K3_STEPS = {"full_width_128": 2, "full_width_80": 2}
 
 
-@pytest.mark.parametrize("primes", ["default", "kernel"])
-@pytest.mark.parametrize("case", list(CASES) + ["k2_l2_N64"] + list(C7_CASES))
+@pytest.mark.parametrize("case,primes", [
+    (c, pr) for c in list(CASES) + ["k2_l2_N64"] + list(C7_CASES) + list(C8_CASES)
+    for pr in ("default", "kernel") if not (c.startswith("N4096") and pr == "kernel")])
 def test_k3_emulation_matches_reference_scan(case, primes):
     """K3's arithmetic over its own v1 key, either prime pair: over
     DEFAULT_PRIMES c16 = -16386 (mod 40961), so the plain pointwise sum would
     leave int32; with C2 reduced first every MMA sum stays inside it."""
-    p = {**CASES, **C5_CASES, **C7_CASES}[case]()
+    p = {**CASES, **C5_CASES, **C7_CASES, **C8_CASES}[case]()
     tg = p.tgsw_params
     pr = ntt.DEFAULT_PRIMES if primes == "default" else ntt.KERNEL_PRIMES
-    n_steps = K3_STEPS.get(case, 2 if case in C7_CASES else min(p.n, 6))
+    n_steps = K3_STEPS.get(case, 2 if case in C7_CASES or case in C8_CASES else min(p.n, 6))
     rows, acc0, bara = _inputs(p, n_steps, 3, seed=23)
     sctx = jntt.make_context(N=tg.tlwe_params.N, J=tg.kpl, halfBg=tg.halfBg, primes=pr)
     want = np.asarray(jntt.blind_rotate_ntt(
@@ -372,34 +392,40 @@ def _byte_limbs(v: torch.Tensor) -> torch.Tensor:
     return torch.stack(out).to(torch.int8)
 
 
-def emulate_k2_step(acc, key_step, bara_i, params):
+def emulate_k2_step(acc, key_step, bara_i, params, rows=None):
     """One CMux step as ``blind_rotate_compact.cu`` computes it: the digits
     once, then the Toeplitz block of every limb from the byte rows [k
     reversed | -k reversed], each limb's int32 sum over (j, r) added into acc
     before the next limb (the same sums whether the kernel converts four
-    limbs a pass or one)."""
+    limbs a pass or one).  ``rows``: the digit rows a pass of the row-share
+    plan (all J by default); each share's sums are added into acc in turn."""
     tg = params.tgsw_params
     B, U, N = acc.shape
     dig = _digits(acc, bara_i, tg)
     assert int(dig.abs().max()) <= 128
     dig = dig.to(torch.int8)                                   # (B, J, N)
     J = dig.shape[1]
-    pos, neg = _byte_limbs(key_step), _byte_limbs(-key_step.to(torch.int64))   # (4, J, U, N)
-    rev = torch.cat([pos.flip(-1), neg.flip(-1)], dim=-1)     # y = N-1-m | 2N-1-m
-    # The Toeplitz block T[c][r] = rev[N-1-c+r] times the digits, summed over
-    # r: a correlation of the byte row with the digits, exact in float64
-    # (|sum| <= J N 128 128 < 2^53); row c of the block is output N-1-c.
-    rows, digs = rev.to(torch.float64), dig.to(torch.float64)
+    rows = J if rows is None else rows
     out = acc.to(torch.int64)
-    for t in range(4):
-        if not (pos[t].any() or neg[t].any()):
-            continue                                           # the kernel skips it
-        s = torch.zeros((B, U, N), dtype=torch.float64)
-        for j in range(J):
-            for u in range(U):
-                corr = torch.nn.functional.conv1d(rows[t, j, u][None, None], digs[:, j, None])
-                s[:, u] += corr[0, :, :N].flip(-1)
-        out = wrap32(out + (_int32_sum(s.to(torch.int64)) << (8 * t)))
+    for j0 in range(0, J, rows):
+        share = key_step[j0:j0 + rows]
+        pos, neg = _byte_limbs(share), _byte_limbs(-share.to(torch.int64))   # (4, j, U, N)
+        rev = torch.cat([pos.flip(-1), neg.flip(-1)], dim=-1)  # y = N-1-m | 2N-1-m
+        # The Toeplitz block T[c][r] = rev[N-1-c+r] times the digits, summed
+        # over r: a correlation of the byte row with the digits, exact in
+        # float64 (|sum| <= J N 128 128 < 2^53); row c of the block is output
+        # N-1-c.
+        revs, digs = rev.to(torch.float64), dig[:, j0:j0 + rows].to(torch.float64)
+        for t in range(4):
+            if not (pos[t].any() or neg[t].any()):
+                continue                                       # the kernel skips it
+            s = torch.zeros((B, U, N), dtype=torch.float64)
+            for j in range(share.shape[0]):
+                for u in range(U):
+                    corr = torch.nn.functional.conv1d(revs[t, j, u][None, None],
+                                                      digs[:, j, None])
+                    s[:, u] += corr[0, :, :N].flip(-1)
+            out = wrap32(out + (_int32_sum(s.to(torch.int64)) << (8 * t)))
     return out
 
 
@@ -434,4 +460,91 @@ def test_k2_emulation_matches_reference_at_the_c7_shapes(case):
     acc = torch.from_numpy(acc0)
     for i in range(2):
         acc = emulate_k2_step(acc, key[i], torch.from_numpy(bara[i]), p)
+    np.testing.assert_array_equal(acc.numpy(), want)
+
+
+# --- C8 and C9: the widened general instantiation and the rounded plans -------
+
+@pytest.mark.parametrize("case", list(C8_CASES))
+def test_c8_sums_need_their_reductions(case):
+    """Each reduction the general instantiation adds for C8 is needed where
+    it applies and enough: at F = 512 the forward's plain sum 257 F 128
+    (128 + d_hi) leaves int32 and C1 reduced first keeps it inside; at Kp =
+    256 the pointwise C0 + 256 C1 + c16 C2 (C2 reduced) leaves it, and with
+    C1 reduced too it stays inside.  ``crt_mma_sums`` (the launcher's bounds)
+    stays below 2^31 at every C8 shape over every pair that has a context."""
+    p = C8_CASES[case]()
+    tg = p.tgsw_params
+    U = tg.tlwe_params.k + 1
+    ctxs = [ntt.context_for_params(p, device="cpu")]
+    if tg.tlwe_params.N < 4096:
+        ctxs.append(ntt.kernel_context_for_params(p, device="cpu"))
+    for ctx in ctxs:
+        Kp, FP = ntt.pad16(tg.kpl * ctx.R), max(ctx.F, 32)
+        half = max((q - 1) // 2 for q in ctx.primes)
+        c16 = max(abs(int(ntt.balanced_mod(torch.tensor(1 << 16), q))) for q in ctx.primes)
+        dhi = 0 if tg.halfBg <= 128 else -(-tg.halfBg // 256)
+        for reduce_c2 in (False, True):
+            sums = blind_rotate.crt_mma_sums(U, ctx, tg, reduce_c2=reduce_c2)
+            assert max(sums.values()) < I32, sums
+        assert (257 * FP * 128 * (128 + dhi) >= I32) == (FP > 256)
+        assert FP * 128 * (128 + dhi) + 256 * half < I32
+        assert (Kp * 2**14 * 513 + c16 * half >= I32) == (Kp > 192)
+        assert Kp * 2**14 + 256 * half + c16 * half < I32
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K3"])
+@pytest.mark.parametrize("case", ["n4", "k2_l2_N64", "k2_l3_N64"])
+def test_rounded_plans_emulation_matches_reference_scan(case, kernel):
+    """ROADMAP C9: K1 and K3 over a rounded plan's key (rb = 2: 2 limbs of 15
+    bits; the register path, the scatter path and the general instantiation)
+    shift limb l by rb + kbits l, and give the reference's scan over the
+    same rounded plan bit for bit."""
+    p = {"n4": lambda: jparams.test_params(n=4),
+         "k2_l2_N64": lambda: jparams.test_params(k=2, l=2, N=64, n=4),
+         "k2_l3_N64": lambda: jparams.test_params(k=2, l=3, N=64, n=4)}[case]()
+    tg = p.tgsw_params
+    rows, acc0, bara = _inputs(p, 3, 3, seed=26)
+    if kernel == "K1":
+        ctx = ntt.kernel_context_for_params(p, rounded=True, device="cpu")
+        key = ntt.prepare_kernel_key(torch.from_numpy(rows), ctx)
+        step = emulate_k1_step
+    else:
+        ctx = ntt.context_for_params(p, rounded=True, device="cpu")
+        key = ntt.prepare_key_ntt(torch.from_numpy(rows), ctx)
+        step = emulate_k3_step
+    rb = ctx.key_round_bits
+    assert rb == (0 if (case, kernel) == ("k2_l3_N64", "K1") else 2)
+    sctx = jntt.make_context(N=tg.tlwe_params.N, J=tg.kpl, halfBg=tg.halfBg,
+                             primes=ctx.primes, key_round_bits=rb)
+    want = np.asarray(jntt.blind_rotate_ntt(
+        jnp.asarray(acc0), jnp.asarray(bara), jntt.prepare_key_ntt_np(rows, sctx), p, sctx))
+    acc = torch.from_numpy(acc0)
+    for i in range(3):
+        acc = step(acc, key[i], torch.from_numpy(bara[i]), ctx, p)
+    np.testing.assert_array_equal(acc.numpy(), want)
+
+
+@pytest.mark.parametrize("case", ["N4096_k1_l3", "N1024_k3_l5", "N512_k4_l3", "N2048_k3_l3"])
+def test_k2_emulation_matches_reference_at_the_c8_shapes(case):
+    """K2 at N = 4096, k = 4 (U = 5) and under its row-share plan (k = 3 l =
+    5 at N = 1024: 10 of 20 rows a pass; k = 3 at N = 2048: 7 of 12), each
+    share's sums added into acc before the next, against the reference's
+    exact scan."""
+    p = {**C8_CASES,
+         "N512_k4_l3": lambda: jparams.test_params(N=512, k=4, l=3, Bgbit=7),
+         "N2048_k3_l3": lambda: jparams.test_params(N=2048, k=3, l=3, Bgbit=7)}[case]()
+    tg = p.tgsw_params
+    U, N = tg.tlwe_params.k + 1, tg.tlwe_params.N
+    rows_a_pass = blind_rotate_compact.kernel_plan(U, N, tg.kpl)[2]
+    assert rows_a_pass == {"N4096_k1_l3": 6, "N1024_k3_l5": 10, "N512_k4_l3": 15,
+                           "N2048_k3_l3": 7}[case]
+    rows, acc0, bara = _inputs(p, 2, 2, seed=27)
+    sctx = jntt.context_for_params(p)
+    want = np.asarray(jntt.blind_rotate_ntt(
+        jnp.asarray(acc0), jnp.asarray(bara), jntt.prepare_key_ntt_np(rows, sctx), p, sctx))
+    key = blind_rotate_compact.prepare_compact_bk(torch.from_numpy(rows))
+    acc = torch.from_numpy(acc0)
+    for i in range(2):
+        acc = emulate_k2_step(acc, key[i], torch.from_numpy(bara[i]), p, rows_a_pass)
     np.testing.assert_array_equal(acc.numpy(), want)
