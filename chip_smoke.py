@@ -16,9 +16,11 @@ Phases, in order; any failure exits non-zero:
      at the five shapes of ROADMAP C7 (N=2048 k=1 l=3, N=1024 k=2 l=3,
      N=512 k=3 l=3, N=1024 k=1 l=5, N=1024 k=2 l=1 Bgbit=10; n=8), the
      shapes of ROADMAP C8 (N=1024 k=3 l=5, N=512 k=4 l=3, N=2048 k=3 l=3,
-     N=512 k=3 l=8 Bgbit=4, N=1024 k=1 l=16 Bgbit=2; n=8; at N=4096 K1's
-     refusal by name, as in the reference) and the rounded-key plans of
-     ROADMAP C9 (rb > 0 where the plan rounds; n=8) at B=7 and B=C7_RAGGED;
+     N=512 k=3 l=8 Bgbit=4, N=1024 k=1 l=16 Bgbit=2; n=8; at N>=4096 K1's
+     refusal by name, as in the reference), the rounded-key plans of
+     ROADMAP C9 (rb > 0 where the plan rounds; n=8) and the shapes of
+     ROADMAP C10 (N=1024 k=3 l=9 Bgbit=3, K=288; N=256 k=5 l=3, U=6; N=16,
+     F=4; n=8) at B=7 and B=C7_RAGGED;
   4. the main path: 128-bit keygen on the card, ``prepare_eval_key_ntt``,
      encryption of BATCH random bit pairs, one warm and ITERS timed
      batched NAND calls, decryption checked against ~(a & b);
@@ -27,8 +29,10 @@ Phases, in order; any failure exits non-zero:
   6. the compact-key kernel against its plain version on the card, bit for
      bit, at ``test_params()`` (B=63) and at 128-bit B=4 over all 630 steps
      with the exact and the rounded (limbs=3) stored key, at the C5
-     shapes (B=7), and at the C7 and C8 shapes whose digits are int8 (N=4096
-     k=1 l=3 among them; B=7 and B=C7_RAGGED);
+     shapes (B=7), and at the C7, C8 and C10 shapes whose digits are int8
+     (N=4096 k=1 l=3, N=8192 and 16384 k=1 l=3, N=8192 k=5 l=1 among them;
+     B=7 and B=C7_RAGGED), each shape that runs in a cluster CLUSTER_REPEATS
+     times more with the same words;
   7. the circuit path: ``FrameworkConfig(eval_key_form="fused")`` over phase
      4's keyset, 8-bit ripple add and subtract (mode fast) over B=CIRCUIT_BATCH
      random byte pairs and the classic add over B=CLASSIC_BATCH, every output
@@ -40,9 +44,10 @@ Phases, in order; any failure exits non-zero:
  10. the "ntt_scan" form's kernel against its plain version on the card, bit
      for bit, at ``test_params()`` (B=63), at 128-bit B=4 over all 630 steps
      over either prime pair, at the 80-bit set (halfBg = 512) B=4 over all
-     its steps, at the C5 shapes (B=7), at the C7 and C8 shapes (B=7 and
-     B=C7_RAGGED) over either prime pair (DEFAULT_PRIMES alone at N=4096)
-     and at the C9 rounded plans over DEFAULT_PRIMES;
+     its steps, at the C5 shapes (B=7), at the C7, C8 and C10 shapes (B=7
+     and B=C7_RAGGED) over either prime pair (DEFAULT_PRIMES alone at
+     N>=4096; each cluster shape CLUSTER_REPEATS times more with the same
+     words) and at the C9 rounded plans over DEFAULT_PRIMES;
  11. NAND through the "ntt_scan" key (``prepare_eval_key_ntt(kernel=False)``)
      at B=BATCH on phase 4's keyset, decrypted and checked;
  12. the 8-bit fast add and subtract over the "ntt_scan" key on phase 7's
@@ -119,10 +124,15 @@ Phases, in order; any failure exits non-zero:
      leave a worst-case rounding variance of 6.8e-4, over the set's
      1.6e-4); and at two ROADMAP C8 shapes: N=4096 k=1 l=3 Bgbit=7 (F=512)
      over the "ntt_scan" (K3) and compact (K2) keys, N=1024 k=3 l=5 Bgbit=5
-     (K=160) over the "ntt_kernel" key (K1), both taken by the rail; each
-     decrypted and checked, its kernel's launches counted, timed, and the
-     kernel at its inputs timed, held against its plain version and
-     printed with its bound.
+     (K=160) over the "ntt_kernel" key (K1), both taken by the rail; and at
+     three ROADMAP C10 shapes: N=8192 k=1 l=3 (F=1024; B=256) and N=16384
+     k=1 l=3 (F=2048; B=64) over the "ntt_scan" (K3, in a cluster) and
+     compact (K2) keys, at Bgbit=8 (the rail refuses Bgbit=7 there at
+     n=630: ``noise_budget_bgbit`` takes the nearest Bgbit it accepts), and
+     N=4096 k=2 l=6 Bgbit=4 (Kp=144 at F=512; B=256) over the
+     "ntt_scan" key (K3, in a cluster); each decrypted and checked, its
+     kernel's launches counted, timed, and the kernel at its inputs timed,
+     held against its plain version and printed with its plan and bound.
 The three kernels are printed as one ``{"kernels": [...]}`` line.  The last
 line is {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
@@ -158,6 +168,11 @@ C5_BATCH = 7
 #: ROADMAP C7: a second batch of its shape cases (a ragged last block at 8
 #: and at 4 samples a block), its steps, and the full-depth NANDs' batch.
 C7_RAGGED, C7_STEPS, C7_BATCH = 13, 8, 1024
+#: Repeats of each ROADMAP C10 cluster shape in phases 6 and 10.
+CLUSTER_REPEATS = 20
+#: Phase 20's batch at the ROADMAP C10 shapes (N, k): N = 8192, 16384 and
+#: k = 2 at N = 4096 (cut from C7_BATCH for the run's time).
+C10_BATCH = {(8192, 1): 256, (16384, 1): 64, (4096, 2): 256}
 #: The served path: client threads, and the chunk timed beside the default.
 CLIENTS = 8
 WIDE_CHUNK = 2048
@@ -204,6 +219,31 @@ def c8_params(params):
                  for N, k, l, bg in ((4096, 1, 3, 7), (1024, 3, 5, 5), (512, 4, 3, 7),
                                      (2048, 3, 3, 7), (512, 3, 8, 4), (1024, 1, 16, 2),
                                      (4096, 1, 1, 10)))
+
+
+def c10_params(params):
+    """The shapes of ROADMAP C10 (n = C7_STEPS): N = 8192 and 16384 (F = 1024
+    and 2048: K3 in a cluster, K2 at one sample a block or in a cluster; no
+    K1 context), N = 4096 k = 2 l = 6 (Kp = 144 at F = 512: K3 in a cluster),
+    K = 288, k = 5 (U = 6; and at N = 8192, K2 and K3 in a cluster), N = 16
+    and 8 (F = 4), and the shapes refused before C10 (K2 at N = 4096, k = 3 l = 3
+    and k = 4 l = 1; K3 at N = 4096 k = 1 l = 9; K1 and K3 at K = 288, F = 64)."""
+    return tuple((f"C10 N={N} k={k} l={l} Bgbit={bg}",
+                  params.test_params(N=N, k=k, l=l, Bgbit=bg, n=C7_STEPS))
+                 for N, k, l, bg in ((8192, 1, 3, 7), (16384, 1, 3, 7), (4096, 2, 6, 4),
+                                     (1024, 3, 9, 3), (256, 5, 3, 7), (16, 1, 3, 7),
+                                     (8, 1, 2, 8), (8192, 5, 1, 7), (4096, 3, 3, 7), (4096, 4, 1, 7),
+                                     (4096, 1, 9, 3), (512, 3, 9, 3)))
+
+
+def repeat_equal(run, out, label: str) -> None:
+    """Runs a cluster shape CLUSTER_REPEATS times more; every run must give
+    ``out``'s words (an ordering fault across a cluster's blocks shows only
+    some of the time)."""
+    for r in range(CLUSTER_REPEATS):
+        got = run()
+        torch.cuda.synchronize()
+        check(torch.equal(got, out), f"{label}: repeat {r + 1} differs from the first run")
 
 
 def c9_params(params):
@@ -1243,10 +1283,23 @@ def parallel_smoke(ks, p, gen: torch.Generator, smi: str) -> None:
         run_parallel_ranks(ONE_CARD_PLAN, PAR_RANKS, tmp, B, one_rank, smi, " (b)")
 
 
+def noise_budget_bgbit(params, N: int, k: int, l: int, bg: int, n: int) -> int:
+    """``bg``, or the nearest Bgbit that ``gates.check_noise_budget`` takes at
+    (N, k, l, n) with int8 digits (Bgbit <= 8), the larger first on a tie."""
+    from eoc_tfhe_tpu_torch.core import gates
+    for cand in sorted(range(1, 9), key=lambda b: (abs(b - bg), -b)):
+        try:
+            gates.check_noise_budget(params.test_params(N=N, k=k, l=l, Bgbit=cand, n=n), -1, -1)
+            return cand
+        except ValueError:
+            continue
+    raise SmokeFailure(f"no Bgbit passes the noise budget at N={N} k={k} l={l} n={n}")
+
+
 def wide_shapes_smoke(gen: torch.Generator, smi: str) -> None:
-    """Phase 20: one NAND at full depth at two ROADMAP C7 shapes and two C8
-    shapes, each through the kernel of its eval-key form, with that kernel
-    timed at its inputs."""
+    """Phase 20: one NAND at full depth at two ROADMAP C7 shapes, two C8
+    shapes and three C10 shapes, each through the kernel of its eval-key
+    form, with that kernel timed at its inputs."""
     from eoc_tfhe_tpu_torch.core import bootstrap, gates, keys, params
     from eoc_tfhe_tpu_torch.core.numeric import mod_switch_to_torus32_np
     from eoc_tfhe_tpu_torch.ops import blind_rotate, blind_rotate_compact, blind_rotate_v1, ntt
@@ -1254,15 +1307,21 @@ def wide_shapes_smoke(gen: torch.Generator, smi: str) -> None:
     dev = torch.device("cuda")
     modules = {"blind_rotate_ntt": blind_rotate, "blind_rotate_compact": blind_rotate_compact,
                "blind_rotate_ntt_v1": blind_rotate_v1}
-    B = C7_BATCH
     for fault, (N, k, l, bg), forms in (
             ("C7", (2048, 1, 3, 7), ("ntt_kernel", "ntt_scan")),
             ("C7", (512, 3, 3, 7), ("compact",)),
             ("C8", (4096, 1, 3, 7), ("ntt_scan", "compact")),     # F = 512; no K1 context
-            ("C8", (1024, 3, 5, 5), ("ntt_kernel",))):            # K = 160
-        p = params.test_params(N=N, k=k, l=l, Bgbit=bg, n=630)
-        gates.check_noise_budget(p, -1, -1)                    # the gate's rail takes the shape
-        shape = f"{fault} N={N} k={k} l={l} Bgbit={bg} n={p.n}"
+            ("C8", (1024, 3, 5, 5), ("ntt_kernel",)),             # K = 160
+            ("C10", (8192, 1, 3, 7), ("ntt_scan", "compact")),    # F = 1024: K3 in a cluster
+            ("C10", (16384, 1, 3, 7), ("ntt_scan", "compact")),   # F = 2048: both in a cluster
+            ("C10", (4096, 2, 6, 4), ("ntt_scan",))):             # Kp = 144 at F = 512
+        B = C10_BATCH.get((N, k), C7_BATCH)
+        nb = noise_budget_bgbit(params, N, k, l, bg, 630)      # the gate's rail takes the shape
+        if nb != bg:
+            print(f"{fault} N={N} k={k} l={l}: the noise budget refuses Bgbit={bg} at n=630; "
+                  f"Bgbit={nb} (the nearest it takes)", flush=True)
+        p = params.test_params(N=N, k=k, l=l, Bgbit=nb, n=630)
+        shape = f"{fault} N={N} k={k} l={l} Bgbit={nb} n={p.n}"
         t0 = time.perf_counter()
         ks = keys.new_random_gate_bootstrapping_secret_keyset(gen, p, device=dev)
         torch.cuda.synchronize()
@@ -1280,8 +1339,11 @@ def wide_shapes_smoke(gen: torch.Generator, smi: str) -> None:
                 name, key = "blind_rotate_compact", ek.bk_compact
                 run = lambda: blind_rotate_compact.blind_rotate_compact(acc0, bara, key, p)
                 plain = lambda: blind_rotate_compact.blind_rotate_compact_plain(acc0, bara, key, p)
-                plan = "{} samples a block, {} key limb(s) and {} digit rows a pass".format(
-                    *blind_rotate_compact.kernel_plan(k + 1, N, p.tgsw_params.kpl))
+                plan6 = blind_rotate_compact.kernel_plan(k + 1, N, p.tgsw_params.kpl)
+                plan = ("{} samples a block, {} key limb(s) and {} digit rows a pass, {} block(s)"
+                        " a cluster".format(*plan6)
+                        + (", general kernel" if blind_rotate_compact.is_general(k + 1, N, plan6)
+                           else ""))
             else:
                 ek = bootstrap.prepare_eval_key_ntt(ks.cloud, p, kernel=form == "ntt_kernel")
                 ctx = ek.ntt_ctx
@@ -1294,9 +1356,11 @@ def wide_shapes_smoke(gen: torch.Generator, smi: str) -> None:
                     run = lambda: blind_rotate_v1.blind_rotate_ntt_v1(acc0, bara, key, ctx, p)
                     plain = lambda: blind_rotate_v1.blind_rotate_ntt_v1_plain(acc0, bara, key,
                                                                               ctx, p)
-                samples, general = blind_rotate.crt_mma_plan(k + 1, ctx, p.tgsw_params, stage)
-                plan = f"{samples} samples a block, {'general' if general else 'shipped'} " \
-                       f"instantiation"
+                samples, general, cluster = blind_rotate.crt_mma_plan(k + 1, ctx, p.tgsw_params,
+                                                                      stage)
+                plan = (f"{samples} samples a block, "
+                        f"{'general' if general else 'shipped'} instantiation"
+                        + (f", cluster instantiation of {cluster} blocks" if cluster > 1 else ""))
             torch.cuda.synchronize()
             prep_s = time.perf_counter() - t0
             check(ek.form == form, f"{shape}: eval key form {ek.form}, wanted {form}")
@@ -1314,7 +1378,7 @@ def wide_shapes_smoke(gen: torch.Generator, smi: str) -> None:
             err = int((k_out.to(torch.int64) - p_out.to(torch.int64)).abs().max())
             check(err == 0, f"{name} differs from plain at {shape} (max {err})")
             if form == "compact":      # K1's plan where it has one (N <= 2048), else K3's
-                bctx = (ntt.context_for_params(p, device=dev) if N == 4096
+                bctx = (ntt.context_for_params(p, device=dev) if N >= 4096
                         else ntt.kernel_context_for_params(p, device=dev))
                 b_ms, b_by = compact_bound(B, p.n, key, bctx, p)
             else:
@@ -1383,14 +1447,14 @@ def main() -> int:
                                  *((lb, pc, None, C5_BATCH) for lb, pc in c5_params(params)),
                                  *((lb, pc, None, Bc)
                                    for lb, pc in (*c7_params(params), *c8_params(params),
-                                                  *c9_params(params))
+                                                  *c9_params(params), *c10_params(params))
                                    for Bc in (C5_BATCH, C7_RAGGED))):
         n_steps = p.n if n_steps is None else n_steps
-        if p.N == 4096:          # no context over KERNEL_PRIMES, as in the reference
+        if p.N >= 4096:          # no context over KERNEL_PRIMES, as in the reference
             try:
                 ntt.kernel_context_for_params(p, device=dev)
             except ValueError as e:
-                check("K1 (blind_rotate_ntt) has no context at N=4096" in str(e), str(e))
+                check(f"K1 (blind_rotate_ntt) has no context at N={p.N}" in str(e), str(e))
                 print(f"K1 refuses {label} by name: {e}", flush=True)
                 continue
             raise SmokeFailure(f"K1 has a context at {label}")
@@ -1401,7 +1465,8 @@ def main() -> int:
         plain = blind_rotate.blind_rotate_ntt_plain(acc0, bara, key, ctx, p)
         torch.cuda.synchronize()
         check(torch.equal(out, plain), f"blind_rotate_ntt differs from plain at {label}")
-        samples, general = blind_rotate.crt_mma_plan(p.k + 1, ctx, p.tgsw_params)
+        samples, general, cluster = blind_rotate.crt_mma_plan(p.k + 1, ctx, p.tgsw_params)
+        check(cluster == 1, f"K1 plans a cluster at {label}")
         print(f"kernel == plain at {label}: B={B}, n={n_steps}, {samples} samples a block"
               f"{' (general instantiation)' if general else ''}, key limbs "
               f"{ctx.key_limbs}x{ctx.key_limb_bits}, rb={ctx.key_round_bits}, bit-identical",
@@ -1478,19 +1543,27 @@ def main() -> int:
                                  ("128-bit rounded", params.default_128bit_params(), 4, 3),
                                  *((lb, pc, C5_BATCH, 4) for lb, pc in c5_params(params)),
                                  *((lb, pc, Bc, 4)
-                                   for lb, pc in (*c7_params(params), *c8_params(params))
+                                   for lb, pc in (*c7_params(params), *c8_params(params),
+                                                  *c10_params(params))
                                    for Bc in (C5_BATCH, C7_RAGGED)
                                    if pc.tgsw_params.halfBg <= 128)):
         rows, acc6, bara6 = random_rotation_inputs(gen, pc, pc.n, B6, dev)
         key6 = blind_rotate_compact.prepare_compact_bk(rows, limbs)
-        out6 = blind_rotate_compact.blind_rotate_compact(acc6, bara6, key6, pc)
+        run6 = lambda: blind_rotate_compact.blind_rotate_compact(acc6, bara6, key6, pc)  # noqa: E731
+        out6 = run6()
         plain6 = blind_rotate_compact.blind_rotate_compact_plain(acc6, bara6, key6, pc)
         torch.cuda.synchronize()
         check(torch.equal(out6, plain6), f"blind_rotate_compact differs from plain at {label}")
-        samples, lp, jp = blind_rotate_compact.kernel_plan(pc.k + 1, pc.N, pc.tgsw_params.kpl)
+        plan6 = blind_rotate_compact.kernel_plan(pc.k + 1, pc.N, pc.tgsw_params.kpl)
+        samples, lp, jp, cluster = plan6
+        if cluster > 1:
+            repeat_equal(run6, out6, f"blind_rotate_compact at {label}")
         print(f"compact kernel == plain at {label}: B={B6}, n={pc.n}, limbs={limbs}, "
               f"{samples} samples a block, {lp} key limb(s) and {jp} of {pc.tgsw_params.kpl} "
-              f"digit rows a pass, bit-identical", flush=True)
+              f"digit rows a pass, {cluster} block(s) a cluster"
+              f"{' (general kernel)' if blind_rotate_compact.is_general(pc.k + 1, pc.N, plan6) else ''}"
+              f"{f', {CLUSTER_REPEATS} repeats equal' if cluster > 1 else ''}, bit-identical",
+              flush=True)
         del rows, key6, out6, plain6
 
     # 7. the circuit path: 8-bit add and subtract over the compact key
@@ -1586,7 +1659,7 @@ def main() -> int:
               for tag, pr in (("DEFAULT_PRIMES", ntt.DEFAULT_PRIMES),
                               ("KERNEL_PRIMES", ntt.KERNEL_PRIMES))),
             *((f"{lb} {tag}", pc, Bc, pr)
-              for lb, pc in (*c7_params(params), *c8_params(params))
+              for lb, pc in (*c7_params(params), *c8_params(params), *c10_params(params))
               for Bc in (C5_BATCH, C7_RAGGED)
               for tag, pr in (("DEFAULT_PRIMES", ntt.DEFAULT_PRIMES),
                               ("KERNEL_PRIMES", ntt.KERNEL_PRIMES))
@@ -1601,16 +1674,21 @@ def main() -> int:
         else:
             ctx10 = ntt.make_context(tg.tlwe_params.N, tg.kpl, tg.halfBg, primes, device=dev)
         key10 = ntt.prepare_key_ntt(rows, ctx10)
-        out10 = blind_rotate_v1.blind_rotate_ntt_v1(acc10, bara10, key10, ctx10, pv)
+        run10 = lambda: blind_rotate_v1.blind_rotate_ntt_v1(  # noqa: E731
+            acc10, bara10, key10, ctx10, pv)
+        out10 = run10()
         plain10 = blind_rotate_v1.blind_rotate_ntt_v1_plain(acc10, bara10, key10, ctx10, pv)
         torch.cuda.synchronize()
         check(torch.equal(out10, plain10), f"blind_rotate_ntt_v1 differs from plain at {label}")
-        samples, general = blind_rotate.crt_mma_plan(pv.k + 1, ctx10, tg,
-                                                     blind_rotate_v1.STAGE_BYTES)
+        samples, general, cluster = blind_rotate.crt_mma_plan(pv.k + 1, ctx10, tg,
+                                                              blind_rotate_v1.STAGE_BYTES)
+        if cluster > 1:
+            repeat_equal(run10, out10, f"blind_rotate_ntt_v1 at {label}")
         print(f"v1 kernel == plain at {label}: B={B10}, n={pv.n}, halfBg={tg.halfBg}, "
               f"primes={primes}, key limbs {ctx10.key_limbs}x{ctx10.key_limb_bits}, "
               f"rb={ctx10.key_round_bits}, "
-              f"{samples} samples a block{' (general instantiation)' if general else ''}, "
+              f"{samples} samples a block{' (general instantiation)' if general else ''}"
+              f"{f' in a cluster of {cluster} blocks, {CLUSTER_REPEATS} repeats equal' if cluster > 1 else ''}, "
               f"bit-identical", flush=True)
         del rows, key10, out10, plain10
 

@@ -51,9 +51,35 @@
 // warp's 64 tiles in two walks of 32 (CG), each walk adding its sums into
 // acc. The walk is unrolled at compile time, so the kernel is instantiated
 // per (N, U): every power of two N from 32 to 4096 at U = 2 to 5 (k = 1 to
-// 4; at N = 4096 U = 2 to 4, since no plan fits U = 5 there); a shape whose
-// shared memory does not fit at 2 samples, one limb and one row a pass is
-// refused.
+// 4; at N = 4096 U = 2 to 4, since no plan fits U = 5 there), at 2 to 8
+// samples a block.
+//
+// The general kernel (ROADMAP C10) replaces the refusal of every other
+// shape, not the instantiations, which keep every shape they took: U of any
+// size (a run-time value; 8 warps take the walks of 16*CG output
+// coefficients in turn), N = 8 and 16 (digit rows padded with zeros to the MMA's
+// k32), N >= 2048 at run time (32 tiles a walk, the r-tiles in any number of
+// passes of 32: N = 8192, 16384, ...), one sample a block, and, where one
+// sample does not fit a block at one limb and one row a pass, a thread-block
+// cluster of C = 2, 4 or 8 blocks (the fewest that hold it). It is taken
+// only where no instantiation's plan fits. The cluster splits the outputs:
+// block c owns coefficients [c N/C, (c+1) N/C) of each output polynomial,
+// its share of the accumulators (in its shared memory), holds the whole
+// samples' digits, computed from the whole accumulators (the other blocks'
+// shares read through DSMEM, cluster.map_shared_rank), and of each key row
+// only the N + N/C bytes its outputs meet. Barriers: a cluster barrier
+// (barrier.cluster.arrive.release / wait.acquire) before each step's digit
+// pass (every share holds the last step) and one after it (no block updates
+// its share while another reads it); no DSMEM read follows the last one, so
+// no block exits while another reads its shared memory. Shared memory a
+// block: ns (U N/C + 4) 4 + ns (J max(N, 32) + 16) + lp jp U (N + N/C + 32,
+// or 2N + 32 without a cluster) + 16: at N = 8192 k = 1 l = 3, one sample, one
+// limb and 3 rows a pass, 213,232 bytes; at N = 16384, C = 2, one row a
+// pass, 213,104. What bounds it on this card: 232,448 bytes a block and 8
+// portable blocks a cluster, so a sample whose digits alone (J N bytes,
+// held whole in each block) and one row's window exceed a block is refused
+// (N = 16384 k = 3 l = 2: 237,744 bytes at C = 8); the launcher asks
+// cudaOccupancyMaxActiveClusters whether the cluster can be scheduled.
 //
 // Bound on an H100 at the 128-bit set (chip_smoke.py compact_bound): the
 // same function by the cheapest exact dataflow the repo has, the CRT-NTT one
@@ -73,9 +99,12 @@
 #include <cstdint>
 #include <initializer_list>
 #include <type_traits>
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 namespace {
+
+namespace cg = cooperative_groups;
 
 constexpr int kMaxSamples = 8;   // samples per block: the MMA's N
 constexpr int kLimbs = 4;
@@ -100,6 +129,11 @@ struct Shape {
   int acc_s;   // words per sample of acc: U*N + 4 (bank spread of the flush)
   int dig_s;   // bytes per sample of dig: J*N + 16 (bank spread of the B loads)
   int dig_off, rev_off;
+  // The general kernel only:
+  int C;       // blocks a cluster (1: no cluster)
+  int Ns;      // coefficients of each output polynomial a block owns: N / C
+  int NR;      // bytes of a digit row: max(N, 32) (rows past N are zero)
+  int RW;      // bytes of a key row's window: (2N, or N + Ns in a cluster) + 32
 };
 
 __device__ __forceinline__ void mma_k32(int (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2,
@@ -310,6 +344,233 @@ int launch_n(const Shape& S, size_t smem, const void* acc0, const void* bara, co
   return static_cast<int>(cudaGetLastError());
 }
 
+
+// --- The general kernel ------------------------------------------------------
+// Every shape the instantiations above do not take: U = k+1 of any size, N =
+// 8 and 16 (one 16-row output tile a polynomial, rows past N not stored; the
+// digit rows padded with zeros to 32 coefficients, the k32 tile of the
+// MMA), N >= 8192, one sample a
+// block, and a thread-block cluster where one sample does not fit a block.
+// kGeneralWarps warps (up to 255 registers each: a walk holds 32 output tiles
+// and 32 r-tiles of digits in registers) take the walks of 16*CG output
+// coefficients in turn, walk w being (u = w / walks a polynomial, its
+// coefficients); the r-tiles go in passes of RG, any number of them.
+//
+// The cluster. C blocks (2, 4 or 8) hold S.ns samples and split the
+// outputs: block c owns coefficients [c Ns, (c+1) Ns) of each of the U
+// polynomials (Ns = N/C), its share of the accumulators, in shared memory.
+// Each block holds the digits of the whole samples, computed from the whole
+// accumulators, its own share and the other blocks' read through DSMEM
+// (cluster.map_shared_rank), and the bytes of each key row that its outputs
+// meet: y in [N - c Ns - Ns, 2N - c Ns) of the row [k reversed | -k
+// reversed], N + Ns of its 2N bytes. Two cluster barriers
+// (barrier.cluster.arrive.release / wait.acquire) a step: before the digit
+// pass (every block's last update of its share is visible) and after it
+// (every block has read the accumulators before any block updates its
+// share). A block's last DSMEM read comes before the last barrier, so no
+// block exits while another reads its shared memory.
+constexpr int kGeneralWarps = 8;
+constexpr int kGeneralThreads = 32 * kGeneralWarps;
+
+// NT: N where N < 2048 (the walk's tile counts at compile time), 0 for every
+// N >= 2048 (32 output tiles a walk, r-tiles in passes of 32, N at run time).
+template <int NT>
+__global__ void __launch_bounds__(kGeneralThreads, 1) blind_rotate_compact_general(
+    const int32_t* __restrict__ acc0, const int32_t* __restrict__ bara,
+    const int32_t* __restrict__ key, int32_t* __restrict__ out, const Shape S) {
+  constexpr int TPP = NT == 0 ? 128 : NT < 16 ? 1 : NT / 16;   // 16-row tiles a polynomial
+  constexpr bool kShort = NT != 0 && NT < 16;            // N = 8: rows N..15 of the tile unused
+  constexpr int CG = TPP >= 128 ? 32 : TPP >= 4 ? TPP / 4 : 1;   // tiles a walk
+  constexpr int RG = NT == 0 ? 32 : NT <= 32 ? 1 : NT / 32 < 32 ? NT / 32 : 32;   // r-tiles a pass
+  const int N = NT ? NT : S.N, twoN = 2 * N;
+  const int U = S.U, J = S.J, ns = S.ns, C = S.C, Ns = S.Ns, NR = S.NR, RW = S.RW;
+  const int UN = U * N, UNs = U * Ns;
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint32_t* acc = reinterpret_cast<uint32_t*>(smem);          // [s][acc_s]: u*Ns + c - c0
+  int8_t* dig = reinterpret_cast<int8_t*>(smem + S.dig_off);  // [s][j][NR] + pad
+  int8_t* rev = reinterpret_cast<int8_t*>(smem + S.rev_off);  // [t - t0][j - j0][u][RW]
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = C > 1 ? static_cast<int>(cluster.block_rank()) : 0;
+  const int c0 = rank * Ns, y0 = N - c0 - Ns;     // first coefficient; first y of the window
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tig = lane & 3;
+  const int b0 = (blockIdx.x / C) * ns;
+  const int nvalid = min(ns, S.B - b0);
+
+  for (int x = tid; x < ns * UNs; x += kGeneralThreads) {
+    const int s = x / UNs, y = x - s * UNs, u = y / Ns;
+    acc[s * S.acc_s + y] = s < nvalid ? static_cast<uint32_t>(
+        acc0[static_cast<size_t>(b0 + s) * UN + u * N + c0 + y - u * Ns]) : 0u;
+  }
+  for (int x = tid; x < ns * J * (NR - N); x += kGeneralThreads) {   // N = 16: r in [16, 32)
+    const int row = x / (NR - N);
+    dig[(row / J) * S.dig_s + (row % J) * NR + N + x - row * (NR - N)] = 0;
+  }
+  // Word x of sample s, polynomial u, coefficient c of the whole accumulators.
+  auto acc_word = [&](int s, int u, int c) {
+    const int owner = c / Ns;
+    uint32_t* p = acc + s * S.acc_s + u * Ns + c - owner * Ns;
+    return C > 1 ? *cluster.map_shared_rank(p, owner) : *p;
+  };
+
+  const int sh = (Ns + 15 - g) & 3;           // byte offset of this lane's row in a word
+  const uint32_t sel = 0x3210u + 0x1111u * sh;
+  const int walks = kShort ? 1 : Ns / (16 * CG);   // walks of a polynomial's share
+  const int8_t* dg = dig + (g < ns ? g : 0) * S.dig_s + 4 * tig;   // past ns: sample 0
+  for (int i = 0; i < S.n; ++i) {
+    const int32_t* key_i = key + static_cast<size_t>(i) * J * UN;
+    for (int t0 = 0; t0 < kLimbs; t0 += S.lp)
+    for (int j0 = 0; j0 < J; j0 += S.jp) {
+      const int jn = min(S.jp, J - j0);
+      const bool first = t0 == 0 && j0 == 0;
+      if (first && C > 1) cluster.sync();   // every block's share holds step i-1
+      else __syncthreads();                 // the previous pass no longer reads dig or rev
+      // Limbs t0 .. t0+lp-1 of rows j0 .. j0+jn-1 as byte rows, the window
+      // of each: rev[..][16 + y - y0] for y = N-1-m (limb of k[m]) and
+      // 2N-1-m (limb of -k[m]), four words of k a thread.
+      int nz = 0;
+      for (int x = tid; x < jn * U * (N / 4); x += kGeneralThreads) {
+        const int ju = x / (N / 4), m0 = (x - ju * (N / 4)) * 4;
+        const int yp = N - 4 - m0, yn = twoN - 4 - m0;
+        const bool inp = yp >= y0 && yp < y0 + N + Ns, inn = yn >= y0 && yn < y0 + N + Ns;
+        if (!inp && !inn) continue;
+        const int4 kv = *reinterpret_cast<const int4*>(key_i + (j0 * U + ju) * N + m0);
+        const uint32_t v[4] = {static_cast<uint32_t>(kv.x), static_cast<uint32_t>(kv.y),
+                               static_cast<uint32_t>(kv.z), static_cast<uint32_t>(kv.w)};
+        uint32_t pos[kLimbs] = {}, neg[kLimbs] = {};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          int bp[kLimbs], bn[kLimbs];
+          limbs(v[e], bp);
+          limbs(0u - v[e], bn);
+#pragma unroll
+          for (int t = 0; t < kLimbs; ++t) {
+            pos[t] |= static_cast<uint32_t>(bp[t] & 255) << (8 * (3 - e));
+            neg[t] |= static_cast<uint32_t>(bn[t] & 255) << (8 * (3 - e));
+          }
+        }
+#pragma unroll
+        for (int t = 0; t < kLimbs; ++t) {
+          if (t < t0 || t >= t0 + S.lp) continue;
+          int8_t* row = rev + static_cast<size_t>((t - t0) * S.jp * U + ju) * RW + 16 - y0;
+          if (inp) *reinterpret_cast<uint32_t*>(row + yp) = pos[t];
+          if (inn) *reinterpret_cast<uint32_t*>(row + yn) = neg[t];
+          nz |= ((inp ? pos[t] : 0u) | (inn ? neg[t] : 0u)) != 0u ? 1 << t : 0;
+        }
+      }
+      // d = X^a * acc - acc of the whole samples, then its signed gadget
+      // digits (offset trick), once a step, before any block updates acc.
+      if (first) {
+        for (int x = tid; x < ns * UN; x += kGeneralThreads) {
+          const int s = x / UN, y = x - s * UN;
+          const int u = y / N, c = y - u * N;
+          uint32_t du = S.offset;
+          if (s < nvalid) {
+            const int a = bara[static_cast<size_t>(i) * S.B + b0 + s];
+            const int src = (c - a + twoN) & (twoN - 1);    // a in [0, 2N)
+            const uint32_t v = src < N ? acc_word(s, u, src) : 0u - acc_word(s, u, src - N);
+            du = v - acc_word(s, u, c) + S.offset;
+          }
+          int8_t* ds = dig + s * S.dig_s + c;
+          for (int li = 0; li < S.l; ++li) {
+            const int shift = 32 - (li + 1) * S.Bgbit;
+            ds[(u * S.l + li) * NR] =
+                static_cast<int8_t>(static_cast<int>((du >> shift) & S.mask) - S.halfBg);
+          }
+        }
+        if (C > 1) cluster.sync();   // every block has read the accumulators
+      }
+      int live = 0;
+      for (int t = t0; t < t0 + S.lp; ++t) live |= __syncthreads_or(nz & (1 << t)) ? 1 << t : 0;
+
+#pragma unroll 1
+      for (int t = t0; t < t0 + S.lp; ++t) {
+        if (!(live & (1 << t))) continue;
+#pragma unroll 1
+        for (int w = warp; w < U * walks; w += kGeneralWarps) {
+          const int u_out = w / walks, cb = (w - u_out * walks) * 16 * CG;   // in the share
+          const int pb = Ns - 1 - cb - g + 4 * tig + 16 - sh;   // window index of the walk
+          int c[CG][4] = {};
+#pragma unroll 1
+          for (int j = j0; j < j0 + jn; ++j) {
+            const int8_t* rv = rev +
+                static_cast<size_t>(((t - t0) * S.jp + j - j0) * U + u_out) * RW + pb;
+            const int8_t* dgj = dg + j * NR;
+#pragma unroll 1
+            for (int q0 = 0; q0 < NR / 32; q0 += RG)
+              diagonal_walk<CG, 0, RG>(c, dgj + 32 * q0, rv + 32 * q0, sel);
+          }
+          // acc += limb sum << 8t (mod 2^32): rows cb + 16 ii + g (+8),
+          // samples 2 tig (+1).
+#pragma unroll
+          for (int ii = 0; ii < CG; ++ii) {
+            uint32_t* a = acc + 2 * tig * S.acc_s + u_out * Ns + cb + 16 * ii + g;
+            const bool hi8 = !kShort || cb + 16 * ii + g + 8 < Ns;   // row exists
+            if (2 * tig < ns) {
+              a[0] += static_cast<uint32_t>(c[ii][0]) << (8 * t);
+              if (hi8) a[8] += static_cast<uint32_t>(c[ii][2]) << (8 * t);
+            }
+            if (2 * tig + 1 < ns) {
+              a[S.acc_s] += static_cast<uint32_t>(c[ii][1]) << (8 * t);
+              if (hi8) a[S.acc_s + 8] += static_cast<uint32_t>(c[ii][3]) << (8 * t);
+            }
+          }
+        }
+      }
+    }
+  }
+  __syncthreads();
+
+  for (int x = tid; x < nvalid * UNs; x += kGeneralThreads) {
+    const int s = x / UNs, y = x - s * UNs, u = y / Ns;
+    out[static_cast<size_t>(b0 + s) * UN + u * N + c0 + y - u * Ns] =
+        static_cast<int32_t>(acc[s * S.acc_s + y]);
+  }
+}
+
+int launch_general(const Shape& S, size_t smem, const void* acc0, const void* bara,
+                   const void* key, void* out, cudaStream_t stream) {
+  auto at = [&](auto kernel) {
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = S.C;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3((S.B + S.ns - 1) / S.ns * S.C);
+    cfg.blockDim = dim3(kGeneralThreads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    cfg.attrs = attr;
+    cfg.numAttrs = S.C > 1 ? 1 : 0;
+    if (S.C > 1) {   // a cluster of C blocks at this shared memory must fit the card
+      int clusters = 0;
+      err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      if (clusters < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+    }
+    err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const int32_t*>(acc0),
+                             static_cast<const int32_t*>(bara), static_cast<const int32_t*>(key),
+                             static_cast<int32_t*>(out), S);
+    return static_cast<int>(err == cudaSuccess ? cudaGetLastError() : err);
+  };
+  switch (S.N) {
+    case 8: return at(blind_rotate_compact_general<8>);
+    case 16: return at(blind_rotate_compact_general<16>);
+    case 32: return at(blind_rotate_compact_general<32>);
+    case 64: return at(blind_rotate_compact_general<64>);
+    case 128: return at(blind_rotate_compact_general<128>);
+    case 256: return at(blind_rotate_compact_general<256>);
+    case 512: return at(blind_rotate_compact_general<512>);
+    case 1024: return at(blind_rotate_compact_general<1024>);
+    default: return at(blind_rotate_compact_general<0>);   // N >= 2048
+  }
+}
+
 }  // namespace
 
 // Shared memory of a block of `ns` samples with the byte rows of `lp` limbs
@@ -326,13 +587,45 @@ static size_t plan(Shape& S, int ns, int lp, int jp) {
   return static_cast<size_t>(S.rev_off) + static_cast<size_t>(lp) * jp * S.U * 2 * S.N + 16;
 }
 
+// The general kernel's shared memory for a block of a cluster of C blocks
+// holding `ns` samples, with the byte rows of `lp` limbs and `jp` digit
+// rows: the block's share of the accumulators, the whole samples' digits
+// and the rows' windows, + 16 (ops/blind_rotate_compact.smem_bytes with
+// general=True). Sets S's layout fields.
+static size_t plan_general(Shape& S, int C, int ns, int lp, int jp) {
+  S.C = C;
+  S.Ns = S.N / C;
+  S.NR = S.N > 32 ? S.N : 32;
+  S.RW = (C == 1 ? 2 * S.N : S.N + S.Ns) + 32;
+  S.ns = ns;
+  S.lp = lp;
+  S.jp = jp;
+  S.acc_s = S.U * S.Ns + 4;
+  S.dig_s = S.J * S.NR + 16;
+  S.dig_off = ns * S.acc_s * 4;
+  S.rev_off = S.dig_off + ns * S.dig_s;
+  return static_cast<size_t>(S.rev_off) + static_cast<size_t>(lp) * jp * S.U * S.RW + 16;
+}
+
+// Blocks a cluster that the general kernel can take at N: each block's
+// share holds at least one walk of CG tiles (C = 1 below N = 1024).
+static int max_cluster(int N) {
+  if (N < 1024) return 1;
+  const int cg_tiles = N >= 2048 ? 32 : 16;
+  const int c = N / (16 * cg_tiles);
+  return c < 8 ? c : 8;
+}
+
 // Launches the blind rotation on `stream`.  acc0, out: (B, U, N) int32;
 // bara: (n, B) int32 in [0, 2N); key: (n, U*l, U, N) int32, the stored key.
-// Supported: U = 2 to 5 and N a power of two from 32 to 4096, at the first
+// The instantiations, at U = 2 to 5 and N from 32 to 4096, take the first
 // of (samples, limbs a pass, rows a pass) = (8, 4, J), (8, 1, J), (4, 4, J),
 // (4, 1, J), (2, 4, J), (2, 1, J), then (8, 1, jp), (4, 1, jp), (2, 1, jp)
-// with the most rows jp < J that fit, whose shared memory is below the
-// card's limit (the Python wrapper refuses the rest first, by name:
+// with the most rows jp < J that fit; every other shape (any U, N a power
+// of two from 8) takes the general kernel at the first fit of, per cluster
+// size C = 1, 2, 4, 8 and samples 8, 4, 2, 1, (4, J), (1, J) and (1, jp).
+// A shape that fits no plan below the card's shared memory is refused (the
+// Python wrapper refuses it first, by name:
 // ops/blind_rotate_compact.check_kernel_domain).
 // Returns a cudaError_t (0 on success); allocates nothing and does not sync.
 extern "C" int blind_rotate_compact_launch(const void* acc0, const void* bara, const void* key,
@@ -340,8 +633,9 @@ extern "C" int blind_rotate_compact_launch(const void* acc0, const void* bara, c
                                            int Bgbit, void* stream) {
   Shape S;
   S.B = B; S.n = n; S.U = U; S.N = N; S.l = l; S.J = U * l; S.Bgbit = Bgbit;
-  if (B <= 0 || n < 0 || U < 2 || U > 5 || N < 32 || N > 4096 || (N & (N - 1)) != 0 ||
-      l <= 0 || Bgbit <= 0 || Bgbit > 8 || l * Bgbit > 32)
+  S.C = 1;
+  if (B <= 0 || n < 0 || U < 1 || N < 8 || (N & (N - 1)) != 0 || l <= 0 || Bgbit <= 0 ||
+      Bgbit > 8 || l * Bgbit > 32)
     return static_cast<int>(cudaErrorInvalidValue);
   S.halfBg = 1 << (Bgbit - 1);   // <= 128: int8 digits, the reference's exact domain
   // Each limb's MMA sum: J*N products |digit| * |byte| <= halfBg * 128.
@@ -358,14 +652,28 @@ extern "C" int blind_rotate_compact_launch(const void* acc0, const void* bara, c
   if (err != cudaSuccess) return static_cast<int>(err);
   size_t smem = 0;
   bool fits = false;
-  for (int ns = kMaxSamples; ns >= 2 && !fits; ns /= 2)
+  const bool shipped = U >= 2 && U <= 5 && N >= 32 && N <= 4096;
+  for (int ns = kMaxSamples; shipped && ns >= 2 && !fits; ns /= 2)
     for (int lp : {kLimbs, 1})
       if (!fits) fits = (smem = plan(S, ns, lp, S.J)) <= static_cast<size_t>(optin);
-  for (int ns = kMaxSamples; ns >= 2 && !fits; ns /= 2)
+  for (int ns = kMaxSamples; shipped && ns >= 2 && !fits; ns /= 2)
     for (int jp = S.J - 1; jp >= 1 && !fits; --jp)
       fits = (smem = plan(S, ns, 1, jp)) <= static_cast<size_t>(optin);
-  if (!fits) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (!fits) {
+    // The general kernel: per cluster size (1, then 2, 4, 8), per samples
+    // (8 down to 1), all J rows at four limbs and one limb a pass, then one
+    // limb and the most rows that fit.
+    for (int C = 1; C <= max_cluster(N) && !fits; C *= 2)
+      for (int ns = kMaxSamples; ns >= 1 && !fits; ns /= 2) {
+        for (int lp : {kLimbs, 1})
+          if (!fits) fits = (smem = plan_general(S, C, ns, lp, S.J)) <= static_cast<size_t>(optin);
+        for (int jp = S.J - 1; jp >= 1 && !fits; --jp)
+          fits = (smem = plan_general(S, C, ns, 1, jp)) <= static_cast<size_t>(optin);
+      }
+    if (!fits) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_general(S, smem, acc0, bara, key, out, st);
+  }
   auto at_u = [&](auto u) {
     constexpr int kU = decltype(u)::value;
     switch (N) {

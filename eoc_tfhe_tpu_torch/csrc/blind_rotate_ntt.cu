@@ -20,7 +20,10 @@
 // design runs exactly those MACs (plus the zero padding of F to 32 at small
 // N) on the tensor cores with mma.sync; the reductions between stages run on
 // the CUDA cores, and latency, not the MMAs, is its critical path
-// (crt_ntt_mma.cuh).
+// (crt_ntt_mma.cuh). K1's contexts end at N = 2048 (KERNEL_PRIMES has no
+// 2F-th root beyond F = 256), so its shapes take the cluster path of
+// crt_ntt_mma.cuh only where one sample outgrows a block at F = 256; K > 256
+// and F = 4 (N = 16) take its general instantiation (ROADMAP C10).
 
 #include "crt_ntt_mma.cuh"
 

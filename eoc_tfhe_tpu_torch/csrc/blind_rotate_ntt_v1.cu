@@ -38,6 +38,16 @@
 // the accumulators at 3.35 TB/s, so bound by operations. This design runs
 // those MACs on the tensor cores with mma.sync, as K1 does; the transpose is
 // extra work of the pointwise stage on the CUDA cores.
+//
+// The cluster path (crt_ntt_mma.cuh, ROADMAP C10). Where one sample does
+// not fit a block (N >= 8192, F >= 1024; F = 512 with Kp >= 144), a
+// thread-block cluster of 2, 4 or 8 blocks holds it, split by frequency:
+// each block reads only its F/C frequencies of the key, so the loader and
+// its staging tiles are unchanged, and the inverse reads the other blocks'
+// chat through DSMEM between two cluster barriers a prime. It replaces the
+// refusal of those shapes, not the instantiations of the shapes above. At N
+// = 8192 (C = 2) a block needs 133,632 bytes, at N = 16384 (C = 4) 167,424,
+// of the card's 232,448; a shape beyond a cluster of 8 stays refused.
 
 #include "crt_ntt_mma.cuh"
 

@@ -76,7 +76,7 @@
 // the chip), the samples are N (columns past the block's kS samples repeat
 // sample 0 and are not stored); warps take four frequencies at a time.
 //
-// Two families of instantiations. The shipped sets (F <= 128, Kp <= 64, 8
+// Three families of instantiations. The shipped sets (F <= 128, Kp <= 64, 8
 // samples fitting in shared memory) take kS = 8 at compile time and the
 // m-tile count of Kp (MTK, 3 or 4) as a template parameter. Where U*R = 16
 // (k = 1, N >= 64) the rows of one m-tile of the inverse are the (u, r)
@@ -87,18 +87,55 @@
 // into acc[u][t*R + r] shifted by its limb with a uint32 atomicAdd (mod 2^32,
 // so the order of the limbs does not matter). Every other shape (F = 256 or
 // 512, Kp up to 256, shared memory that 8 samples overflow, or a rounded
-// key, rb > 0: ROADMAP C7, C8, C9) takes the general instantiation, one per
-// (digit limbs, F/128), with stages of its own (forward_general,
-// pointwise_general): MTK = 16, the m-tiles of Kp four at a time and a
-// warp's n8 tiles two at a time in loops, the scatter path with the rb
-// shift, and kS = 0, the samples a block a run-time value (8, 4, 2 or 1,
-// the most that fit). Its pointwise sum always reduces C2 first (above),
+// key, rb > 0: ROADMAP C7, C8, C9; Kp past 256 and F = 4: C10) takes the
+// general instantiation, one per (digit limbs, F/128), with stages of its
+// own (forward_general, pointwise_general): MTK = 16, the m-tiles of Kp four
+// at a time and a warp's n8 tiles two at a time in loops (any Kp), the
+// scatter path with the rb shift, and kS = 0, the samples a block a run-time
+// value (8, 4, 2 or 1, the most that fit); at F = 4 (N = 16, R = 4; kTiny)
+// one n8 tile whose columns f, t >= F are not stored (the matrices are zero
+// there). Its pointwise sum always reduces C2 first (above),
 // since at Kp = 96 K1's plain sum would leave int32 (2.4e9), and C1 too at
 // Kp > 128; at F >= 256 the inverse reduces C1 before the product by 256,
 // since 257 FP 2^15 would leave it too, and at F = 512 the forward does the
-// same. The shipped sets keep their stages' code, instantiations and
+// same. At Kp > 128 the reduced C1 bounds the sum by Kp 2^14 + 256 (p-1)/2 +
+// |c16| (p-1)/2, below 2^31 up to Kp of about 110,000, so no K is refused
+// for its sums. The shipped sets keep their stages' code, instantiations and
 // registers (their times move by registers alone: a shared stage that
 // grew the loops and the rb shift cost K3 10% at the 128-bit set).
+//
+// The cluster instantiation (ROADMAP C10) replaces the refusal of a shape
+// whose one sample does not fit a block (F >= 1024, i.e. N >= 8192; F = 512
+// with Kp >= 144), not the instantiations above, which keep every shape
+// they took. A thread-block cluster of C blocks (2, 4 or 8: the fewest
+// whose share fits, then the most samples, 1 at the C10 shapes) holds the
+// samples and splits them by frequency: block c owns Fc = F/C frequencies
+// (at most 512) and the same Fc output columns t. Each block computes the
+// samples' digits from the accumulators (global memory, read with __ldcg
+// past L1, since other blocks update them) into its own dig, the forward
+// for its columns of W, and the pointwise product over its frequencies of
+// the key (so each key byte is read once per step and cluster); then a
+// cluster barrier (cg::this_cluster().sync(): barrier.cluster.arrive.release
+// and wait.acquire) makes every block's chat visible, and the inverse of
+// its columns t contracts over all F, reading the A fragments of the other
+// blocks' frequencies from their shared memory (DSMEM, map_shared_rank).
+// The inverse reads chat, not per-block partial sums, because the partials
+// of all F columns would need Mp x F int32 words a block where chat needs
+// Mp x Fc bytes, and the reduction of partials mod p would add a stage. A
+// second cluster barrier ends each prime: chat is free again, and every
+// block's atomics into acc are visible to the next digit pass. Both the
+// forward (FP 128 (128 + d_hi) + 256 (p-1)/2) and the inverse (FP 2^15 + 256
+// (p-1)/2) reduce C1 first, since 257 FP 2^14 and 257 FP 2^15 leave int32 at
+// FP >= 512 and 256. Shared memory a block: the digits DL ns Kp (FP + 16),
+// chat 2 ns Mp (Fc + 16) in the same buffer, dhat Fc (2 ns Kp + 16) and the
+// staging tiles: at N = 8192 (K3, C = 2) 133,632 bytes, at N = 16384 (C =
+// 4) 167,424, at N = 4096 k = 2 l = 6 (C = 2) 162,560. What bounds it on
+// this card: a block holds at most 232,448 bytes and a cluster at most 8
+// portable blocks, so a shape whose digits and 1/8 of its spectra exceed a
+// block (e.g. N = 4096, K = 360: 251,136 bytes) and F > 4096 are refused;
+// the launcher also asks cudaOccupancyMaxActiveClusters whether a cluster of
+// C blocks at that shared memory can be scheduled, and returns an error if
+// not (the Python domain check refuses by name first).
 //
 // Shared memory, per block of kS samples (128-bit set: F = 128, K = M = 48,
 // kS = 8): dig [DL][s][k][t] and chat [2][s][m][f] share one buffer, rows
@@ -109,8 +146,8 @@
 // 219,648 (K3) of the 232,448 bytes a block may use (80-bit set: 215,040,
 // 223,744). At F = 512 (N = 4096, K = 48, M = 64 over DEFAULT_PRIMES) one
 // sample needs 133,632 bytes (K3) and two 250,368, so those blocks hold
-// one. A shape that needs more at 1 sample is refused (at F = 512: Kp >=
-// 144). The accumulators
+// one. A shape that needs more at 1 sample (at F = 512: Kp >= 144) takes the
+// cluster instantiation (above). The accumulators
 // live in the output tensor (global memory, L2-resident, each word read once
 // and updated once a step); a per-block scratch tensor holds the first
 // prime's inverse residues (in a thread-private order) and a copy of the
@@ -118,8 +155,10 @@
 //
 // L2 key traffic and occupancy. Every key byte a block reads serves its kS
 // samples (the CUDA-core kernel served 2): 1.18 MB per step and block at the
-// 128-bit set, B/8 * n * 1.18 MB per launch. More samples per key read need a
-// thread-block cluster with the key multicast into each block (later work).
+// 128-bit set, B/8 * n * 1.18 MB per launch. The cluster instantiation
+// splits one sample's frequencies across blocks; multicasting the key into
+// the blocks of a cluster, so that one key read serves more samples, is later
+// work.
 // One block per SM; B = 8192 is 1024 blocks, 7.8 waves of 132. The
 // stages are bound by latency more than by instruction rate or by the
 // tensor cores (stubbing out the MMAs does not change the time), hence 16
@@ -134,9 +173,12 @@
 #include <cstddef>
 #include <cstdint>
 #include <cstdlib>
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 namespace crt_mma {
+
+namespace cg = cooperative_groups;
 
 constexpr int kWarps = 16;    // warps per block: 128 registers each
 constexpr int kThreads = 32 * kWarps;
@@ -151,7 +193,8 @@ struct Freq {
 };
 constexpr int kNJ = Freq<1>::kNJ;      // held in registers: F <= 128
 constexpr int kMaxKT = Freq<1>::kKT;
-constexpr int kMaxFW = 4;              // F up to 512
+constexpr int kMaxClusterF = 512;      // frequencies a block holds: F up to 512 without a cluster
+constexpr int kMaxCluster = 8;         // blocks a cluster (the portable limit)
 
 struct Shape {
   int B, n, U, N, R, F, FP, l, J, K, M, L, Bgbit, kbits, halfBg, crt_inv;
@@ -170,6 +213,9 @@ struct Shape {
   int stage;     // byte offset of the per-warp key staging tiles
   int res0_16, dig16, scratch16;   // 16-byte words of a block's scratch: res0, digits, all
   int rb;        // key rounding bits: limb l carries scale 2^(rb + kbits l); general only
+  int C;         // blocks a cluster (1: no cluster)
+  int Fc;        // frequencies (and output coefficients t) a block of the cluster owns: F / C
+  int DSc;       // byte stride of a chat row in the cluster instantiation: Fc + 16
 };
 
 
@@ -212,8 +258,9 @@ __device__ __forceinline__ uint32_t lds32(const int8_t* p) {
 // Gadget digits of d = X^a acc - acc (offset trick) into dig [DL][s][k][t],
 // k = (u*l + li)*R + r for coefficient c = t*R + r. Dead samples get digit 0;
 // the padding rows K <= k < Kp are zeroed. kS: samples a block, or 0 for
-// S.ns (the general instantiation).
-template <int DL, int kS>
+// S.ns (the general instantiation). kL2: read acc from L2 (__ldcg), where
+// other blocks of a cluster updated it.
+template <int DL, int kS, bool kL2 = false>
 __device__ __forceinline__ void digit_pass(const Shape& S, int i, const uint32_t* acc,
                                            const int32_t* __restrict__ bara, int b0, int nvalid,
                                            int8_t* dig, int tid) {
@@ -233,8 +280,13 @@ __device__ __forceinline__ void digit_pass(const Shape& S, int i, const uint32_t
         const uint32_t* as = acc + static_cast<size_t>(s) * UN + u * S.N;
         const int a = bara[static_cast<size_t>(i) * S.B + b0 + s];
         const int src = (c - a + twoN) & (twoN - 1);    // a in [0, 2N)
-        const uint32_t v = src < S.N ? as[src] : 0u - as[src - S.N];
-        du[q] = v - as[c] + S.offset;
+        if constexpr (kL2) {
+          const uint32_t v = src < S.N ? __ldcg(as + src) : 0u - __ldcg(as + src - S.N);
+          du[q] = v - __ldcg(as + c) + S.offset;
+        } else {
+          const uint32_t v = src < S.N ? as[src] : 0u - as[src - S.N];
+          du[q] = v - as[c] + S.offset;
+        }
       }
     }
 #pragma unroll
@@ -370,8 +422,9 @@ __device__ __forceinline__ void forward(const Shape& S, const int8_t* dig, int8_
 // from L2), a warp takes its n8 tiles two at a time (the accumulators'
 // registers) and the m-tiles of Kp four at a time, both in loops (the
 // build time), and at F = 512 C1 is reduced before its product by 256 (257
-// FP 128^2 would leave int32).
-template <int DL, int PI, int kFW>
+// FP 128^2 would leave int32). kTiny: F = 4 (N = 16), one n8 tile whose
+// columns f >= F are not stored.
+template <int DL, int PI, int kFW, bool kTiny>
 __device__ __forceinline__ void forward_general(const Shape& S, const int8_t* dig, int8_t* X,
                                                 const uint4* __restrict__ Wf, int nvalid,
                                                 int warp, int lane) {
@@ -383,7 +436,7 @@ __device__ __forceinline__ void forward_general(const Shape& S, const int8_t* di
   const int p = PI ? S.p1 : S.p0, half = PI ? S.half1 : S.half0;
   const float inv_p = PI ? S.finv1 : S.finv0;
   const int ns = S.ns;
-  const int MT = S.Kp / 16, FN = S.F / 8, NT = S.FP / 8, KT = S.FP / 32;
+  const int MT = S.Kp / 16, FN = kTiny ? 1 : S.F / 8, NT = S.FP / 8, KT = S.FP / 32;
   if (warp >= FN) return;
   auto frag_ptr = [&](int jj, int kt) {
     return Wf + ((static_cast<size_t>(PI * NT + warp + kWarps * jj) * KT + kt) * 32 + lane) * 2;
@@ -451,6 +504,7 @@ __device__ __forceinline__ void forward_general(const Shape& S, const int8_t* di
 #pragma unroll
             for (int r4 = 0; r4 < 4; ++r4) {
               const int k = (mg + mt) * 16 + g + 8 * (r4 >> 1), f = nt * 8 + 2 * tig + (r4 & 1);
+              if (kTiny && f >= S.F) continue;
               const int c1r = kFW > 2 ? reduce32(c1[mt][jj][r4], p, half, inv_p)
                                       : c1[mt][jj][r4];
               const int res = reduce32(c0[mt][jj][r4] + c1r * 256, p, half, inv_p);
@@ -527,32 +581,34 @@ __device__ __forceinline__ void pointwise(const Shape& S, int i, const typename 
   }
 }
 
-// The pointwise product of the general instantiation (kS = 0, Kp up to
-// 256): as pointwise(), its k-tiles in a loop (the build time), C2 always
-// reduced before its c16 product (at Kp = 96 K1's plain sum would leave
-// int32) and at Kp > 128 C1 before its product by 256 (Kp 2^15 256 would).
+// The pointwise product of the general and cluster instantiations (kS = 0,
+// any Kp): as pointwise(), its k-tiles in a loop (the build time), C2
+// always reduced before its c16 product (at Kp = 96 K1's plain sum would
+// leave int32) and at Kp > 128 C1 before its product by 256 (Kp 2^15 256
+// would). It sums the block's Fc frequencies f = rank Fc + fl into chat rows
+// of stride DSc (rank 0, Fc = F and DSc = DS without a cluster).
 template <class Key, int PI>
 __device__ __forceinline__ void pointwise_general(const Shape& S, int i,
                                                   const typename Key::Elem* key, const int8_t* X,
-                                                  int8_t* Y, int8_t* stage, int warp, int lane) {
+                                                  int8_t* Y, int8_t* stage, int rank, int warp,
+                                                  int lane) {
   const int g = lane >> 2, tig = lane & 3;
   const int p = PI ? S.p1 : S.p0, half = PI ? S.half1 : S.half0;
   const int c16 = PI ? S.c16_1 : S.c16_0;
   const float inv_p = PI ? S.finv1 : S.finv0;
   const int ns = S.ns;
   const int gs = g < ns ? g : 0;   // columns past the block's samples: sample 0
-  const int MT = S.Mp / 16, KT = S.Kp / 16;
-  for (int f0 = 4 * warp; f0 < S.F; f0 += 4 * kWarps) {
+  const int MT = S.Mp / 16, KT = S.Kp / 16, fbase = rank * S.Fc;
+  for (int fl0 = 4 * warp; fl0 < S.Fc; fl0 += 4 * kWarps) {
     for (int mt = 0; mt < MT; ++mt) {
       int c[4][3][4] = {};
 #pragma unroll
       for (int fi = 0; fi < 4; ++fi) {
-        const int f = f0 + fi;
-        const int8_t* xf = X + static_cast<size_t>(f) * S.xs + gs * S.Kp + 4 * tig;
+        const int fl = fl0 + fi;
+        const int8_t* xf = X + static_cast<size_t>(fl) * S.xs + gs * S.Kp + 4 * tig;
 #pragma unroll 2
         for (int kt = 0; kt < KT; ++kt) {
-          // lo a0 a1, hi a0 a1
-          const uint4 a = Key::load(key, S, i, PI, f, mt, kt, lane, stage);
+          const uint4 a = Key::load(key, S, i, PI, fbase + fl, mt, kt, lane, stage);
           const uint32_t blo = lds32(xf + kt * 16), bhi = lds32(xf + ns * S.Kp + kt * 16);
           mma_k16(c[fi][0], a.x, a.y, blo);
           mma_k16(c[fi][1], a.x, a.y, bhi);
@@ -567,7 +623,6 @@ __device__ __forceinline__ void pointwise_general(const Shape& S, int i,
         uint32_t wlo = 0, whi = 0;
 #pragma unroll
         for (int fi = 0; fi < 4; ++fi) {
-          // 2^16 == c16 (mod p): the sum stays in int32 (bound checked at launch)
           const int c2 = reduce32(c[fi][2][r4], p, half, inv_p);
           const int c1 = S.Kp > 128 ? reduce32(c[fi][1][r4], p, half, inv_p) : c[fi][1][r4];
           const int z = c[fi][0][r4] + c1 * 256 + c2 * c16;
@@ -576,7 +631,7 @@ __device__ __forceinline__ void pointwise_general(const Shape& S, int i,
           wlo |= static_cast<uint32_t>(lo & 255) << (8 * fi);
           whi |= static_cast<uint32_t>(hi & 255) << (8 * fi);
         }
-        int8_t* y = Y + static_cast<size_t>(s * S.Mp + m) * S.DS + f0;
+        int8_t* y = Y + static_cast<size_t>(s * S.Mp + m) * S.DSc + fl0;
         *reinterpret_cast<uint32_t*>(y) = wlo;
         *reinterpret_cast<uint32_t*>(y + S.y_plane) = whi;
       }
@@ -589,11 +644,12 @@ __device__ __forceinline__ void copy16(uint4* dst, const uint4* src, int n16, in
   for (int x = tid; x < n16; x += kThreads) dst[x] = src[x];
 }
 
-// This warp's B fragments of Winv for prime PI: n8 tiles warp + kWarps jj.
-template <int PI>
+// This warp's B fragments of Winv for prime PI: n8 tiles warp + kWarps jj
+// (kTiny: F = 4, one tile).
+template <int PI, bool kTiny = false>
 __device__ __forceinline__ void load_winv(const Shape& S, const uint4* __restrict__ Wi,
                                           uint4 (&w)[kNJ][kMaxKT][2], int warp, int lane) {
-  const int TN = S.F / 8, NT = S.FP / 8, KT = S.FP / 32;
+  const int TN = kTiny ? 1 : S.F / 8, NT = S.FP / 8, KT = S.FP / 32;
 #pragma unroll
   for (int jj = 0; jj < kNJ; ++jj)
 #pragma unroll
@@ -709,8 +765,9 @@ __device__ __forceinline__ void inverse(const Shape& S, const int8_t* Y,
 // atomicAdd (kRb: the general instantiation, which takes every rb > 0;
 // elsewhere rb = 0). Padding rows m >= M are skipped. At F >= 256 (kFW > 1) the B
 // fragments are read at their use, and C1 is reduced before its product by
-// 256 (257 FP 2^15 would leave int32).
-template <int PI, int kFW, bool kRb>
+// 256 (257 FP 2^15 would leave int32). kTiny: F = 4, one n8 tile of t whose
+// columns t >= F are not stored (res0 holds 8 columns a row).
+template <int PI, int kFW, bool kRb, bool kTiny = false>
 __device__ __forceinline__ void inverse_scatter(const Shape& S, const int8_t* Y,
                                                 const uint4* __restrict__ Wi, int16_t* res0,
                                                 uint32_t* acc, int nvalid, int warp, int lane) {
@@ -719,13 +776,13 @@ __device__ __forceinline__ void inverse_scatter(const Shape& S, const int8_t* Y,
   const int g = lane >> 2, tig = lane & 3;
   const int p = PI ? S.p1 : S.p0, half = PI ? S.half1 : S.half0;
   const float inv_p = PI ? S.finv1 : S.finv0;
-  const int MT = S.Mp / 16, TN = S.F / 8, NT = S.FP / 8, KT = S.FP / 32;
+  const int MT = S.Mp / 16, TN = kTiny ? 1 : S.F / 8, NT = S.FP / 8, KT = S.FP / 32;
   if (warp >= TN) return;
   uint4 w[kNJ][kMaxKT][2];   // held: F <= 128
-  if constexpr (!kWide) load_winv<PI>(S, Wi, w, warp, lane);
+  if constexpr (!kWide) load_winv<PI, kTiny>(S, Wi, w, warp, lane);
   for (int s = 0; s < nvalid; ++s) {
     const int8_t* ys = Y + static_cast<size_t>(s) * S.Mp * S.DS;
-    int16_t* slots = res0 + static_cast<size_t>(s) * S.Mp * S.F + lane;
+    int16_t* slots = res0 + static_cast<size_t>(s) * S.Mp * (kTiny ? 8 : S.F) + lane;
     uint32_t* acc_s = acc + static_cast<size_t>(s) * S.U * S.N;
     for (int mt = 0; mt < MT; ++mt) {
       int c0[NJ][4] = {}, c1[NJ][4] = {};
@@ -774,12 +831,12 @@ __device__ __forceinline__ void inverse_scatter(const Shape& S, const int8_t* Y,
             continue;
           }
           const int m = mt * 16 + g + 8 * (r4 >> 1);
-          if (m >= S.M) continue;
+          const int t = nt * 8 + 2 * tig + (r4 & 1);
+          if (m >= S.M || (kTiny && t >= S.F)) continue;
           const int v0 = *slot;
           const int q = reduce32((v - v0) * S.crt_inv, S.p1, S.half1, S.finv1);
           const int V = v0 + q * S.p0;   // |V| < p0 p1 / 2 < 2^31
           const int limb = m / S.UR, ur = m - limb * S.UR, u = ur / S.R, r = ur - u * S.R;
-          const int t = nt * 8 + 2 * tig + (r4 & 1);
           atomicAdd(acc_s + u * S.N + t * S.R + r,
                     static_cast<uint32_t>(V) << ((kRb ? S.rb : 0) + S.kbits * limb));
         }
@@ -804,8 +861,8 @@ __device__ unsigned long long phase_clocks[8];
 // MTK: m16 tiles of Kp (3 or 4; 16 in the general instantiation); MTM: m16
 // tiles of Mp on the register path (3 or 4), or 0 for the scatter path; kS:
 // samples a block (8), or 0 for S.ns (the general instantiation); kFW: FP/128
-// rounded up (1, 2 or 4).
-template <class Key, int DL, int MTK, int MTM, int kS, int kFW>
+// rounded up (1, 2 or 4); kTiny: F = 4 (the general instantiation at N = 16).
+template <class Key, int DL, int MTK, int MTM, int kS, int kFW, bool kTiny = false>
 __global__ void __launch_bounds__(kThreads, 1) rotate_kernel(
     const int32_t* __restrict__ acc0, const int32_t* __restrict__ bara,
     const typename Key::Elem* __restrict__ key, const uint4* __restrict__ Wf,
@@ -841,15 +898,15 @@ __global__ void __launch_bounds__(kThreads, 1) rotate_kernel(
     CRT_MMA_PHASE(0);
     copy16(dig_g, reinterpret_cast<const uint4*>(buf1), dig16, tid);   // kept for the second
     if constexpr (kS > 0) forward<DL, 0, MTK, kS>(S, buf1, X, Wf, nvalid, warp, lane);
-    else forward_general<DL, 0, kFW>(S, buf1, X, Wf, nvalid, warp, lane);
+    else forward_general<DL, 0, kFW, kTiny>(S, buf1, X, Wf, nvalid, warp, lane);
     __syncthreads();
     CRT_MMA_PHASE(1);
     if constexpr (kS > 0) pointwise<Key, 0, MTK, kS>(S, i, key, X, buf1, stage, warp, lane);
-    else pointwise_general<Key, 0>(S, i, key, X, buf1, stage, warp, lane);
+    else pointwise_general<Key, 0>(S, i, key, X, buf1, stage, 0, warp, lane);
     __syncthreads();
     CRT_MMA_PHASE(2);
     if constexpr (MTM > 0) inverse<0, MTM>(S, buf1, Wi, res0_b, acc, nvalid, warp, lane);
-    else inverse_scatter<0, kFW, kS == 0>(S, buf1, Wi, res0_b, acc, nvalid, warp, lane);
+    else inverse_scatter<0, kFW, kS == 0, kTiny>(S, buf1, Wi, res0_b, acc, nvalid, warp, lane);
     __syncthreads();
     CRT_MMA_PHASE(3);
     // second prime, then the accumulator update
@@ -857,17 +914,251 @@ __global__ void __launch_bounds__(kThreads, 1) rotate_kernel(
     __syncthreads();
     CRT_MMA_PHASE(4);
     if constexpr (kS > 0) forward<DL, 1, MTK, kS>(S, buf1, X, Wf, nvalid, warp, lane);
-    else forward_general<DL, 1, kFW>(S, buf1, X, Wf, nvalid, warp, lane);
+    else forward_general<DL, 1, kFW, kTiny>(S, buf1, X, Wf, nvalid, warp, lane);
     __syncthreads();
     CRT_MMA_PHASE(5);
     if constexpr (kS > 0) pointwise<Key, 1, MTK, kS>(S, i, key, X, buf1, stage, warp, lane);
-    else pointwise_general<Key, 1>(S, i, key, X, buf1, stage, warp, lane);
+    else pointwise_general<Key, 1>(S, i, key, X, buf1, stage, 0, warp, lane);
     __syncthreads();
     CRT_MMA_PHASE(6);
     if constexpr (MTM > 0) inverse<1, MTM>(S, buf1, Wi, res0_b, acc, nvalid, warp, lane);
-    else inverse_scatter<1, kFW, kS == 0>(S, buf1, Wi, res0_b, acc, nvalid, warp, lane);
+    else inverse_scatter<1, kFW, kS == 0, kTiny>(S, buf1, Wi, res0_b, acc, nvalid, warp, lane);
     __syncthreads();
     CRT_MMA_PHASE(7);
+  }
+}
+
+
+// --- The cluster instantiation --------------------------------------------
+// Where one sample's buffers do not fit a block (F >= 1024, or F = 512 with
+// Kp >= 144), a thread-block cluster of C blocks (2, 4 or 8) holds S.ns
+// samples and splits them by frequency: block c (its rank in the cluster)
+// owns the Fc = F/C frequencies f in [c Fc, (c+1) Fc) and, in the inverse,
+// the Fc output columns t in the same range. Each block computes the whole
+// sample's digits from the accumulators (global memory, read from L2) into
+// its own dig [DL][s][Kp][FP + 16]; the forward gives dhat for its own
+// frequencies (dig times its columns of W); the pointwise product reads
+// only its frequencies of the key step, so each key byte is read once per
+// step and cluster; chat [2][s][Mp][Fc + 16] stays in the block's shared
+// memory. A cluster barrier (barrier.cluster.arrive.release / wait.acquire)
+// makes every block's chat visible, and the inverse contracts over all F,
+// reading the A fragments of frequencies f outside its own share from the
+// owning block's shared memory (DSMEM, cluster.map_shared_rank): res[m][t]
+// for its own t, C1 reduced before its product by 256 (FP 2^15 256 would
+// leave int32 at F >= 256). A second cluster barrier ends each prime: no
+// block overwrites its chat (the second prime's digits, the next step's)
+// while another reads it, and every block's accumulator update (global
+// atomics) is visible to the next step's digit pass in every block.
+
+// Forward NTT of the cluster instantiation: dhat[fl][plane][s][k] for the
+// block's local frequencies fl = f - rank Fc, the k-tiles of FP in a loop.
+template <int DL, int PI>
+__device__ __forceinline__ void forward_cluster(const Shape& S, const int8_t* dig, int8_t* X,
+                                                const uint4* __restrict__ Wf, int nvalid,
+                                                int rank, int warp, int lane) {
+  constexpr int NJB = 2, MTG = 4;   // n8 tiles and m-tiles a pass
+  const int g = lane >> 2, tig = lane & 3;
+  const int p = PI ? S.p1 : S.p0, half = PI ? S.half1 : S.half0;
+  const float inv_p = PI ? S.finv1 : S.finv0;
+  const int ns = S.ns;
+  const int MT = S.Kp / 16, FN = S.Fc / 8, NT = S.FP / 8, KT = S.FP / 32, nt0 = rank * FN;
+  for (int s = 0; s < nvalid; ++s) {
+    const int8_t* ds = dig + static_cast<size_t>(s) * S.Kp * S.DS;
+#pragma unroll 1
+    for (int mg = 0; mg < MT; mg += MTG) {
+#pragma unroll 1
+      for (int jb = 0; warp + kWarps * jb < FN; jb += NJB) {
+        int c0[MTG][NJB][4] = {}, c1[MTG][NJB][4] = {};
+#pragma unroll 2
+        for (int kt = 0; kt < KT; ++kt) {
+          uint32_t a[DL][MTG][4];
+#pragma unroll
+          for (int q = 0; q < DL; ++q)
+#pragma unroll
+            for (int mt = 0; mt < MTG; ++mt) {
+              if (mg + mt >= MT) continue;
+              const int8_t* base =
+                  ds + q * S.dig_plane + ((mg + mt) * 16 + g) * S.DS + kt * 32 + 4 * tig;
+              a[q][mt][0] = lds32(base);
+              a[q][mt][1] = lds32(base + 8 * S.DS);
+              a[q][mt][2] = lds32(base + 16);
+              a[q][mt][3] = lds32(base + 8 * S.DS + 16);
+            }
+#pragma unroll
+          for (int jj = 0; jj < NJB; ++jj) {
+            const int nt = warp + kWarps * (jb + jj);
+            if (nt >= FN) continue;
+            const uint4* wp =
+                Wf + ((static_cast<size_t>(PI * NT + nt0 + nt) * KT + kt) * 32 + lane) * 2;
+            uint4 wf[DL];
+#pragma unroll
+            for (int q = 0; q < DL; ++q) wf[q] = __ldg(wp + q);
+#pragma unroll
+            for (int mt = 0; mt < MTG; ++mt) {
+              if (mg + mt >= MT) continue;
+              mma_k32(c0[mt][jj], a[0][mt], wf[0].x, wf[0].y);
+              mma_k32(c1[mt][jj], a[0][mt], wf[0].z, wf[0].w);
+              if (DL == 2) {
+                mma_k32(c0[mt][jj], a[DL - 1][mt], wf[DL - 1].x, wf[DL - 1].y);
+                mma_k32(c1[mt][jj], a[DL - 1][mt], wf[DL - 1].z, wf[DL - 1].w);
+              }
+            }
+          }
+        }
+#pragma unroll
+        for (int jj = 0; jj < NJB; ++jj) {
+          const int nt = warp + kWarps * (jb + jj);
+          if (nt >= FN) continue;
+#pragma unroll
+          for (int mt = 0; mt < MTG; ++mt) {
+            if (mg + mt >= MT) continue;
+#pragma unroll
+            for (int r4 = 0; r4 < 4; ++r4) {
+              const int k = (mg + mt) * 16 + g + 8 * (r4 >> 1), f = nt * 8 + 2 * tig + (r4 & 1);
+              const int c1r = reduce32(c1[mt][jj][r4], p, half, inv_p);
+              const int res = reduce32(c0[mt][jj][r4] + c1r * 256, p, half, inv_p);
+              int lo, hi;
+              split8(res, lo, hi);
+              int8_t* xf = X + static_cast<size_t>(f) * S.xs + s * S.Kp + k;
+              xf[0] = static_cast<int8_t>(lo);
+              xf[ns * S.Kp] = static_cast<int8_t>(hi);
+            }
+          }
+        }
+      }
+    }
+  }
+}
+
+// The inverse NTT of the cluster instantiation, after a cluster barrier:
+// res[m][t] for the block's own t = rank Fc + tl, contracting over every f;
+// the A fragments of k32 tile kt (f in [32 kt, 32 kt + 32)) are read from
+// the shared memory of the block that owns those frequencies. One m-tile at
+// a time, a warp's n8 tiles two at a time; then as inverse_scatter (the
+// second prime's CRT and the shifted atomicAdd into acc).
+template <int PI>
+__device__ __forceinline__ void inverse_cluster(const Shape& S, const cg::cluster_group& cluster,
+                                                int8_t* Y, const uint4* __restrict__ Wi,
+                                                int16_t* res0, uint32_t* acc, int nvalid,
+                                                int rank, int warp, int lane) {
+  constexpr int NJB = 2;
+  const int g = lane >> 2, tig = lane & 3;
+  const int p = PI ? S.p1 : S.p0, half = PI ? S.half1 : S.half0;
+  const float inv_p = PI ? S.finv1 : S.finv0;
+  const int MT = S.Mp / 16, TN = S.Fc / 8, NT = S.FP / 8, KT = S.FP / 32, KTB = S.Fc / 32;
+  const int nt0 = rank * TN, tbase = rank * S.Fc;
+  for (int s = 0; s < nvalid; ++s) {
+    int16_t* slots = res0 + static_cast<size_t>(s) * S.Mp * S.Fc + lane;
+    uint32_t* acc_s = acc + static_cast<size_t>(s) * S.U * S.N;
+    const size_t ys = static_cast<size_t>(s) * S.Mp * S.DSc;
+#pragma unroll 1
+    for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll 1
+      for (int jb = 0; warp + kWarps * jb < TN; jb += NJB) {
+        int c0[NJB][4] = {}, c1[NJB][4] = {};
+#pragma unroll 2
+        for (int kt = 0; kt < KT; ++kt) {
+          const int owner = kt / KTB;
+          const int8_t* yo = cluster.map_shared_rank(Y, owner) + ys +
+                             (mt * 16 + g) * S.DSc + (kt - owner * KTB) * 32 + 4 * tig;
+          uint32_t a[2][4];
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            const int8_t* base = yo + q * S.y_plane;
+            a[q][0] = lds32(base);
+            a[q][1] = lds32(base + 8 * S.DSc);
+            a[q][2] = lds32(base + 16);
+            a[q][3] = lds32(base + 8 * S.DSc + 16);
+          }
+#pragma unroll
+          for (int jj = 0; jj < NJB; ++jj) {
+            const int nt = warp + kWarps * (jb + jj);
+            if (nt >= TN) continue;
+            const uint4* wp =
+                Wi + ((static_cast<size_t>(PI * NT + nt0 + nt) * KT + kt) * 32 + lane) * 2;
+            const uint4 w0 = __ldg(wp), w1 = __ldg(wp + 1);
+            mma_k32(c0[jj], a[0], w0.x, w0.y);
+            mma_k32(c1[jj], a[0], w0.z, w0.w);
+            mma_k32(c0[jj], a[1], w1.x, w1.y);
+            mma_k32(c1[jj], a[1], w1.z, w1.w);
+          }
+        }
+#pragma unroll
+        for (int jj = 0; jj < NJB; ++jj) {
+          const int nt = warp + kWarps * (jb + jj);
+          if (nt >= TN) continue;
+#pragma unroll
+          for (int r4 = 0; r4 < 4; ++r4) {
+            const int c1r = reduce32(c1[jj][r4], p, half, inv_p);
+            const int v = reduce32(c0[jj][r4] + c1r * 256, p, half, inv_p);
+            int16_t* slot = slots + ((nt * MT + mt) * 4 + r4) * 32;
+            if (PI == 0) {
+              *slot = static_cast<int16_t>(v);
+              continue;
+            }
+            const int m = mt * 16 + g + 8 * (r4 >> 1);
+            if (m >= S.M) continue;
+            const int v0 = *slot;
+            const int q = reduce32((v - v0) * S.crt_inv, S.p1, S.half1, S.finv1);
+            const int V = v0 + q * S.p0;   // |V| < p0 p1 / 2 < 2^31
+            const int limb = m / S.UR, ur = m - limb * S.UR, u = ur / S.R, r = ur - u * S.R;
+            const int t = tbase + nt * 8 + 2 * tig + (r4 & 1);
+            atomicAdd(acc_s + u * S.N + t * S.R + r,
+                      static_cast<uint32_t>(V) << (S.rb + S.kbits * limb));
+          }
+        }
+      }
+    }
+  }
+}
+
+// The cluster instantiation (see above): cluster blockIdx.x / C holds
+// samples b0 .. b0 + ns - 1; its blocks share them by frequency.
+template <class Key, int DL>
+__global__ void __launch_bounds__(kThreads, 1) rotate_kernel_cluster(
+    const int32_t* __restrict__ acc0, const int32_t* __restrict__ bara,
+    const typename Key::Elem* __restrict__ key, const uint4* __restrict__ Wf,
+    const uint4* __restrict__ Wi, uint4* __restrict__ scratch, int32_t* __restrict__ out,
+    const Shape S) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  int8_t* buf1 = reinterpret_cast<int8_t*>(smem);          // dig, then chat
+  int8_t* X = reinterpret_cast<int8_t*>(smem + S.buf2);     // dhat of the block's frequencies
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  int8_t* stage = reinterpret_cast<int8_t*>(smem + S.stage) + warp * Key::kStageBytes;
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int UN = S.U * S.N, ns = S.ns;
+  const int b0 = (blockIdx.x / S.C) * ns;
+  const int nvalid = min(ns, S.B - b0);
+  uint32_t* acc = reinterpret_cast<uint32_t*>(out) + static_cast<size_t>(b0) * UN;
+  uint4* scratch_b = scratch + static_cast<size_t>(blockIdx.x) * S.scratch16;
+  int16_t* res0_b = reinterpret_cast<int16_t*>(scratch_b);
+  uint4* dig_g = scratch_b + S.res0_16;
+
+  for (int x = rank * kThreads + tid; x < nvalid * UN; x += S.C * kThreads)
+    acc[x] = static_cast<uint32_t>(acc0[static_cast<size_t>(b0) * UN + x]);
+  cluster.sync();
+
+  for (int i = 0; i < S.n; ++i) {
+    // first prime
+    digit_pass<DL, 0, true>(S, i, acc, bara, b0, nvalid, buf1, tid);
+    __syncthreads();
+    copy16(dig_g, reinterpret_cast<const uint4*>(buf1), S.dig16, tid);   // kept for the second
+    forward_cluster<DL, 0>(S, buf1, X, Wf, nvalid, rank, warp, lane);
+    __syncthreads();
+    pointwise_general<Key, 0>(S, i, key, X, buf1, stage, rank, warp, lane);
+    cluster.sync();   // every block's chat is written
+    inverse_cluster<0>(S, cluster, buf1, Wi, res0_b, acc, nvalid, rank, warp, lane);
+    cluster.sync();   // no block reads chat any more
+    // second prime, then the accumulator update
+    copy16(reinterpret_cast<uint4*>(buf1), dig_g, S.dig16, tid);
+    __syncthreads();
+    forward_cluster<DL, 1>(S, buf1, X, Wf, nvalid, rank, warp, lane);
+    __syncthreads();
+    pointwise_general<Key, 1>(S, i, key, X, buf1, stage, rank, warp, lane);
+    cluster.sync();
+    inverse_cluster<1>(S, cluster, buf1, Wi, res0_b, acc, nvalid, rank, warp, lane);
+    cluster.sync();   // chat is free, and acc holds every block's update
   }
 }
 
@@ -877,12 +1168,34 @@ __global__ void __launch_bounds__(kThreads, 1) rotate_kernel(
 template <class Key>
 size_t plan_samples(Shape& S, int DL, int ns) {
   S.ns = ns;
+  S.C = 1;
+  S.Fc = S.F;
+  S.DSc = S.DS;
   S.dig_plane = ns * S.Kp * S.DS;
   S.y_plane = ns * S.Mp * S.DS;
   const int buf1 = DL * S.dig_plane > 2 * S.y_plane ? DL * S.dig_plane : 2 * S.y_plane;
   S.buf2 = (buf1 + 15) / 16 * 16;
   S.xs = 2 * ns * S.Kp + 16;
   S.stage = S.buf2 + S.F * S.xs;
+  return static_cast<size_t>(S.stage) + static_cast<size_t>(kWarps) * Key::kStageBytes;
+}
+
+// Shared memory of a block of a cluster of C blocks holding `ns` samples:
+// the whole samples' digits and, in the same buffer, chat of the block's Fc
+// = F/C frequencies, then dhat of those frequencies and the staging tiles
+// (ops/blind_rotate.crt_mma_smem_bytes with cluster = C). Sets S's layout.
+template <class Key>
+size_t plan_cluster(Shape& S, int DL, int C, int ns) {
+  S.ns = ns;
+  S.C = C;
+  S.Fc = S.F / C;
+  S.DSc = S.Fc + 16;
+  S.dig_plane = ns * S.Kp * S.DS;
+  S.y_plane = ns * S.Mp * S.DSc;
+  const int buf1 = DL * S.dig_plane > 2 * S.y_plane ? DL * S.dig_plane : 2 * S.y_plane;
+  S.buf2 = (buf1 + 15) / 16 * 16;
+  S.xs = 2 * ns * S.Kp + 16;
+  S.stage = S.buf2 + S.Fc * S.xs;
   return static_cast<size_t>(S.stage) + static_cast<size_t>(kWarps) * Key::kStageBytes;
 }
 
@@ -893,9 +1206,10 @@ size_t plan_samples(Shape& S, int DL, int ns) {
 // (n, B) int32 in [0, 2N); key: the NTT-domain key as Key reads it; Wf, Wi:
 // (2, FP/8, FP/32, 32, 4, 8) int8 B fragments of W [t][f] and Winv [f][t]
 // (ntt.NttContext.W_mma / Winv_mma); scratch: scratch_bytes of device
-// memory, 16-byte aligned, at least ceil(B/ns) * (2*ns*Mp*F + DL*ns*Kp*(FP+16))
-// rounded up per part to 16 bytes, ns the samples a block (8, or 4, 2 or 1
-// where 8 do not fit in shared memory). Returns a cudaError_t (0 on success);
+// memory, 16-byte aligned, at least ceil(B/ns) * C * (2*ns*Mp*Fr + DL*ns*Kp*(FP+16))
+// rounded up per part to 16 bytes, ns the samples a block or cluster (8, or
+// 4, 2 or 1 where 8 do not fit in shared memory), C the blocks a cluster (1
+// without one), Fr = F/C (8 at F = 4). Returns a cudaError_t (0 on success);
 // allocates nothing and does not sync. The Python wrappers refuse the same
 // shapes first, by name (ops/blind_rotate.check_crt_mma_domain), and size
 // the scratch by the same plan (ops/blind_rotate.crt_mma_plan).
@@ -920,8 +1234,8 @@ int launch(const void* acc0, const void* bara, const void* key, const void* Wf,
   S.c16_0 = bal16(p0); S.c16_1 = bal16(p1);
   if (B <= 0 || n < 0 || U <= 0 || l <= 0 || Bgbit <= 0 || Bgbit > 15 || l * Bgbit > 32 ||
       R <= 0 || N % R != 0 || (N & (N - 1)) != 0 || (R & (R - 1)) != 0 ||
-      S.F % 8 != 0 || S.FP % 32 != 0 || S.FP > 32 * Freq<kMaxFW>::kKT ||
-      S.F > 8 * kWarps * Freq<kMaxFW>::kNJ || S.Kp > 16 * 16 || rb < 0 || rb >= 32 ||
+      (S.F % 8 != 0 && S.F != 4) || S.FP % 32 != 0 || S.F > kMaxCluster * kMaxClusterF ||
+      rb < 0 || rb >= 32 ||
       L * kbits < 32 - rb || kbits * (L - 1) >= 32 - rb ||
       p0 < 1024 || p1 < 1024 || (p0 & 1) == 0 || (p1 & 1) == 0)   // reduce32: |z/p| < 2^22
     return static_cast<int>(cudaErrorInvalidValue);
@@ -939,13 +1253,27 @@ int launch(const void* acc0, const void* bara, const void* key, const void* Wf,
     err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   if (err != cudaSuccess) return static_cast<int>(err);
   // The shipped instantiations where they apply (F <= 128, Kp <= 64, 8
-  // samples fitting), else the general one at the most samples that fit.
+  // samples fitting), else the general one at the most samples that fit;
+  // where one sample does not fit a block (or F > 512), the cluster one at
+  // the fewest blocks a cluster that hold one sample, and the most samples
+  // that fit at that size.
   const int fw = S.FP <= 128 ? 1 : S.FP <= 256 ? 2 : 4;
   const bool wide = fw > 1;
   size_t smem = plan_samples<Key>(S, DL, kMaxSamples);
-  const bool general = wide || S.Kp > 64 || rb > 0 || smem > static_cast<size_t>(optin);
+  const bool general = wide || S.Kp > 64 || rb > 0 || S.F < 8 || smem > static_cast<size_t>(optin);
   for (int ns = kMaxSamples / 2; general && ns >= 1 && smem > static_cast<size_t>(optin); ns /= 2)
     smem = plan_samples<Key>(S, DL, ns);
+  const bool clustered = S.F > kMaxClusterF || smem > static_cast<size_t>(optin);
+  if (clustered) {
+    int C = 2;
+    while (C <= kMaxCluster && (S.F % (32 * C) != 0 || S.F / C > kMaxClusterF ||
+                                plan_cluster<Key>(S, DL, C, 1) > static_cast<size_t>(optin)))
+      C *= 2;
+    if (C > kMaxCluster) return static_cast<int>(cudaErrorInvalidValue);
+    int ns = kMaxSamples;
+    while (ns > 1 && plan_cluster<Key>(S, DL, C, ns) > static_cast<size_t>(optin)) ns /= 2;
+    smem = plan_cluster<Key>(S, DL, C, ns);
+  }
   if (smem > static_cast<size_t>(optin)) return static_cast<int>(cudaErrorInvalidValue);
   // Residues split into bytes with |hi| <= 127; the forward, pointwise and
   // inverse int32 sums stay below 2^31 (see the note at the head of this
@@ -957,23 +1285,24 @@ int launch(const void* acc0, const void* bara, const void* key, const void* Wf,
                                  ? abs(S.c16_0) * static_cast<long long>(S.half0)
                                  : abs(S.c16_1) * static_cast<long long>(S.half1);
   // The general instantiation reduces C2 always and C1 at Kp > 128 in the
-  // pointwise sum, C1 at F = 512 in the forward and at F >= 256 in the inverse.
+  // pointwise sum, C1 at F = 512 in the forward and at F >= 256 in the
+  // inverse; the cluster one reduces C1 in the forward and the inverse always.
   const long long pointwise_sum =
       general && S.Kp > 128 ? static_cast<long long>(S.Kp) * 128 * 128 + 256LL * hmax + c16_half
       : Key::kReduceC2 || general
           ? static_cast<long long>(S.Kp) * 128 * 128 * (1 + 2 * 256) + c16_half
           : static_cast<long long>(S.Kp) * 128 * 128 * (1 + 2 * 256 + c16);
-  const long long forward_sum = fw > 2 ? S.FP * 128LL * (128 + dhi) + 256LL * hmax
-                                       : 257LL * S.FP * 128 * (128 + dhi);
-  const long long inverse_sum = wide ? S.FP * 2LL * 128 * 128 + 256LL * hmax
-                                     : 257LL * S.FP * 2 * 128 * 128;
+  const long long forward_sum = fw > 2 || clustered ? S.FP * 128LL * (128 + dhi) + 256LL * hmax
+                                                    : 257LL * S.FP * 128 * (128 + dhi);
+  const long long inverse_sum = wide || clustered ? S.FP * 2LL * 128 * 128 + 256LL * hmax
+                                                  : 257LL * S.FP * 2 * 128 * 128;
   if (hmax > 127 * 256 + 127 || dhi > 127 || pointwise_sum >= (1LL << 31) ||
       forward_sum >= (1LL << 31) || inverse_sum >= (1LL << 31) ||
       static_cast<long long>(S.half0 + S.half1) * abs(crt_inv) >= (1LL << 31) ||
       static_cast<long long>(S.half1) * p0 + S.half0 >= (1LL << 31))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int grid = (B + S.ns - 1) / S.ns;
-  S.res0_16 = (S.ns * S.Mp * S.F * 2 + 15) / 16;
+  const int grid = (B + S.ns - 1) / S.ns * S.C;
+  S.res0_16 = (S.ns * S.Mp * (S.Fc > 8 ? S.Fc : 8) * 2 + 15) / 16;
   S.dig16 = (DL * S.dig_plane + 15) / 16;
   S.scratch16 = S.res0_16 + S.dig16;
   if (scratch_bytes < static_cast<long long>(grid) * S.scratch16 * 16)
@@ -993,7 +1322,37 @@ int launch(const void* acc0, const void* bara, const void* key, const void* Wf,
   // (3, 3), (3, 4) or (4, 4) on the register path (U*R = 16, Mp <= 64), (4,
   // 0) on the scatter path; the general one is (16, 0) at kS = 0, per F/128.
   const bool reg = S.UR == 16 && S.Mp <= 64;
-  if (general) {
+  if (clustered) {
+    auto kernel = DL == 1 ? rotate_kernel_cluster<Key, 1> : rotate_kernel_cluster<Key, 2>;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = S.C;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(grid);
+    cfg.blockDim = dim3(kThreads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = static_cast<cudaStream_t>(stream);
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    int clusters = 0;   // a cluster of C blocks at this shared memory must fit the card
+    err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (clusters < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+    err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const int32_t*>(acc0),
+                             static_cast<const int32_t*>(bara),
+                             static_cast<const typename Key::Elem*>(key),
+                             static_cast<const uint4*>(Wf), static_cast<const uint4*>(Wi),
+                             static_cast<uint4*>(scratch), static_cast<int32_t*>(out), S);
+    if (err == cudaSuccess) err = cudaGetLastError();
+  } else if (general && S.F < 8) {
+    if (DL == 1) args(rotate_kernel<Key, 1, 16, 0, 0, 1, true>);
+    else args(rotate_kernel<Key, 2, 16, 0, 0, 1, true>);
+  } else if (general) {
     if (fw == 4) {
       if (DL == 1) args(rotate_kernel<Key, 1, 16, 0, 0, 4>);
       else args(rotate_kernel<Key, 2, 16, 0, 0, 4>);

@@ -98,51 +98,75 @@ def launch_error(name: str, lib, err: int) -> RuntimeError:
                         f"({lib.kernel_error_string(err).decode()})")
 
 
-#: Samples a ``crt_ntt_mma.cuh`` block holds: 8 (the pointwise MMA's N), or
-#: 4, 2 or 1 where 8 do not fit in shared memory.
+#: Samples a ``crt_ntt_mma.cuh`` block (or cluster) holds: 8 (the pointwise
+#: MMA's N), or 4, 2 or 1 where 8 do not fit in shared memory.
 SAMPLES = (8, 4, 2, 1)
+#: Blocks a cluster of the cluster instantiation (``crt_mma::kMaxCluster``:
+#: the portable limit), and the most frequencies one block holds
+#: (``kMaxClusterF``: F up to 512 without a cluster).
+CLUSTERS = (2, 4, 8)
+MAX_BLOCK_F = 512
 
 
-def kernel_scratch_bytes(B: int, U: int, ctx: NttContext, tg, samples: int) -> int:
+def kernel_scratch_bytes(B: int, U: int, ctx: NttContext, tg, samples: int,
+                         cluster: int = 1) -> int:
     """Device scratch of the kernels on ``crt_ntt_mma.cuh`` (K1, K3): per block
-    of ``samples`` samples, the first prime's inverse residues (samples, Mp,
-    F) int16 and the digits (DL, samples, Kp, FP + 16) int8, each rounded up
-    to 16 bytes."""
+    of ``samples`` samples (``cluster`` blocks for each ``samples``), the first
+    prime's inverse residues (samples, Mp, F/cluster, at least 8) int16 and the
+    digits (DL, samples, Kp, FP + 16) int8, each rounded up to 16 bytes."""
     Kp, Mp, F = pad16(tg.kpl * ctx.R), pad16(ctx.key_limbs * U * ctx.R), ctx.F
     DL = 1 if tg.halfBg <= 128 else 2
-    per_block = (-(-samples * Mp * F * 2 // 16) * 16
+    per_block = (-(-samples * Mp * max(F // cluster, 8) * 2 // 16) * 16
                  + -(-DL * samples * Kp * (max(F, 32) + 16) // 16) * 16)
-    return -(-B // samples) * per_block
+    return -(-B // samples) * cluster * per_block
 
 
-def crt_mma_smem_bytes(U: int, ctx: NttContext, tg, stage_bytes: int, samples: int) -> int:
+def crt_mma_smem_bytes(U: int, ctx: NttContext, tg, stage_bytes: int, samples: int,
+                       cluster: int = 1) -> int:
     """Shared memory of a ``crt_ntt_mma.cuh`` block of ``samples`` samples:
     dig and chat in one buffer, dhat, and ``stage_bytes`` per warp (16 warps)
-    for a key that is transposed on the chip."""
+    for a key that is transposed on the chip.  In a cluster of ``cluster``
+    blocks each block holds the whole samples' digits but chat and dhat of
+    its F/cluster frequencies alone."""
     Kp, Mp, F = pad16(tg.kpl * ctx.R), pad16(ctx.key_limbs * U * ctx.R), ctx.F
     DL = 1 if tg.halfBg <= 128 else 2
     DS = max(F, 32) + 16
-    buf1 = -(-max(DL * samples * Kp * DS, 2 * samples * Mp * DS) // 16) * 16
-    return buf1 + F * (2 * samples * Kp + 16) + 16 * stage_bytes
+    Fc = F // cluster
+    DSc = DS if cluster == 1 else Fc + 16
+    buf1 = -(-max(DL * samples * Kp * DS, 2 * samples * Mp * DSc) // 16) * 16
+    return buf1 + Fc * (2 * samples * Kp + 16) + 16 * stage_bytes
 
 
-def crt_mma_plan(U: int, ctx: NttContext, tg, stage_bytes: int = 0) -> tuple[int, bool]:
-    """The instantiation ``crt_mma::launch`` picks: (samples a block, general).
+def crt_mma_plan(U: int, ctx: NttContext, tg, stage_bytes: int = 0) -> tuple[int, bool, int]:
+    """The instantiation ``crt_mma::launch`` picks: (samples a block or
+    cluster, general, blocks a cluster).
 
     The shipped sets (F <= 128, Kp <= 64, an exact key, 8 samples within the
     card's shared memory) take their compile-time instantiations; every
-    other shape, and every rounded plan (rb > 0), takes the general one at
-    the most samples that fit (``samples`` is then the largest of
-    :data:`SAMPLES` that fits, or 1 where none does, which the domain check
-    refuses).
+    other shape (F = 4 and Kp > 256 too), and every rounded plan (rb > 0),
+    takes the general one at the most samples that fit.  Where one sample
+    does not fit a block, or F > 512, the cluster instantiation takes it: the
+    fewest blocks a cluster (2, 4 or 8; F/C a multiple of 32 and at most 512)
+    that hold one sample, at the most samples that fit.  Where nothing fits,
+    the plan is (1, True, the largest cluster tried, or 1), which the domain
+    check refuses.
     """
-    Kp = pad16(tg.kpl * ctx.R)
+    Kp, F = pad16(tg.kpl * ctx.R), ctx.F
     smem = {s: crt_mma_smem_bytes(U, ctx, tg, stage_bytes, s) for s in SAMPLES}
-    general = (max(ctx.F, 32) > 128 or Kp > 64 or ctx.key_round_bits > 0
+    general = (max(F, 32) > 128 or Kp > 64 or ctx.key_round_bits > 0 or F < 8
                or smem[8] > SMEM_PER_BLOCK)
     if not general:
-        return 8, False
-    return next((s for s in SAMPLES if smem[s] <= SMEM_PER_BLOCK), SAMPLES[-1]), True
+        return 8, False, 1
+    fits = [s for s in SAMPLES if smem[s] <= SMEM_PER_BLOCK]
+    if fits and F <= MAX_BLOCK_F:
+        return fits[0], True, 1
+    tried = [C for C in CLUSTERS if F % (32 * C) == 0 and F // C <= MAX_BLOCK_F]
+    for C in tried:
+        fit = [s for s in SAMPLES
+               if crt_mma_smem_bytes(U, ctx, tg, stage_bytes, s, C) <= SMEM_PER_BLOCK]
+        if fit:
+            return fit[0], True, C
+    return 1, True, tried[-1] if tried else 1
 
 
 def _c16(p: int) -> int:
@@ -155,23 +179,26 @@ def crt_mma_sums(U: int, ctx: NttContext, tg, *, reduce_c2: bool,
                  stage_bytes: int = 0) -> dict[str, int]:
     """Worst-case magnitudes of the int32 sums of ``crt_mma::launch``'s
     stages in the instantiation it picks (the launcher's bounds): the forward
-    (C1 reduced before its product by 256 at F = 512), the pointwise (C2
-    reduced for a ``reduce_c2`` key and in the general instantiation, C1 too
-    there at Kp > 128) and the inverse (C1 reduced at F >= 256)."""
+    (C1 reduced before its product by 256 at F = 512 and in a cluster), the
+    pointwise (C2 reduced for a ``reduce_c2`` key and in the general and
+    cluster instantiations, C1 too there at Kp > 128) and the inverse (C1
+    reduced at F >= 256 and in a cluster, where each block contracts over
+    all F through DSMEM)."""
     Kp, FP = pad16(tg.kpl * ctx.R), max(ctx.F, 32)
     hmax = max((p - 1) // 2 for p in ctx.primes)
     dhi = 0 if tg.halfBg <= 128 else -(-tg.halfBg // 256)
     c16_half = max(_c16(p) * ((p - 1) // 2) for p in ctx.primes)
-    general = crt_mma_plan(U, ctx, tg, stage_bytes)[1]
+    _, general, cluster = crt_mma_plan(U, ctx, tg, stage_bytes)
     if general and Kp > 128:
         pointwise = Kp * 128 * 128 + 256 * hmax + c16_half
     elif reduce_c2 or general:
         pointwise = Kp * 128 * 128 * 513 + c16_half
     else:
         pointwise = Kp * 128 * 128 * (513 + max(_c16(p) for p in ctx.primes))
-    forward = (FP * 128 * (128 + dhi) + 256 * hmax if FP > 256
+    forward = (FP * 128 * (128 + dhi) + 256 * hmax if FP > 256 or cluster > 1
                else 257 * FP * 128 * (128 + dhi))
-    inverse = FP * 2 * 128 * 128 + 256 * hmax if FP > 128 else 257 * FP * 2 * 128 * 128
+    inverse = (FP * 2 * 128 * 128 + 256 * hmax if FP > 128 or cluster > 1
+               else 257 * FP * 2 * 128 * 128)
     return {"forward": forward, "pointwise": pointwise, "inverse": inverse}
 
 
@@ -192,21 +219,22 @@ def check_crt_mma_domain(name: str, U: int, ctx: NttContext, tg, *, reduce_c2: b
         raise ValueError(f"{name} {what} (N={N}, k={U - 1}, l={tg.l}, Bgbit={tg.Bgbit}, "
                          f"primes {ctx.primes})")
 
-    if F % 8 or not 8 <= F <= 512:
-        refuse(f"takes F = N/R a multiple of 8 from 8 to 512; N={N}, R={R} give F={F}")
-    if pad16(K) > 256:
-        refuse(f"takes K = kpl*R up to 256 rows; kpl={tg.kpl}, R={R} give K={K}")
+    top = CLUSTERS[-1] * MAX_BLOCK_F
+    if (F % 8 and F != 4) or not 4 <= F <= top:
+        refuse(f"takes F = N/R = 4 or a multiple of 8 up to {top}; N={N}, R={R} give F={F}")
     if tg.Bgbit > 15 or tg.l * tg.Bgbit > 32:
         refuse(f"takes Bgbit <= 15 and l*Bgbit <= 32; got Bgbit={tg.Bgbit}, l={tg.l}")
     if not 0 <= rb < 32 or L * kbits < 32 - rb or kbits * (L - 1) >= 32 - rb:
         refuse(f"takes key limbs covering 32 - rb bits once; got {L} x {kbits} bits, rb={rb}")
     if min(p0, p1) < 1024 or not (p0 & p1 & 1) or max(half0, half1) > 127 * 256 + 127:
         refuse(f"takes odd primes from 1024 to 65279; got {ctx.primes}")
-    samples, general = crt_mma_plan(U, ctx, tg, stage_bytes)
-    smem = crt_mma_smem_bytes(U, ctx, tg, stage_bytes, samples)
+    samples, general, cluster = crt_mma_plan(U, ctx, tg, stage_bytes)
+    smem = crt_mma_smem_bytes(U, ctx, tg, stage_bytes, samples, cluster)
     if smem > SMEM_PER_BLOCK:
         refuse(f"needs {smem:,} bytes of shared memory for U={U}, N={N}, K={K}, M={M} "
-               f"at {samples} samples a block; the card allows {SMEM_PER_BLOCK:,}")
+               f"at {samples} samples a block"
+               + (f" in a cluster of {cluster} blocks" if cluster > 1 else "")
+               + f"; the card allows {SMEM_PER_BLOCK:,}")
     for stage, bound in crt_mma_sums(U, ctx, tg, reduce_c2=reduce_c2,
                                      stage_bytes=stage_bytes).items():
         if bound >= 1 << 31:
@@ -236,9 +264,9 @@ def _launch(acc0: torch.Tensor, bara: torch.Tensor, key: torch.Tensor,
                            ("key", key, torch.int8), ("W_mma", ctx.W_mma, torch.int8),
                            ("Winv_mma", ctx.Winv_mma, torch.int8)))
     out = torch.empty_like(acc0)
-    samples = crt_mma_plan(U, ctx, tg)[0]
-    scratch = torch.empty(kernel_scratch_bytes(B, U, ctx, tg, samples), dtype=torch.uint8,
-                          device=acc0.device)
+    samples, _, cluster = crt_mma_plan(U, ctx, tg)
+    scratch = torch.empty(kernel_scratch_bytes(B, U, ctx, tg, samples, cluster),
+                          dtype=torch.uint8, device=acc0.device)
     lib = build.load("blind_rotate_ntt")
     stream = torch.cuda.current_stream(acc0.device).cuda_stream
     with torch.cuda.device(acc0.device):

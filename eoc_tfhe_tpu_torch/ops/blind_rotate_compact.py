@@ -14,10 +14,10 @@ unit, which gives the same bits.
 runs :func:`blind_rotate_compact_plain` (the rows scan); for a CUDA tensor it
 launches the hand-written kernel in ``csrc/blind_rotate_compact.cu`` or
 raises: :func:`check_kernel_domain` refuses, by name and before any launch, a
-shape the kernel does not take (it takes k = 1 to 4 and every power-of-two
-N from 32 to 4096 whose block fits in shared memory at 2 samples, one key
-limb and one digit row a pass).  ``launches`` counts
-kernel launches and nothing else.
+shape the kernel does not take (it takes every k and every power-of-two N
+from 8 whose sample fits a block, or a cluster of up to 8 blocks, at one
+key limb and one digit row a pass; halfBg <= 128 and int32 limb sums).
+``launches`` counts kernel launches and nothing else.
 """
 
 from __future__ import annotations
@@ -27,7 +27,7 @@ import torch
 from ..core.numeric import wrap32
 from ..core.params import GateBootstrappingParams
 from ..core.tgsw import decompose_h
-from . import polymul, rotate
+from . import ntt, polymul, rotate
 from .blind_rotate import SMEM_PER_BLOCK
 
 #: Number of launches of the CUDA kernel in this process.
@@ -49,33 +49,73 @@ def check_digit_domain(params: GateBootstrappingParams) -> None:
             "only for int8 gadget digits; use the ntt_kernel form")
 
 
-def smem_bytes(U: int, N: int, J: int, samples: int, limbs: int, rows: int | None = None) -> int:
+def smem_bytes(U: int, N: int, J: int, samples: int, limbs: int, rows: int | None = None,
+               cluster: int = 1, general: bool = False) -> int:
     """Shared memory of a K2 block: the accumulators (samples, U*N + 4)
     uint32, the digits (samples, J*N + 16) int8 and the byte rows (limbs,
     rows, U, 2N) int8 of the key limbs and digit rows converted a pass (all
-    J rows unless ``rows`` is given), + 16."""
+    J rows unless ``rows`` is given), + 16.  The general kernel
+    (``general``) holds a block's share of the accumulators (samples, U*N/C
+    + 4) in a cluster of C = ``cluster`` blocks, digit rows of max(N, 32)
+    bytes, and of each key row the window its outputs meet plus 32 bytes
+    (2N + 32, or N + N/C + 32 in a cluster)."""
     rows = J if rows is None else rows
-    return samples * (U * N + 4) * 4 + samples * (J * N + 16) + limbs * rows * U * 2 * N + 16
+    if not general:
+        return samples * (U * N + 4) * 4 + samples * (J * N + 16) + limbs * rows * U * 2 * N + 16
+    Ns = N // cluster
+    RW = (2 * N if cluster == 1 else N + Ns) + 32
+    return samples * (U * Ns + 4) * 4 + samples * (J * max(N, 32) + 16) + limbs * rows * U * RW + 16
 
 
 #: K2's (samples a block, key limbs converted a pass) with all J digit rows a
-#: pass, in the launcher's order of preference: the first whose block fits
-#: is taken; then (samples, 1 limb, the most rows below J that fit) for
-#: samples 8, 4, 2.
+#: pass, in the launcher's order of preference for the instantiations (U = 2
+#: to 5, N from 32 to 4096): the first whose block fits is taken; then
+#: (samples, 1 limb, the most rows below J that fit) for samples 8, 4, 2.
 PLANS = ((8, 4), (8, 1), (4, 4), (4, 1), (2, 4), (2, 1))
+#: Blocks a cluster of the general kernel (the portable limit is 8).
+CLUSTERS = (1, 2, 4, 8)
 
 
-def kernel_plan(U: int, N: int, J: int) -> tuple[int, int, int]:
-    """The (samples, limbs a pass, digit rows a pass) that the launcher takes,
-    or (2, 1, 1) where none fits (which the domain check refuses)."""
-    for samples, limbs in PLANS:
-        if smem_bytes(U, N, J, samples, limbs) <= SMEM_PER_BLOCK:
-            return samples, limbs, J
-    for samples in (8, 4, 2):
-        for rows in range(J - 1, 0, -1):
-            if smem_bytes(U, N, J, samples, 1, rows) <= SMEM_PER_BLOCK:
-                return samples, 1, rows
-    return 2, 1, 1
+def max_cluster(N: int) -> int:
+    """The largest cluster the general kernel takes at N: each block's share
+    of a polynomial holds at least one walk of 16 or 32 output tiles."""
+    if N < 1024:
+        return 1
+    return min(8, N // (16 * (32 if N >= 2048 else 16)))
+
+
+def is_general(U: int, N: int, plan: tuple[int, int, int, int]) -> bool:
+    """Whether ``plan`` runs the general kernel: a shape past the
+    instantiations (U = 2 to 5, N from 32 to 4096), one sample a block, or a
+    cluster."""
+    return not 2 <= U <= 5 or not 32 <= N <= 4096 or plan[0] == 1 or plan[3] > 1
+
+
+def kernel_plan(U: int, N: int, J: int) -> tuple[int, int, int, int]:
+    """The (samples, limbs a pass, digit rows a pass, blocks a cluster) that
+    the launcher takes.  The instantiations' plans come first (``PLANS``,
+    then row shares at 2 to 8 samples); else the general kernel's: per
+    cluster size (1, 2, 4, 8, up to :func:`max_cluster`) and samples (8 down
+    to 1), all J rows at 4 limbs and at 1 limb a pass, then 1 limb and the
+    most rows that fit.  Where none fits: (1, 1, 1, the largest cluster),
+    which the domain check refuses."""
+    if 2 <= U <= 5 and 32 <= N <= 4096:
+        for samples, limbs in PLANS:
+            if smem_bytes(U, N, J, samples, limbs) <= SMEM_PER_BLOCK:
+                return samples, limbs, J, 1
+        for samples in (8, 4, 2):
+            for rows in range(J - 1, 0, -1):
+                if smem_bytes(U, N, J, samples, 1, rows) <= SMEM_PER_BLOCK:
+                    return samples, 1, rows, 1
+    top = max(C for C in CLUSTERS if C <= max_cluster(N))
+    for C in CLUSTERS:
+        if C > top:
+            break
+        for samples in (8, 4, 2, 1):
+            for limbs, rows in ((4, J), (1, J), *((1, r) for r in range(J - 1, 0, -1))):
+                if smem_bytes(U, N, J, samples, limbs, rows, C, True) <= SMEM_PER_BLOCK:
+                    return samples, limbs, rows, C
+    return 1, 1, 1, top
 
 
 def check_kernel_domain(params: GateBootstrappingParams) -> None:
@@ -85,24 +125,22 @@ def check_kernel_domain(params: GateBootstrappingParams) -> None:
     tg = params.tgsw_params
     U, N, J = tg.tlwe_params.k + 1, tg.tlwe_params.N, tg.kpl
     where = f"(N={N}, k={U - 1}, l={tg.l}, Bgbit={tg.Bgbit})"
-    if U not in (2, 3, 4, 5):
-        raise ValueError(f"K2 (blind_rotate_compact) takes k = 1 to 4 (U = 2 to 5); "
-                         f"got U={U} {where}")
-    if N & (N - 1) or not 32 <= N <= 4096:
-        raise ValueError(f"K2 (blind_rotate_compact) takes N a power of two from 32 to "
-                         f"4096; got N={N} {where}")
+    if N & (N - 1) or N < 8:
+        raise ValueError(f"K2 (blind_rotate_compact) takes N a power of two from 8; "
+                         f"got N={N} {where}")
     if tg.l * tg.Bgbit > 32:
         raise ValueError(f"K2 (blind_rotate_compact) takes l*Bgbit <= 32 {where}")
     if J * N * tg.halfBg * 128 >= 1 << 31:
         raise ValueError(f"K2 (blind_rotate_compact) limb sum reaches "
                          f"{J * N * tg.halfBg * 128:,} >= 2^31 {where}")
-    samples, limbs, rows = kernel_plan(U, N, J)
-    smem = smem_bytes(U, N, J, samples, limbs, rows)
+    plan = kernel_plan(U, N, J)
+    samples, limbs, rows, cluster = plan
+    smem = smem_bytes(U, N, J, *plan, is_general(U, N, plan))
     if smem > SMEM_PER_BLOCK:
         raise ValueError(f"K2 (blind_rotate_compact) needs {smem:,} bytes of shared memory "
                          f"for U={U}, N={N}, J={J} at {samples} samples, {limbs} key limb "
-                         f"and {rows} digit row a pass; the card allows {SMEM_PER_BLOCK:,} "
-                         f"{where}")
+                         f"and {rows} digit row a pass in a cluster of {cluster} blocks; the "
+                         f"card allows {SMEM_PER_BLOCK:,} {where}")
 
 
 def prepare_compact_bk(bk_rows: torch.Tensor, limbs: int = polymul.LIMBS) -> torch.Tensor:
@@ -135,36 +173,56 @@ def _shapes(acc0: torch.Tensor, bara: torch.Tensor, key: torch.Tensor,
     return B, U, N, n
 
 
+#: From this N on the plain version multiplies by the exact CRT-NTT product
+#: (``ntt.external_product_ntt`` over the step's rows transformed as they
+#: come) instead of each row's negacyclic Toeplitz, whose float64 block (U N^2
+#: words) is 4.3 GB a row at N = 16384 and the slower of the two from N = 4096.
+NTT_PLAIN_FROM_N = 4096
+
+
 def cmux_rotate_step(acc: torch.Tensor, bk_row: torch.Tensor, bara_i: torch.Tensor,
-                     params: GateBootstrappingParams) -> torch.Tensor:
+                     params: GateBootstrappingParams, ctx: ntt.NttContext | None = None
+                     ) -> torch.Tensor:
     """One CMux step (upstream ``tfhe_MuxRotate_FFT``):
     acc <- acc + bk_i (.) ((X^{bara_i} - 1) * acc).
 
     Args:
       acc: (..., k+1, N) int32; bk_row: (kpl, k+1, N) int32;
-      bara_i: (...) int32 in [0, 2N).
+      bara_i: (...) int32 in [0, 2N); ctx: the exact context over
+      ``DEFAULT_PRIMES`` for N >= ``NTT_PLAIN_FROM_N`` (made here if None).
     """
     tg = params.tgsw_params
     rot = rotate.mul_by_xai(acc, bara_i[..., None])
     d = wrap32(rot.to(torch.int64) - acc.to(torch.int64))
-    delta = polymul.small_by_torus_matmul(decompose_h(d, tg), bk_row, x_bound=tg.halfBg)
+    digits = decompose_h(d, tg)
+    if tg.tlwe_params.N >= NTT_PLAIN_FROM_N:
+        ctx = ntt.context_for_params(params, device=acc.device) if ctx is None else ctx
+        key_step = ntt.kernel_key_residues(bk_row[None], ctx)[0]
+        delta = ntt.external_product_ntt(digits.reshape(-1, *digits.shape[-2:]), key_step,
+                                         ctx).reshape(acc.shape)
+    else:
+        delta = polymul.small_by_torus_matmul(digits, bk_row, x_bound=tg.halfBg)
     return wrap32(acc.to(torch.int64) + delta.to(torch.int64))
 
 
 def blind_rotate_compact_plain(acc0: torch.Tensor, bara: torch.Tensor, key: torch.Tensor,
                                params: GateBootstrappingParams) -> torch.Tensor:
     """Plain PyTorch blind rotation: the reference's rows scan
-    (``core/bootstrap.blind_rotate``) over the stored key.
+    (``core/bootstrap.blind_rotate``) over the stored key; from N =
+    ``NTT_PLAIN_FROM_N`` on, each step's exact product through the CRT-NTT
+    stages instead of the Toeplitz blocks (the same bits).
 
     Args:
       acc0: (B, k+1, N) int32; bara: (n, B) int32 in [0, 2N);
       key: (n, kpl, k+1, N) int32 from :func:`prepare_compact_bk`.
     Returns (B, k+1, N) int32.
     """
-    _, _, _, n = _shapes(acc0, bara, key, params)
+    _, _, N, n = _shapes(acc0, bara, key, params)
+    ctx = (ntt.context_for_params(params, device=acc0.device) if N >= NTT_PLAIN_FROM_N
+           else None)
     acc = acc0
     for i in range(n):
-        acc = cmux_rotate_step(acc, key[i], bara[i], params)
+        acc = cmux_rotate_step(acc, key[i], bara[i], params, ctx)
     return acc
 
 

@@ -103,9 +103,9 @@ def _launch(acc0: torch.Tensor, bara: torch.Tensor, key: torch.Tensor,
                           ("key", key, torch.int8), ("W_mma", ctx.W_mma, torch.int8),
                           ("Winv_mma", ctx.Winv_mma, torch.int8)))
     out = torch.empty_like(acc0)
-    samples = crt_mma_plan(U, ctx, tg, STAGE_BYTES)[0]
-    scratch = torch.empty(kernel_scratch_bytes(B, U, ctx, tg, samples), dtype=torch.uint8,
-                          device=acc0.device)
+    samples, _, cluster = crt_mma_plan(U, ctx, tg, STAGE_BYTES)
+    scratch = torch.empty(kernel_scratch_bytes(B, U, ctx, tg, samples, cluster),
+                          dtype=torch.uint8, device=acc0.device)
     lib = build.load("blind_rotate_ntt_v1")
     stream = torch.cuda.current_stream(acc0.device).cuda_stream
     with torch.cuda.device(acc0.device):

@@ -104,15 +104,17 @@ def _ntt_matrices_np(p: int, F: int) -> tuple[np.ndarray, np.ndarray]:
     """(W, Winv) int64 balanced: W[t,f] = psi^{(2f+1)t}, Winv[f,t] =
     F^{-1} psi^{-(2f+1)t} — the single-stage negacyclic NTT pair mod p."""
     psi = _root_of_unity(p, 2 * F)
-    t = np.arange(F, dtype=object)[:, None]
-    f = np.arange(F, dtype=object)[None, :]
-    W = np.vectorize(lambda tt, ff: pow(psi, int((2 * ff + 1) * tt), p))(t, f)
     psi_inv = pow(psi, p - 2, p)
     Finv = pow(F, p - 2, p)
-    Winv = np.vectorize(
-        lambda ff, tt: (Finv * pow(psi_inv, int((2 * ff + 1) * tt), p)) % p
-    )(f.T, t.T)
-    return _balanced_np(W.astype(np.int64), p), _balanced_np(Winv.astype(np.int64), p)
+    # psi has order 2F: psi^e = pw[e mod 2F], one table of powers a direction
+    pw, pw_inv = np.ones(2 * F, dtype=np.int64), np.ones(2 * F, dtype=np.int64)
+    for e in range(1, 2 * F):
+        pw[e], pw_inv[e] = pw[e - 1] * psi % p, pw_inv[e - 1] * psi_inv % p
+    t = np.arange(F, dtype=np.int64)[:, None]
+    f = np.arange(F, dtype=np.int64)[None, :]
+    W = pw[(2 * f + 1) * t % (2 * F)]                       # [t, f]
+    Winv = Finv * pw_inv[(2 * f.T + 1) * t.T % (2 * F)] % p   # [f, t]
+    return _balanced_np(W, p), _balanced_np(Winv, p)
 
 
 def _choose_key_limbs(J: int, N: int, halfBg: int, primes: tuple[int, ...],
@@ -530,14 +532,27 @@ def join_key_bytes(key8: torch.Tensor) -> torch.Tensor:
     return key8[..., :M].to(torch.int16) + 256 * key8[..., M:].to(torch.int16)
 
 
+#: Bytes of int16 residues a chunk of steps of :func:`prepare_key_ntt` makes
+#: at once: its float64 and int64 intermediates are about ten times that,
+#: where the whole key at N = 16384 (15.9 GB) would need over 80 GB.
+KEY_CHUNK_BYTES = 1 << 30
+
+
 def prepare_key_ntt(bk_rows: torch.Tensor, ctx: NttContext) -> torch.Tensor:
     """(n, J, U, N) int32 TGSW rows -> the "ntt_scan" key (n, P, F, K, 2M) int8.
 
     The bits of ``pallas_ntt_blindrot.prepare_kernel_key(ntt.prepare_key_ntt_np(
     rows, ctx).T8)`` of the reference: :func:`kernel_key_residues`, each
-    split into its two bytes.  Runs on the rows' device.
+    split into its two bytes, a chunk of steps at a time
+    (:data:`KEY_CHUNK_BYTES`).  Runs on the rows' device.
     """
-    return split_key_bytes(kernel_key_residues(bk_rows, ctx)).contiguous()
+    n, J, U, N = bk_rows.shape
+    P, K, M = len(ctx.primes), J * ctx.R, ctx.key_limbs * U * ctx.R
+    step = max(1, KEY_CHUNK_BYTES // (P * ctx.F * K * M * 2))
+    out = torch.empty((n, P, ctx.F, K, 2 * M), dtype=torch.int8, device=bk_rows.device)
+    for i in range(0, n, step):
+        out[i:i + step] = split_key_bytes(kernel_key_residues(bk_rows[i:i + step], ctx))
+    return out
 
 
 def scan_to_v1_key(T8: torch.Tensor) -> torch.Tensor:

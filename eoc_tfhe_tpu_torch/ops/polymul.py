@@ -107,10 +107,10 @@ def small_by_torus_matmul(x_small: torch.Tensor, y_torus: torch.Tensor,
     The external product of the rows scan (upstream ``tGswFFTExternMulToTLwe``):
     gadget digits (|x| <= ``x_bound``) against the shared TGSW rows.  One
     float64 matmul per row j against the negacyclic Toeplitz of that row (an
-    (N, U*N) block, so that N = 4096 needs 268 MB a block, not J times that),
-    summed over j: each term is at most x_bound * 2^31 and there are J*N of
-    them, so every partial sum is an integer below 2^53 and float64 holds it
-    exactly in any order; the result is reduced mod 2^32.
+    (N, U*N) block, so that N = 4096 needs 268 MB a block, not J times that):
+    each term is at most x_bound * 2^31 and there are N of them, so every
+    partial sum is an integer below 2^53 and float64 holds it exactly in any
+    order; the rows' sums are added in int64 and reduced mod 2^32.
 
     The reference casts the digits to int8 and accumulates in int32; both
     bounds are checked here, and a digit bound above 128 (where the
@@ -130,14 +130,14 @@ def small_by_torus_matmul(x_small: torch.Tensor, y_torus: torch.Tensor,
                          "wrap there (halfBg must be <= 128)")
     if J * N * x_bound * 128 >= 2**31:
         raise ValueError("int32 accumulation of the reference would overflow")
-    if J * N * x_bound * 2**31 >= 2**53:
-        raise ValueError(f"J*N*x_bound = {J * N * x_bound} too large for exact float64 sums")
+    if N * x_bound * 2**31 >= 2**53:
+        raise ValueError(f"N*x_bound = {N * x_bound} too large for exact float64 sums")
     batch_shape = tuple(x_small.shape[:-2])
     x = x_small.reshape(-1, J, N).to(torch.float64)
     z = None
     for j in range(J):
         M = negacyclic_toeplitz(y_torus[j])                   # (U, N_r, N_c)
         M = M.permute(1, 0, 2).reshape(N, U * N).to(torch.float64)
-        zj = x[:, j] @ M
+        zj = (x[:, j] @ M).to(torch.int64)
         z = zj if z is None else z + zj
-    return wrap32(z.to(torch.int64)).reshape(batch_shape + (U, N))
+    return wrap32(z).reshape(batch_shape + (U, N))

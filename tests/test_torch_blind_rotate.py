@@ -9,7 +9,9 @@ and the kernels' domain checks; the C7 cases the shapes that the kernels took
 only after C7 (N = 2048, k = 3, k = 2 at N = 1024, l = 5), each against the
 reference's NAND or its scan and Pallas kernels; the C8 cases the shapes the
 kernels took only after C8 (N = 4096, K up to 256, k = 4, K2's wide shapes),
-and the C9 cases the reference's rounded-key NTT plans.
+the C9 cases the reference's rounded-key NTT plans, and the C10 cases the
+shapes the kernels took only after C10 (N = 8192 and 16384, F = 512 at Kp =
+144, K = 288, k = 5, N = 16).
 """
 
 import functools
@@ -31,6 +33,8 @@ from eoc_tfhe_tpu.ops import pallas_ntt_blindrot2 as jpnb2
 from eoc_tfhe_tpu_torch.core import bootstrap, gates, keys, lwe, params
 from eoc_tfhe_tpu_torch.ops import blind_rotate, blind_rotate_compact, blind_rotate_v1, ntt
 
+from torch_reference_ntt import fast_reference_matrices, table_matrices
+
 CASES = {
     "toy": lambda: jparams.test_params(n=16, N=64, k=1, l=3, Bgbit=7),
     "bgbit10": lambda: jparams.test_params(n=8, N=64, k=1, l=2, Bgbit=10),
@@ -50,6 +54,23 @@ def _inputs(p, n_steps, B, seed):
 
 def _jctx(p):
     return jpnb2.kernel_context_for_params(p)
+
+
+def test_prepare_key_ntt_goes_a_chunk_of_steps_at_a_time(monkeypatch):
+    """The "ntt_scan" key is built ``ntt.KEY_CHUNK_BYTES`` of residues at a
+    time (the whole key at N = 16384 is 15.9 GB, its intermediates several
+    times that); chunks of one step give the bytes of one chunk, which are
+    the reference's."""
+    p = jparams.test_params(n=5)
+    rows, _, _ = _inputs(p, 5, 1, seed=97)
+    ctx = ntt.context_for_params(p, device="cpu")
+    whole = ntt.prepare_key_ntt(torch.from_numpy(rows), ctx)
+    jctx = jntt.context_for_params(p)
+    np.testing.assert_array_equal(
+        whole.numpy(),
+        ntt.scan_to_v1_key(torch.from_numpy(np.array(jntt.prepare_key_ntt_np(rows, jctx).T8))))
+    monkeypatch.setattr(ntt, "KEY_CHUNK_BYTES", 1)
+    assert torch.equal(ntt.prepare_key_ntt(torch.from_numpy(rows), ctx), whole)
 
 
 @pytest.mark.parametrize("case", list(CASES))
@@ -252,7 +273,7 @@ def test_c7_k3_shape_at_full_depth_needs_more_gadget_bits():
                 pkg.test_params(N=512, k=3, l=3, Bgbit=6, n=630), -1, -1)
         (jgates if pkg is jparams else gates).check_noise_budget(
             pkg.test_params(N=512, k=3, l=3, Bgbit=7, n=630), -1, -1)
-    assert blind_rotate_compact.kernel_plan(4, 512, 12) == (8, 1, 12)
+    assert blind_rotate_compact.kernel_plan(4, 512, 12) == (8, 1, 12, 1)
 
 
 @pytest.mark.parametrize("case", [c for c in C7_CASES if c not in C7_NAND]
@@ -321,57 +342,97 @@ def test_kernel_domains_take_the_shipped_sets_and_the_c5_shapes(case):
     else:
         with pytest.raises(ValueError, match=r"halfBg = 512 > 128"):
             blind_rotate_compact.check_kernel_domain(p)
-    samples, general = blind_rotate.crt_mma_plan(U, sctx, tg, blind_rotate_v1.STAGE_BYTES)
+    samples, general, cluster = blind_rotate.crt_mma_plan(U, sctx, tg,
+                                                          blind_rotate_v1.STAGE_BYTES)
     assert blind_rotate.crt_mma_smem_bytes(
         U, sctx, tg, blind_rotate_v1.STAGE_BYTES, samples) <= blind_rotate.SMEM_PER_BLOCK
-    assert general == case.startswith("N") and (samples == 8 or general)
+    assert general == case.startswith("N") and (samples == 8 or general) and cluster == 1
     K2_PLAN = {"N2048_k1_l3": (4, 1), "N1024_k2_l3": (8, 1), "N512_k3_l3": (8, 1),
                "N1024_k1_l5": (8, 1)}
     assert blind_rotate_compact.kernel_plan(U, tg.tlwe_params.N, tg.kpl) == \
-        (*K2_PLAN.get(case, (8, 4)), tg.kpl)       # all J digit rows a pass
+        (*K2_PLAN.get(case, (8, 4)), tg.kpl, 1)    # all J digit rows a pass, no cluster
 
 
 def test_kernel_domains_refuse_by_name():
-    """What stays outside the domains (ROADMAP C8) is refused by name."""
+    """What stays outside the domains after C10 (ROADMAP C8, C10) is refused
+    by name, with the bytes a cluster of 8 blocks would need where that is
+    the limit.  The shapes refused here before C10 are
+    ``test_kernel_domains_take_the_formerly_refused_shapes``."""
     huge = params.test_params(N=4096, k=1, l=3, Bgbit=7)      # F = 512
     with pytest.raises(ValueError, match=r"K1 \(blind_rotate_ntt\) has no context at N=4096: "
                                          r"its prime 32257 .*1024 does not divide 32257-1"):
         ntt.kernel_context_for_params(huge, device="cpu")     # as in the reference
     with pytest.raises(ValueError, match=r"1024 does not divide 32257-1"):
         jpnb2.kernel_context_for_params(huge)
-    # K1/K3 at F = 512 with Kp >= 144: one sample's buffers exceed the card
-    fat = params.test_params(N=4096, k=1, l=9, Bgbit=3)       # K = 144
-    tg = fat.tgsw_params
-    with pytest.raises(ValueError, match=r"K3 .* needs 240,384 bytes of shared memory for "
-                                         r"U=2, N=4096, K=144, M=48 at 1 samples a block"):
-        blind_rotate_v1.check_kernel_domain(2, ntt.context_for_params(fat, device="cpu"), tg)
-    tall = params.test_params(N=512, k=3, l=9, Bgbit=3)       # K = 288
-    tg = tall.tgsw_params
-    with pytest.raises(ValueError, match=r"K1 .* takes K = kpl\*R up to 256 rows; .* K=288"):
-        blind_rotate.check_kernel_domain(4, ntt.kernel_context_for_params(tall, device="cpu"), tg)
-    with pytest.raises(ValueError, match=r"K3 .* takes K = kpl\*R up to 256 rows"):
-        blind_rotate_v1.check_kernel_domain(4, ntt.context_for_params(tall, device="cpu"), tg)
-    with pytest.raises(ValueError, match=r"K2 .* takes N a power of two from 32 to 4096; "
-                                         r"got N=8192"):
-        blind_rotate_compact.check_kernel_domain(params.test_params(N=8192, k=1, l=2))
-    with pytest.raises(ValueError, match=r"K2 .* takes N a power of two from 32 to 4096"):
-        blind_rotate_compact.check_kernel_domain(params.test_params(N=16))
-    with pytest.raises(ValueError, match=r"K2 .* takes k = 1 to 4"):
-        blind_rotate_compact.check_kernel_domain(params.test_params(k=5, l=2, N=64))
-    wide = params.test_params(N=4096, k=3, l=3, Bgbit=7)      # U = 4, J = 12
-    with pytest.raises(ValueError, match=r"K2 \(blind_rotate_compact\) needs 262,224 bytes "
-                                         r"of shared memory for U=4, N=4096, J=12 at 2 samples, "
-                                         r"1 key limb and 1 digit row a pass; the card allows "
-                                         r"232,448"):
-        blind_rotate_compact.check_kernel_domain(wide)
-    with pytest.raises(ValueError, match=r"K2 .* needs 245,840 bytes .* U=5, N=4096"):
-        blind_rotate_compact.check_kernel_domain(params.test_params(N=4096, k=4, l=1, Bgbit=7))
+    # K3 where one sample's digits and 1/8 of its spectra exceed a block
+    wide = params.test_params(N=4096, k=2, l=15, Bgbit=2)     # K = 360
+    tg = wide.tgsw_params
+    with pytest.raises(ValueError, match=r"K3 .* needs 251,136 bytes of shared memory for "
+                                         r"U=3, N=4096, K=360, M=72 at 1 samples a block in a "
+                                         r"cluster of 8 blocks; the card allows 232,448"):
+        blind_rotate_v1.check_kernel_domain(3, ntt.context_for_params(wide, device="cpu"), tg)
+    # K2 where one sample does not fit a cluster of 8 (its digits alone: J*N)
+    with pytest.raises(ValueError, match=r"K2 \(blind_rotate_compact\) needs 237,744 bytes "
+                                         r"of shared memory for U=4, N=16384, J=8 at 1 samples, "
+                                         r"1 key limb and 1 digit row a pass in a cluster of 8 "
+                                         r"blocks; the card allows 232,448"):
+        blind_rotate_compact.check_kernel_domain(params.test_params(N=16384, k=3, l=2, Bgbit=7))
+    with pytest.raises(ValueError, match=r"K2 .* limb sum reaches 2,147,483,648 >= 2\^31"):
+        blind_rotate_compact.check_kernel_domain(params.test_params(N=16384, k=1, l=4, Bgbit=8))
+    with pytest.raises(ValueError, match=r"K2 .* takes N a power of two from 8; got N=4"):
+        blind_rotate_compact.check_kernel_domain(params.test_params(N=4, k=1, l=2))
     deep = params.test_params(N=1024, k=1, l=5, Bgbit=7)      # l*Bgbit = 35
     tg = deep.tgsw_params
     with pytest.raises(ValueError, match=r"K3 .* takes Bgbit <= 15 and l\*Bgbit <= 32"):
         blind_rotate_v1.check_kernel_domain(2, ntt.context_for_params(deep, device="cpu"), tg)
+    with pytest.raises(ValueError, match=r"K2 .* takes l\*Bgbit <= 32"):
+        blind_rotate_compact.check_kernel_domain(deep)
     with pytest.raises(ValueError, match=r"halfBg = 512 > 128"):   # C1 stays refused
         blind_rotate_compact.check_kernel_domain(params.test_params(N=1024, k=2, l=1, Bgbit=10))
+
+
+#: The shapes ``test_kernel_domains_refuse_by_name`` refused before C10, now
+#: taken: (params, kernel, the plan its launcher picks).
+FORMERLY_REFUSED = {
+    "K2 N=8192": (lambda: params.test_params(N=8192, k=1, l=2), "K2", (2, 1, 1, 1)),
+    "K2 N=16": (lambda: params.test_params(N=16), "K2", (8, 4, 4, 1)),
+    "K2 k=5": (lambda: params.test_params(k=5, l=2, N=64), "K2", (8, 4, 12, 1)),
+    "K1 K=288": (lambda: params.test_params(N=512, k=3, l=9, Bgbit=3), "K1", (2, True, 1)),
+    "K3 K=288": (lambda: params.test_params(N=512, k=3, l=9, Bgbit=3), "K3", (2, True, 1)),
+    "K3 240,384 bytes": (lambda: params.test_params(N=4096, k=1, l=9, Bgbit=3), "K3",
+                         (1, True, 2)),
+    "K2 262,224 bytes": (lambda: params.test_params(N=4096, k=3, l=3, Bgbit=7), "K2",
+                         (1, 1, 3, 1)),
+    "K2 245,840 bytes": (lambda: params.test_params(N=4096, k=4, l=1, Bgbit=7), "K2",
+                         (1, 1, 3, 1)),
+}
+
+
+@pytest.mark.parametrize("case", list(FORMERLY_REFUSED))
+def test_kernel_domains_take_the_formerly_refused_shapes(case):
+    """ROADMAP C10: N = 8192 and N = 16 (K2), k = 5 (K2), K = 288 (K1, K3),
+    and the shapes whose one sample overflowed a block at 240,384 (K3) and
+    262,224 and 245,840 bytes (K2) are in the domains, at the plans the
+    launchers pick (the last entry the blocks a cluster)."""
+    make, kernel, plan = FORMERLY_REFUSED[case]
+    p = make()
+    tg = p.tgsw_params
+    U, N = tg.tlwe_params.k + 1, tg.tlwe_params.N
+    if kernel == "K2":
+        blind_rotate_compact.check_kernel_domain(p)
+        got = blind_rotate_compact.kernel_plan(U, N, tg.kpl)
+        assert blind_rotate_compact.smem_bytes(
+            U, N, tg.kpl, *got, blind_rotate_compact.is_general(U, N, got)) <= \
+            blind_rotate.SMEM_PER_BLOCK
+    elif kernel == "K1":
+        ctx = ntt.kernel_context_for_params(p, device="cpu")
+        blind_rotate.check_kernel_domain(U, ctx, tg)
+        got = blind_rotate.crt_mma_plan(U, ctx, tg)
+    else:
+        ctx = ntt.context_for_params(p, device="cpu")
+        blind_rotate_v1.check_kernel_domain(U, ctx, tg)
+        got = blind_rotate.crt_mma_plan(U, ctx, tg, blind_rotate_v1.STAGE_BYTES)
+    assert got == plan
 
 
 # --- C8: the shapes up to N = 4096 and K = 256 that the card refused ----------
@@ -392,24 +453,42 @@ C8_NAND = [("N4096_k1_l3", "ntt_scan", "scan"), ("N4096_k1_l3", "compact", "fuse
 
 
 @functools.lru_cache(maxsize=None)
-def _c8_reference(shape):
-    """A JAX keyset at a C8 shape (``jax.random.key(71)``), carried to the
-    port, two encrypted bit vectors, and the reference's NAND of them in each
-    form the shape is held in."""
-    p = C8_CASES[shape]()
-    jk = jkeys.new_random_gate_bootstrapping_secret_keyset(jax.random.key(71), p)
-    a = np.array([False, False, True, True, False])
-    b = np.array([False, True, False, True, True])
-    ca = jgates.encrypt_bit(jax.random.key(72), jnp.asarray(a), jk.lwe_key, p)
-    cb = jgates.encrypt_bit(jax.random.key(73), jnp.asarray(b), jk.lwe_key, p)
-    refs = {}
-    for _, form, ref_form in C8_NAND:
-        if _ != shape:
-            continue
-        ek = (jboot.prepare_eval_key_fused(jk.cloud) if ref_form == "fused" else
-              jboot.prepare_eval_key_ntt(jk.cloud, p, kernel=ref_form == "kernel"))
-        refs[form] = jgates.nand(ca, cb, ek, p)
+def _shape_reference(fault, shape):
+    """A JAX keyset at a C8 or C10 (``fault``) shape (``jax.random.key(71)``),
+    carried to the port, two encrypted bit vectors, and the reference's NAND
+    of them in each form the fault's table holds the shape in (its NTT
+    matrices at F >= 1024 from ``tests/torch_reference_ntt.py``)."""
+    cases, nands = {"C8": (C8_CASES, C8_NAND), "C10": (C10_CASES, C10_NAND)}[fault]
+    p = cases[shape]()
+    with fast_reference_matrices():
+        jk = jkeys.new_random_gate_bootstrapping_secret_keyset(jax.random.key(71), p)
+        a = np.array([False, False, True, True, False])
+        b = np.array([False, True, False, True, True])
+        ca = jgates.encrypt_bit(jax.random.key(72), jnp.asarray(a), jk.lwe_key, p)
+        cb = jgates.encrypt_bit(jax.random.key(73), jnp.asarray(b), jk.lwe_key, p)
+        refs = {}
+        for _, form, ref_form in nands:
+            if _ != shape:
+                continue
+            ek = (jboot.prepare_eval_key_fused(jk.cloud) if ref_form == "fused" else
+                  jboot.prepare_eval_key_ntt(jk.cloud, p, kernel=ref_form == "kernel"))
+            refs[form] = jgates.nand(ca, cb, ek, p)
     return p, jk, _torch_keyset(jk), (a, ca), (b, cb), refs
+
+
+def _c8_reference(shape):
+    return _shape_reference("C8", shape)
+
+
+def _check_nand(reference, form):
+    """The port's NAND over ``form``'s eval key against the reference's."""
+    p, _, tk, (a, ca), (b, cb), refs = reference
+    if form == "compact":
+        ek = bootstrap.prepare_eval_key_fused(tk.cloud, p)
+    else:
+        ek = bootstrap.prepare_eval_key_ntt(tk.cloud, p, kernel=form == "ntt_kernel")
+    assert ek.form == form
+    _assert_nand(gates.nand(_port_ct(ca), _port_ct(cb), ek, p), refs[form], tk, a, b)
 
 
 def _port_ct(c):
@@ -432,14 +511,7 @@ def test_c8_nand_matches_reference_word_for_word(shape, form, ref_form):
     compact form, K2), at k = 3 l = 5 (K = 160; both ntt forms and compact)
     and at k = 4 (U = 5; compact) the port's NAND has the words, the variance
     rail and the decryption of the reference's NAND in the matching form."""
-    _, _, tk, (a, ca), (b, cb), refs = _c8_reference(shape)
-    p = C8_CASES[shape]()
-    if form == "compact":
-        ek = bootstrap.prepare_eval_key_fused(tk.cloud, p)
-    else:
-        ek = bootstrap.prepare_eval_key_ntt(tk.cloud, p, kernel=form == "ntt_kernel")
-    assert ek.form == form
-    _assert_nand(gates.nand(_port_ct(ca), _port_ct(cb), ek, p), refs[form], tk, a, b)
+    _check_nand(_c8_reference(shape), form)
 
 
 def test_c8_k1_refuses_n4096_as_the_reference_does():
@@ -455,32 +527,118 @@ def test_c8_k1_refuses_n4096_as_the_reference_does():
 
 C8_DOMAIN = {
     # shape: (K1 plan or None where K1 has no context, K3 plan, K2 plan)
-    "N4096_k1_l3": (None, (1, True), (2, 1, 6)),
-    "N1024_k3_l5": ((2, True), (2, True), (4, 1, 10)),
-    "N512_k4_l3": ((4, True), (4, True), (8, 1, 15)),
-    "N2048_k3_l3": ((1, True), (1, True), (2, 1, 7)),
-    "N512_k3_l8_bg4": ((4, True), (4, True), (4, 1, 32)),
+    "N4096_k1_l3": (None, (1, True, 1), (2, 1, 6, 1)),
+    "N1024_k3_l5": ((2, True, 1), (2, True, 1), (4, 1, 10, 1)),
+    "N512_k4_l3": ((4, True, 1), (4, True, 1), (8, 1, 15, 1)),
+    "N2048_k3_l3": ((1, True, 1), (1, True, 1), (2, 1, 7, 1)),
+    "N512_k3_l8_bg4": ((4, True, 1), (4, True, 1), (4, 1, 32, 1)),
 }
+
+
+def _check_domains(p, k1, k3, k2):
+    """``p`` is in K3's and K2's domains, and in K1's where it has a context
+    (``k1`` None: the refusal by name), at the plans given; each plan's
+    shared memory a block within the card's."""
+    tg = p.tgsw_params
+    U, N = tg.tlwe_params.k + 1, tg.tlwe_params.N
+    sctx = ntt.context_for_params(p, device="cpu")
+    blind_rotate_v1.check_kernel_domain(U, sctx, tg)
+    assert blind_rotate.crt_mma_plan(U, sctx, tg, blind_rotate_v1.STAGE_BYTES) == k3
+    assert blind_rotate.crt_mma_smem_bytes(U, sctx, tg, blind_rotate_v1.STAGE_BYTES, k3[0],
+                                           k3[2]) <= blind_rotate.SMEM_PER_BLOCK
+    if k1 is None:
+        with pytest.raises(ValueError, match=f"K1 .* has no context at N={N}"):
+            ntt.kernel_context_for_params(p, device="cpu")
+    else:
+        kctx = ntt.kernel_context_for_params(p, device="cpu")
+        blind_rotate.check_kernel_domain(U, kctx, tg)
+        assert blind_rotate.crt_mma_plan(U, kctx, tg) == k1
+    blind_rotate_compact.check_kernel_domain(p)
+    assert blind_rotate_compact.kernel_plan(U, N, tg.kpl) == k2
+    assert blind_rotate_compact.smem_bytes(
+        U, N, tg.kpl, *k2, blind_rotate_compact.is_general(U, N, k2)) <= \
+        blind_rotate.SMEM_PER_BLOCK
 
 
 @pytest.mark.parametrize("case", list(C8_DOMAIN))
 def test_kernel_domains_take_the_c8_shapes(case):
     """The C8 shapes are in every domain that has a context there, at the
     plans the launchers pick (each plan's shared memory within the card's)."""
-    p = C8_CASES[case]()
-    tg = p.tgsw_params
-    U, N = tg.tlwe_params.k + 1, tg.tlwe_params.N
-    k1, k3, k2 = C8_DOMAIN[case]
-    sctx = ntt.context_for_params(p, device="cpu")
-    blind_rotate_v1.check_kernel_domain(U, sctx, tg)
-    assert blind_rotate.crt_mma_plan(U, sctx, tg, blind_rotate_v1.STAGE_BYTES) == k3
-    if k1 is not None:
-        kctx = ntt.kernel_context_for_params(p, device="cpu")
-        blind_rotate.check_kernel_domain(U, kctx, tg)
-        assert blind_rotate.crt_mma_plan(U, kctx, tg) == k1
-    blind_rotate_compact.check_kernel_domain(p)
-    assert blind_rotate_compact.kernel_plan(U, N, tg.kpl) == k2
-    assert blind_rotate_compact.smem_bytes(U, N, tg.kpl, *k2) <= blind_rotate.SMEM_PER_BLOCK
+    _check_domains(C8_CASES[case](), *C8_DOMAIN[case])
+
+
+# --- C10: one sample past a block (N = 8192, 16384; F = 512 at Kp = 144), K =
+# 288, k = 5 and N = 16, each of which the card refused -------------------------
+
+#: ROADMAP C10: a shape of each class the card refused after C8 (n = 4).
+C10_CASES = {
+    "N8192_k1_l3": lambda: jparams.test_params(N=8192, k=1, l=3, Bgbit=7, n=4),
+    "N16384_k1_l3": lambda: jparams.test_params(N=16384, k=1, l=3, Bgbit=7, n=4),
+    "N4096_k2_l6_bg4": lambda: jparams.test_params(N=4096, k=2, l=6, Bgbit=4, n=4),
+    "N1024_k3_l9_bg3": lambda: jparams.test_params(N=1024, k=3, l=9, Bgbit=3, n=4),
+    "N256_k5_l3": lambda: jparams.test_params(N=256, k=5, l=3, Bgbit=7, n=4),
+    "N16_k1_l3": lambda: jparams.test_params(N=16, k=1, l=3, Bgbit=7, n=4),
+    "N8_k1_l2": lambda: jparams.test_params(N=8, k=1, l=2, Bgbit=8, n=4),
+}
+#: The C10 NANDs held word for word: every shape over ntt_scan (the
+#: reference's scan) and compact (its fused form), and ntt_kernel (its Pallas
+#: K1 in interpret mode) where K1 has a context (N < 4096).
+C10_NAND = ([(c, "ntt_scan", "scan") for c in C10_CASES]
+            + [(c, "compact", "fused") for c in C10_CASES]
+            + [(c, "ntt_kernel", "kernel") for c in ("N1024_k3_l9_bg3", "N16_k1_l3", "N8_k1_l2")])
+
+
+@pytest.mark.parametrize("shape,form,ref_form", C10_NAND)
+def test_c10_nand_matches_reference_word_for_word(shape, form, ref_form):
+    """ROADMAP C10: at N = 8192 and 16384 (F = 1024 and 2048: K3 and K2 in a
+    cluster or at one sample a block), at k = 2 l = 6 (Kp = 144 at F = 512),
+    K = 288, k = 5 (U = 6) and N = 16 and 8 (F = 4) the port's NAND has the words,
+    the variance rail and the decryption of the reference's NAND in the
+    matching form."""
+    _check_nand(_shape_reference("C10", shape), form)
+
+
+C10_DOMAIN = {
+    # shape: (K1 plan or None where K1 has no context, K3 plan, K2 plan); the
+    # last entry of each plan is the blocks a cluster
+    "N8192_k1_l3": (None, (1, True, 2), (1, 1, 3, 1)),
+    "N16384_k1_l3": (None, (1, True, 4), (1, 1, 1, 2)),
+    "N4096_k2_l6_bg4": (None, (1, True, 2), (1, 1, 4, 1)),
+    "N1024_k3_l9_bg3": ((2, True, 1), (1, True, 1), (4, 1, 2, 1)),
+    "N256_k5_l3": ((8, True, 1), (8, True, 1), (8, 1, 18, 1)),
+    "N16_k1_l3": ((8, True, 1), (8, True, 1), (8, 4, 6, 1)),
+    "N8_k1_l2": ((8, True, 1), (8, True, 1), (8, 4, 4, 1)),
+}
+
+
+@pytest.mark.parametrize("case", list(C10_DOMAIN))
+def test_kernel_domains_take_the_c10_shapes(case):
+    """The C10 shapes are in every domain that has a context there, at the
+    plans the launchers pick: K3 in a cluster of 2 at N = 8192 and at F =
+    512 with Kp = 144 and of 4 at N = 16384, K2 at one sample a block (N =
+    8192, k = 2 l = 6) and in a cluster of 2 (N = 16384), K = 288 in the
+    general instantiations, U = 6 and N = 16 in K2's general kernel; each
+    block's shared memory within the card's."""
+    _check_domains(C10_CASES[case](), *C10_DOMAIN[case])
+
+
+def test_fast_ntt_matrices_match_the_references():
+    """The port's NTT matrices (a table of the 2F powers of psi) and the
+    tests' stand-in for the reference's at F >= 1024 equal the reference's
+    ``pow``-built ones at every F up to 256 of every prime with a root, and
+    the port's equal the stand-in's at F = 1024 and 2048."""
+    for prime in (*ntt.DEFAULT_PRIMES, *ntt.KERNEL_PRIMES):
+        for F in (4, 8, 16, 32, 64, 128, 256):
+            if (prime - 1) % (2 * F):
+                continue
+            want = jntt._ntt_matrices_np(prime, F)
+            for got in (ntt._ntt_matrices_np(prime, F), table_matrices(prime, F)):
+                np.testing.assert_array_equal(got[0], want[0])
+                np.testing.assert_array_equal(got[1], want[1])
+    for F in (1024, 2048):
+        for prime in ntt.DEFAULT_PRIMES:
+            for got, want in zip(ntt._ntt_matrices_np(prime, F), table_matrices(prime, F)):
+                np.testing.assert_array_equal(got, want)
 
 
 # --- C9: the reference's rounded-key NTT plans --------------------------------

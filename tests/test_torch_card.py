@@ -387,32 +387,99 @@ def test_kernels_match_plain_with_the_rounded_plans(case, kernel, B, cuda_device
     assert torch.equal(out, plain())
 
 
+#: ROADMAP C10: the shapes whose one sample overflows a block (N = 8192 and
+#: 16384, F = 1024 and 2048: K3 in a cluster of 2 and 4 blocks, K2 at one
+#: sample a block and in a cluster of 2; N = 4096 k = 2 l = 6, Kp = 144 at F
+#: = 512: K3 in a cluster of 2), K = 288 (K1 and K3), U = 6 (K2's general
+#: kernel, at N = 8192 in a cluster of 2), N = 16 and 8 (F = 4).  K1 has no
+#: context at N >= 4096, as in the reference.
+C10_CASES = {
+    "N8192_k1_l3": lambda: params.test_params(N=8192, k=1, l=3, Bgbit=7, n=8),
+    "N16384_k1_l3": lambda: params.test_params(N=16384, k=1, l=3, Bgbit=7, n=8),
+    "N4096_k2_l6_bg4": lambda: params.test_params(N=4096, k=2, l=6, Bgbit=4, n=8),
+    "N1024_k3_l9_bg3": lambda: params.test_params(N=1024, k=3, l=9, Bgbit=3, n=8),
+    "N256_k5_l3": lambda: params.test_params(N=256, k=5, l=3, Bgbit=7, n=8),
+    "N16_k1_l3": lambda: params.test_params(N=16, k=1, l=3, Bgbit=7, n=8),
+    "N8_k1_l2": lambda: params.test_params(N=8, k=1, l=2, Bgbit=8, n=8),
+    "N8192_k5_l1": lambda: params.test_params(N=8192, k=5, l=1, Bgbit=7, n=8),
+    # refused by name before C10: K2 at 262,224 and 245,840 bytes, K3 at
+    # 240,384 bytes (F = 512, Kp = 144), K1 and K3 at K = 288 (F = 64)
+    "N4096_k3_l3": lambda: params.test_params(N=4096, k=3, l=3, Bgbit=7, n=8),
+    "N4096_k4_l1": lambda: params.test_params(N=4096, k=4, l=1, Bgbit=7, n=8),
+    "N4096_k1_l9_bg3": lambda: params.test_params(N=4096, k=1, l=9, Bgbit=3, n=8),
+    "N512_k3_l9_bg3": lambda: params.test_params(N=512, k=3, l=9, Bgbit=3, n=8),
+}
+#: Repeats of each cluster shape: an ordering fault across the blocks of a
+#: cluster shows only some of the time.
+CLUSTER_REPEATS = 20
+
+
+def _c10_plan(kernel, p):
+    """The launcher's plan of ``kernel`` at ``p``; the cluster size is its last entry."""
+    tg = p.tgsw_params
+    U = tg.tlwe_params.k + 1
+    if kernel == "K2":
+        return blind_rotate_compact.kernel_plan(U, tg.tlwe_params.N, tg.kpl)
+    if kernel == "K1":
+        return blind_rotate.crt_mma_plan(U, ntt.kernel_context_for_params(p, device="cpu"), tg)
+    return blind_rotate.crt_mma_plan(U, ntt.context_for_params(p, device="cpu"), tg,
+                                     blind_rotate_v1.STAGE_BYTES)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [7, 13])
+@pytest.mark.parametrize("kernel", ["K1", "K2", "K3"])
+@pytest.mark.parametrize("case", list(C10_CASES))
+def test_kernels_match_plain_at_the_c10_shapes(case, kernel, B, cuda_device):
+    """Each kernel takes the C10 shapes (all 8 steps; B = 13 leaves a ragged
+    last block or cluster), bit for bit against its plain version, and a
+    shape that runs in a cluster does so CLUSTER_REPEATS times in a row with
+    the same words; where K1 has no context (N >= 4096) the refusal is by
+    name, as in the reference."""
+    p = C10_CASES[case]()
+    if kernel == "K1" and p.N >= 4096:
+        with pytest.raises(ValueError, match=f"K1 .* has no context at N={p.N}"):
+            ntt.kernel_context_for_params(p, device=cuda_device)
+        return
+    module, run, plain = _shape_rotation(kernel, p, cuda_device, B)
+    before = module.launches
+    out = run()
+    torch.cuda.synchronize()
+    assert module.launches == before + 1
+    assert torch.equal(out, plain())
+    if _c10_plan(kernel, p)[-1] > 1:
+        for _ in range(CLUSTER_REPEATS):
+            assert torch.equal(run(), out)
+
+
 @pytest.mark.gpu
 def test_kernels_refuse_by_name_before_any_launch(cuda_device):
-    """Shapes outside the domains after C8 raise by name, before any launch."""
-    wide = params.test_params(N=4096, k=3, l=3, Bgbit=7, n=2)    # K2: 262,224 bytes of smem
-    rows, acc0, bara = _rotation_inputs(wide, 3, 50, cuda_device)
+    """Shapes outside the domains after C10 raise by name, before any
+    launch: a K2 sample past a cluster of 8 blocks, a K3 sample whose digits
+    and 1/8 of its spectra exceed a block, K1 where it has no context."""
+    big = params.test_params(N=16384, k=3, l=2, Bgbit=7, n=2)    # K2: J*N digits a block
+    rows, acc0, bara = _rotation_inputs(big, 3, 50, cuda_device)
     key = blind_rotate_compact.prepare_compact_bk(rows, 4)
     before = blind_rotate_compact.launches
-    with pytest.raises(ValueError, match="K2 .* needs 262,224 bytes of shared memory"):
-        blind_rotate_compact.blind_rotate_compact(acc0, bara, key, wide)
+    with pytest.raises(ValueError, match="K2 .* needs 237,744 bytes of shared memory .* in a "
+                                         "cluster of 8 blocks"):
+        blind_rotate_compact.blind_rotate_compact(acc0, bara, key, big)
     assert blind_rotate_compact.launches == before
     gen = torch.Generator(device=cuda_device).manual_seed(51)
+    ks = keys.new_random_gate_bootstrapping_secret_keyset(gen, big)
+    with pytest.raises(ValueError, match="K2 .* needs 237,744 bytes"):
+        bootstrap.prepare_eval_key_fused(ks.cloud, big)
+    with pytest.raises(ValueError, match="K1 .* has no context at N=16384"):
+        bootstrap.prepare_eval_key_ntt(ks.cloud, big)
+    wide = params.test_params(N=4096, k=2, l=15, Bgbit=2, n=2)    # K = 360 at F = 512
     ks = keys.new_random_gate_bootstrapping_secret_keyset(gen, wide)
-    with pytest.raises(ValueError, match="K2 .* needs 262,224 bytes"):
-        bootstrap.prepare_eval_key_fused(ks.cloud, wide)
+    before = blind_rotate_v1.launches
+    with pytest.raises(ValueError, match="K3 .* needs 251,136 bytes of shared memory .* in a "
+                                         "cluster of 8 blocks"):
+        bootstrap.prepare_eval_key_ntt(ks.cloud, wide, kernel=False)
     with pytest.raises(ValueError, match="K1 .* has no context at N=4096"):
         bootstrap.prepare_eval_key_ntt(ks.cloud, wide)
-    tall = params.test_params(N=512, k=3, l=9, Bgbit=3, n=2)     # K = 288
-    ks = keys.new_random_gate_bootstrapping_secret_keyset(gen, tall)
-    with pytest.raises(ValueError, match="K1 .* takes K = kpl\\*R up to 256 rows"):
-        bootstrap.prepare_eval_key_ntt(ks.cloud, tall)
-    with pytest.raises(ValueError, match="K3 .* takes K = kpl\\*R up to 256 rows"):
-        bootstrap.prepare_eval_key_ntt(ks.cloud, tall, kernel=False)
-    fat = params.test_params(N=4096, k=1, l=9, Bgbit=3, n=2)     # F = 512, K = 144
-    ks = keys.new_random_gate_bootstrapping_secret_keyset(gen, fat)
-    with pytest.raises(ValueError, match="K3 .* needs 240,384 bytes of shared memory"):
-        bootstrap.prepare_eval_key_ntt(ks.cloud, fat, kernel=False)
+    assert blind_rotate_v1.launches == before
 
 
 @pytest.mark.gpu

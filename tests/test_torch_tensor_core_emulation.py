@@ -23,6 +23,8 @@ from eoc_tfhe_tpu.ops import ntt as jntt
 from eoc_tfhe_tpu_torch.core.numeric import wrap32
 from eoc_tfhe_tpu_torch.ops import blind_rotate, blind_rotate_compact, blind_rotate_v1, ntt, rotate
 
+from torch_reference_ntt import fast_reference_matrices
+
 I32 = 1 << 31
 
 CASES = {
@@ -57,6 +59,14 @@ C8_CASES = {
     "N512_k3_l8_bg4": lambda: jparams.test_params(N=512, k=3, l=8, Bgbit=4),  # Kp = 256
     "N4096_k1_l1_bg10": lambda: jparams.test_params(N=4096, k=1, l=1, Bgbit=10),   # DL = 2
 }
+#: ROADMAP C10: K = 288 (Kp past 256, the general instantiations) and F = 4
+#: (N = 16 and 8, the general instantiation's one n8 tile); the cluster shapes
+#: have tests of their own below.
+C10_CASES = {
+    "N1024_k3_l9_bg3": lambda: jparams.test_params(N=1024, k=3, l=9, Bgbit=3),   # Kp = 288
+    "N16_k1_l3": lambda: jparams.test_params(N=16, k=1, l=3, Bgbit=7),           # F = 4
+    "N8_k1_l2": lambda: jparams.test_params(N=8, k=1, l=2, Bgbit=8),             # F = 4, R = 2
+}
 
 
 def _inputs(p, n_steps, B, seed):
@@ -88,9 +98,11 @@ def _digits(acc: torch.Tensor, bara_i: torch.Tensor, tg) -> torch.Tensor:
 
 
 def _mma(a: torch.Tensor, b: torch.Tensor, eq: str) -> torch.Tensor:
-    """One MMA: int8 operands, exact products summed (int64, then checked)."""
+    """One MMA: int8 operands, exact products summed (then checked).  The
+    sums run in float64, exact while every partial sum is an integer below
+    2^53 (int8 products over fewer than 2^39 terms), and come back as int64."""
     assert a.dtype == b.dtype == torch.int8
-    return torch.einsum(eq, a.to(torch.int64), b.to(torch.int64))
+    return torch.einsum(eq, a.to(torch.float64), b.to(torch.float64)).to(torch.int64)
 
 
 # --- K1: the CRT-NTT stages on int8 limbs --------------------------------------
@@ -150,7 +162,7 @@ def emulate_k1_step(acc, key_step, bara_i, ctx, params):
     """One CMux step as K1 computes it (``crt_ntt_mma.cuh`` over the packed
     key) in the instantiation its launcher picks: the general one reduces C2
     before the c16 product."""
-    samples, general = blind_rotate.crt_mma_plan(acc.shape[1], ctx, params.tgsw_params)
+    samples, general, _ = blind_rotate.crt_mma_plan(acc.shape[1], ctx, params.tgsw_params)
     return _emulate_crt_step(acc, _key_planes(key_step), bara_i, ctx, params,
                              reduce_c2=general, samples=samples, general=general)
 
@@ -161,8 +173,8 @@ def emulate_k3_step(acc, key8_step, bara_i, ctx, params):
     tg = params.tgsw_params
     K, M = tg.kpl * ctx.R, ctx.key_limbs * acc.shape[1] * ctx.R
     keyp = _key_planes(_v1_loader(key8_step, K, M))
-    samples, general = blind_rotate.crt_mma_plan(acc.shape[1], ctx, tg,
-                                                 blind_rotate_v1.STAGE_BYTES)
+    samples, general, _ = blind_rotate.crt_mma_plan(acc.shape[1], ctx, tg,
+                                                    blind_rotate_v1.STAGE_BYTES)
     return _emulate_crt_step(acc, keyp, bara_i, ctx, params, reduce_c2=True, samples=samples,
                              general=general)
 
@@ -245,13 +257,14 @@ def _emulate_crt_step(acc, keyp, bara_i, ctx, params, reduce_c2, samples=8, gene
 
 K1_STEPS = {"full_width_128": 3, "full_width_80": 2}
 K1_CASES = {**CASES, **{c: C5_CASES[c] for c in ("k2_l2_N64", "k1_l4_N64")}, **C7_CASES,
-            **{c: C8_CASES[c] for c in ("N1024_k3_l5", "N512_k3_l8_bg4")}}
+            **{c: C8_CASES[c] for c in ("N1024_k3_l5", "N512_k3_l8_bg4")}, **C10_CASES}
 
 
 @pytest.mark.parametrize("case", list(K1_CASES))
 def test_k1_emulation_matches_reference_scan(case):
     p = K1_CASES[case]()
-    n_steps = K1_STEPS.get(case, 2 if case in C7_CASES or case in C8_CASES else min(p.n, 6))
+    n_steps = K1_STEPS.get(case, 2 if case in {**C7_CASES, **C8_CASES, **C10_CASES}
+                           else min(p.n, 6))
     rows, acc0, bara = _inputs(p, n_steps, 3, seed=21)
     sctx = jntt.context_for_params(p)
     want = np.asarray(jntt.blind_rotate_ntt(
@@ -288,15 +301,17 @@ K3_STEPS = {"full_width_128": 2, "full_width_80": 2}
 
 @pytest.mark.parametrize("case,primes", [
     (c, pr) for c in list(CASES) + ["k2_l2_N64"] + list(C7_CASES) + list(C8_CASES)
+    + list(C10_CASES)
     for pr in ("default", "kernel") if not (c.startswith("N4096") and pr == "kernel")])
 def test_k3_emulation_matches_reference_scan(case, primes):
     """K3's arithmetic over its own v1 key, either prime pair: over
     DEFAULT_PRIMES c16 = -16386 (mod 40961), so the plain pointwise sum would
     leave int32; with C2 reduced first every MMA sum stays inside it."""
-    p = {**CASES, **C5_CASES, **C7_CASES, **C8_CASES}[case]()
+    p = {**CASES, **C5_CASES, **C7_CASES, **C8_CASES, **C10_CASES}[case]()
     tg = p.tgsw_params
     pr = ntt.DEFAULT_PRIMES if primes == "default" else ntt.KERNEL_PRIMES
-    n_steps = K3_STEPS.get(case, 2 if case in C7_CASES or case in C8_CASES else min(p.n, 6))
+    n_steps = K3_STEPS.get(case, 2 if case in {**C7_CASES, **C8_CASES, **C10_CASES}
+                           else min(p.n, 6))
     rows, acc0, bara = _inputs(p, n_steps, 3, seed=23)
     sctx = jntt.make_context(N=tg.tlwe_params.N, J=tg.kpl, halfBg=tg.halfBg, primes=pr)
     want = np.asarray(jntt.blind_rotate_ntt(
@@ -365,8 +380,8 @@ def test_general_instantiation_keeps_every_sum_in_int32(case):
     tg = p.tgsw_params
     U = tg.tlwe_params.k + 1
     ctx = ntt.kernel_context_for_params(p, device="cpu")
-    samples, general = blind_rotate.crt_mma_plan(U, ctx, tg)
-    assert general and samples in blind_rotate.SAMPLES
+    samples, general, cluster = blind_rotate.crt_mma_plan(U, ctx, tg)
+    assert general and samples in blind_rotate.SAMPLES and cluster == 1
     Kp, FP = ntt.pad16(tg.kpl * ctx.R), max(ctx.F, 32)
     c16 = max(abs(int(ntt.balanced_mod(torch.tensor(1 << 16), q))) for q in ctx.primes)
     half = max((q - 1) // 2 for q in ctx.primes)
@@ -548,3 +563,188 @@ def test_k2_emulation_matches_reference_at_the_c8_shapes(case):
     for i in range(2):
         acc = emulate_k2_step(acc, key[i], torch.from_numpy(bara[i]), p, rows_a_pass)
     np.testing.assert_array_equal(acc.numpy(), want)
+
+
+# --- C10: the cluster instantiations ------------------------------------------
+
+def emulate_k3_cluster_step(acc, key8_step, bara_i, ctx, params, cluster):
+    """One CMux step of K3's cluster instantiation (``rotate_kernel_cluster``
+    in ``crt_ntt_mma.cuh``), block by block, one sample a cluster.  Each of
+    the ``cluster`` blocks computes the whole sample's digits, dhat and chat
+    of its own Fc = F/cluster frequencies (C1 of the forward reduced first,
+    C2 and, at Kp > 128, C1 of the pointwise); then, for its own output
+    columns t, it contracts over every f, reading k32 tile kt of chat from
+    the block that owns frequencies [32 kt, 32 kt + 32) (the DSMEM read),
+    with C1 reduced first.  The CRT and the limb sum follow per column."""
+    tg = params.tgsw_params
+    B, U, N = acc.shape
+    R, F, L = ctx.R, ctx.F, ctx.key_limbs
+    K, M = tg.kpl * R, L * U * R
+    Kp, Fc = ntt.pad16(K), F // cluster
+    keyp = _key_planes(_v1_loader(key8_step, K, M))           # (2, P, F, Kp, Mp)
+    dig = _digits(acc, bara_i, tg)
+    dig = dig.reshape(B, -1, F, R).transpose(-1, -2).reshape(B, -1, F)
+    dig = torch.nn.functional.pad(dig, (0, 0, 0, Kp - dig.shape[1]))   # (B, Kp, t)
+    dplanes = ([dig.to(torch.int8)] if tg.halfBg <= 128
+               else [x.to(torch.int8) for x in ntt.split_bytes(dig)])
+    res = []
+    for pi, p in enumerate(ctx.primes):
+        c16 = int(ntt.balanced_mod(torch.tensor(1 << 16), p))
+        Wp = _b_planes(ctx.W_mma[pi])[:, :F, :F]              # (4, t, f)
+        Vp = _b_planes(ctx.Winv_mma[pi])[:, :F, :F]           # (4, f, t)
+        chats = []
+        for c in range(cluster):                              # block c: frequencies fs
+            fs = slice(c * Fc, (c + 1) * Fc)
+            c0 = _mma(dplanes[0], Wp[0, :, fs], "bkt,tf->bkf")
+            c1 = _mma(dplanes[0], Wp[1, :, fs], "bkt,tf->bkf")
+            if len(dplanes) == 2:
+                c0 = c0 + _mma(dplanes[1], Wp[2, :, fs], "bkt,tf->bkf")
+                c1 = c1 + _mma(dplanes[1], Wp[3, :, fs], "bkt,tf->bkf")
+            c1 = ntt.balanced_mod(_int32_sum(c1), p)
+            dhat = ntt.balanced_mod(_int32_sum(_int32_sum(c0) + 256 * c1), p)
+            lo, hi = (x.to(torch.int8) for x in ntt.split_bytes(dhat))    # (B, Kp, Fc)
+            Alo, Ahi = keyp[0, pi, fs], keyp[1, pi, fs]                  # (Fc, Kp, Mp)
+            eq = "bkf,fkm->bmf"
+            c0 = _int32_sum(_mma(lo, Alo, eq))
+            c1 = _int32_sum(_mma(hi, Alo, eq) + _mma(lo, Ahi, eq))
+            c2 = ntt.balanced_mod(_int32_sum(_mma(hi, Ahi, eq)), p)
+            if Kp > 128:
+                c1 = ntt.balanced_mod(c1, p)
+            chats.append(ntt.balanced_mod(_int32_sum(c0 + 256 * c1 + c16 * c2), p))   # (B, Mp, Fc)
+        out = torch.empty((B, chats[0].shape[1], F), dtype=torch.int64)
+        for c in range(cluster):                              # block c: columns ts
+            ts = slice(c * Fc, (c + 1) * Fc)
+            tiles = [chats[32 * kt // Fc][..., 32 * kt % Fc:32 * kt % Fc + 32]
+                     for kt in range(F // 32)]               # k32 tile kt from its owner
+            clo, chi = (x.to(torch.int8) for x in ntt.split_bytes(torch.cat(tiles, dim=-1)))
+            eq = "bmf,ft->bmt"
+            c0 = _int32_sum(_mma(clo, Vp[0, :, ts], eq) + _mma(chi, Vp[2, :, ts], eq))
+            c1 = ntt.balanced_mod(
+                _int32_sum(_mma(clo, Vp[1, :, ts], eq) + _mma(chi, Vp[3, :, ts], eq)), p)
+            out[..., ts] = ntt.balanced_mod(_int32_sum(c0 + 256 * c1), p)
+        res.append(out[:, :M])
+    p0, p1 = ctx.primes
+    q = ntt.balanced_mod(_int32_sum((res[1] - res[0]) * ctx.crt_inv), p1)
+    V = _int32_sum(res[0] + q * p0).reshape(B, L, U, R, F)
+    upd = sum((V[:, li] << (ctx.key_round_bits + ctx.key_limb_bits * li)) for li in range(L))
+    return wrap32(acc.to(torch.int64) + upd.transpose(-1, -2).reshape(B, U, N))
+
+
+#: N = 8192 k = 1 l = 3 (F = 1024): K3's plan is a cluster of 2; 4 is the
+#: next size the launcher would take.
+C10_CLUSTER = {"N8192_k1_l3": lambda: jparams.test_params(N=8192, k=1, l=3, Bgbit=7)}
+
+
+@pytest.mark.parametrize("cluster", [2, 4])
+def test_k3_cluster_emulation_matches_reference_scan(cluster):
+    """ROADMAP C10: K3's cluster dataflow at F = 1024, split over 2 and 4
+    blocks (each block's dhat and chat of its frequencies, the inverse of
+    its columns over every f read from the owning blocks), gives the
+    reference's scan bit for bit, with every MMA sum inside int32."""
+    p = C10_CLUSTER["N8192_k1_l3"]()
+    tg = p.tgsw_params
+    U = tg.tlwe_params.k + 1
+    rows, acc0, bara = _inputs(p, 2, 2, seed=28)
+    with fast_reference_matrices():
+        sctx = jntt.context_for_params(p)
+        want = np.asarray(jntt.blind_rotate_ntt(
+            jnp.asarray(acc0), jnp.asarray(bara), jntt.prepare_key_ntt_np(rows, sctx), p, sctx))
+    ctx = ntt.context_for_params(p, device="cpu")
+    assert blind_rotate.crt_mma_plan(U, ctx, tg, blind_rotate_v1.STAGE_BYTES) == (1, True, 2)
+    key8 = ntt.prepare_key_ntt(torch.from_numpy(rows), ctx)
+    acc = torch.from_numpy(acc0)
+    for i in range(2):
+        acc = emulate_k3_cluster_step(acc, key8[i], torch.from_numpy(bara[i]), ctx, p, cluster)
+    np.testing.assert_array_equal(acc.numpy(), want)
+
+
+@pytest.mark.parametrize("case", ["N8192_k1_l3", "N16384_k1_l3", "N4096_k2_l6_bg4",
+                                  "N1024_k3_l9_bg3"])
+def test_c10_sums_need_their_reductions(case):
+    """Each reduction of the cluster and general stages is needed where it
+    applies and enough: at FP = 1024 and 2048 the forward's plain sum 257 FP
+    2^14 and the inverse's 257 FP 2^15 leave int32 and with C1 reduced
+    first stay inside (each block's inverse contracts over all F); at Kp =
+    288 the pointwise sum with C2 alone reduced leaves it and with C1 too
+    stays inside.  ``crt_mma_sums`` (the launcher's bounds) stays below 2^31
+    at each shape over every pair with a context."""
+    p = {"N8192_k1_l3": lambda: jparams.test_params(N=8192, k=1, l=3, Bgbit=7),
+         "N16384_k1_l3": lambda: jparams.test_params(N=16384, k=1, l=3, Bgbit=7),
+         "N4096_k2_l6_bg4": lambda: jparams.test_params(N=4096, k=2, l=6, Bgbit=4),
+         **C10_CASES}[case]()
+    tg = p.tgsw_params
+    U = tg.tlwe_params.k + 1
+    ctxs = [ntt.context_for_params(p, device="cpu")]
+    if tg.tlwe_params.N < 4096:
+        ctxs.append(ntt.kernel_context_for_params(p, device="cpu"))
+    for ctx in ctxs:
+        Kp, FP = ntt.pad16(tg.kpl * ctx.R), max(ctx.F, 32)
+        half = max((q - 1) // 2 for q in ctx.primes)
+        c16 = max(abs(int(ntt.balanced_mod(torch.tensor(1 << 16), q))) for q in ctx.primes)
+        for reduce_c2 in (False, True):
+            assert max(blind_rotate.crt_mma_sums(U, ctx, tg, reduce_c2=reduce_c2).values()) < I32
+        cluster = blind_rotate.crt_mma_plan(U, ctx, tg, blind_rotate_v1.STAGE_BYTES)[2]
+        assert (257 * FP * 2**14 >= I32) == (FP > 256)
+        assert (257 * FP * 2**15 >= I32) == (FP > 128)
+        assert FP * 2**14 + 256 * half < I32 and FP * 2**15 + 256 * half < I32
+        assert (Kp * 2**14 * 513 + c16 * half >= I32) == (Kp > 192)
+        assert Kp * 2**14 + 256 * half + c16 * half < I32
+        assert (cluster > 1) == (case in ("N8192_k1_l3", "N16384_k1_l3", "N4096_k2_l6_bg4"))
+
+
+def emulate_k2_cluster_step(acc, key_step, bara_i, params, cluster, rows):
+    """One CMux step of K2's general kernel in a cluster of ``cluster``
+    blocks: block c owns output coefficients [c Ns, (c+1) Ns) of every
+    polynomial (Ns = N/cluster), computes the whole sample's digits from the
+    whole accumulators (its own share and the others' read through DSMEM)
+    and holds of each byte row [k reversed | -k reversed] only the window
+    y in [N - c Ns - Ns, 2N - c Ns) its outputs meet; output c' of limb t
+    is sum_r window[N - 1 - c' + r] d[r] over the ``rows`` digit rows of a
+    pass, an int32 sum, added into the block's share shifted by 8t.  (The
+    correlation runs as a float64 FFT, rounded: every sum is an integer
+    below 2^27, which the FFT holds within 0.25.)"""
+    tg = params.tgsw_params
+    B, U, N = acc.shape
+    dig = _digits(acc, bara_i, tg).to(torch.float64)            # (B, J, N), whole samples
+    J, Ns = dig.shape[1], N // cluster
+    pos, neg = _byte_limbs(key_step), _byte_limbs(-key_step.to(torch.int64))   # (4, J, U, N)
+    rev = torch.cat([pos.flip(-1), neg.flip(-1)], dim=-1).to(torch.float64)     # (4, J, U, 2N)
+    size = 1 << (N + Ns - 1).bit_length()
+    dhat = torch.fft.rfft(dig, size).conj()[:, None, :, None]     # (B, 1, J, 1, .)
+    out = acc.to(torch.int64)
+    for c in range(cluster):
+        y0 = N - c * Ns - Ns
+        win = rev[..., y0:y0 + N + Ns]                           # the block's bytes of each row
+        corr = torch.fft.irfft(torch.fft.rfft(win, size)[None] * dhat, size)[..., :Ns]
+        assert float((corr - corr.round()).abs().max()) < 0.25
+        # output c0 + o reads window[Ns - 1 - o + r]: lag Ns - 1 - o
+        s = corr.round().to(torch.int64).flip(-1)                 # (B, 4, J, U, Ns)
+        for j0 in range(0, J, rows):
+            part = _int32_sum(s[:, :, j0:j0 + rows].sum(2))       # (B, 4, U, Ns)
+            upd = sum(part[:, t] << (8 * t) for t in range(4))
+            out[..., c * Ns:(c + 1) * Ns] = wrap32(out[..., c * Ns:(c + 1) * Ns] + upd)
+    return out
+
+
+def test_k2_cluster_emulation_matches_reference_scan():
+    """ROADMAP C10: K2's output split at N = 8192 with U = 6 (k = 5 l = 1, a
+    cluster of 2 blocks, one digit row a pass, the windows of the key rows)
+    gives the reference's exact scan bit for bit, every limb sum inside
+    int32; and splitting it over 4 blocks gives the same words."""
+    p = jparams.test_params(N=8192, k=5, l=1, Bgbit=7)
+    tg = p.tgsw_params
+    U, N = tg.tlwe_params.k + 1, tg.tlwe_params.N
+    plan = blind_rotate_compact.kernel_plan(U, N, tg.kpl)
+    assert plan == (1, 1, 1, 2)
+    rows, acc0, bara = _inputs(p, 2, 2, seed=29)
+    with fast_reference_matrices():
+        sctx = jntt.context_for_params(p)
+        want = np.asarray(jntt.blind_rotate_ntt(
+            jnp.asarray(acc0), jnp.asarray(bara), jntt.prepare_key_ntt_np(rows, sctx), p, sctx))
+    key = blind_rotate_compact.prepare_compact_bk(torch.from_numpy(rows))
+    for cluster in (plan[3], 4):
+        acc = torch.from_numpy(acc0)
+        for i in range(2):
+            acc = emulate_k2_cluster_step(acc, key[i], torch.from_numpy(bara[i]), p, cluster,
+                                          plan[2])
+        np.testing.assert_array_equal(acc.numpy(), want)
