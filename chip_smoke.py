@@ -18,9 +18,11 @@ Phases, in order; any failure exits non-zero:
      shapes of ROADMAP C8 (N=1024 k=3 l=5, N=512 k=4 l=3, N=2048 k=3 l=3,
      N=512 k=3 l=8 Bgbit=4, N=1024 k=1 l=16 Bgbit=2; n=8; at N>=4096 K1's
      refusal by name, as in the reference), the rounded-key plans of
-     ROADMAP C9 (rb > 0 where the plan rounds; n=8) and the shapes of
+     ROADMAP C9 (rb > 0 where the plan rounds; n=8), the shapes of
      ROADMAP C10 (N=1024 k=3 l=9 Bgbit=3, K=288; N=256 k=5 l=3, U=6; N=16,
-     F=4; n=8) at B=7 and B=C7_RAGGED;
+     F=4; n=8) and of ROADMAP C11 (N=1024 and 2048 k=4 l=32 Bgbit=1, K1's
+     stream tier, each CLUSTER_REPEATS times more and then timed against
+     its plain version and bound; n=8) at B=7 and B=C7_RAGGED;
   4. the main path: 128-bit keygen on the card, ``prepare_eval_key_ntt``,
      encryption of BATCH random bit pairs, one warm and ITERS timed
      batched NAND calls, decryption checked against ~(a & b);
@@ -31,8 +33,9 @@ Phases, in order; any failure exits non-zero:
      with the exact and the rounded (limbs=3) stored key, at the C5
      shapes (B=7), and at the C7, C8 and C10 shapes whose digits are int8
      (N=4096 k=1 l=3, N=8192 and 16384 k=1 l=3, N=8192 k=5 l=1 among them;
-     B=7 and B=C7_RAGGED), each shape that runs in a cluster CLUSTER_REPEATS
-     times more with the same words;
+     B=7 and B=C7_RAGGED), and at the C11 shapes (K2's limb sum bounded per
+     pass and its staged tier), each shape that runs in a cluster
+     CLUSTER_REPEATS times more with the same words;
   7. the circuit path: ``FrameworkConfig(eval_key_form="fused")`` over phase
      4's keyset, 8-bit ripple add and subtract (mode fast) over B=CIRCUIT_BATCH
      random byte pairs and the classic add over B=CLASSIC_BATCH, every output
@@ -44,8 +47,9 @@ Phases, in order; any failure exits non-zero:
  10. the "ntt_scan" form's kernel against its plain version on the card, bit
      for bit, at ``test_params()`` (B=63), at 128-bit B=4 over all 630 steps
      over either prime pair, at the 80-bit set (halfBg = 512) B=4 over all
-     its steps, at the C5 shapes (B=7), at the C7, C8 and C10 shapes (B=7
-     and B=C7_RAGGED) over either prime pair (DEFAULT_PRIMES alone at
+     its steps, at the C5 shapes (B=7), at the C7, C8, C10 and C11 shapes
+     (B=7 and B=C7_RAGGED; C11: the stream tier) over either prime pair
+     (DEFAULT_PRIMES alone at
      N>=4096; each cluster shape CLUSTER_REPEATS times more with the same
      words) and at the C9 rounded plans over DEFAULT_PRIMES;
  11. NAND through the "ntt_scan" key (``prepare_eval_key_ntt(kernel=False)``)
@@ -132,7 +136,11 @@ Phases, in order; any failure exits non-zero:
      N=4096 k=2 l=6 Bgbit=4 (Kp=144 at F=512; B=256) over the
      "ntt_scan" key (K3, in a cluster); each decrypted and checked, its
      kernel's launches counted, timed, and the kernel at its inputs timed,
-     held against its plain version and printed with its plan and bound.
+     held against its plain version and printed with its plan and bound;
+     and at two ROADMAP C11 shapes: N=16384 k=2 l=3 Bgbit=8 (B=16) over the
+     compact key (K2, one digit row a pass: the whole ring's limb sum
+     reaches 2^31) and N=8192 k=2 l=8 Bgbit=4 (B=64) over the "ntt_scan"
+     (K3's stream tier) and compact (K2's staged tier) keys.
 The three kernels are printed as one ``{"kernels": [...]}`` line.  The last
 line is {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
@@ -171,8 +179,11 @@ C7_RAGGED, C7_STEPS, C7_BATCH = 13, 8, 1024
 #: Repeats of each ROADMAP C10 cluster shape in phases 6 and 10.
 CLUSTER_REPEATS = 20
 #: Phase 20's batch at the ROADMAP C10 shapes (N, k): N = 8192, 16384 and
-#: k = 2 at N = 4096 (cut from C7_BATCH for the run's time).
+#: k = 2 at N = 4096 (cut from C7_BATCH for the run's time); and at the C11
+#: shapes: one wave of the card's SMs (16 clusters of 8 blocks at N = 16384,
+#: 64 of 2 at N = 8192), since a NAND there takes the time of a wave.
 C10_BATCH = {(8192, 1): 256, (16384, 1): 64, (4096, 2): 256}
+C11_BATCH = {(16384, 2): 16, (8192, 2): 64}
 #: The served path: client threads, and the chunk timed beside the default.
 CLIENTS = 8
 WIDE_CHUNK = 2048
@@ -234,6 +245,21 @@ def c10_params(params):
                                      (1024, 3, 9, 3), (256, 5, 3, 7), (16, 1, 3, 7),
                                      (8, 1, 2, 8), (8192, 5, 1, 7), (4096, 3, 3, 7), (4096, 4, 1, 7),
                                      (4096, 1, 9, 3), (512, 3, 9, 3)))
+
+
+def c11_params(params):
+    """The shapes of ROADMAP C11 (n = C7_STEPS): K2's limb sum bounded per
+    pass (N = 16384 k = 2 l = 3 Bgbit = 8 and k = 1 l = 4 Bgbit = 8), K2's
+    staged tier and K3's stream tier (N = 8192 k = 2 l = 8 Bgbit = 4, N =
+    16384 k = 3 l = 2, k = 2 l = 4 Bgbit = 4 and k = 4 l = 4 Bgbit = 8),
+    K3's stream tier at N = 4096 (k = 2 l = 15 Bgbit = 2) and K1's and K3's
+    at K = 1280 (N = 1024 and 2048 k = 4 l = 32 Bgbit = 1; K2's staged tier
+    at N = 2048)."""
+    return tuple((f"C11 N={N} k={k} l={l} Bgbit={bg}",
+                  params.test_params(N=N, k=k, l=l, Bgbit=bg, n=C7_STEPS))
+                 for N, k, l, bg in ((16384, 2, 3, 8), (16384, 1, 4, 8), (8192, 2, 8, 4),
+                                     (16384, 3, 2, 7), (16384, 2, 4, 4), (16384, 4, 4, 8),
+                                     (4096, 2, 15, 2), (1024, 4, 32, 1), (2048, 4, 32, 1)))
 
 
 def repeat_equal(run, out, label: str) -> None:
@@ -1298,8 +1324,8 @@ def noise_budget_bgbit(params, N: int, k: int, l: int, bg: int, n: int) -> int:
 
 def wide_shapes_smoke(gen: torch.Generator, smi: str) -> None:
     """Phase 20: one NAND at full depth at two ROADMAP C7 shapes, two C8
-    shapes and three C10 shapes, each through the kernel of its eval-key
-    form, with that kernel timed at its inputs."""
+    shapes, three C10 shapes and two C11 shapes, each through the kernel of
+    its eval-key form, with that kernel timed at its inputs."""
     from eoc_tfhe_tpu_torch.core import bootstrap, gates, keys, params
     from eoc_tfhe_tpu_torch.core.numeric import mod_switch_to_torus32_np
     from eoc_tfhe_tpu_torch.ops import blind_rotate, blind_rotate_compact, blind_rotate_v1, ntt
@@ -1314,8 +1340,10 @@ def wide_shapes_smoke(gen: torch.Generator, smi: str) -> None:
             ("C8", (1024, 3, 5, 5), ("ntt_kernel",)),             # K = 160
             ("C10", (8192, 1, 3, 7), ("ntt_scan", "compact")),    # F = 1024: K3 in a cluster
             ("C10", (16384, 1, 3, 7), ("ntt_scan", "compact")),   # F = 2048: both in a cluster
-            ("C10", (4096, 2, 6, 4), ("ntt_scan",))):             # Kp = 144 at F = 512
-        B = C10_BATCH.get((N, k), C7_BATCH)
+            ("C10", (4096, 2, 6, 4), ("ntt_scan",)),              # Kp = 144 at F = 512
+            ("C11", (16384, 2, 3, 8), ("compact",)),              # K2: one digit row a pass
+            ("C11", (8192, 2, 8, 4), ("ntt_scan", "compact"))):   # K3 stream, K2 staged
+        B = {**C10_BATCH, **C11_BATCH}.get((N, k), C7_BATCH)
         nb = noise_budget_bgbit(params, N, k, l, bg, 630)      # the gate's rail takes the shape
         if nb != bg:
             print(f"{fault} N={N} k={k} l={l}: the noise budget refuses Bgbit={bg} at n=630; "
@@ -1339,11 +1367,15 @@ def wide_shapes_smoke(gen: torch.Generator, smi: str) -> None:
                 name, key = "blind_rotate_compact", ek.bk_compact
                 run = lambda: blind_rotate_compact.blind_rotate_compact(acc0, bara, key, p)
                 plain = lambda: blind_rotate_compact.blind_rotate_compact_plain(acc0, bara, key, p)
-                plan6 = blind_rotate_compact.kernel_plan(k + 1, N, p.tgsw_params.kpl)
+                plan6 = blind_rotate_compact.kernel_plan(k + 1, N, p.tgsw_params.kpl,
+                                                         p.tgsw_params.halfBg)
+                staged = blind_rotate_compact.is_staged(k + 1, N, p.tgsw_params.kpl,
+                                                        p.tgsw_params.halfBg)
                 plan = ("{} samples a block, {} key limb(s) and {} digit rows a pass, {} block(s)"
                         " a cluster".format(*plan6)
-                        + (", general kernel" if blind_rotate_compact.is_general(k + 1, N, plan6)
-                           else ""))
+                        + (", general kernel" if blind_rotate_compact.is_general(
+                            k + 1, N, plan6, staged) else "")
+                        + (", staged tier" if staged else ""))
             else:
                 ek = bootstrap.prepare_eval_key_ntt(ks.cloud, p, kernel=form == "ntt_kernel")
                 ctx = ek.ntt_ctx
@@ -1358,9 +1390,13 @@ def wide_shapes_smoke(gen: torch.Generator, smi: str) -> None:
                                                                               ctx, p)
                 samples, general, cluster = blind_rotate.crt_mma_plan(k + 1, ctx, p.tgsw_params,
                                                                       stage)
+                stream = blind_rotate.crt_mma_stream(k + 1, ctx, p.tgsw_params, stage)
                 plan = (f"{samples} samples a block, "
                         f"{'general' if general else 'shipped'} instantiation"
-                        + (f", cluster instantiation of {cluster} blocks" if cluster > 1 else ""))
+                        + (f", {'stream tier' if stream else 'cluster instantiation'} of "
+                           f"{cluster} blocks" if cluster > 1 else "")
+                        + (f", {stream[1]} frequencies a sub-chunk, {stream[2]} slab(s)"
+                           if stream else ""))
             torch.cuda.synchronize()
             prep_s = time.perf_counter() - t0
             check(ek.form == form, f"{shape}: eval key form {ek.form}, wanted {form}")
@@ -1447,7 +1483,8 @@ def main() -> int:
                                  *((lb, pc, None, C5_BATCH) for lb, pc in c5_params(params)),
                                  *((lb, pc, None, Bc)
                                    for lb, pc in (*c7_params(params), *c8_params(params),
-                                                  *c9_params(params), *c10_params(params))
+                                                  *c9_params(params), *c10_params(params),
+                                                  *c11_params(params))
                                    for Bc in (C5_BATCH, C7_RAGGED))):
         n_steps = p.n if n_steps is None else n_steps
         if p.N >= 4096:          # no context over KERNEL_PRIMES, as in the reference
@@ -1461,16 +1498,32 @@ def main() -> int:
         rows, acc0, bara = random_rotation_inputs(gen, p, n_steps, B, dev)
         ctx = ntt.kernel_context_for_params(p, label.startswith("C9"), device=dev)
         key = ntt.prepare_kernel_key(rows, ctx)
-        out = blind_rotate.blind_rotate_ntt(acc0, bara, key, ctx, p)
+        run3 = lambda: blind_rotate.blind_rotate_ntt(acc0, bara, key, ctx, p)  # noqa: E731
+        out = run3()
         plain = blind_rotate.blind_rotate_ntt_plain(acc0, bara, key, ctx, p)
         torch.cuda.synchronize()
         check(torch.equal(out, plain), f"blind_rotate_ntt differs from plain at {label}")
         samples, general, cluster = blind_rotate.crt_mma_plan(p.k + 1, ctx, p.tgsw_params)
-        check(cluster == 1, f"K1 plans a cluster at {label}")
+        stream = blind_rotate.crt_mma_stream(p.k + 1, ctx, p.tgsw_params)
+        check(cluster == 1 or stream is not None,   # K1's contexts end at F = 256
+              f"K1 plans a cluster outside its stream tier at {label}")
+        timing = ""
+        if cluster > 1:
+            repeat_equal(run3, out, f"blind_rotate_ntt at {label}")
+            # K1's stream tier has no full-depth NAND (its key at K = 1280 is
+            # 52.8 GB at n = 630): timed here, at these inputs
+            k_ms, _ = cuda_ms(run3, 1)
+            p_ms, _ = cuda_ms(
+                lambda: blind_rotate.blind_rotate_ntt_plain(acc0, bara, key, ctx, p), 1)
+            b_ms, b_by = rotation_bound(B, n_steps, key, p)
+            timing = f"; {k_ms:.2f} ms (bound {b_ms:.2f} ms, {b_by}; plain {p_ms:.2f} ms)"
         print(f"kernel == plain at {label}: B={B}, n={n_steps}, {samples} samples a block"
-              f"{' (general instantiation)' if general else ''}, key limbs "
-              f"{ctx.key_limbs}x{ctx.key_limb_bits}, rb={ctx.key_round_bits}, bit-identical",
-              flush=True)
+              f"{' (general instantiation)' if general else ''}"
+              + (f", stream tier in a cluster of {stream[0]} blocks, {stream[1]} frequencies "
+                 f"a sub-chunk, {stream[2]} slab(s), {CLUSTER_REPEATS} repeats equal"
+                 if stream else "")
+              + f", key limbs {ctx.key_limbs}x{ctx.key_limb_bits}, rb={ctx.key_round_bits}, "
+              f"bit-identical{timing}", flush=True)
         del rows, key, out, plain
 
     # 4. main path: 128-bit gate bootstrapping at full batch
@@ -1544,7 +1597,7 @@ def main() -> int:
                                  *((lb, pc, C5_BATCH, 4) for lb, pc in c5_params(params)),
                                  *((lb, pc, Bc, 4)
                                    for lb, pc in (*c7_params(params), *c8_params(params),
-                                                  *c10_params(params))
+                                                  *c10_params(params), *c11_params(params))
                                    for Bc in (C5_BATCH, C7_RAGGED)
                                    if pc.tgsw_params.halfBg <= 128)):
         rows, acc6, bara6 = random_rotation_inputs(gen, pc, pc.n, B6, dev)
@@ -1554,14 +1607,18 @@ def main() -> int:
         plain6 = blind_rotate_compact.blind_rotate_compact_plain(acc6, bara6, key6, pc)
         torch.cuda.synchronize()
         check(torch.equal(out6, plain6), f"blind_rotate_compact differs from plain at {label}")
-        plan6 = blind_rotate_compact.kernel_plan(pc.k + 1, pc.N, pc.tgsw_params.kpl)
+        plan6 = blind_rotate_compact.kernel_plan(pc.k + 1, pc.N, pc.tgsw_params.kpl,
+                                                 pc.tgsw_params.halfBg)
         samples, lp, jp, cluster = plan6
+        staged = blind_rotate_compact.is_staged(pc.k + 1, pc.N, pc.tgsw_params.kpl,
+                                                pc.tgsw_params.halfBg)
         if cluster > 1:
             repeat_equal(run6, out6, f"blind_rotate_compact at {label}")
+        general = blind_rotate_compact.is_general(pc.k + 1, pc.N, plan6, staged)
         print(f"compact kernel == plain at {label}: B={B6}, n={pc.n}, limbs={limbs}, "
               f"{samples} samples a block, {lp} key limb(s) and {jp} of {pc.tgsw_params.kpl} "
               f"digit rows a pass, {cluster} block(s) a cluster"
-              f"{' (general kernel)' if blind_rotate_compact.is_general(pc.k + 1, pc.N, plan6) else ''}"
+              f"{' (general kernel)' if general else ''}{', staged tier' if staged else ''}"
               f"{f', {CLUSTER_REPEATS} repeats equal' if cluster > 1 else ''}, bit-identical",
               flush=True)
         del rows, key6, out6, plain6
@@ -1659,7 +1716,8 @@ def main() -> int:
               for tag, pr in (("DEFAULT_PRIMES", ntt.DEFAULT_PRIMES),
                               ("KERNEL_PRIMES", ntt.KERNEL_PRIMES))),
             *((f"{lb} {tag}", pc, Bc, pr)
-              for lb, pc in (*c7_params(params), *c8_params(params), *c10_params(params))
+              for lb, pc in (*c7_params(params), *c8_params(params), *c10_params(params),
+                             *c11_params(params))
               for Bc in (C5_BATCH, C7_RAGGED)
               for tag, pr in (("DEFAULT_PRIMES", ntt.DEFAULT_PRIMES),
                               ("KERNEL_PRIMES", ntt.KERNEL_PRIMES))
@@ -1682,13 +1740,15 @@ def main() -> int:
         check(torch.equal(out10, plain10), f"blind_rotate_ntt_v1 differs from plain at {label}")
         samples, general, cluster = blind_rotate.crt_mma_plan(pv.k + 1, ctx10, tg,
                                                               blind_rotate_v1.STAGE_BYTES)
+        stream = blind_rotate.crt_mma_stream(pv.k + 1, ctx10, tg, blind_rotate_v1.STAGE_BYTES)
         if cluster > 1:
             repeat_equal(run10, out10, f"blind_rotate_ntt_v1 at {label}")
         print(f"v1 kernel == plain at {label}: B={B10}, n={pv.n}, halfBg={tg.halfBg}, "
               f"primes={primes}, key limbs {ctx10.key_limbs}x{ctx10.key_limb_bits}, "
               f"rb={ctx10.key_round_bits}, "
               f"{samples} samples a block{' (general instantiation)' if general else ''}"
-              f"{f' in a cluster of {cluster} blocks, {CLUSTER_REPEATS} repeats equal' if cluster > 1 else ''}, "
+              f"{f' in a cluster of {cluster} blocks, {CLUSTER_REPEATS} repeats equal' if cluster > 1 else ''}"
+              f"{f', stream tier ({stream[1]} frequencies a sub-chunk, {stream[2]} slab(s))' if stream else ''}, "
               f"bit-identical", flush=True)
         del rows, key10, out10, plain10
 

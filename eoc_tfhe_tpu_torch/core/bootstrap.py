@@ -85,7 +85,10 @@ def _check_eval_key(ek: EvalKey) -> EvalKey:
 def prepare_eval_key(cloud: CloudKeySet, params: GateBootstrappingParams) -> EvalKey:
     """The reference's "rows" evaluation key: the compact form with the exact
     key (the same rows, the same kernel, the same bits).  Raises for
-    halfBg > 128."""
+    halfBg > 128, and where the reference's rows scan asserts that its int32
+    sum over all J digit rows and N coefficients would overflow
+    (``blind_rotate_compact.check_rows_domain``)."""
+    blind_rotate_compact.check_rows_domain(params)
     return prepare_eval_key_fused(cloud, params, limbs=polymul.LIMBS)
 
 

@@ -15,10 +15,16 @@
 // v = b0 + 2^8 b1 + 2^16 b2 + 2^24 b3 mod 2^32 with every b in [-128, 127],
 // and so is -v (the Toeplitz block's wrapped entries), so every entry of the
 // negacyclic matrix is a byte. Digits are int8 (|d| <= halfBg <= 128; the
-// form refuses halfBg > 128, ROADMAP C1). For each limb t the MMA sums
-// J*N products into int32, |sum| <= J*N*halfBg*128 < 2^31 (5.0e7 at the
-// 128-bit set; the launcher checks the bound); the limbs are combined as
-// acc += sum_t << 8t in uint32, mod 2^32. A limb that is zero in every word
+// form refuses halfBg > 128, ROADMAP C1). For each limb t the MMA sums the
+// jp*N products of one pass (jp digit rows, all N coefficients) into int32,
+// |sum| <= jp*N*halfBg*128 < 2^31 (5.0e7 at the 128-bit set, jp = J = 6),
+// and the pass adds its sums into acc as acc += sum_t << 8t in uint32, mod
+// 2^32. The launcher bounds the sum per pass, as the reference's fused
+// kernel bounds it per chunk of 128 coefficients (J*128*halfBg*128 < 2^31,
+// pallas_blindrot.py:135) and adds the chunks mod 2^32: where the whole J*N
+// would overflow (N = 16384 k = 2 l = 3 Bgbit = 8: 2.4e9) the plan takes
+// fewer rows a pass (ROADMAP C11). It does not rely on the MMA's int32
+// wraparound. A limb that is zero in every word
 // of a step (the low limb of the rounded limbs=3 key) is skipped, so that
 // form costs 3/4 of the MACs and still gives the plain version's bits.
 //
@@ -81,6 +87,30 @@
 // (N = 16384 k = 3 l = 2: 237,744 bytes at C = 8); the launcher asks
 // cudaOccupancyMaxActiveClusters whether the cluster can be scheduled.
 //
+// The staged tier (ROADMAP C11) of the general kernel replaces the refusal
+// of a sample whose J digit rows do not fit a block of a cluster of 8 (N =
+// 8192 k = 2 l = 8 Bgbit = 4: 236,688 bytes; N = 16384 k = 3 l = 2), and is
+// taken only where no plan above fits. Each pass's share of jp digit rows is
+// computed from the step's starting accumulators (the other blocks' shares
+// read through DSMEM, as above), so the block holds jp*max(N, 32) digit
+// bytes, not J of them; the share's Toeplitz products go into an update
+// buffer of the block's U*N/C words beside acc, which is committed to acc
+// (and cleared) after the last share, so acc stays the step's start while
+// the shares' digits are computed. The passes go share by share, the limbs
+// of a share inside: a share's digits are computed once, at its first limb
+// pass, so a step still computes J*N digits, but each row reads its
+// polynomial's accumulators again (two words a digit, l times the reads of
+// the pass above, some through DSMEM); each limb pass converts the share's
+// key words again, as the instantiations' one-limb plans do.
+// Barriers a step: a cluster barrier before the first pass (every share of
+// acc holds the last step) and one before the commit (no block reads acc
+// any more); the last DSMEM read comes before the last commit's barrier.
+// Shared memory: 2 ns (U N/C + 4) 4 + ns (jp max(N, 32) + 16) + lp jp U RW
+// + 16: at N = 8192 k = 2 l = 8 Bgbit = 4, C = 2, one limb and 2 rows a pass,
+// 188,672 bytes; at N = 16384 k = 4, C = 8, one limb and 1 row, 190,688.
+// Nothing in it grows with J but the number of passes, so every shape up to
+// N = 16384 with l*Bgbit <= 32 and halfBg <= 128 is taken.
+//
 // Bound on an H100 at the 128-bit set (chip_smoke.py compact_bound): the
 // same function by the cheapest exact dataflow the repo has, the CRT-NTT one
 // of blind_rotate_ntt.cu plus the stored key's transform once per step,
@@ -129,6 +159,8 @@ struct Shape {
   int acc_s;   // words per sample of acc: U*N + 4 (bank spread of the flush)
   int dig_s;   // bytes per sample of dig: J*N + 16 (bank spread of the B loads)
   int dig_off, rev_off;
+  int staged;  // the general kernel's staged tier: jp digit rows held, an update buffer
+  int upd_off; // byte offset of the update buffer (staged only)
   // The general kernel only:
   int C;       // blocks a cluster (1: no cluster)
   int Ns;      // coefficients of each output polynomial a block owns: N / C
@@ -388,7 +420,8 @@ __global__ void __launch_bounds__(kGeneralThreads, 1) blind_rotate_compact_gener
 
   extern __shared__ __align__(16) unsigned char smem[];
   uint32_t* acc = reinterpret_cast<uint32_t*>(smem);          // [s][acc_s]: u*Ns + c - c0
-  int8_t* dig = reinterpret_cast<int8_t*>(smem + S.dig_off);  // [s][j][NR] + pad
+  uint32_t* upd = reinterpret_cast<uint32_t*>(smem + S.upd_off);   // staged: as acc
+  int8_t* dig = reinterpret_cast<int8_t*>(smem + S.dig_off);  // [s][j (- j0 staged)][NR] + pad
   int8_t* rev = reinterpret_cast<int8_t*>(smem + S.rev_off);  // [t - t0][j - j0][u][RW]
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = C > 1 ? static_cast<int>(cluster.block_rank()) : 0;
@@ -402,10 +435,12 @@ __global__ void __launch_bounds__(kGeneralThreads, 1) blind_rotate_compact_gener
     const int s = x / UNs, y = x - s * UNs, u = y / Ns;
     acc[s * S.acc_s + y] = s < nvalid ? static_cast<uint32_t>(
         acc0[static_cast<size_t>(b0 + s) * UN + u * N + c0 + y - u * Ns]) : 0u;
+    if (S.staged) upd[s * S.acc_s + y] = 0u;
   }
-  for (int x = tid; x < ns * J * (NR - N); x += kGeneralThreads) {   // N = 16: r in [16, 32)
+  const int held = S.staged ? S.jp : J;   // digit rows dig holds
+  for (int x = tid; x < ns * held * (NR - N); x += kGeneralThreads) {   // N = 16: r in [16, 32)
     const int row = x / (NR - N);
-    dig[(row / J) * S.dig_s + (row % J) * NR + N + x - row * (NR - N)] = 0;
+    dig[(row / held) * S.dig_s + (row % held) * NR + N + x - row * (NR - N)] = 0;
   }
   // Word x of sample s, polynomial u, coefficient c of the whole accumulators.
   auto acc_word = [&](int s, int u, int c) {
@@ -418,12 +453,16 @@ __global__ void __launch_bounds__(kGeneralThreads, 1) blind_rotate_compact_gener
   const uint32_t sel = 0x3210u + 0x1111u * sh;
   const int walks = kShort ? 1 : Ns / (16 * CG);   // walks of a polynomial's share
   const int8_t* dg = dig + (g < ns ? g : 0) * S.dig_s + 4 * tig;   // past ns: sample 0
+  uint32_t* sum = S.staged ? upd : acc;   // where the passes add their limb sums
+  const int shares = (J + S.jp - 1) / S.jp, lpasses = kLimbs / S.lp;
   for (int i = 0; i < S.n; ++i) {
     const int32_t* key_i = key + static_cast<size_t>(i) * J * UN;
-    for (int t0 = 0; t0 < kLimbs; t0 += S.lp)
-    for (int j0 = 0; j0 < J; j0 += S.jp) {
+    // Limb passes outside the row shares; staged: the shares outside.
+    for (int ps = 0; ps < shares * lpasses; ++ps) {
+      const int t0 = (S.staged ? ps % lpasses : ps / shares) * S.lp;
+      const int j0 = (S.staged ? ps / lpasses : ps % shares) * S.jp;
       const int jn = min(S.jp, J - j0);
-      const bool first = t0 == 0 && j0 == 0;
+      const bool first = ps == 0;
       if (first && C > 1) cluster.sync();   // every block's share holds step i-1
       else __syncthreads();                 // the previous pass no longer reads dig or rev
       // Limbs t0 .. t0+lp-1 of rows j0 .. j0+jn-1 as byte rows, the window
@@ -460,8 +499,26 @@ __global__ void __launch_bounds__(kGeneralThreads, 1) blind_rotate_compact_gener
         }
       }
       // d = X^a * acc - acc of the whole samples, then its signed gadget
-      // digits (offset trick), once a step, before any block updates acc.
-      if (first) {
+      // digits (offset trick), once a step, before any block updates acc;
+      // staged: rows j0 .. j0+jn-1 alone, at the share's first limb pass,
+      // from the step's accumulators (acc changes only at the commit).
+      if (S.staged && t0 == 0) {
+        for (int x = tid; x < ns * jn * N; x += kGeneralThreads) {
+          const int s = x / (jn * N), y = x - s * jn * N;
+          const int jr = y / N, c = y - jr * N;
+          const int u = (j0 + jr) / S.l, li = j0 + jr - u * S.l;
+          uint32_t du = S.offset;
+          if (s < nvalid) {
+            const int a = bara[static_cast<size_t>(i) * S.B + b0 + s];
+            const int src = (c - a + twoN) & (twoN - 1);    // a in [0, 2N)
+            const uint32_t v = src < N ? acc_word(s, u, src) : 0u - acc_word(s, u, src - N);
+            du = v - acc_word(s, u, c) + S.offset;
+          }
+          const int shift = 32 - (li + 1) * S.Bgbit;
+          dig[s * S.dig_s + jr * NR + c] =
+              static_cast<int8_t>(static_cast<int>((du >> shift) & S.mask) - S.halfBg);
+        }
+      } else if (first) {
         for (int x = tid; x < ns * UN; x += kGeneralThreads) {
           const int s = x / UN, y = x - s * UN;
           const int u = y / N, c = y - u * N;
@@ -496,7 +553,7 @@ __global__ void __launch_bounds__(kGeneralThreads, 1) blind_rotate_compact_gener
           for (int j = j0; j < j0 + jn; ++j) {
             const int8_t* rv = rev +
                 static_cast<size_t>(((t - t0) * S.jp + j - j0) * U + u_out) * RW + pb;
-            const int8_t* dgj = dg + j * NR;
+            const int8_t* dgj = dg + (S.staged ? j - j0 : j) * NR;
 #pragma unroll 1
             for (int q0 = 0; q0 < NR / 32; q0 += RG)
               diagonal_walk<CG, 0, RG>(c, dgj + 32 * q0, rv + 32 * q0, sel);
@@ -505,7 +562,7 @@ __global__ void __launch_bounds__(kGeneralThreads, 1) blind_rotate_compact_gener
           // samples 2 tig (+1).
 #pragma unroll
           for (int ii = 0; ii < CG; ++ii) {
-            uint32_t* a = acc + 2 * tig * S.acc_s + u_out * Ns + cb + 16 * ii + g;
+            uint32_t* a = sum + 2 * tig * S.acc_s + u_out * Ns + cb + 16 * ii + g;
             const bool hi8 = !kShort || cb + 16 * ii + g + 8 < Ns;   // row exists
             if (2 * tig < ns) {
               a[0] += static_cast<uint32_t>(c[ii][0]) << (8 * t);
@@ -517,6 +574,15 @@ __global__ void __launch_bounds__(kGeneralThreads, 1) blind_rotate_compact_gener
             }
           }
         }
+      }
+    }
+    if (S.staged) {   // commit the step's update once no block reads acc
+      if (C > 1) cluster.sync();
+      else __syncthreads();
+      for (int x = tid; x < ns * UNs; x += kGeneralThreads) {
+        const int y = (x / UNs) * S.acc_s + x % UNs;
+        acc[y] += upd[y];
+        upd[y] = 0u;
       }
     }
   }
@@ -577,6 +643,8 @@ int launch_general(const Shape& S, size_t smem, const void* acc0, const void* ba
 // and `jp` digit rows: the accumulators, the digits and the rows, + 16
 // (ops/blind_rotate_compact.smem_bytes). Sets S's layout fields.
 static size_t plan(Shape& S, int ns, int lp, int jp) {
+  S.staged = 0;
+  S.upd_off = 0;
   S.ns = ns;
   S.lp = lp;
   S.jp = jp;
@@ -591,8 +659,10 @@ static size_t plan(Shape& S, int ns, int lp, int jp) {
 // holding `ns` samples, with the byte rows of `lp` limbs and `jp` digit
 // rows: the block's share of the accumulators, the whole samples' digits
 // and the rows' windows, + 16 (ops/blind_rotate_compact.smem_bytes with
-// general=True). Sets S's layout fields.
-static size_t plan_general(Shape& S, int C, int ns, int lp, int jp) {
+// general=True); staged: an update buffer beside the accumulators' share
+// and the share's jp digit rows alone (staged=True). Sets S's layout fields.
+static size_t plan_general(Shape& S, int C, int ns, int lp, int jp, bool staged = false) {
+  S.staged = staged ? 1 : 0;
   S.C = C;
   S.Ns = S.N / C;
   S.NR = S.N > 32 ? S.N : 32;
@@ -601,8 +671,9 @@ static size_t plan_general(Shape& S, int C, int ns, int lp, int jp) {
   S.lp = lp;
   S.jp = jp;
   S.acc_s = S.U * S.Ns + 4;
-  S.dig_s = S.J * S.NR + 16;
-  S.dig_off = ns * S.acc_s * 4;
+  S.dig_s = (staged ? jp : S.J) * S.NR + 16;
+  S.upd_off = ns * S.acc_s * 4;
+  S.dig_off = (staged ? 2 : 1) * ns * S.acc_s * 4;
   S.rev_off = S.dig_off + ns * S.dig_s;
   return static_cast<size_t>(S.rev_off) + static_cast<size_t>(lp) * jp * S.U * S.RW + 16;
 }
@@ -623,8 +694,10 @@ static int max_cluster(int N) {
 // (4, 1, J), (2, 4, J), (2, 1, J), then (8, 1, jp), (4, 1, jp), (2, 1, jp)
 // with the most rows jp < J that fit; every other shape (any U, N a power
 // of two from 8) takes the general kernel at the first fit of, per cluster
-// size C = 1, 2, 4, 8 and samples 8, 4, 2, 1, (4, J), (1, J) and (1, jp).
-// A shape that fits no plan below the card's shared memory is refused (the
+// size C = 1, 2, 4, 8 and samples 8, 4, 2, 1, (4, J), (1, J) and (1, jp);
+// then its staged tier at the first fit of, per C and samples, (4, jp) and
+// (1, jp), the most rows first. Every plan keeps a pass's limb sums below
+// 2^31: jp*N*halfBg*128 < 2^31. A shape that fits no plan is refused (the
 // Python wrapper refuses it first, by name:
 // ops/blind_rotate_compact.check_kernel_domain).
 // Returns a cudaError_t (0 on success); allocates nothing and does not sync.
@@ -638,9 +711,10 @@ extern "C" int blind_rotate_compact_launch(const void* acc0, const void* bara, c
       Bgbit > 8 || l * Bgbit > 32)
     return static_cast<int>(cudaErrorInvalidValue);
   S.halfBg = 1 << (Bgbit - 1);   // <= 128: int8 digits, the reference's exact domain
-  // Each limb's MMA sum: J*N products |digit| * |byte| <= halfBg * 128.
-  if (static_cast<long long>(S.J) * N * S.halfBg * 128 >= (1LL << 31))
-    return static_cast<int>(cudaErrorInvalidValue);
+  // Each pass's limb sum: jp*N products |digit| * |byte| <= halfBg * 128.
+  auto rows_ok = [&](int jp) {
+    return static_cast<long long>(jp) * N * S.halfBg * 128 < (1LL << 31);
+  };
   S.mask = (1u << Bgbit) - 1u;
   S.offset = 0;
   for (int p = 0; p < l; ++p)
@@ -653,24 +727,32 @@ extern "C" int blind_rotate_compact_launch(const void* acc0, const void* bara, c
   size_t smem = 0;
   bool fits = false;
   const bool shipped = U >= 2 && U <= 5 && N >= 32 && N <= 4096;
+  const size_t cap = static_cast<size_t>(optin);
   for (int ns = kMaxSamples; shipped && ns >= 2 && !fits; ns /= 2)
     for (int lp : {kLimbs, 1})
-      if (!fits) fits = (smem = plan(S, ns, lp, S.J)) <= static_cast<size_t>(optin);
+      if (!fits) fits = rows_ok(S.J) && (smem = plan(S, ns, lp, S.J)) <= cap;
   for (int ns = kMaxSamples; shipped && ns >= 2 && !fits; ns /= 2)
     for (int jp = S.J - 1; jp >= 1 && !fits; --jp)
-      fits = (smem = plan(S, ns, 1, jp)) <= static_cast<size_t>(optin);
+      fits = rows_ok(jp) && (smem = plan(S, ns, 1, jp)) <= cap;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (!fits) {
     // The general kernel: per cluster size (1, then 2, 4, 8), per samples
     // (8 down to 1), all J rows at four limbs and one limb a pass, then one
-    // limb and the most rows that fit.
+    // limb and the most rows that fit; then its staged tier, per cluster
+    // size and samples, four limbs and then one limb a pass at the most
+    // rows that fit.
     for (int C = 1; C <= max_cluster(N) && !fits; C *= 2)
       for (int ns = kMaxSamples; ns >= 1 && !fits; ns /= 2) {
         for (int lp : {kLimbs, 1})
-          if (!fits) fits = (smem = plan_general(S, C, ns, lp, S.J)) <= static_cast<size_t>(optin);
+          if (!fits) fits = rows_ok(S.J) && (smem = plan_general(S, C, ns, lp, S.J)) <= cap;
         for (int jp = S.J - 1; jp >= 1 && !fits; --jp)
-          fits = (smem = plan_general(S, C, ns, 1, jp)) <= static_cast<size_t>(optin);
+          fits = rows_ok(jp) && (smem = plan_general(S, C, ns, 1, jp)) <= cap;
       }
+    for (int C = 1; C <= max_cluster(N) && !fits; C *= 2)
+      for (int ns = kMaxSamples; ns >= 1 && !fits; ns /= 2)
+        for (int lp : {kLimbs, 1})
+          for (int jp = S.J; jp >= 1 && !fits; --jp)
+            fits = rows_ok(jp) && (smem = plan_general(S, C, ns, lp, jp, true)) <= cap;
     if (!fits) return static_cast<int>(cudaErrorInvalidValue);
     return launch_general(S, smem, acc0, bara, key, out, st);
   }

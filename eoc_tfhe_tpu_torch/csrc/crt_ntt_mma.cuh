@@ -135,7 +135,34 @@
 // block (e.g. N = 4096, K = 360: 251,136 bytes) and F > 4096 are refused;
 // the launcher also asks cudaOccupancyMaxActiveClusters whether a cluster of
 // C blocks at that shared memory can be scheduled, and returns an error if
-// not (the Python domain check refuses by name first).
+// not (the Python domain check refuses by name first). Such shapes take the
+// stream tier (below).
+//
+// The stream tier (ROADMAP C11) replaces the refusal of a shape whose one
+// sample's digits and 1/8 of its spectra exceed a block (N = 16384 k = 2 l
+// = 4: 260,096 bytes; N = 4096 k = 2 l = 15 Bgbit = 2: 251,136; K1 at N =
+// 1024 k = 4 l = 32 Bgbit = 1: 266,752), and is taken only where no plan
+// above fits. One sample a cluster of C blocks, split by frequency as in the
+// cluster instantiation, but no buffer grows with Kp and F together: the
+// cluster's blocks write the step's digits once to the device scratch (each
+// a share of the coefficients; the first block's scratch, in k32 slabs
+// [t/32][DL][Kp][32] bytes, which stay in L2), and each block walks its Fc
+// frequencies in sub-chunks of fs. For each sub-chunk the forward runs for
+// all Kp rows at those fs frequencies: the slabs are streamed through
+// shared memory (one or two in flight; rows swizzled by 16 bytes so that
+// the fragment loads hit 32 banks), and each warp holds the int32 sums of up
+// to kStreamTiles (m-tile, n8 tile) pairs across all of FP, so the forward's
+// sum is the cluster instantiation's (C1 reduced first); then the pointwise
+// product runs at once over the whole Kp of each of the fs frequencies
+// (warps split by m-tile where fs/4 < 16), and its chat is stored. Carrying
+// pointwise int32 sums across shares of Kp instead would need Mp Fc 4 bytes
+// (245,760 at N = 16384 k = 4, Mp = 240, Fc = 256). The inverse is the
+// cluster instantiation's, chat read through DSMEM. Shared memory a block:
+// chat 2 Mp (Fc + 16), dhat fs (2 Kp + 16), the slabs DL Kp 32 each and the
+// staging tiles. Cost: the digits are read from L2 Fc/fs times a prime and
+// block (Kp FP DL bytes each time), and fs is at most 8 * 128 / (Kp/16) (the
+// forward tiles the block's warps hold in registers), so a large Kp streams
+// them more often (Kp = 1280: fs = 8).
 //
 // Shared memory, per block of kS samples (128-bit set: F = 128, K = M = 48,
 // kS = 8): dig [DL][s][k][t] and chat [2][s][m][f] share one buffer, rows
@@ -195,6 +222,7 @@ constexpr int kNJ = Freq<1>::kNJ;      // held in registers: F <= 128
 constexpr int kMaxKT = Freq<1>::kKT;
 constexpr int kMaxClusterF = 512;      // frequencies a block holds: F up to 512 without a cluster
 constexpr int kMaxCluster = 8;         // blocks a cluster (the portable limit)
+constexpr int kStreamTiles = 8;        // the stream tier's forward tiles a warp holds
 
 struct Shape {
   int B, n, U, N, R, F, FP, l, J, K, M, L, Bgbit, kbits, halfBg, crt_inv;
@@ -216,6 +244,9 @@ struct Shape {
   int C;         // blocks a cluster (1: no cluster)
   int Fc;        // frequencies (and output coefficients t) a block of the cluster owns: F / C
   int DSc;       // byte stride of a chat row in the cluster instantiation: Fc + 16
+  int fs;        // the stream tier: frequencies a sub-chunk (8 to 128)
+  int slabs;     // the stream tier: digit slabs in flight (1 or 2)
+  int slab;      // the stream tier: byte offset of the slabs
 };
 
 
@@ -586,12 +617,15 @@ __device__ __forceinline__ void pointwise(const Shape& S, int i, const typename 
 // always reduced before its c16 product (at Kp = 96 K1's plain sum would
 // leave int32) and at Kp > 128 C1 before its product by 256 (Kp 2^15 256
 // would). It sums the block's Fc frequencies f = rank Fc + fl into chat rows
-// of stride DSc (rank 0, Fc = F and DSc = DS without a cluster).
-template <class Key, int PI>
+// of stride DSc (rank 0, Fc = F and DSc = DS without a cluster). kChunk (the
+// stream tier): the S.fs frequencies fl = fl_begin + .. of one sub-chunk,
+// whose dhat alone X holds; where they are fewer than 4 a warp, the warps of
+// a quad of frequencies take its m-tiles in turn.
+template <class Key, int PI, bool kChunk = false>
 __device__ __forceinline__ void pointwise_general(const Shape& S, int i,
                                                   const typename Key::Elem* key, const int8_t* X,
                                                   int8_t* Y, int8_t* stage, int rank, int warp,
-                                                  int lane) {
+                                                  int lane, int fl_begin = 0) {
   const int g = lane >> 2, tig = lane & 3;
   const int p = PI ? S.p1 : S.p0, half = PI ? S.half1 : S.half0;
   const int c16 = PI ? S.c16_1 : S.c16_0;
@@ -599,13 +633,17 @@ __device__ __forceinline__ void pointwise_general(const Shape& S, int i,
   const int ns = S.ns;
   const int gs = g < ns ? g : 0;   // columns past the block's samples: sample 0
   const int MT = S.Mp / 16, KT = S.Kp / 16, fbase = rank * S.Fc;
-  for (int fl0 = 4 * warp; fl0 < S.Fc; fl0 += 4 * kWarps) {
-    for (int mt = 0; mt < MT; ++mt) {
+  const int nq = (kChunk ? S.fs : S.Fc) / 4;                  // quads of frequencies
+  const int wq = kChunk && nq < kWarps ? kWarps / nq : 1;     // warps a quad
+  const int x0 = kChunk ? fl_begin : 0;                       // frequency of X's row 0
+  for (int q4 = warp / wq; q4 < nq; q4 += kWarps / wq) {
+    const int fl0 = x0 + 4 * q4;
+    for (int mt = kChunk ? warp % wq : 0; mt < MT; mt += wq) {
       int c[4][3][4] = {};
 #pragma unroll
       for (int fi = 0; fi < 4; ++fi) {
         const int fl = fl0 + fi;
-        const int8_t* xf = X + static_cast<size_t>(fl) * S.xs + gs * S.Kp + 4 * tig;
+        const int8_t* xf = X + static_cast<size_t>(fl - x0) * S.xs + gs * S.Kp + 4 * tig;
 #pragma unroll 2
         for (int kt = 0; kt < KT; ++kt) {
           const uint4 a = Key::load(key, S, i, PI, fbase + fl, mt, kt, lane, stage);
@@ -1162,6 +1200,185 @@ __global__ void __launch_bounds__(kThreads, 1) rotate_kernel_cluster(
   }
 }
 
+// --- The stream tier -------------------------------------------------------
+// One sample a cluster, split by frequency as in the cluster instantiation,
+// the digits in the device scratch and each block's frequencies walked in
+// sub-chunks (see the head of this file).
+
+// The step's digits into the cluster's scratch, as k32 slabs
+// dig_g[t/32][plane][k][t%32]; block `rank` of the cluster takes every C-th
+// share of the coefficients. acc is read from L2 (the other blocks' atomics).
+template <int DL>
+__device__ __forceinline__ void digit_pass_stream(const Shape& S, int i, const uint32_t* acc,
+                                                  const int32_t* __restrict__ bara, int b0,
+                                                  int8_t* dig_g, int rank, int tid) {
+  const int UN = S.U * S.N, twoN = 2 * S.N;
+  const int a = bara[static_cast<size_t>(i) * S.B + b0];
+  for (int x = rank * kThreads + tid; x < UN; x += S.C * kThreads) {
+    const int u = x >> S.log_n, c = x & (S.N - 1);
+    const uint32_t* as = acc + u * S.N;
+    const int src = (c - a + twoN) & (twoN - 1);    // a in [0, 2N)
+    const uint32_t v = src < S.N ? __ldcg(as + src) : 0u - __ldcg(as + src - S.N);
+    const uint32_t du = v - __ldcg(as + c) + S.offset;
+    const int t = c >> S.log_r, r = c & (S.R - 1);
+    int8_t* col = dig_g + static_cast<size_t>(t >> 5) * DL * S.Kp * 32 + (t & 31);
+    for (int li = 0; li < S.l; ++li) {
+      const int d = static_cast<int>((du >> (32 - (li + 1) * S.Bgbit)) & S.mask) - S.halfBg;
+      const int k = (u * S.l + li) * S.R + r;
+      if (DL == 1) {
+        col[k * 32] = static_cast<int8_t>(d);
+      } else {
+        int lo, hi;
+        split8(d, lo, hi);
+        col[k * 32] = static_cast<int8_t>(lo);
+        col[(S.Kp + k) * 32] = static_cast<int8_t>(hi);
+      }
+    }
+  }
+}
+
+// Forward NTT of one sub-chunk of the stream tier: dhat[fl][plane][k] for the
+// block's frequencies fs0 .. fs0 + fs - 1 (local fl = f - rank Fc - fs0) and
+// every k, contracting over all FP columns t slab by slab. Warp w owns n8
+// tile nt = w % (fs/8) of the sub-chunk and the m-tiles w / (fs/8) + q *
+// (16 / (fs/8)), q < kStreamTiles; its sums run across every slab in
+// registers. A slab, k32 tile kt of the digits (DL Kp rows of 32 bytes), is
+// copied from the scratch (__ldcg: the digits change every step) with 16-byte
+// half-rows swapped where bit 2 of the row is set, so that the A fragment
+// loads (rows g and g + 8, bytes 4 tig and 16 + 4 tig) hit 32 banks.
+template <int DL, int PI>
+__device__ __forceinline__ void forward_stream(const Shape& S, const int8_t* dig_g,
+                                               int8_t* slab, int8_t* X,
+                                               const uint4* __restrict__ Wf, int rank, int fs0,
+                                               int tid, int warp, int lane) {
+  const int g = lane >> 2, tig = lane & 3;
+  const int p = PI ? S.p1 : S.p0, half = PI ? S.half1 : S.half0;
+  const float inv_p = PI ? S.finv1 : S.finv0;
+  const int MT = S.Kp / 16, KT = S.FP / 32, NT = S.FP / 8;
+  const int FN = S.fs / 8, WPN = kWarps / FN;   // n8 tiles of the sub-chunk; warps a tile
+  const int nt = warp % FN, m0 = warp / FN;
+  const int ntg = (rank * S.Fc + fs0) / 8 + nt;   // this warp's n8 tile of F
+  const int slab_bytes = DL * S.Kp * 32;
+  int c0[kStreamTiles][4] = {}, c1[kStreamTiles][4] = {};
+#pragma unroll 1
+  for (int kt = 0; kt < KT; ++kt) {
+    int8_t* sb = slab + (kt % S.slabs) * slab_bytes;
+    if (S.slabs == 1 && kt > 0) __syncthreads();   // no warp reads slab kt - 1 any more
+    const uint4* src = reinterpret_cast<const uint4*>(dig_g + static_cast<size_t>(kt) * slab_bytes);
+    for (int x = tid; x < slab_bytes / 16; x += kThreads) {
+      const int row = x >> 1;
+      reinterpret_cast<uint4*>(sb)[2 * row + ((x & 1) ^ ((row >> 2) & 1))] = __ldcg(src + x);
+    }
+    __syncthreads();   // slab kt is in shared memory
+    const uint4* wp = Wf + ((static_cast<size_t>(PI * NT + ntg) * KT + kt) * 32 + lane) * 2;
+    uint4 wf[DL];
+#pragma unroll
+    for (int q = 0; q < DL; ++q) wf[q] = __ldg(wp + q);
+#pragma unroll
+    for (int tw = 0; tw < kStreamTiles; ++tw) {
+      const int mt = m0 + tw * WPN;
+      if (mt >= MT) continue;
+      uint32_t a[DL][4];
+#pragma unroll
+      for (int q = 0; q < DL; ++q) {
+        const int r0 = q * S.Kp + mt * 16 + g;      // rows r0, r0 + 8: one swizzle
+        const int sw = ((r0 >> 2) & 1) * 16;
+        const int8_t* base = sb + r0 * 32 + 4 * tig;
+        a[q][0] = lds32(base + sw);
+        a[q][1] = lds32(base + 8 * 32 + sw);
+        a[q][2] = lds32(base + (16 ^ sw));
+        a[q][3] = lds32(base + 8 * 32 + (16 ^ sw));
+      }
+      mma_k32(c0[tw], a[0], wf[0].x, wf[0].y);
+      mma_k32(c1[tw], a[0], wf[0].z, wf[0].w);
+      if (DL == 2) {
+        mma_k32(c0[tw], a[DL - 1], wf[DL - 1].x, wf[DL - 1].y);
+        mma_k32(c1[tw], a[DL - 1], wf[DL - 1].z, wf[DL - 1].w);
+      }
+    }
+  }
+#pragma unroll
+  for (int tw = 0; tw < kStreamTiles; ++tw) {
+    const int mt = m0 + tw * WPN;
+    if (mt >= MT) continue;
+#pragma unroll
+    for (int r4 = 0; r4 < 4; ++r4) {
+      const int k = mt * 16 + g + 8 * (r4 >> 1), f = nt * 8 + 2 * tig + (r4 & 1);
+      const int c1r = reduce32(c1[tw][r4], p, half, inv_p);
+      const int res = reduce32(c0[tw][r4] + c1r * 256, p, half, inv_p);
+      int lo, hi;
+      split8(res, lo, hi);
+      int8_t* xf = X + static_cast<size_t>(f) * S.xs + k;
+      xf[0] = static_cast<int8_t>(lo);
+      xf[S.Kp] = static_cast<int8_t>(hi);
+    }
+  }
+}
+
+// One prime of a step of the stream tier: the sub-chunks' forward and
+// pointwise products into chat, then the cluster instantiation's inverse.
+template <class Key, int DL, int PI>
+__device__ __forceinline__ void stream_prime(const Shape& S, cg::cluster_group& cluster, int i,
+                                             const typename Key::Elem* key, const uint4* Wf,
+                                             const uint4* Wi, const int8_t* dig_g, int8_t* slab,
+                                             int8_t* X, int8_t* Y, int8_t* stage, int16_t* res0,
+                                             uint32_t* acc, int rank, int tid, int warp,
+                                             int lane) {
+  for (int fs0 = 0; fs0 < S.Fc; fs0 += S.fs) {
+    forward_stream<DL, PI>(S, dig_g, slab, X, Wf, rank, fs0, tid, warp, lane);
+    __syncthreads();   // the sub-chunk's dhat is written
+    pointwise_general<Key, PI, true>(S, i, key, X, Y, stage, rank, warp, lane, fs0);
+    __syncthreads();   // and read
+  }
+  cluster.sync();   // every block's chat is written
+  inverse_cluster<PI>(S, cluster, Y, Wi, res0, acc, 1, rank, warp, lane);
+  cluster.sync();   // no block reads chat any more; after PI = 1 acc holds every update
+}
+
+// The stream tier: cluster blockIdx.x / C holds sample blockIdx.x / C.
+template <class Key, int DL>
+__global__ void __launch_bounds__(kThreads, 1) rotate_kernel_stream(
+    const int32_t* __restrict__ acc0, const int32_t* __restrict__ bara,
+    const typename Key::Elem* __restrict__ key, const uint4* __restrict__ Wf,
+    const uint4* __restrict__ Wi, uint4* __restrict__ scratch, int32_t* __restrict__ out,
+    const Shape S) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  int8_t* Y = reinterpret_cast<int8_t*>(smem);               // chat of the block's frequencies
+  int8_t* X = reinterpret_cast<int8_t*>(smem + S.buf2);      // dhat of one sub-chunk
+  int8_t* slab = reinterpret_cast<int8_t*>(smem + S.slab);   // digit slabs
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  int8_t* stage = reinterpret_cast<int8_t*>(smem + S.stage) + warp * Key::kStageBytes;
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int UN = S.U * S.N, b0 = blockIdx.x / S.C;
+  uint32_t* acc = reinterpret_cast<uint32_t*>(out) + static_cast<size_t>(b0) * UN;
+  int16_t* res0_b = reinterpret_cast<int16_t*>(scratch + static_cast<size_t>(blockIdx.x) *
+                                                             S.scratch16);
+  // The cluster's digits: the digit part of its first block's scratch.
+  int8_t* dig_g = reinterpret_cast<int8_t*>(
+      scratch + static_cast<size_t>(blockIdx.x - rank) * S.scratch16 + S.res0_16);
+
+  for (int x = rank * kThreads + tid; x < UN; x += S.C * kThreads)
+    acc[x] = static_cast<uint32_t>(acc0[static_cast<size_t>(b0) * UN + x]);
+  // The padding rows K <= k < Kp of every slab read as zero; written once.
+  const int pad = S.Kp - S.K, KT = S.FP / 32;
+  for (int x = rank * kThreads + tid; x < KT * DL * pad * 2; x += S.C * kThreads) {
+    const int row = x >> 1, kq = row / pad, k = S.K + row - kq * pad;   // kq = kt DL + plane
+    reinterpret_cast<uint4*>(dig_g + (static_cast<size_t>(kq) * S.Kp + k) * 32)[x & 1] =
+        make_uint4(0, 0, 0, 0);
+  }
+  cluster.sync();
+
+  for (int i = 0; i < S.n; ++i) {
+    digit_pass_stream<DL>(S, i, acc, bara, b0, dig_g, rank, tid);
+    cluster.sync();   // the step's digits are in the scratch
+    stream_prime<Key, DL, 0>(S, cluster, i, key, Wf, Wi, dig_g, slab, X, Y, stage, res0_b, acc,
+                             rank, tid, warp, lane);
+    stream_prime<Key, DL, 1>(S, cluster, i, key, Wf, Wi, dig_g, slab, X, Y, stage, res0_b, acc,
+                             rank, tid, warp, lane);
+  }
+}
+
 // Shared memory of a block of `ns` samples (S.DS, Kp, Mp, F set): dig and
 // chat in one buffer, dhat, and Key::kStageBytes per warp. Sets the layout
 // fields of S that depend on ns. (ops/blind_rotate.crt_mma_smem_bytes.)
@@ -1199,6 +1416,39 @@ size_t plan_cluster(Shape& S, int DL, int C, int ns) {
   return static_cast<size_t>(S.stage) + static_cast<size_t>(kWarps) * Key::kStageBytes;
 }
 
+// Shared memory of a block of the stream tier in a cluster of C blocks: chat
+// of its Fc = F/C frequencies, dhat of fs of them, `slabs` digit slabs and the
+// staging tiles, at the first fit below `optin` of fs = 128, 64, .., 8 (at
+// most F/C, and at most kStreamTiles forward tiles a warp) and two slabs,
+// then one; SIZE_MAX if none fits (ops/blind_rotate.crt_mma_smem_bytes with
+// stream = (fs, slabs)). The scratch keeps the cluster layout's digit part,
+// Kp (FP + 16) DL bytes a block, of which the first block's holds the
+// cluster's slabs. Sets S's layout.
+template <class Key>
+size_t plan_stream(Shape& S, int DL, int C, size_t optin) {
+  S.ns = 1;
+  S.C = C;
+  S.Fc = S.F / C;
+  S.DSc = S.Fc + 16;
+  S.dig_plane = S.Kp * S.DS;
+  S.y_plane = S.Mp * S.DSc;
+  S.buf2 = (2 * S.y_plane + 15) / 16 * 16;
+  S.xs = 2 * S.Kp + 16;
+  for (int fs = 128; fs >= 8; fs /= 2) {
+    if (fs > S.Fc || (S.Kp / 16) * (fs / 8) > kWarps * kStreamTiles) continue;
+    for (int slabs = 2; slabs >= 1; --slabs) {
+      S.fs = fs;
+      S.slabs = slabs;
+      S.slab = S.buf2 + fs * S.xs;
+      S.stage = S.slab + slabs * DL * S.Kp * 32;
+      const size_t smem = static_cast<size_t>(S.stage) + static_cast<size_t>(kWarps) *
+                                                            Key::kStageBytes;
+      if (smem <= optin) return smem;
+    }
+  }
+  return SIZE_MAX;
+}
+
 // Checks the shape and the stated bounds, sizes shared memory and launches
 // rotate_kernel<Key, ...> on `stream`. rb: the key's rounding bits (0 for
 // the exact plan; the L limbs of kbits bits cover 32 - rb bits once).
@@ -1232,6 +1482,7 @@ int launch(const void* acc0, const void* bara, const void* key, const void* Wf,
   while ((1 << S.log_r) < R) ++S.log_r;
   auto bal16 = [](int p) { const int r = 65536 % p; return r > p / 2 ? r - p : r; };
   S.c16_0 = bal16(p0); S.c16_1 = bal16(p1);
+  S.fs = S.slabs = S.slab = 0;
   if (B <= 0 || n < 0 || U <= 0 || l <= 0 || Bgbit <= 0 || Bgbit > 15 || l * Bgbit > 32 ||
       R <= 0 || N % R != 0 || (N & (N - 1)) != 0 || (R & (R - 1)) != 0 ||
       (S.F % 8 != 0 && S.F != 4) || S.FP % 32 != 0 || S.F > kMaxCluster * kMaxClusterF ||
@@ -1256,7 +1507,8 @@ int launch(const void* acc0, const void* bara, const void* key, const void* Wf,
   // samples fitting), else the general one at the most samples that fit;
   // where one sample does not fit a block (or F > 512), the cluster one at
   // the fewest blocks a cluster that hold one sample, and the most samples
-  // that fit at that size.
+  // that fit at that size; where no cluster holds one sample, the stream
+  // tier at the fewest blocks a cluster whose share fits.
   const int fw = S.FP <= 128 ? 1 : S.FP <= 256 ? 2 : 4;
   const bool wide = fw > 1;
   size_t smem = plan_samples<Key>(S, DL, kMaxSamples);
@@ -1264,15 +1516,24 @@ int launch(const void* acc0, const void* bara, const void* key, const void* Wf,
   for (int ns = kMaxSamples / 2; general && ns >= 1 && smem > static_cast<size_t>(optin); ns /= 2)
     smem = plan_samples<Key>(S, DL, ns);
   const bool clustered = S.F > kMaxClusterF || smem > static_cast<size_t>(optin);
+  bool streamed = false;
   if (clustered) {
+    auto splits = [&](int C) { return S.F % (32 * C) == 0 && S.F / C <= kMaxClusterF; };
     int C = 2;
-    while (C <= kMaxCluster && (S.F % (32 * C) != 0 || S.F / C > kMaxClusterF ||
-                                plan_cluster<Key>(S, DL, C, 1) > static_cast<size_t>(optin)))
+    while (C <= kMaxCluster &&
+           (!splits(C) || plan_cluster<Key>(S, DL, C, 1) > static_cast<size_t>(optin)))
       C *= 2;
-    if (C > kMaxCluster) return static_cast<int>(cudaErrorInvalidValue);
-    int ns = kMaxSamples;
-    while (ns > 1 && plan_cluster<Key>(S, DL, C, ns) > static_cast<size_t>(optin)) ns /= 2;
-    smem = plan_cluster<Key>(S, DL, C, ns);
+    if (C <= kMaxCluster) {
+      int ns = kMaxSamples;
+      while (ns > 1 && plan_cluster<Key>(S, DL, C, ns) > static_cast<size_t>(optin)) ns /= 2;
+      smem = plan_cluster<Key>(S, DL, C, ns);
+    } else {
+      for (C = 2; C <= kMaxCluster; C *= 2)
+        if (splits(C) && plan_stream<Key>(S, DL, C, optin) <= static_cast<size_t>(optin)) break;
+      if (C > kMaxCluster) return static_cast<int>(cudaErrorInvalidValue);
+      smem = plan_stream<Key>(S, DL, C, optin);
+      streamed = true;
+    }
   }
   if (smem > static_cast<size_t>(optin)) return static_cast<int>(cudaErrorInvalidValue);
   // Residues split into bytes with |hi| <= 127; the forward, pointwise and
@@ -1323,7 +1584,8 @@ int launch(const void* acc0, const void* bara, const void* key, const void* Wf,
   // 0) on the scatter path; the general one is (16, 0) at kS = 0, per F/128.
   const bool reg = S.UR == 16 && S.Mp <= 64;
   if (clustered) {
-    auto kernel = DL == 1 ? rotate_kernel_cluster<Key, 1> : rotate_kernel_cluster<Key, 2>;
+    auto kernel = streamed ? (DL == 1 ? rotate_kernel_stream<Key, 1> : rotate_kernel_stream<Key, 2>)
+                         : (DL == 1 ? rotate_kernel_cluster<Key, 1> : rotate_kernel_cluster<Key, 2>);
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);

@@ -106,6 +106,13 @@ SAMPLES = (8, 4, 2, 1)
 #: (``kMaxClusterF``: F up to 512 without a cluster).
 CLUSTERS = (2, 4, 8)
 MAX_BLOCK_F = 512
+#: The stream tier (``crt_mma::rotate_kernel_stream``): frequencies a
+#: sub-chunk (fs = 8 * n8 tiles, at most 16 tiles: one a warp or fewer), the
+#: forward's (m-tile, n8 tile) accumulators a warp holds (``kStreamTiles``),
+#: and the digit slabs in flight (two where they fit, else one).
+STREAM_FS = (128, 64, 32, 16, 8)
+STREAM_TILES = 8
+STREAM_SLABS = (2, 1)
 
 
 def kernel_scratch_bytes(B: int, U: int, ctx: NttContext, tg, samples: int,
@@ -122,19 +129,56 @@ def kernel_scratch_bytes(B: int, U: int, ctx: NttContext, tg, samples: int,
 
 
 def crt_mma_smem_bytes(U: int, ctx: NttContext, tg, stage_bytes: int, samples: int,
-                       cluster: int = 1) -> int:
+                       cluster: int = 1, stream: tuple[int, int] | None = None) -> int:
     """Shared memory of a ``crt_ntt_mma.cuh`` block of ``samples`` samples:
     dig and chat in one buffer, dhat, and ``stage_bytes`` per warp (16 warps)
     for a key that is transposed on the chip.  In a cluster of ``cluster``
     blocks each block holds the whole samples' digits but chat and dhat of
-    its F/cluster frequencies alone."""
+    its F/cluster frequencies alone.  The stream tier (``stream`` = (fs,
+    slabs), one sample) holds chat of its F/cluster frequencies, dhat of fs
+    of them, ``slabs`` digit slabs of DL*Kp*32 bytes and the staging tiles:
+    the digits stay in the device scratch."""
     Kp, Mp, F = pad16(tg.kpl * ctx.R), pad16(ctx.key_limbs * U * ctx.R), ctx.F
     DL = 1 if tg.halfBg <= 128 else 2
     DS = max(F, 32) + 16
     Fc = F // cluster
     DSc = DS if cluster == 1 else Fc + 16
+    if stream is not None:
+        fs, slabs = stream
+        chat = -(-2 * Mp * DSc // 16) * 16
+        dhat = -(-fs * (2 * Kp + 16) // 16) * 16
+        return chat + dhat + slabs * DL * Kp * 32 + 16 * stage_bytes
     buf1 = -(-max(DL * samples * Kp * DS, 2 * samples * Mp * DSc) // 16) * 16
     return buf1 + Fc * (2 * samples * Kp + 16) + 16 * stage_bytes
+
+
+def _plan(U: int, ctx: NttContext, tg, stage_bytes: int):
+    """(samples, general, cluster, stream): see :func:`crt_mma_plan` and
+    :func:`crt_mma_stream`."""
+    Kp, F = pad16(tg.kpl * ctx.R), ctx.F
+    smem = {s: crt_mma_smem_bytes(U, ctx, tg, stage_bytes, s) for s in SAMPLES}
+    general = (max(F, 32) > 128 or Kp > 64 or ctx.key_round_bits > 0 or F < 8
+               or smem[8] > SMEM_PER_BLOCK)
+    if not general:
+        return 8, False, 1, None
+    fits = [s for s in SAMPLES if smem[s] <= SMEM_PER_BLOCK]
+    if fits and F <= MAX_BLOCK_F:
+        return fits[0], True, 1, None
+    tried = [C for C in CLUSTERS if F % (32 * C) == 0 and F // C <= MAX_BLOCK_F]
+    for C in tried:
+        fit = [s for s in SAMPLES
+               if crt_mma_smem_bytes(U, ctx, tg, stage_bytes, s, C) <= SMEM_PER_BLOCK]
+        if fit:
+            return fit[0], True, C, None
+    for C in tried:
+        for fs in STREAM_FS:
+            if fs > F // C or Kp // 16 * fs // 8 > 16 * STREAM_TILES:
+                continue
+            for slabs in STREAM_SLABS:
+                if crt_mma_smem_bytes(U, ctx, tg, stage_bytes, 1, C,
+                                      (fs, slabs)) <= SMEM_PER_BLOCK:
+                    return 1, True, C, (fs, slabs)
+    return 1, True, tried[-1] if tried else 1, None
 
 
 def crt_mma_plan(U: int, ctx: NttContext, tg, stage_bytes: int = 0) -> tuple[int, bool, int]:
@@ -147,26 +191,29 @@ def crt_mma_plan(U: int, ctx: NttContext, tg, stage_bytes: int = 0) -> tuple[int
     takes the general one at the most samples that fit.  Where one sample
     does not fit a block, or F > 512, the cluster instantiation takes it: the
     fewest blocks a cluster (2, 4 or 8; F/C a multiple of 32 and at most 512)
-    that hold one sample, at the most samples that fit.  Where nothing fits,
-    the plan is (1, True, the largest cluster tried, or 1), which the domain
-    check refuses.
+    that hold one sample, at the most samples that fit.  Where its digits do
+    not fit either, the stream tier takes one sample (:func:`crt_mma_stream`).
+    Where nothing fits, the plan is (1, True, the largest cluster tried, or
+    1), which the domain check refuses.
     """
-    Kp, F = pad16(tg.kpl * ctx.R), ctx.F
-    smem = {s: crt_mma_smem_bytes(U, ctx, tg, stage_bytes, s) for s in SAMPLES}
-    general = (max(F, 32) > 128 or Kp > 64 or ctx.key_round_bits > 0 or F < 8
-               or smem[8] > SMEM_PER_BLOCK)
-    if not general:
-        return 8, False, 1
-    fits = [s for s in SAMPLES if smem[s] <= SMEM_PER_BLOCK]
-    if fits and F <= MAX_BLOCK_F:
-        return fits[0], True, 1
-    tried = [C for C in CLUSTERS if F % (32 * C) == 0 and F // C <= MAX_BLOCK_F]
-    for C in tried:
-        fit = [s for s in SAMPLES
-               if crt_mma_smem_bytes(U, ctx, tg, stage_bytes, s, C) <= SMEM_PER_BLOCK]
-        if fit:
-            return fit[0], True, C
-    return 1, True, tried[-1] if tried else 1
+    return _plan(U, ctx, tg, stage_bytes)[:3]
+
+
+def crt_mma_stream(U: int, ctx: NttContext, tg,
+                   stage_bytes: int = 0) -> tuple[int, int, int] | None:
+    """(blocks a cluster, frequencies a sub-chunk, digit slabs) of the stream
+    tier where ``crt_mma::launch`` takes it, else None.  It is taken only
+    where no other plan fits (ROADMAP C11): one sample in a cluster of 2, 4
+    or 8 blocks split by frequency as in the cluster instantiation, the
+    step's digits written once to the device scratch, and each block's F/C
+    frequencies walked in sub-chunks of fs, each with the forward for all Kp
+    rows from digit slabs streamed through shared memory, the pointwise
+    product over the whole Kp and its chat stored.  The first fit of, per
+    cluster size (the fewest blocks first), fs from 128 down (at most 16
+    n8 tiles, and Kp/16 * fs/8 forward tiles within ``STREAM_TILES`` a warp)
+    and two slabs, then one."""
+    _, _, cluster, stream = _plan(U, ctx, tg, stage_bytes)
+    return None if stream is None else (cluster, *stream)
 
 
 def _c16(p: int) -> int:
@@ -183,7 +230,10 @@ def crt_mma_sums(U: int, ctx: NttContext, tg, *, reduce_c2: bool,
     pointwise (C2 reduced for a ``reduce_c2`` key and in the general and
     cluster instantiations, C1 too there at Kp > 128) and the inverse (C1
     reduced at F >= 256 and in a cluster, where each block contracts over
-    all F through DSMEM)."""
+    all F through DSMEM).  The stream tier runs in a cluster with the
+    general pointwise stage, so the same bounds hold: its forward sums a
+    sub-chunk's tiles over all of FP, slab by slab, in one accumulator, and
+    its pointwise sum runs over the whole Kp of one frequency at once."""
     Kp, FP = pad16(tg.kpl * ctx.R), max(ctx.F, 32)
     hmax = max((p - 1) // 2 for p in ctx.primes)
     dhi = 0 if tg.halfBg <= 128 else -(-tg.halfBg // 256)
@@ -228,8 +278,8 @@ def check_crt_mma_domain(name: str, U: int, ctx: NttContext, tg, *, reduce_c2: b
         refuse(f"takes key limbs covering 32 - rb bits once; got {L} x {kbits} bits, rb={rb}")
     if min(p0, p1) < 1024 or not (p0 & p1 & 1) or max(half0, half1) > 127 * 256 + 127:
         refuse(f"takes odd primes from 1024 to 65279; got {ctx.primes}")
-    samples, general, cluster = crt_mma_plan(U, ctx, tg, stage_bytes)
-    smem = crt_mma_smem_bytes(U, ctx, tg, stage_bytes, samples, cluster)
+    samples, general, cluster, stream = _plan(U, ctx, tg, stage_bytes)
+    smem = crt_mma_smem_bytes(U, ctx, tg, stage_bytes, samples, cluster, stream)
     if smem > SMEM_PER_BLOCK:
         refuse(f"needs {smem:,} bytes of shared memory for U={U}, N={N}, K={K}, M={M} "
                f"at {samples} samples a block"

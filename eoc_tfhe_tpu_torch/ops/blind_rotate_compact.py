@@ -13,11 +13,12 @@ unit, which gives the same bits.
 :func:`blind_rotate_compact` is the wrapper.  For a tensor on the CPU it
 runs :func:`blind_rotate_compact_plain` (the rows scan); for a CUDA tensor it
 launches the hand-written kernel in ``csrc/blind_rotate_compact.cu`` or
-raises: :func:`check_kernel_domain` refuses, by name and before any launch, a
-shape the kernel does not take (it takes every k and every power-of-two N
-from 8 whose sample fits a block, or a cluster of up to 8 blocks, at one
-key limb and one digit row a pass; halfBg <= 128 and int32 limb sums).
-``launches`` counts kernel launches and nothing else.
+raises: :func:`check_kernel_domain` refuses, by name and before any launch,
+a shape the kernel does not take (it takes every k and every power-of-two N
+from 8 up to 16384 with l*Bgbit <= 32 and halfBg <= 128: the digit rows a
+share at a time where one sample's digits do not fit a cluster of 8 blocks,
+and each pass's int32 limb sum below 2^31, as the reference's fused kernel
+bounds it per chunk).  ``launches`` counts kernel launches and nothing else.
 """
 
 from __future__ import annotations
@@ -50,7 +51,7 @@ def check_digit_domain(params: GateBootstrappingParams) -> None:
 
 
 def smem_bytes(U: int, N: int, J: int, samples: int, limbs: int, rows: int | None = None,
-               cluster: int = 1, general: bool = False) -> int:
+               cluster: int = 1, general: bool = False, staged: bool = False) -> int:
     """Shared memory of a K2 block: the accumulators (samples, U*N + 4)
     uint32, the digits (samples, J*N + 16) int8 and the byte rows (limbs,
     rows, U, 2N) int8 of the key limbs and digit rows converted a pass (all
@@ -58,13 +59,17 @@ def smem_bytes(U: int, N: int, J: int, samples: int, limbs: int, rows: int | Non
     (``general``) holds a block's share of the accumulators (samples, U*N/C
     + 4) in a cluster of C = ``cluster`` blocks, digit rows of max(N, 32)
     bytes, and of each key row the window its outputs meet plus 32 bytes
-    (2N + 32, or N + N/C + 32 in a cluster)."""
+    (2N + 32, or N + N/C + 32 in a cluster).  Its staged tier (``staged``)
+    holds only the ``rows`` digit rows of the current share and, beside the
+    accumulators' share, an update buffer of the same size."""
     rows = J if rows is None else rows
     if not general:
         return samples * (U * N + 4) * 4 + samples * (J * N + 16) + limbs * rows * U * 2 * N + 16
     Ns = N // cluster
     RW = (2 * N if cluster == 1 else N + Ns) + 32
-    return samples * (U * Ns + 4) * 4 + samples * (J * max(N, 32) + 16) + limbs * rows * U * RW + 16
+    held = rows if staged else J
+    return ((2 if staged else 1) * samples * (U * Ns + 4) * 4 + samples * (held * max(N, 32) + 16)
+            + limbs * rows * U * RW + 16)
 
 
 #: K2's (samples a block, key limbs converted a pass) with all J digit rows a
@@ -84,38 +89,78 @@ def max_cluster(N: int) -> int:
     return min(8, N // (16 * (32 if N >= 2048 else 16)))
 
 
-def is_general(U: int, N: int, plan: tuple[int, int, int, int]) -> bool:
+def max_rows(N: int, halfBg: int) -> int:
+    """The most digit rows a pass whose limb sums stay in int32: one MMA
+    accumulator collects rows * N products |digit| * |byte| <= halfBg * 128
+    between two additions into acc (the reference's fused kernel bounds the
+    same sum per chunk of 128 coefficients, ``pallas_blindrot.py:135``)."""
+    return ((1 << 31) - 1) // (N * halfBg * 128)
+
+
+def is_general(U: int, N: int, plan: tuple[int, int, int, int], staged: bool = False) -> bool:
     """Whether ``plan`` runs the general kernel: a shape past the
-    instantiations (U = 2 to 5, N from 32 to 4096), one sample a block, or a
-    cluster."""
-    return not 2 <= U <= 5 or not 32 <= N <= 4096 or plan[0] == 1 or plan[3] > 1
+    instantiations (U = 2 to 5, N from 32 to 4096), one sample a block, a
+    cluster, or the staged tier (``staged``, :func:`is_staged`)."""
+    return (staged or not 2 <= U <= 5 or not 32 <= N <= 4096 or plan[0] == 1
+            or plan[3] > 1)
 
 
-def kernel_plan(U: int, N: int, J: int) -> tuple[int, int, int, int]:
+def _plans(U: int, N: int, J: int, halfBg: int):
+    """The launcher's plans in its order of preference, each (samples, limbs
+    a pass, digit rows a pass, blocks a cluster, general, staged)."""
+    top = max_rows(N, halfBg)
+    if 2 <= U <= 5 and 32 <= N <= 4096:
+        for samples, limbs in PLANS:
+            yield samples, limbs, J, 1, False, False
+        for samples in (8, 4, 2):
+            for rows in range(J - 1, 0, -1):
+                yield samples, 1, rows, 1, False, False
+    clusters = [C for C in CLUSTERS if C <= max_cluster(N)]
+    for staged in (False, True):
+        for C in clusters:
+            for samples in (8, 4, 2, 1):
+                if staged:
+                    shares = [(limbs, r) for limbs in (4, 1) for r in range(min(J, top), 0, -1)]
+                else:
+                    shares = [(4, J), (1, J), *((1, r) for r in range(J - 1, 0, -1))]
+                for limbs, rows in shares:
+                    yield samples, limbs, rows, C, True, staged
+
+
+def _fits(U: int, N: int, J: int, halfBg: int, plan) -> bool:
+    samples, limbs, rows, C, general, staged = plan
+    return (rows <= max_rows(N, halfBg)
+            and smem_bytes(U, N, J, samples, limbs, rows, C, general, staged) <= SMEM_PER_BLOCK)
+
+
+def _plan(U: int, N: int, J: int, halfBg: int):
+    for plan in _plans(U, N, J, halfBg):
+        if _fits(U, N, J, halfBg, plan):
+            return plan
+    return 1, 1, 1, max(C for C in CLUSTERS if C <= max_cluster(N)), True, True
+
+
+def kernel_plan(U: int, N: int, J: int, halfBg: int) -> tuple[int, int, int, int]:
     """The (samples, limbs a pass, digit rows a pass, blocks a cluster) that
     the launcher takes.  The instantiations' plans come first (``PLANS``,
     then row shares at 2 to 8 samples); else the general kernel's: per
     cluster size (1, 2, 4, 8, up to :func:`max_cluster`) and samples (8 down
     to 1), all J rows at 4 limbs and at 1 limb a pass, then 1 limb and the
-    most rows that fit.  Where none fits: (1, 1, 1, the largest cluster),
+    most rows that fit; else its staged tier (:func:`is_staged`), per
+    cluster size and samples, 4 limbs and then 1 limb a pass at the most
+    rows that fit.  Every plan keeps a pass's limb sums in int32
+    (:func:`max_rows`).  Where none fits: (1, 1, 1, the largest cluster),
     which the domain check refuses."""
-    if 2 <= U <= 5 and 32 <= N <= 4096:
-        for samples, limbs in PLANS:
-            if smem_bytes(U, N, J, samples, limbs) <= SMEM_PER_BLOCK:
-                return samples, limbs, J, 1
-        for samples in (8, 4, 2):
-            for rows in range(J - 1, 0, -1):
-                if smem_bytes(U, N, J, samples, 1, rows) <= SMEM_PER_BLOCK:
-                    return samples, 1, rows, 1
-    top = max(C for C in CLUSTERS if C <= max_cluster(N))
-    for C in CLUSTERS:
-        if C > top:
-            break
-        for samples in (8, 4, 2, 1):
-            for limbs, rows in ((4, J), (1, J), *((1, r) for r in range(J - 1, 0, -1))):
-                if smem_bytes(U, N, J, samples, limbs, rows, C, True) <= SMEM_PER_BLOCK:
-                    return samples, limbs, rows, C
-    return 1, 1, 1, top
+    return _plan(U, N, J, halfBg)[:4]
+
+
+def is_staged(U: int, N: int, J: int, halfBg: int) -> bool:
+    """Whether the launcher takes the general kernel's staged tier: each
+    share's digit rows computed from the step's accumulators and its
+    products added into an update buffer, committed to acc after the last
+    share, so that shared memory holds the share's digit rows alone.  It is
+    taken only where no other plan fits."""
+    return _plan(U, N, J, halfBg)[5]
 
 
 def check_kernel_domain(params: GateBootstrappingParams) -> None:
@@ -130,17 +175,30 @@ def check_kernel_domain(params: GateBootstrappingParams) -> None:
                          f"got N={N} {where}")
     if tg.l * tg.Bgbit > 32:
         raise ValueError(f"K2 (blind_rotate_compact) takes l*Bgbit <= 32 {where}")
-    if J * N * tg.halfBg * 128 >= 1 << 31:
-        raise ValueError(f"K2 (blind_rotate_compact) limb sum reaches "
-                         f"{J * N * tg.halfBg * 128:,} >= 2^31 {where}")
-    plan = kernel_plan(U, N, J)
-    samples, limbs, rows, cluster = plan
-    smem = smem_bytes(U, N, J, *plan, is_general(U, N, plan))
-    if smem > SMEM_PER_BLOCK:
+    if max_rows(N, tg.halfBg) < 1:
+        raise ValueError(f"K2 (blind_rotate_compact) limb sum of one digit row reaches "
+                         f"{N * tg.halfBg * 128:,} >= 2^31 {where}")
+    plan = _plan(U, N, J, tg.halfBg)
+    if not _fits(U, N, J, tg.halfBg, plan):
+        samples, limbs, rows, cluster, general, staged = plan
+        smem = smem_bytes(U, N, J, *plan[:4], general, staged)
         raise ValueError(f"K2 (blind_rotate_compact) needs {smem:,} bytes of shared memory "
                          f"for U={U}, N={N}, J={J} at {samples} samples, {limbs} key limb "
                          f"and {rows} digit row a pass in a cluster of {cluster} blocks; the "
                          f"card allows {SMEM_PER_BLOCK:,} {where}")
+
+
+def check_rows_domain(params: GateBootstrappingParams) -> None:
+    """Raise where the reference's "rows" form fails: its scan asserts that
+    the int32 sum over all J digit rows and all N coefficients stays below
+    2^31 (``ops/polymul.py:124``), J*N*halfBg*128 < 2^31, on every backend."""
+    tg = params.tgsw_params
+    J, N = tg.kpl, tg.tlwe_params.N
+    if J * N * tg.halfBg * 128 >= 1 << 31:
+        raise ValueError(f"the rows eval-key form's int32 sum reaches "
+                         f"{J * N * tg.halfBg * 128:,} >= 2^31 (N={N}, J={J}, "
+                         f"halfBg={tg.halfBg}), where the reference's rows scan asserts; "
+                         f"use the fused (compact) form")
 
 
 def prepare_compact_bk(bk_rows: torch.Tensor, limbs: int = polymul.LIMBS) -> torch.Tensor:

@@ -273,7 +273,7 @@ def test_c7_k3_shape_at_full_depth_needs_more_gadget_bits():
                 pkg.test_params(N=512, k=3, l=3, Bgbit=6, n=630), -1, -1)
         (jgates if pkg is jparams else gates).check_noise_budget(
             pkg.test_params(N=512, k=3, l=3, Bgbit=7, n=630), -1, -1)
-    assert blind_rotate_compact.kernel_plan(4, 512, 12) == (8, 1, 12, 1)
+    assert blind_rotate_compact.kernel_plan(4, 512, 12, 64) == (8, 1, 12, 1)
 
 
 @pytest.mark.parametrize("case", [c for c in C7_CASES if c not in C7_NAND]
@@ -349,14 +349,15 @@ def test_kernel_domains_take_the_shipped_sets_and_the_c5_shapes(case):
     assert general == case.startswith("N") and (samples == 8 or general) and cluster == 1
     K2_PLAN = {"N2048_k1_l3": (4, 1), "N1024_k2_l3": (8, 1), "N512_k3_l3": (8, 1),
                "N1024_k1_l5": (8, 1)}
-    assert blind_rotate_compact.kernel_plan(U, tg.tlwe_params.N, tg.kpl) == \
+    assert blind_rotate_compact.kernel_plan(U, tg.tlwe_params.N, tg.kpl, tg.halfBg) == \
         (*K2_PLAN.get(case, (8, 4)), tg.kpl, 1)    # all J digit rows a pass, no cluster
 
 
 def test_kernel_domains_refuse_by_name():
-    """What stays outside the domains after C10 (ROADMAP C8, C10) is refused
-    by name, with the bytes a cluster of 8 blocks would need where that is
-    the limit.  The shapes refused here before C10 are
+    """What stays outside the domains after C11 is refused by name: no
+    context (K1 at N >= 4096), l*Bgbit > 32,
+    halfBg > 128 for K2 (C1), N < 8, and the rows form where the reference's
+    rows scan asserts.  The shapes refused here before C10 and C11 are
     ``test_kernel_domains_take_the_formerly_refused_shapes``."""
     huge = params.test_params(N=4096, k=1, l=3, Bgbit=7)      # F = 512
     with pytest.raises(ValueError, match=r"K1 \(blind_rotate_ntt\) has no context at N=4096: "
@@ -364,21 +365,12 @@ def test_kernel_domains_refuse_by_name():
         ntt.kernel_context_for_params(huge, device="cpu")     # as in the reference
     with pytest.raises(ValueError, match=r"1024 does not divide 32257-1"):
         jpnb2.kernel_context_for_params(huge)
-    # K3 where one sample's digits and 1/8 of its spectra exceed a block
-    wide = params.test_params(N=4096, k=2, l=15, Bgbit=2)     # K = 360
-    tg = wide.tgsw_params
-    with pytest.raises(ValueError, match=r"K3 .* needs 251,136 bytes of shared memory for "
-                                         r"U=3, N=4096, K=360, M=72 at 1 samples a block in a "
-                                         r"cluster of 8 blocks; the card allows 232,448"):
-        blind_rotate_v1.check_kernel_domain(3, ntt.context_for_params(wide, device="cpu"), tg)
-    # K2 where one sample does not fit a cluster of 8 (its digits alone: J*N)
-    with pytest.raises(ValueError, match=r"K2 \(blind_rotate_compact\) needs 237,744 bytes "
-                                         r"of shared memory for U=4, N=16384, J=8 at 1 samples, "
-                                         r"1 key limb and 1 digit row a pass in a cluster of 8 "
-                                         r"blocks; the card allows 232,448"):
-        blind_rotate_compact.check_kernel_domain(params.test_params(N=16384, k=3, l=2, Bgbit=7))
-    with pytest.raises(ValueError, match=r"K2 .* limb sum reaches 2,147,483,648 >= 2\^31"):
-        blind_rotate_compact.check_kernel_domain(params.test_params(N=16384, k=1, l=4, Bgbit=8))
+    # the rows form where the reference's rows scan asserts (J*N*halfBg*128)
+    rows = params.test_params(N=16384, k=2, l=3, Bgbit=8)
+    with pytest.raises(ValueError, match=r"rows eval-key form's int32 sum reaches "
+                                         r"2,415,919,104 >= 2\^31"):
+        blind_rotate_compact.check_rows_domain(rows)
+    blind_rotate_compact.check_kernel_domain(rows)            # the fused form takes it
     with pytest.raises(ValueError, match=r"K2 .* takes N a power of two from 8; got N=4"):
         blind_rotate_compact.check_kernel_domain(params.test_params(N=4, k=1, l=2))
     deep = params.test_params(N=1024, k=1, l=5, Bgbit=7)      # l*Bgbit = 35
@@ -391,8 +383,8 @@ def test_kernel_domains_refuse_by_name():
         blind_rotate_compact.check_kernel_domain(params.test_params(N=1024, k=2, l=1, Bgbit=10))
 
 
-#: The shapes ``test_kernel_domains_refuse_by_name`` refused before C10, now
-#: taken: (params, kernel, the plan its launcher picks).
+#: The shapes ``test_kernel_domains_refuse_by_name`` refused before C10 and
+#: C11, now taken: (params, kernel, the plan its launcher picks).
 FORMERLY_REFUSED = {
     "K2 N=8192": (lambda: params.test_params(N=8192, k=1, l=2), "K2", (2, 1, 1, 1)),
     "K2 N=16": (lambda: params.test_params(N=16), "K2", (8, 4, 4, 1)),
@@ -405,6 +397,13 @@ FORMERLY_REFUSED = {
                          (1, 1, 3, 1)),
     "K2 245,840 bytes": (lambda: params.test_params(N=4096, k=4, l=1, Bgbit=7), "K2",
                          (1, 1, 3, 1)),
+    # C11: K3's stream tier, K2's staged tier and K2's limb sum bounded per pass
+    "K3 251,136 bytes": (lambda: params.test_params(N=4096, k=2, l=15, Bgbit=2), "K3",
+                         (1, True, 2)),
+    "K2 237,744 bytes": (lambda: params.test_params(N=16384, k=3, l=2, Bgbit=7), "K2",
+                         (1, 1, 1, 4)),
+    "K2 limb sum 2,147,483,648": (lambda: params.test_params(N=16384, k=1, l=4, Bgbit=8), "K2",
+                                  (1, 1, 1, 4)),
 }
 
 
@@ -413,17 +412,24 @@ def test_kernel_domains_take_the_formerly_refused_shapes(case):
     """ROADMAP C10: N = 8192 and N = 16 (K2), k = 5 (K2), K = 288 (K1, K3),
     and the shapes whose one sample overflowed a block at 240,384 (K3) and
     262,224 and 245,840 bytes (K2) are in the domains, at the plans the
-    launchers pick (the last entry the blocks a cluster)."""
+    launchers pick (the last entry the blocks a cluster); ROADMAP C11: so
+    are the shapes refused at 251,136 bytes (K3, now its stream tier),
+    237,744 bytes (K2, now its staged tier) and for a limb sum of
+    2,147,483,648 (K2, now one digit row a pass)."""
     make, kernel, plan = FORMERLY_REFUSED[case]
     p = make()
     tg = p.tgsw_params
     U, N = tg.tlwe_params.k + 1, tg.tlwe_params.N
     if kernel == "K2":
         blind_rotate_compact.check_kernel_domain(p)
-        got = blind_rotate_compact.kernel_plan(U, N, tg.kpl)
+        got = blind_rotate_compact.kernel_plan(U, N, tg.kpl, tg.halfBg)
         assert blind_rotate_compact.smem_bytes(
-            U, N, tg.kpl, *got, blind_rotate_compact.is_general(U, N, got)) <= \
+            U, N, tg.kpl, *got,
+            blind_rotate_compact.is_general(U, N, got, case == "K2 237,744 bytes"),
+            blind_rotate_compact.is_staged(U, N, tg.kpl, tg.halfBg)) <= \
             blind_rotate.SMEM_PER_BLOCK
+        assert blind_rotate_compact.is_staged(U, N, tg.kpl, tg.halfBg) == (
+            case == "K2 237,744 bytes")
     elif kernel == "K1":
         ctx = ntt.kernel_context_for_params(p, device="cpu")
         blind_rotate.check_kernel_domain(U, ctx, tg)
@@ -432,6 +438,8 @@ def test_kernel_domains_take_the_formerly_refused_shapes(case):
         ctx = ntt.context_for_params(p, device="cpu")
         blind_rotate_v1.check_kernel_domain(U, ctx, tg)
         got = blind_rotate.crt_mma_plan(U, ctx, tg, blind_rotate_v1.STAGE_BYTES)
+        assert (blind_rotate.crt_mma_stream(U, ctx, tg, blind_rotate_v1.STAGE_BYTES)
+                is not None) == (case == "K3 251,136 bytes")
     assert got == plan
 
 
@@ -554,7 +562,7 @@ def _check_domains(p, k1, k3, k2):
         blind_rotate.check_kernel_domain(U, kctx, tg)
         assert blind_rotate.crt_mma_plan(U, kctx, tg) == k1
     blind_rotate_compact.check_kernel_domain(p)
-    assert blind_rotate_compact.kernel_plan(U, N, tg.kpl) == k2
+    assert blind_rotate_compact.kernel_plan(U, N, tg.kpl, tg.halfBg) == k2
     assert blind_rotate_compact.smem_bytes(
         U, N, tg.kpl, *k2, blind_rotate_compact.is_general(U, N, k2)) <= \
         blind_rotate.SMEM_PER_BLOCK

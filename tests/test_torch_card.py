@@ -419,7 +419,7 @@ def _c10_plan(kernel, p):
     tg = p.tgsw_params
     U = tg.tlwe_params.k + 1
     if kernel == "K2":
-        return blind_rotate_compact.kernel_plan(U, tg.tlwe_params.N, tg.kpl)
+        return blind_rotate_compact.kernel_plan(U, tg.tlwe_params.N, tg.kpl, tg.halfBg)
     if kernel == "K1":
         return blind_rotate.crt_mma_plan(U, ntt.kernel_context_for_params(p, device="cpu"), tg)
     return blind_rotate.crt_mma_plan(U, ntt.context_for_params(p, device="cpu"), tg,
@@ -436,12 +436,17 @@ def test_kernels_match_plain_at_the_c10_shapes(case, kernel, B, cuda_device):
     shape that runs in a cluster does so CLUSTER_REPEATS times in a row with
     the same words; where K1 has no context (N >= 4096) the refusal is by
     name, as in the reference."""
-    p = C10_CASES[case]()
+    _check_shape(C10_CASES[case](), kernel, B, cuda_device)
+
+
+def _check_shape(p, kernel, B, device):
+    """``kernel`` at ``p`` against its plain version, one launch; a cluster
+    shape CLUSTER_REPEATS times more; K1's refusal by name at N >= 4096."""
     if kernel == "K1" and p.N >= 4096:
         with pytest.raises(ValueError, match=f"K1 .* has no context at N={p.N}"):
-            ntt.kernel_context_for_params(p, device=cuda_device)
+            ntt.kernel_context_for_params(p, device=device)
         return
-    module, run, plain = _shape_rotation(kernel, p, cuda_device, B)
+    module, run, plain = _shape_rotation(kernel, p, device, B)
     before = module.launches
     out = run()
     torch.cuda.synchronize()
@@ -452,34 +457,57 @@ def test_kernels_match_plain_at_the_c10_shapes(case, kernel, B, cuda_device):
             assert torch.equal(run(), out)
 
 
+#: ROADMAP C11: shapes up to N = 16384 that the card refused after C10 (n =
+#: 8): K2's limb sum bounded per pass, its staged tier, K3's and K1's stream
+#: tier.
+C11_CASES = {
+    "N16384_k2_l3_bg8": lambda: params.test_params(N=16384, k=2, l=3, Bgbit=8, n=8),
+    "N16384_k1_l4_bg8": lambda: params.test_params(N=16384, k=1, l=4, Bgbit=8, n=8),
+    "N8192_k2_l8_bg4": lambda: params.test_params(N=8192, k=2, l=8, Bgbit=4, n=8),
+    "N16384_k3_l2_bg7": lambda: params.test_params(N=16384, k=3, l=2, Bgbit=7, n=8),
+    "N16384_k2_l4_bg4": lambda: params.test_params(N=16384, k=2, l=4, Bgbit=4, n=8),
+    "N16384_k4_l4_bg8": lambda: params.test_params(N=16384, k=4, l=4, Bgbit=8, n=8),
+    "N4096_k2_l15_bg2": lambda: params.test_params(N=4096, k=2, l=15, Bgbit=2, n=8),
+    "N1024_k4_l32_bg1": lambda: params.test_params(N=1024, k=4, l=32, Bgbit=1, n=8),
+    "N2048_k4_l32_bg1": lambda: params.test_params(N=2048, k=4, l=32, Bgbit=1, n=8),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [7, 13])
+@pytest.mark.parametrize("kernel", ["K1", "K2", "K3"])
+@pytest.mark.parametrize("case", list(C11_CASES))
+def test_kernels_match_plain_at_the_c11_shapes(case, kernel, B, cuda_device):
+    """Each kernel takes the C11 shapes (all 8 steps; B = 13 a ragged last
+    block), bit for bit against its plain version, and a shape that runs in
+    a cluster does so CLUSTER_REPEATS times in a row with the same words;
+    where K1 has no context (N >= 4096) the refusal is by name."""
+    _check_shape(C11_CASES[case](), kernel, B, cuda_device)
+
+
 @pytest.mark.gpu
 def test_kernels_refuse_by_name_before_any_launch(cuda_device):
-    """Shapes outside the domains after C10 raise by name, before any
-    launch: a K2 sample past a cluster of 8 blocks, a K3 sample whose digits
-    and 1/8 of its spectra exceed a block, K1 where it has no context."""
-    big = params.test_params(N=16384, k=3, l=2, Bgbit=7, n=2)    # K2: J*N digits a block
-    rows, acc0, bara = _rotation_inputs(big, 3, 50, cuda_device)
-    key = blind_rotate_compact.prepare_compact_bk(rows, 4)
+    """Shapes outside the domains after C11 raise by name, before any
+    launch: K2 at halfBg > 128 (C1), the rows form where the reference's
+    rows scan asserts, K1 where it has no context."""
+    wide = params.test_params(N=1024, k=2, l=1, Bgbit=10, n=2)    # halfBg = 512
+    rows, acc0, bara = _rotation_inputs(wide, 3, 50, cuda_device)
     before = blind_rotate_compact.launches
-    with pytest.raises(ValueError, match="K2 .* needs 237,744 bytes of shared memory .* in a "
-                                         "cluster of 8 blocks"):
-        blind_rotate_compact.blind_rotate_compact(acc0, bara, key, big)
+    with pytest.raises(ValueError, match="halfBg = 512 > 128"):
+        blind_rotate_compact.blind_rotate_compact(acc0, bara, rows, wide)
     assert blind_rotate_compact.launches == before
     gen = torch.Generator(device=cuda_device).manual_seed(51)
+    ks = keys.new_random_gate_bootstrapping_secret_keyset(gen, wide)
+    with pytest.raises(ValueError, match="halfBg = 512 > 128"):
+        bootstrap.prepare_eval_key_fused(ks.cloud, wide)
+    big = params.test_params(N=16384, k=2, l=3, Bgbit=8, n=2)     # J*N*halfBg*128 >= 2^31
     ks = keys.new_random_gate_bootstrapping_secret_keyset(gen, big)
-    with pytest.raises(ValueError, match="K2 .* needs 237,744 bytes"):
-        bootstrap.prepare_eval_key_fused(ks.cloud, big)
+    with pytest.raises(ValueError, match="rows eval-key form's int32 sum reaches 2,415,919,104"):
+        bootstrap.prepare_eval_key(ks.cloud, big)
+    assert bootstrap.prepare_eval_key_fused(ks.cloud, big).form == "compact"
     with pytest.raises(ValueError, match="K1 .* has no context at N=16384"):
         bootstrap.prepare_eval_key_ntt(ks.cloud, big)
-    wide = params.test_params(N=4096, k=2, l=15, Bgbit=2, n=2)    # K = 360 at F = 512
-    ks = keys.new_random_gate_bootstrapping_secret_keyset(gen, wide)
-    before = blind_rotate_v1.launches
-    with pytest.raises(ValueError, match="K3 .* needs 251,136 bytes of shared memory .* in a "
-                                         "cluster of 8 blocks"):
-        bootstrap.prepare_eval_key_ntt(ks.cloud, wide, kernel=False)
-    with pytest.raises(ValueError, match="K1 .* has no context at N=4096"):
-        bootstrap.prepare_eval_key_ntt(ks.cloud, wide)
-    assert blind_rotate_v1.launches == before
+    assert blind_rotate_compact.launches == before
 
 
 @pytest.mark.gpu

@@ -19,6 +19,7 @@ import torch
 from eoc_tfhe_tpu.core import bootstrap as jboot
 from eoc_tfhe_tpu.core import params as jparams
 from eoc_tfhe_tpu.ops import ntt as jntt
+from eoc_tfhe_tpu.ops import pallas_blindrot as jpb
 
 from eoc_tfhe_tpu_torch.core.numeric import wrap32
 from eoc_tfhe_tpu_torch.ops import blind_rotate, blind_rotate_compact, blind_rotate_v1, ntt, rotate
@@ -551,7 +552,7 @@ def test_k2_emulation_matches_reference_at_the_c8_shapes(case):
          "N2048_k3_l3": lambda: jparams.test_params(N=2048, k=3, l=3, Bgbit=7)}[case]()
     tg = p.tgsw_params
     U, N = tg.tlwe_params.k + 1, tg.tlwe_params.N
-    rows_a_pass = blind_rotate_compact.kernel_plan(U, N, tg.kpl)[2]
+    rows_a_pass = blind_rotate_compact.kernel_plan(U, N, tg.kpl, tg.halfBg)[2]
     assert rows_a_pass == {"N4096_k1_l3": 6, "N1024_k3_l5": 10, "N512_k4_l3": 15,
                            "N2048_k3_l3": 7}[case]
     rows, acc0, bara = _inputs(p, 2, 2, seed=27)
@@ -611,18 +612,7 @@ def emulate_k3_cluster_step(acc, key8_step, bara_i, ctx, params, cluster):
             if Kp > 128:
                 c1 = ntt.balanced_mod(c1, p)
             chats.append(ntt.balanced_mod(_int32_sum(c0 + 256 * c1 + c16 * c2), p))   # (B, Mp, Fc)
-        out = torch.empty((B, chats[0].shape[1], F), dtype=torch.int64)
-        for c in range(cluster):                              # block c: columns ts
-            ts = slice(c * Fc, (c + 1) * Fc)
-            tiles = [chats[32 * kt // Fc][..., 32 * kt % Fc:32 * kt % Fc + 32]
-                     for kt in range(F // 32)]               # k32 tile kt from its owner
-            clo, chi = (x.to(torch.int8) for x in ntt.split_bytes(torch.cat(tiles, dim=-1)))
-            eq = "bmf,ft->bmt"
-            c0 = _int32_sum(_mma(clo, Vp[0, :, ts], eq) + _mma(chi, Vp[2, :, ts], eq))
-            c1 = ntt.balanced_mod(
-                _int32_sum(_mma(clo, Vp[1, :, ts], eq) + _mma(chi, Vp[3, :, ts], eq)), p)
-            out[..., ts] = ntt.balanced_mod(_int32_sum(c0 + 256 * c1), p)
-        res.append(out[:, :M])
+        res.append(_cluster_inverse(chats, Vp, F, cluster, p)[:, :M])
     p0, p1 = ctx.primes
     q = ntt.balanced_mod(_int32_sum((res[1] - res[0]) * ctx.crt_inv), p1)
     V = _int32_sum(res[0] + q * p0).reshape(B, L, U, R, F)
@@ -734,7 +724,7 @@ def test_k2_cluster_emulation_matches_reference_scan():
     p = jparams.test_params(N=8192, k=5, l=1, Bgbit=7)
     tg = p.tgsw_params
     U, N = tg.tlwe_params.k + 1, tg.tlwe_params.N
-    plan = blind_rotate_compact.kernel_plan(U, N, tg.kpl)
+    plan = blind_rotate_compact.kernel_plan(U, N, tg.kpl, tg.halfBg)
     assert plan == (1, 1, 1, 2)
     rows, acc0, bara = _inputs(p, 2, 2, seed=29)
     with fast_reference_matrices():
@@ -748,3 +738,214 @@ def test_k2_cluster_emulation_matches_reference_scan():
             acc = emulate_k2_cluster_step(acc, key[i], torch.from_numpy(bara[i]), p, cluster,
                                           plan[2])
         np.testing.assert_array_equal(acc.numpy(), want)
+
+
+# --- C11: K3's and K1's stream tier, K2's staged tier ----------------------------
+
+def emulate_k3_stream_step(acc, key8_step, bara_i, ctx, params, cluster, fs):
+    """One CMux step of the stream tier (``rotate_kernel_stream`` in
+    ``crt_ntt_mma.cuh``), block by block, one sample a cluster, at the plan
+    (``cluster`` blocks, ``fs`` frequencies a sub-chunk) given.  The digits
+    are the whole sample's, once a step; each block walks its Fc = F/cluster
+    frequencies in sub-chunks of fs: the forward of every k row at those
+    frequencies as int32 sums carried across the k32 slabs of t, asserted
+    inside int32 after every slab (C1 reduced before its product by 256),
+    then the pointwise product over the whole Kp of each frequency at once
+    (C2 reduced, and C1 at Kp > 128), giving that sub-chunk's chat.  The
+    inverse reads k32 tile kt of chat from the block that owns it, as in
+    the cluster instantiation."""
+    tg = params.tgsw_params
+    B, U, N = acc.shape
+    R, F, L = ctx.R, ctx.F, ctx.key_limbs
+    K, M = tg.kpl * R, L * U * R
+    Kp, Fc = ntt.pad16(K), F // cluster
+    keyp = _key_planes(_v1_loader(key8_step, K, M))           # (2, P, F, Kp, Mp)
+    dig = _digits(acc, bara_i, tg)
+    dig = dig.reshape(B, -1, F, R).transpose(-1, -2).reshape(B, -1, F)
+    dig = torch.nn.functional.pad(dig, (0, 0, 0, Kp - dig.shape[1]))   # (B, Kp, t)
+    dplanes = ([dig.to(torch.int8)] if tg.halfBg <= 128
+               else [x.to(torch.int8) for x in ntt.split_bytes(dig)])
+    res = []
+    for pi, p in enumerate(ctx.primes):
+        c16 = int(ntt.balanced_mod(torch.tensor(1 << 16), p))
+        Wp = _b_planes(ctx.W_mma[pi])[:, :F, :F]              # (4, t, f)
+        Vp = _b_planes(ctx.Winv_mma[pi])[:, :F, :F]           # (4, f, t)
+        chats = []
+        for c in range(cluster):
+            chat = torch.empty((B, ntt.pad16(M), Fc), dtype=torch.int64)
+            for f0 in range(c * Fc, (c + 1) * Fc, fs):        # a sub-chunk
+                sub = slice(f0, f0 + fs)
+                c0 = c1 = 0
+                for kt in range(F // 32):                     # slab kt: t in [32 kt, 32 kt + 32)
+                    ts = slice(32 * kt, 32 * kt + 32)
+                    c0 = c0 + _mma(dplanes[0][..., ts], Wp[0, ts, sub], "bkt,tf->bkf")
+                    c1 = c1 + _mma(dplanes[0][..., ts], Wp[1, ts, sub], "bkt,tf->bkf")
+                    if len(dplanes) == 2:
+                        c0 = c0 + _mma(dplanes[1][..., ts], Wp[2, ts, sub], "bkt,tf->bkf")
+                        c1 = c1 + _mma(dplanes[1][..., ts], Wp[3, ts, sub], "bkt,tf->bkf")
+                    _int32_sum(c0), _int32_sum(c1)            # the registers across slabs
+                dhat = ntt.balanced_mod(_int32_sum(c0 + 256 * ntt.balanced_mod(c1, p)), p)
+                lo, hi = (x.to(torch.int8) for x in ntt.split_bytes(dhat))   # (B, Kp, fs)
+                Alo, Ahi = keyp[0, pi, sub], keyp[1, pi, sub]
+                eq = "bkf,fkm->bmf"
+                d0 = _int32_sum(_mma(lo, Alo, eq))
+                d1 = _int32_sum(_mma(hi, Alo, eq) + _mma(lo, Ahi, eq))
+                d2 = ntt.balanced_mod(_int32_sum(_mma(hi, Ahi, eq)), p)
+                if Kp > 128:
+                    d1 = ntt.balanced_mod(d1, p)
+                chat[..., f0 - c * Fc:f0 - c * Fc + fs] = ntt.balanced_mod(
+                    _int32_sum(d0 + 256 * d1 + c16 * d2), p)
+            chats.append(chat)
+        res.append(_cluster_inverse(chats, Vp, F, cluster, p)[:, :M])
+    p0, p1 = ctx.primes
+    q = ntt.balanced_mod(_int32_sum((res[1] - res[0]) * ctx.crt_inv), p1)
+    V = _int32_sum(res[0] + q * p0).reshape(B, L, U, R, F)
+    upd = sum((V[:, li] << (ctx.key_round_bits + ctx.key_limb_bits * li)) for li in range(L))
+    return wrap32(acc.to(torch.int64) + upd.transpose(-1, -2).reshape(B, U, N))
+
+
+def _cluster_inverse(chats, Vp, F, cluster, p):
+    """The cluster inverse: block c's columns t contract over every f, k32
+    tile kt of chat read from the block that owns frequencies [32 kt, 32 kt
+    + 32), C1 reduced first."""
+    Fc = F // cluster
+    out = torch.empty((chats[0].shape[0], chats[0].shape[1], F), dtype=torch.int64)
+    tiles = [chats[32 * kt // Fc][..., 32 * kt % Fc:32 * kt % Fc + 32] for kt in range(F // 32)]
+    clo, chi = (x.to(torch.int8) for x in ntt.split_bytes(torch.cat(tiles, dim=-1)))
+    for c in range(cluster):
+        ts = slice(c * Fc, (c + 1) * Fc)
+        eq = "bmf,ft->bmt"
+        c0 = _int32_sum(_mma(clo, Vp[0, :, ts], eq) + _mma(chi, Vp[2, :, ts], eq))
+        c1 = ntt.balanced_mod(
+            _int32_sum(_mma(clo, Vp[1, :, ts], eq) + _mma(chi, Vp[3, :, ts], eq)), p)
+        out[..., ts] = ntt.balanced_mod(_int32_sum(c0 + 256 * c1), p)
+    return out
+
+
+@pytest.mark.parametrize("cluster,fs", [(1, 16), (2, 8), (4, 16)])
+def test_k3_stream_emulation_matches_reference_scan(cluster, fs):
+    """ROADMAP C11: the stream tier's dataflow at N = 1024 (F = 128, four
+    k32 slabs) with K = 160, split over 1, 2 and 4 blocks and walked in
+    sub-chunks of 8 or 16 frequencies, gives the reference's scan bit for
+    bit with every MMA sum inside int32 (the plan is an argument: at this
+    shape the launcher takes the general instantiation)."""
+    p = jparams.test_params(N=1024, k=3, l=5, Bgbit=5)
+    tg = p.tgsw_params
+    rows, acc0, bara = _inputs(p, 2, 2, seed=30)
+    sctx = jntt.context_for_params(p)
+    want = np.asarray(jntt.blind_rotate_ntt(
+        jnp.asarray(acc0), jnp.asarray(bara), jntt.prepare_key_ntt_np(rows, sctx), p, sctx))
+    ctx = ntt.context_for_params(p, device="cpu")
+    key8 = ntt.prepare_key_ntt(torch.from_numpy(rows), ctx)
+    acc = torch.from_numpy(acc0)
+    for i in range(2):
+        acc = emulate_k3_stream_step(acc, key8[i], torch.from_numpy(bara[i]), ctx, p,
+                                     cluster, fs)
+    np.testing.assert_array_equal(acc.numpy(), want)
+
+
+@pytest.mark.parametrize("DL", [1, 2])
+def test_stream_slabs_give_the_digit_fragments(DL):
+    """The stream tier's digit path, byte for byte: ``digit_pass_stream``
+    writes digit (plane q, row k, column t) at byte ((t/32 DL + q) Kp + k) 32
+    + t%32 of the scratch; ``forward_stream`` copies slab kt with the 16-byte
+    halves of row r swapped where bit 2 of r is set, and lane (g, tig) reads
+    its A words of m-tile mt at rows r0 = q Kp + 16 mt + g and r0 + 8, bytes
+    4 tig and 16 + 4 tig through the swap.  The words read are the digit
+    matrix's m16n8k32 fragments, and each of the four loads of a warp hits 32
+    distinct banks."""
+    Kp, FP = 48, 128
+    rng = np.random.default_rng(31 + DL)
+    dig = torch.from_numpy(rng.integers(-128, 128, (DL, Kp, FP)).astype(np.int8))
+    q, k, t = (x.reshape(-1) for x in torch.meshgrid(
+        torch.arange(DL), torch.arange(Kp), torch.arange(FP), indexing="ij"))
+    scratch = torch.zeros(DL * Kp * FP, dtype=torch.int8)
+    scratch[((t // 32 * DL + q) * Kp + k) * 32 + t % 32] = dig.reshape(-1)
+    lane = torch.arange(32)
+    g, tig = lane >> 2, lane & 3
+    for kt in range(FP // 32):
+        src = scratch[kt * DL * Kp * 32:(kt + 1) * DL * Kp * 32].reshape(-1, 16)   # 16-byte words
+        x = torch.arange(src.shape[0])
+        row = x >> 1
+        slab = torch.empty_like(src)
+        slab[2 * row + ((x & 1) ^ ((row >> 2) & 1))] = src
+        slab = slab.reshape(-1)
+        for qq in range(DL):
+            for mt in range(Kp // 16):
+                r0 = qq * Kp + mt * 16 + g
+                sw = ((r0 >> 2) & 1) * 16
+                base = r0 * 32 + 4 * tig
+                offsets = [base + sw, base + 8 * 32 + sw, base + (16 ^ sw),
+                           base + 8 * 32 + (16 ^ sw)]
+                tile = dig[qq, mt * 16:mt * 16 + 16, 32 * kt:32 * kt + 32]
+                want = [tile[g[:, None], 4 * tig[:, None] + torch.arange(4)],
+                        tile[g[:, None] + 8, 4 * tig[:, None] + torch.arange(4)],
+                        tile[g[:, None], 16 + 4 * tig[:, None] + torch.arange(4)],
+                        tile[g[:, None] + 8, 16 + 4 * tig[:, None] + torch.arange(4)]]
+                for off, w in zip(offsets, want):
+                    assert torch.equal(slab[off[:, None] + torch.arange(4)], w)
+                    assert ((off // 4) % 32).unique().numel() == 32
+
+
+def emulate_k2_staged_step(acc, key_step, bara_i, params, cluster, rows):
+    """One CMux step of K2's staged tier, block by block: block c owns
+    outputs [c Ns, (c+1) Ns) (Ns = N/cluster); the ``rows`` digit rows of
+    each share are computed from the step's accumulators (acc is not
+    touched until the commit), and each limb pass adds its int32 sums over
+    the share's rows and all N coefficients (asserted inside int32) into
+    the block's update buffer; after the last share the buffer is added
+    into acc (mod 2^32)."""
+    tg = params.tgsw_params
+    B, U, N = acc.shape
+    J, Ns = tg.kpl, N // cluster
+    pos, neg = _byte_limbs(key_step), _byte_limbs(-key_step.to(torch.int64))   # (4, J, U, N)
+    rev = torch.cat([pos.flip(-1), neg.flip(-1)], dim=-1).to(torch.float64)     # (4, J, U, 2N)
+    size = 1 << (N + Ns - 1).bit_length()
+    upd = torch.zeros((B, U, N), dtype=torch.int64)
+    for j0 in range(0, J, rows):
+        share = _digits(acc, bara_i, tg)[:, j0:j0 + rows].to(torch.float64)   # from acc
+        dhat = torch.fft.rfft(share, size).conj()[:, None, :, None]
+        for c in range(cluster):
+            y0 = N - c * Ns - Ns
+            win = rev[:, j0:j0 + rows, :, y0:y0 + N + Ns]
+            corr = torch.fft.irfft(torch.fft.rfft(win, size)[None] * dhat, size)[..., :Ns]
+            assert float((corr - corr.round()).abs().max()) < 0.25
+            s = corr.round().to(torch.int64).flip(-1).sum(2)         # (B, 4, U, Ns)
+            for t in range(4):                                       # a limb pass
+                upd[..., c * Ns:(c + 1) * Ns] = wrap32(
+                    upd[..., c * Ns:(c + 1) * Ns] + (_int32_sum(s[:, t]) << (8 * t)))
+    return wrap32(acc.to(torch.int64) + upd)
+
+
+@pytest.mark.parametrize("cluster,rows", [(1, 2), (2, 3), (4, 1)])
+def test_k2_staged_emulation_matches_reference_scan(cluster, rows):
+    """ROADMAP C11: K2's staged tier at N = 1024 k = 2 l = 4 (J = 12) over 1,
+    2 and 4 blocks and shares of 2, 3 and 1 digit rows (the plan is an
+    argument: at this shape the launcher takes an instantiation) gives the
+    reference's exact scan bit for bit, each pass's limb sums inside int32."""
+    p = jparams.test_params(N=1024, k=2, l=4, Bgbit=6)
+    rows_, acc0, bara = _inputs(p, 2, 2, seed=32)
+    sctx = jntt.context_for_params(p)
+    want = np.asarray(jntt.blind_rotate_ntt(
+        jnp.asarray(acc0), jnp.asarray(bara), jntt.prepare_key_ntt_np(rows_, sctx), p, sctx))
+    key = blind_rotate_compact.prepare_compact_bk(torch.from_numpy(rows_))
+    acc = torch.from_numpy(acc0)
+    for i in range(2):
+        acc = emulate_k2_staged_step(acc, key[i], torch.from_numpy(bara[i]), p, cluster, rows)
+    np.testing.assert_array_equal(acc.numpy(), want)
+
+
+def test_k2_pass_bound_is_the_reference_chunk_rule():
+    """K2 bounds the limb sum per pass, as the reference's fused kernel
+    bounds it per chunk (J C halfBg 128 < 2^31 with C = min(128, N),
+    ``pallas_blindrot.py:135``): where the whole ring's sum reaches 2^31
+    (N = 16384 k = 2 l = 3 Bgbit = 8: 2,415,919,104) the chunk rule holds,
+    and the plan takes at most ``max_rows`` = 7 digit rows a pass."""
+    p = jparams.test_params(N=16384, k=2, l=3, Bgbit=8)
+    tg = p.tgsw_params
+    J, N = tg.kpl, tg.tlwe_params.N
+    assert J * N * tg.halfBg * 128 == 2_415_919_104
+    assert J * jpb.chunk_size_for(N) * tg.halfBg * 128 < I32
+    assert blind_rotate_compact.max_rows(N, tg.halfBg) == 7
+    plan = blind_rotate_compact.kernel_plan(3, N, J, tg.halfBg)
+    assert plan[2] <= 7 and plan[2] * N * tg.halfBg * 128 < I32
