@@ -33,9 +33,12 @@ Phases, in order; any failure exits non-zero:
      with the exact and the rounded (limbs=3) stored key, at the C5
      shapes (B=7), and at the C7, C8 and C10 shapes whose digits are int8
      (N=4096 k=1 l=3, N=8192 and 16384 k=1 l=3, N=8192 k=5 l=1 among them;
-     B=7 and B=C7_RAGGED), and at the C11 shapes (K2's limb sum bounded per
-     pass and its staged tier), each shape that runs in a cluster
-     CLUSTER_REPEATS times more with the same words;
+     B=7 and B=C7_RAGGED), at the C11 shapes (K2's limb sum bounded per
+     pass and its staged tier), and at the ROADMAP C12 shapes (N=32768 k=1
+     to 4 and N=65536 k=1 and 2 at l=3 Bgbit=8, and the rows form's exact
+     key at N=32768 k=2 l=3 Bgbit=3: K2's staged tier at N=32768 k=1, its
+     global tier at the others), each shape that runs in a cluster or the
+     global tier CLUSTER_REPEATS times more with the same words;
   7. the circuit path: ``FrameworkConfig(eval_key_form="fused")`` over phase
      4's keyset, 8-bit ripple add and subtract (mode fast) over B=CIRCUIT_BATCH
      random byte pairs and the classic add over B=CLASSIC_BATCH, every output
@@ -140,7 +143,13 @@ Phases, in order; any failure exits non-zero:
      and at two ROADMAP C11 shapes: N=16384 k=2 l=3 Bgbit=8 (B=16) over the
      compact key (K2, one digit row a pass: the whole ring's limb sum
      reaches 2^31) and N=8192 k=2 l=8 Bgbit=4 (B=64) over the "ntt_scan"
-     (K3's stream tier) and compact (K2's staged tier) keys.
+     (K3's stream tier) and compact (K2's staged tier) keys; and at two
+     ROADMAP C12 shapes over the compact key (B=C12_BATCH): N=32768 k=1 l=3
+     Bgbit=8 (K2's staged tier in a cluster of 8) and N=32768 k=2 l=4
+     Bgbit=8 (K2's global tier; at k=2 l=3 the rail refuses every Bgbit <= 8
+     at n=630), the bound from the plain version's three-prime plan; and a
+     NAND at N=65536 k=1 l=4 Bgbit=8 over K2's global tier at n=C7_STEPS,
+     keys made on the card, decrypted and checked.
 The three kernels are printed as one ``{"kernels": [...]}`` line.  The last
 line is {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
@@ -184,6 +193,13 @@ CLUSTER_REPEATS = 20
 #: 64 of 2 at N = 8192), since a NAND there takes the time of a wave.
 C10_BATCH = {(8192, 1): 256, (16384, 1): 64, (4096, 2): 256}
 C11_BATCH = {(16384, 2): 16, (8192, 2): 64}
+#: Phase 20's batch at the ROADMAP C12 shapes, each one wave and cut for the
+#: run's time: 12 clusters of 8 blocks in K2's staged tier at k = 1 (16 of
+#: them took two waves: the card holds fewer clusters of 8 at once), and 2
+#: groups of 8 samples in its global tier at k = 2 (48 blocks of 4096
+#: outputs of one polynomial; a wave's time whatever the groups, while the
+#: plain version's grows with B).
+C12_BATCH = {(32768, 1): 12, (32768, 2): 16}
 #: The served path: client threads, and the chunk timed beside the default.
 CLIENTS = 8
 WIDE_CHUNK = 2048
@@ -260,6 +276,20 @@ def c11_params(params):
                  for N, k, l, bg in ((16384, 2, 3, 8), (16384, 1, 4, 8), (8192, 2, 8, 4),
                                      (16384, 3, 2, 7), (16384, 2, 4, 4), (16384, 4, 4, 8),
                                      (4096, 2, 15, 2), (1024, 4, 32, 1), (2048, 4, 32, 1)))
+
+
+def c12_params(params):
+    """The shapes of ROADMAP C12 (n = C7_STEPS) for K2: N = 32768 at k = 1
+    (its staged tier in a cluster of 8) and k = 2, 3, 4, and N = 65536 at k
+    = 1 and 2 (its global tier), l = 3 Bgbit = 8; and the rows form's exact
+    key at N = 32768 k = 2 l = 3 Bgbit = 3, where the reference's rows scan
+    takes the shape (J N halfBg 128 < 2^31)."""
+    return (*((f"C12 N={N} k={k} l=3 Bgbit=8", params.test_params(N=N, k=k, l=3, Bgbit=8,
+                                                                   n=C7_STEPS))
+              for N, k in ((32768, 1), (32768, 2), (32768, 3), (32768, 4), (65536, 1),
+                           (65536, 2))),
+            ("C12 rows form N=32768 k=2 l=3 Bgbit=3",
+             params.test_params(N=32768, k=2, l=3, Bgbit=3, n=C7_STEPS)))
 
 
 def repeat_equal(run, out, label: str) -> None:
@@ -366,7 +396,9 @@ def compact_bound(B: int, n: int, key: torch.Tensor, ctx, params) -> tuple[float
     dataflow the repo has.  Operations: :func:`ntt_macs` per sample and step,
     plus the stored key's forward transform into the NTT domain once per step,
     shared by the batch (P*L*kpl*U*R*F*F MACs with 2x2 limbs; ``ctx`` gives
-    the plan).  Bytes: the stored key, acc0, bara and the output, each moved
+    the plan: K1's, or from N = 4096 the plain version's, whose three-prime
+    ``ntt.wide_context`` from N = 32768 on is the repo's only exact plan
+    there).  Bytes: the stored key, acc0, bara and the output, each moved
     once.
     """
     U, J = params.k + 1, params.tgsw_params.kpl
@@ -1324,8 +1356,9 @@ def noise_budget_bgbit(params, N: int, k: int, l: int, bg: int, n: int) -> int:
 
 def wide_shapes_smoke(gen: torch.Generator, smi: str) -> None:
     """Phase 20: one NAND at full depth at two ROADMAP C7 shapes, two C8
-    shapes, three C10 shapes and two C11 shapes, each through the kernel of
-    its eval-key form, with that kernel timed at its inputs."""
+    shapes, three C10 shapes, two C11 shapes and two C12 shapes, each through
+    the kernel of its eval-key form, with that kernel timed at its inputs;
+    and a NAND at N = 65536 over K2's global tier at C7_STEPS steps."""
     from eoc_tfhe_tpu_torch.core import bootstrap, gates, keys, params
     from eoc_tfhe_tpu_torch.core.numeric import mod_switch_to_torus32_np
     from eoc_tfhe_tpu_torch.ops import blind_rotate, blind_rotate_compact, blind_rotate_v1, ntt
@@ -1342,8 +1375,11 @@ def wide_shapes_smoke(gen: torch.Generator, smi: str) -> None:
             ("C10", (16384, 1, 3, 7), ("ntt_scan", "compact")),   # F = 2048: both in a cluster
             ("C10", (4096, 2, 6, 4), ("ntt_scan",)),              # Kp = 144 at F = 512
             ("C11", (16384, 2, 3, 8), ("compact",)),              # K2: one digit row a pass
-            ("C11", (8192, 2, 8, 4), ("ntt_scan", "compact"))):   # K3 stream, K2 staged
-        B = {**C10_BATCH, **C11_BATCH}.get((N, k), C7_BATCH)
+            ("C11", (8192, 2, 8, 4), ("ntt_scan", "compact")),    # K3 stream, K2 staged
+            ("C12", (32768, 1, 3, 8), ("compact",)),              # K2's staged tier
+            # K2's global tier; l = 4: at k = 2 l = 3 the rail takes no Bgbit <= 8
+            ("C12", (32768, 2, 4, 8), ("compact",))):
+        B = {**C10_BATCH, **C11_BATCH, **C12_BATCH}.get((N, k), C7_BATCH)
         nb = noise_budget_bgbit(params, N, k, l, bg, 630)      # the gate's rail takes the shape
         if nb != bg:
             print(f"{fault} N={N} k={k} l={l}: the noise budget refuses Bgbit={bg} at n=630; "
@@ -1371,10 +1407,12 @@ def wide_shapes_smoke(gen: torch.Generator, smi: str) -> None:
                                                          p.tgsw_params.halfBg)
                 staged = blind_rotate_compact.is_staged(k + 1, N, p.tgsw_params.kpl,
                                                         p.tgsw_params.halfBg)
+                in_memory = blind_rotate_compact.is_global(k + 1, N, p.tgsw_params.kpl,
+                                                           p.tgsw_params.halfBg)
                 plan = ("{} samples a block, {} key limb(s) and {} digit rows a pass, {} block(s)"
                         " a cluster".format(*plan6)
-                        + (", general kernel" if blind_rotate_compact.is_general(
-                            k + 1, N, plan6, staged) else "")
+                        + (", global tier" if in_memory else ", general kernel"
+                           if blind_rotate_compact.is_general(k + 1, N, plan6, staged) else "")
                         + (", staged tier" if staged else ""))
             else:
                 ek = bootstrap.prepare_eval_key_ntt(ks.cloud, p, kernel=form == "ntt_kernel")
@@ -1413,8 +1451,8 @@ def wide_shapes_smoke(gen: torch.Generator, smi: str) -> None:
             p_ms, p_out = cuda_ms(plain, 1)
             err = int((k_out.to(torch.int64) - p_out.to(torch.int64)).abs().max())
             check(err == 0, f"{name} differs from plain at {shape} (max {err})")
-            if form == "compact":      # K1's plan where it has one (N <= 2048), else K3's
-                bctx = (ntt.context_for_params(p, device=dev) if N >= 4096
+            if form == "compact":      # K1's plan up to N = 2048, then the plain version's
+                bctx = (blind_rotate_compact.plain_context(p, device=dev) if N >= 4096
                         else ntt.kernel_context_for_params(p, device=dev))
                 b_ms, b_by = compact_bound(B, p.n, key, bctx, p)
             else:
@@ -1426,6 +1464,29 @@ def wide_shapes_smoke(gen: torch.Generator, smi: str) -> None:
             del ek, key, k_out, p_out, out
             torch.cuda.empty_cache()
         del ks
+    # ROADMAP C12 at N = 65536: a NAND through K2's global tier at C7_STEPS
+    # steps, as the card test test_c12_nand_at_n65536_runs_through_the_global_tier
+    # (phase 6 holds the kernel against plain at N = 65536)
+    p = params.test_params(N=65536, k=1, l=4, Bgbit=8, n=C7_STEPS)
+    ks = keys.new_random_gate_bootstrapping_secret_keyset(gen, p, device=dev)
+    ek = bootstrap.prepare_eval_key_fused(ks.cloud, p)
+    B = C7_RAGGED
+    a = torch.randint(0, 2, (B,), generator=gen, device=dev).bool()
+    b = torch.randint(0, 2, (B,), generator=gen, device=dev).bool()
+    ca = gates.encrypt_bit(gen, a, ks.lwe_key, p)
+    cb = gates.encrypt_bit(gen, b, ks.lwe_key, p)
+    for m in modules.values():
+        m.launches = 0
+    nand_ms, out = cuda_ms(lambda: gates.nand(ca, cb, ek, p), 1)
+    n_wrong = int((gates.decrypt_bit(out, ks.lwe_key) != ~(a & b)).sum())
+    launches = {nm: m.launches for nm, m in modules.items()}
+    check(n_wrong == 0, f"C12 N=65536 NAND: {n_wrong} of {B} outputs decrypt wrong")
+    check(launches == {nm: int(nm == "blind_rotate_compact") for nm in modules},
+          f"C12 N=65536 NAND: launches {launches}")
+    print(f"C12 N=65536 k=1 l=4 Bgbit=8 n={p.n} ({smi}): nand B={B} {nand_ms:.2f} ms/call "
+          f"(global tier), {B} of {B} decrypt correctly, launches {launches}", flush=True)
+    del ks, ek, out
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -1436,6 +1497,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
+    run_t0 = time.perf_counter()
     from eoc_tfhe_tpu_torch.circuits import adder
     from eoc_tfhe_tpu_torch.config import FrameworkConfig
     from eoc_tfhe_tpu_torch.core import bootstrap, gates, keys, lwe, params
@@ -1591,15 +1653,19 @@ def main() -> int:
     del kout, pout
 
     # 6. compact-key kernel against plain on the card
+    phase_t0 = time.perf_counter()
     for label, pc, B6, limbs in (("test_params", params.test_params(), 63, 4),
                                  ("128-bit", params.default_128bit_params(), 4, 4),
                                  ("128-bit rounded", params.default_128bit_params(), 4, 3),
                                  *((lb, pc, C5_BATCH, 4) for lb, pc in c5_params(params)),
                                  *((lb, pc, Bc, 4)
                                    for lb, pc in (*c7_params(params), *c8_params(params),
-                                                  *c10_params(params), *c11_params(params))
+                                                  *c10_params(params), *c11_params(params),
+                                                  *c12_params(params))
                                    for Bc in (C5_BATCH, C7_RAGGED)
                                    if pc.tgsw_params.halfBg <= 128)):
+        if "rows form" in label:        # the reference's rows scan takes the shape
+            blind_rotate_compact.check_rows_domain(pc)
         rows, acc6, bara6 = random_rotation_inputs(gen, pc, pc.n, B6, dev)
         key6 = blind_rotate_compact.prepare_compact_bk(rows, limbs)
         run6 = lambda: blind_rotate_compact.blind_rotate_compact(acc6, bara6, key6, pc)  # noqa: E731
@@ -1612,16 +1678,20 @@ def main() -> int:
         samples, lp, jp, cluster = plan6
         staged = blind_rotate_compact.is_staged(pc.k + 1, pc.N, pc.tgsw_params.kpl,
                                                 pc.tgsw_params.halfBg)
-        if cluster > 1:
+        in_memory = blind_rotate_compact.is_global(pc.k + 1, pc.N, pc.tgsw_params.kpl,
+                                                   pc.tgsw_params.halfBg)
+        if cluster > 1 or in_memory:
             repeat_equal(run6, out6, f"blind_rotate_compact at {label}")
         general = blind_rotate_compact.is_general(pc.k + 1, pc.N, plan6, staged)
         print(f"compact kernel == plain at {label}: B={B6}, n={pc.n}, limbs={limbs}, "
               f"{samples} samples a block, {lp} key limb(s) and {jp} of {pc.tgsw_params.kpl} "
               f"digit rows a pass, {cluster} block(s) a cluster"
-              f"{' (general kernel)' if general else ''}{', staged tier' if staged else ''}"
-              f"{f', {CLUSTER_REPEATS} repeats equal' if cluster > 1 else ''}, bit-identical",
-              flush=True)
+              + (" (global tier)" if in_memory else " (general kernel)" if general else "")
+              + f"{', staged tier' if staged else ''}"
+              f"{f', {CLUSTER_REPEATS} repeats equal' if cluster > 1 or in_memory else ''}, "
+              "bit-identical", flush=True)
         del rows, key6, out6, plain6
+    print(f"phase 6: {time.perf_counter() - phase_t0:.1f} s", flush=True)
 
     # 7. the circuit path: 8-bit add and subtract over the compact key
     api = FrameworkConfig(param_set="128", eval_key_form="fused").make_gate_api(ks, p)
@@ -1845,7 +1915,10 @@ def main() -> int:
     # 20. full-depth NANDs at the ROADMAP C7 and C8 shapes
     del ks
     torch.cuda.empty_cache()
+    phase_t0 = time.perf_counter()
     wide_shapes_smoke(gen, smi)
+    print(f"phase 20: {time.perf_counter() - phase_t0:.1f} s; run_s: "
+          f"{time.perf_counter() - run_t0:.1f}", flush=True)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -111,6 +111,33 @@
 // Nothing in it grows with J but the number of passes, so every shape up to
 // N = 16384 with l*Bgbit <= 32 and halfBg <= 128 is taken.
 //
+// The global tier (ROADMAP C12) replaces the refusal of every shape whose
+// sample's share of the accumulators (and the staged tier's update buffer)
+// outgrows a block of a cluster of 8 (N = 32768 at k >= 2: 241,824 bytes a
+// block at k = 2; every k at N = 65536), and of the shapes whose limb sum
+// over one digit row and the whole ring reaches 2^31 (N >= 131072 at halfBg
+// = 128); it is taken only where no plan above fits, so every shape up to N
+// = 16384 keeps its plan. The accumulators live in device memory: the
+// output, (B, U, N) int32, copied from acc0 and updated in place. Each step
+// is two launches on the stream: compact_global_digits writes the step's
+// digits of every sample once to the device scratch (B, J, N) int8, then
+// blind_rotate_compact_global gives each block 8 samples (the MMA's
+// columns) and a tile of kGlobalTile output coefficients of one polynomial
+// (one walk of 32 tiles a warp, the general kernel's walk). The block
+// streams the contraction through shared memory a pass at a time: jp digit
+// rows of a chunk of kGlobalChunk input coefficients, and of each of the
+// rows the key window y in [N - c0 - TB + r0, + TB + RC) the tile meets,
+// converted to its four byte limbs as above; jp = min(J, kGlobalRows).
+// Its int32 MMA sums cover jp rows of one chunk, jp*RC*halfBg*128 < 2^31
+// (the reference's per-chunk rule, whatever N), and are added into the
+// block's sums (shared memory, uint32) mod 2^32 after each pass; the sums
+// are added into acc at the end of the launch. No claim on the MMA's
+// wraparound. The launches order the steps (the next step's digits read
+// every block's update), so the Python wrapper counts one launch a
+// rotation. Shared memory: 8 (TB + 4) 4 + 8 (jp RC + 16) + 4 jp (TB + RC +
+// 32) + 16 = 217,744 bytes at 3 rows a pass, whatever U, N, J: the tier has
+// no N ceiling; device memory bounds it (B U N 4 + B J N bytes).
+//
 // Bound on an H100 at the 128-bit set (chip_smoke.py compact_bound): the
 // same function by the cheapest exact dataflow the repo has, the CRT-NTT one
 // of blind_rotate_ntt.cu plus the stored key's transform once per step,
@@ -162,10 +189,12 @@ struct Shape {
   int staged;  // the general kernel's staged tier: jp digit rows held, an update buffer
   int upd_off; // byte offset of the update buffer (staged only)
   // The general kernel only:
+  int global_tier;   // the global tier: acc in device memory, digits in the scratch
   int C;       // blocks a cluster (1: no cluster)
   int Ns;      // coefficients of each output polynomial a block owns: N / C
   int NR;      // bytes of a digit row: max(N, 32) (rows past N are zero)
-  int RW;      // bytes of a key row's window: (2N, or N + Ns in a cluster) + 32
+  int RW;      // bytes of a key row's window: (2N, or N + Ns in a cluster) + 32;
+               // the global tier: kGlobalTile + kGlobalChunk + 32
 };
 
 __device__ __forceinline__ void mma_k32(int (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2,
@@ -637,12 +666,182 @@ int launch_general(const Shape& S, size_t smem, const void* acc0, const void* ba
   }
 }
 
+// --- The global tier ---------------------------------------------------------
+// The accumulators in device memory and the digits in the device scratch, one
+// launch of each kernel below a step (see the head of this file).
+constexpr int kGlobalTile = kGeneralWarps * 16 * 32;   // outputs a block: a walk a warp
+constexpr int kGlobalChunk = 1024;                     // inputs a pass: 32 r-tiles
+constexpr int kGlobalSamples = 8;                      // the MMA's columns
+constexpr int kGlobalRows = 3;                         // digit rows a pass, at most
+// The block's sums, the pass's digit chunks and its rows' windows of four
+// limbs: 217,744 bytes; a fourth row (246,544) would pass the H100's 232,448.
+constexpr size_t kGlobalSmem =
+    kGlobalSamples * (kGlobalTile + 4) * 4 + kGlobalSamples * (kGlobalRows * kGlobalChunk + 16) +
+    static_cast<size_t>(kLimbs) * kGlobalRows * (kGlobalTile + kGlobalChunk + 32) + 16;
+static_assert(kGlobalSmem <= 232448, "the global tier's plan fits an H100 block");
+
+// d = X^a acc - acc of every sample and its signed gadget digits (offset
+// trick) into dig[s][j][c], j = u l + li.
+__global__ void compact_global_digits(const uint32_t* __restrict__ acc,
+                                      const int32_t* __restrict__ bara_i,
+                                      int8_t* __restrict__ dig, const Shape S) {
+  const int N = S.N, twoN = 2 * N;
+  const size_t total = static_cast<size_t>(S.B) * S.U * N;
+  for (size_t x = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x; x < total;
+       x += static_cast<size_t>(gridDim.x) * blockDim.x) {
+    const size_t su = x / N;                        // sample s, polynomial u
+    const int c = static_cast<int>(x - su * N), u = static_cast<int>(su % S.U);
+    const int s = static_cast<int>(su / S.U);
+    const uint32_t* as = acc + su * N;
+    const int src = (c - bara_i[s] + twoN) & (twoN - 1);   // a in [0, 2N)
+    const uint32_t v = src < N ? as[src] : 0u - as[src - N];
+    const uint32_t du = v - as[c] + S.offset;
+    int8_t* ds = dig + (static_cast<size_t>(s) * S.J + u * S.l) * N + c;
+    for (int li = 0; li < S.l; ++li) {
+      const int shift = 32 - (li + 1) * S.Bgbit;
+      ds[static_cast<size_t>(li) * N] =
+          static_cast<int8_t>(static_cast<int>((du >> shift) & S.mask) - S.halfBg);
+    }
+  }
+}
+
+// One CMux step's product for the block's 8 samples and kGlobalTile outputs
+// of polynomial u_out: acc += sum_j dig_j (negacyclic*) key[j, u_out] over
+// the tile, a pass (jp rows, one chunk, four limbs) at a time.
+__global__ void __launch_bounds__(kGeneralThreads, 1) blind_rotate_compact_global(
+    const int32_t* __restrict__ key_i, const int8_t* __restrict__ dig,
+    uint32_t* __restrict__ acc, const Shape S) {
+  constexpr int CG = 32, RG = 32, TB = kGlobalTile, RC = kGlobalChunk, ns = kGlobalSamples;
+  static_assert(TB == kGeneralWarps * 16 * CG && RC % (32 * RG) == 0,
+                "one walk a warp; whole walk passes a chunk");
+  const int N = S.N, twoN = 2 * N, U = S.U, J = S.J, RW = S.RW;
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint32_t* sum = reinterpret_cast<uint32_t*>(smem);          // [s][acc_s]: c - c0
+  int8_t* dgs = reinterpret_cast<int8_t*>(smem + S.dig_off);  // [s][j - j0][RC] + pad
+  int8_t* win = reinterpret_cast<int8_t*>(smem + S.rev_off);  // [t][j - j0][RW]
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tig = lane & 3;
+  const int tiles = N / TB, u_out = blockIdx.y;
+  const int c0 = (blockIdx.x % tiles) * TB, b0 = (blockIdx.x / tiles) * ns;
+  const int nvalid = min(ns, S.B - b0);
+
+  for (int x = tid; x < ns * S.acc_s; x += kGeneralThreads) sum[x] = 0u;
+  const int sh = (TB + 15 - g) & 3;           // byte offset of this lane's row in a word
+  const uint32_t sel = 0x3210u + 0x1111u * sh;
+  const int cb = warp * 16 * CG;              // this warp's walk in the tile
+  const int pb = TB - 1 - cb - g + 4 * tig + 16 - sh;   // its window index at r = r0
+  const int8_t* dg = dgs + g * S.dig_s + 4 * tig;
+  constexpr int kWords = (TB + RC) / 4;       // words of a window
+  for (int j0 = 0; j0 < J; j0 += S.jp) {
+    const int jn = min(S.jp, J - j0);
+    for (int r0 = 0; r0 < N; r0 += RC) {
+      const int y0 = N - c0 - TB + r0;        // the window's first y
+      __syncthreads();     // the previous pass no longer reads dgs or win
+      // Rows j0 .. j0+jn-1 of the chunk, 16 bytes a thread; zeros past B.
+      for (int x = tid; x < ns * jn * (RC / 16); x += kGeneralThreads) {
+        const int s = x / (jn * (RC / 16)), y = x - s * jn * (RC / 16);
+        const int jr = y / (RC / 16), q = y - jr * (RC / 16);
+        int4 v = make_int4(0, 0, 0, 0);
+        if (s < nvalid)
+          v = *reinterpret_cast<const int4*>(
+              dig + (static_cast<size_t>(b0 + s) * J + j0 + jr) * N + r0 + 16 * q);
+        *reinterpret_cast<int4*>(dgs + s * S.dig_s + jr * RC + 16 * q) = v;
+      }
+      // The four limbs of the window of rows j0 .. j0+jn-1: win[..][16 + y -
+      // y0] for y = N-1-m (limb of k[m]) or 2N-1-m (limb of -k[m]), four
+      // words of k a thread.
+      int nz = 0;
+      for (int x = tid; x < jn * kWords; x += kGeneralThreads) {
+        const int jr = x / kWords, yb = y0 + 4 * (x - jr * kWords);
+        const bool neg = yb >= N;
+        const int m0 = (neg ? twoN : N) - 4 - yb;
+        const int4 kv = *reinterpret_cast<const int4*>(
+            key_i + (static_cast<size_t>(j0 + jr) * U + u_out) * N + m0);
+        const uint32_t v[4] = {static_cast<uint32_t>(kv.x), static_cast<uint32_t>(kv.y),
+                               static_cast<uint32_t>(kv.z), static_cast<uint32_t>(kv.w)};
+        uint32_t w[kLimbs] = {};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          int b[kLimbs];
+          limbs(neg ? 0u - v[e] : v[e], b);
+#pragma unroll
+          for (int t = 0; t < kLimbs; ++t)
+            w[t] |= static_cast<uint32_t>(b[t] & 255) << (8 * (3 - e));
+        }
+#pragma unroll
+        for (int t = 0; t < kLimbs; ++t) {
+          *reinterpret_cast<uint32_t*>(
+              win + static_cast<size_t>(t * S.jp + jr) * RW + 16 + yb - y0) = w[t];
+          nz |= w[t] != 0u ? 1 << t : 0;
+        }
+      }
+      int live = 0;
+      for (int t = 0; t < kLimbs; ++t) live |= __syncthreads_or(nz & (1 << t)) ? 1 << t : 0;
+
+#pragma unroll 1
+      for (int t = 0; t < kLimbs; ++t) {
+        if (!(live & (1 << t))) continue;
+        int c[CG][4] = {};
+#pragma unroll 1
+        for (int jr = 0; jr < jn; ++jr) {
+          const int8_t* rv = win + static_cast<size_t>(t * S.jp + jr) * RW + pb;
+          const int8_t* dgj = dg + jr * RC;
+#pragma unroll 1
+          for (int q0 = 0; q0 < RC / 32; q0 += RG)
+            diagonal_walk<CG, 0, RG>(c, dgj + 32 * q0, rv + 32 * q0, sel);
+        }
+        // sums += the pass's limb sum << 8t (mod 2^32): rows cb + 16 ii + g
+        // (+8), samples 2 tig (+1).
+#pragma unroll
+        for (int ii = 0; ii < CG; ++ii) {
+          uint32_t* a = sum + 2 * tig * S.acc_s + cb + 16 * ii + g;
+          a[0] += static_cast<uint32_t>(c[ii][0]) << (8 * t);
+          a[S.acc_s] += static_cast<uint32_t>(c[ii][1]) << (8 * t);
+          a[8] += static_cast<uint32_t>(c[ii][2]) << (8 * t);
+          a[S.acc_s + 8] += static_cast<uint32_t>(c[ii][3]) << (8 * t);
+        }
+      }
+    }
+  }
+  __syncthreads();
+  for (int x = tid; x < nvalid * TB; x += kGeneralThreads) {
+    const int s = x / TB, c = x - s * TB;
+    acc[(static_cast<size_t>(b0 + s) * U + u_out) * N + c0 + c] += sum[s * S.acc_s + c];
+  }
+}
+
+int launch_global(const Shape& S, size_t smem, const void* acc0, const void* bara,
+                  const void* key, void* scratch, void* out, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(blind_rotate_compact_global,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t words = static_cast<size_t>(S.B) * S.U * S.N;
+  err = cudaMemcpyAsync(out, acc0, words * 4, cudaMemcpyDeviceToDevice, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((S.B + kGlobalSamples - 1) / kGlobalSamples * (S.N / kGlobalTile), S.U);
+  const int dgrid = static_cast<int>(words / 256 < 4096 ? (words + 255) / 256 : 4096);
+  uint32_t* acc = static_cast<uint32_t*>(out);
+  int8_t* dig = static_cast<int8_t*>(scratch);
+  for (int i = 0; i < S.n; ++i) {
+    compact_global_digits<<<dgrid, 256, 0, stream>>>(
+        acc, static_cast<const int32_t*>(bara) + static_cast<size_t>(i) * S.B, dig, S);
+    blind_rotate_compact_global<<<grid, kGeneralThreads, smem, stream>>>(
+        static_cast<const int32_t*>(key) + static_cast<size_t>(i) * S.J * S.U * S.N, dig,
+        acc, S);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
+}
+
 }  // namespace
 
 // Shared memory of a block of `ns` samples with the byte rows of `lp` limbs
 // and `jp` digit rows: the accumulators, the digits and the rows, + 16
 // (ops/blind_rotate_compact.smem_bytes). Sets S's layout fields.
 static size_t plan(Shape& S, int ns, int lp, int jp) {
+  S.global_tier = 0;
   S.staged = 0;
   S.upd_off = 0;
   S.ns = ns;
@@ -662,6 +861,7 @@ static size_t plan(Shape& S, int ns, int lp, int jp) {
 // general=True); staged: an update buffer beside the accumulators' share
 // and the share's jp digit rows alone (staged=True). Sets S's layout fields.
 static size_t plan_general(Shape& S, int C, int ns, int lp, int jp, bool staged = false) {
+  S.global_tier = 0;
   S.staged = staged ? 1 : 0;
   S.C = C;
   S.Ns = S.N / C;
@@ -676,6 +876,28 @@ static size_t plan_general(Shape& S, int C, int ns, int lp, int jp, bool staged 
   S.dig_off = (staged ? 2 : 1) * ns * S.acc_s * 4;
   S.rev_off = S.dig_off + ns * S.dig_s;
   return static_cast<size_t>(S.rev_off) + static_cast<size_t>(lp) * jp * S.U * S.RW + 16;
+}
+
+// The global tier's shared memory for a block of 8 samples with the windows
+// of four limbs and `jp` digit rows a pass: its sums, the pass's digit
+// chunks and the windows, + 16 (ops/blind_rotate_compact.smem_bytes with
+// global_tier=True). Sets S's layout fields.
+static size_t plan_global(Shape& S, int jp) {
+  S.global_tier = 1;
+  S.staged = 0;
+  S.upd_off = 0;
+  S.C = 1;
+  S.Ns = kGlobalTile;
+  S.NR = kGlobalChunk;
+  S.RW = kGlobalTile + kGlobalChunk + 32;
+  S.ns = kGlobalSamples;
+  S.lp = kLimbs;
+  S.jp = jp;
+  S.acc_s = kGlobalTile + 4;
+  S.dig_s = jp * kGlobalChunk + 16;
+  S.dig_off = S.ns * S.acc_s * 4;
+  S.rev_off = S.dig_off + S.ns * S.dig_s;
+  return static_cast<size_t>(S.rev_off) + static_cast<size_t>(kLimbs) * jp * S.RW + 16;
 }
 
 // Blocks a cluster that the general kernel can take at N: each block's
@@ -696,14 +918,18 @@ static int max_cluster(int N) {
 // of two from 8) takes the general kernel at the first fit of, per cluster
 // size C = 1, 2, 4, 8 and samples 8, 4, 2, 1, (4, J), (1, J) and (1, jp);
 // then its staged tier at the first fit of, per C and samples, (4, jp) and
-// (1, jp), the most rows first. Every plan keeps a pass's limb sums below
-// 2^31: jp*N*halfBg*128 < 2^31. A shape that fits no plan is refused (the
-// Python wrapper refuses it first, by name:
-// ops/blind_rotate_compact.check_kernel_domain).
+// (1, jp), the most rows first; then, from N = kGlobalTile on, the global
+// tier at 4 limbs and min(J, kGlobalRows) rows a pass. Every
+// plan keeps a pass's limb sums below 2^31: jp*N*halfBg*128 < 2^31, or in
+// the global tier jp*kGlobalChunk*halfBg*128 < 2^31. A shape that fits no
+// plan is refused (the Python wrapper refuses it first, by name:
+// ops/blind_rotate_compact.check_kernel_domain). scratch: the global tier's
+// digits, B*J*N bytes (scratch_bytes is checked); no other plan reads it.
 // Returns a cudaError_t (0 on success); allocates nothing and does not sync.
 extern "C" int blind_rotate_compact_launch(const void* acc0, const void* bara, const void* key,
-                                           void* out, int B, int n, int U, int N, int l,
-                                           int Bgbit, void* stream) {
+                                           void* scratch, long long scratch_bytes, void* out,
+                                           int B, int n, int U, int N, int l, int Bgbit,
+                                           void* stream) {
   Shape S;
   S.B = B; S.n = n; S.U = U; S.N = N; S.l = l; S.J = U * l; S.Bgbit = Bgbit;
   S.C = 1;
@@ -753,7 +979,18 @@ extern "C" int blind_rotate_compact_launch(const void* acc0, const void* bara, c
         for (int lp : {kLimbs, 1})
           for (int jp = S.J; jp >= 1 && !fits; --jp)
             fits = rows_ok(jp) && (smem = plan_general(S, C, ns, lp, jp, true)) <= cap;
+    // Each pass's limb sum in the global tier: jp*kGlobalChunk products.
+    auto chunk_ok = [&](int jp) {
+      return static_cast<long long>(jp) * kGlobalChunk * S.halfBg * 128 < (1LL << 31);
+    };
+    const int jg = S.J < kGlobalRows ? S.J : kGlobalRows;
+    if (!fits && N >= kGlobalTile && chunk_ok(jg)) fits = (smem = plan_global(S, jg)) <= cap;
     if (!fits) return static_cast<int>(cudaErrorInvalidValue);
+    if (S.global_tier) {
+      if (scratch_bytes < static_cast<long long>(B) * S.J * N)
+        return static_cast<int>(cudaErrorInvalidValue);
+      return launch_global(S, smem, acc0, bara, key, scratch, out, st);
+    }
     return launch_general(S, smem, acc0, bara, key, out, st);
   }
   auto at_u = [&](auto u) {

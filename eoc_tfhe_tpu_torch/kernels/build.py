@@ -37,8 +37,8 @@ SIGNATURES = {
     "blind_rotate_ntt": ("blind_rotate_ntt_launch", [_P] * 6 + [_L, _P] + [_I] * 13 + [_P]),
     # the same arguments; key (n, 2, F, K, 2M) int8
     "blind_rotate_ntt_v1": ("blind_rotate_ntt_v1_launch", [_P] * 6 + [_L, _P] + [_I] * 13 + [_P]),
-    # acc0, bara, key, out; B, n, U, N, l, Bgbit; stream
-    "blind_rotate_compact": ("blind_rotate_compact_launch", [_P] * 4 + [_I] * 6 + [_P]),
+    # acc0, bara, key, scratch, scratch_bytes, out; B, n, U, N, l, Bgbit; stream
+    "blind_rotate_compact": ("blind_rotate_compact_launch", [_P] * 4 + [_L, _P] + [_I] * 6 + [_P]),
 }
 
 

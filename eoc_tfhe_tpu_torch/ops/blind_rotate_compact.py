@@ -15,10 +15,16 @@ runs :func:`blind_rotate_compact_plain` (the rows scan); for a CUDA tensor it
 launches the hand-written kernel in ``csrc/blind_rotate_compact.cu`` or
 raises: :func:`check_kernel_domain` refuses, by name and before any launch,
 a shape the kernel does not take (it takes every k and every power-of-two N
-from 8 up to 16384 with l*Bgbit <= 32 and halfBg <= 128: the digit rows a
-share at a time where one sample's digits do not fit a cluster of 8 blocks,
-and each pass's int32 limb sum below 2^31, as the reference's fused kernel
-bounds it per chunk).  ``launches`` counts kernel launches and nothing else.
+from 8 with l*Bgbit <= 32 and halfBg <= 128: the digit rows a share at a
+time where one sample's digits do not fit a cluster of 8 blocks, each pass's
+int32 limb sum below 2^31, as the reference's fused kernel bounds it per
+chunk, and, where no plan holds a sample's share of the accumulators in
+shared memory (N >= 32768), the global tier: the accumulators and the
+step's digits in device memory, the limb sums bounded per contraction chunk
+of ``GLOBAL_CHUNK`` coefficients; what the card's memory cannot hold is
+refused at the launch, by name, with its bytes).  ``launches`` counts
+rotations launched (the global tier's kernels launch a step at a time) and
+nothing else.
 """
 
 from __future__ import annotations
@@ -51,7 +57,8 @@ def check_digit_domain(params: GateBootstrappingParams) -> None:
 
 
 def smem_bytes(U: int, N: int, J: int, samples: int, limbs: int, rows: int | None = None,
-               cluster: int = 1, general: bool = False, staged: bool = False) -> int:
+               cluster: int = 1, general: bool = False, staged: bool = False,
+               global_tier: bool = False) -> int:
     """Shared memory of a K2 block: the accumulators (samples, U*N + 4)
     uint32, the digits (samples, J*N + 16) int8 and the byte rows (limbs,
     rows, U, 2N) int8 of the key limbs and digit rows converted a pass (all
@@ -61,8 +68,15 @@ def smem_bytes(U: int, N: int, J: int, samples: int, limbs: int, rows: int | Non
     bytes, and of each key row the window its outputs meet plus 32 bytes
     (2N + 32, or N + N/C + 32 in a cluster).  Its staged tier (``staged``)
     holds only the ``rows`` digit rows of the current share and, beside the
-    accumulators' share, an update buffer of the same size."""
+    accumulators' share, an update buffer of the same size.  The global tier
+    (``global_tier``) holds a block's sums (samples, ``GLOBAL_TILE`` + 4)
+    uint32, the pass's digit chunks (samples, rows*``GLOBAL_CHUNK`` + 16) and
+    each row's key window (``GLOBAL_TILE`` + ``GLOBAL_CHUNK`` + 32 bytes a
+    limb), whatever U, N and J."""
     rows = J if rows is None else rows
+    if global_tier:
+        return (samples * (GLOBAL_TILE + 4) * 4 + samples * (rows * GLOBAL_CHUNK + 16)
+                + limbs * rows * (GLOBAL_TILE + GLOBAL_CHUNK + 32) + 16)
     if not general:
         return samples * (U * N + 4) * 4 + samples * (J * N + 16) + limbs * rows * U * 2 * N + 16
     Ns = N // cluster
@@ -79,6 +93,12 @@ def smem_bytes(U: int, N: int, J: int, samples: int, limbs: int, rows: int | Non
 PLANS = ((8, 4), (8, 1), (4, 4), (4, 1), (2, 4), (2, 1))
 #: Blocks a cluster of the general kernel (the portable limit is 8).
 CLUSTERS = (1, 2, 4, 8)
+#: The global tier (``blind_rotate_compact_global``): output coefficients of
+#: one polynomial a block (its 8 warps' walks of 32 tiles), input coefficients
+#: a pass (the contraction chunk whose int32 sums are bounded), samples a
+#: block (the MMA's 8 columns), and the most digit rows a pass, each with its
+#: four key limbs' windows (217,744 bytes; a fourth row needs 246,544).
+GLOBAL_TILE, GLOBAL_CHUNK, GLOBAL_SAMPLES, GLOBAL_ROWS = 4096, 1024, 8, 3
 
 
 def max_cluster(N: int) -> int:
@@ -97,6 +117,16 @@ def max_rows(N: int, halfBg: int) -> int:
     return ((1 << 31) - 1) // (N * halfBg * 128)
 
 
+def chunk_rows(halfBg: int) -> int:
+    """The most digit rows a pass of the global tier whose limb sums stay in
+    int32: one MMA accumulator collects rows * ``GLOBAL_CHUNK`` products
+    |digit| * |byte| <= halfBg * 128 before the block adds it into its sums
+    mod 2^32 -- the reference's per-chunk rule (J C halfBg 128 < 2^31,
+    ``pallas_blindrot.py:135``) with the chunk ``GLOBAL_CHUNK``; N does not
+    enter it."""
+    return ((1 << 31) - 1) // (GLOBAL_CHUNK * halfBg * 128)
+
+
 def is_general(U: int, N: int, plan: tuple[int, int, int, int], staged: bool = False) -> bool:
     """Whether ``plan`` runs the general kernel: a shape past the
     instantiations (U = 2 to 5, N from 32 to 4096), one sample a block, a
@@ -107,14 +137,14 @@ def is_general(U: int, N: int, plan: tuple[int, int, int, int], staged: bool = F
 
 def _plans(U: int, N: int, J: int, halfBg: int):
     """The launcher's plans in its order of preference, each (samples, limbs
-    a pass, digit rows a pass, blocks a cluster, general, staged)."""
+    a pass, digit rows a pass, blocks a cluster, general, staged, global)."""
     top = max_rows(N, halfBg)
     if 2 <= U <= 5 and 32 <= N <= 4096:
         for samples, limbs in PLANS:
-            yield samples, limbs, J, 1, False, False
+            yield samples, limbs, J, 1, False, False, False
         for samples in (8, 4, 2):
             for rows in range(J - 1, 0, -1):
-                yield samples, 1, rows, 1, False, False
+                yield samples, 1, rows, 1, False, False, False
     clusters = [C for C in CLUSTERS if C <= max_cluster(N)]
     for staged in (False, True):
         for C in clusters:
@@ -124,20 +154,23 @@ def _plans(U: int, N: int, J: int, halfBg: int):
                 else:
                     shares = [(4, J), (1, J), *((1, r) for r in range(J - 1, 0, -1))]
                 for limbs, rows in shares:
-                    yield samples, limbs, rows, C, True, staged
+                    yield samples, limbs, rows, C, True, staged, False
+    if N >= GLOBAL_TILE:
+        yield GLOBAL_SAMPLES, 4, min(J, GLOBAL_ROWS), 1, True, False, True
 
 
 def _fits(U: int, N: int, J: int, halfBg: int, plan) -> bool:
-    samples, limbs, rows, C, general, staged = plan
-    return (rows <= max_rows(N, halfBg)
-            and smem_bytes(U, N, J, samples, limbs, rows, C, general, staged) <= SMEM_PER_BLOCK)
+    samples, limbs, rows, C, general, staged, global_tier = plan
+    return (rows <= (chunk_rows(halfBg) if global_tier else max_rows(N, halfBg))
+            and smem_bytes(U, N, J, samples, limbs, rows, C, general, staged,
+                           global_tier) <= SMEM_PER_BLOCK)
 
 
 def _plan(U: int, N: int, J: int, halfBg: int):
     for plan in _plans(U, N, J, halfBg):
         if _fits(U, N, J, halfBg, plan):
             return plan
-    return 1, 1, 1, max(C for C in CLUSTERS if C <= max_cluster(N)), True, True
+    return 1, 1, 1, max(C for C in CLUSTERS if C <= max_cluster(N)), True, True, False
 
 
 def kernel_plan(U: int, N: int, J: int, halfBg: int) -> tuple[int, int, int, int]:
@@ -148,9 +181,12 @@ def kernel_plan(U: int, N: int, J: int, halfBg: int) -> tuple[int, int, int, int
     to 1), all J rows at 4 limbs and at 1 limb a pass, then 1 limb and the
     most rows that fit; else its staged tier (:func:`is_staged`), per
     cluster size and samples, 4 limbs and then 1 limb a pass at the most
-    rows that fit.  Every plan keeps a pass's limb sums in int32
-    (:func:`max_rows`).  Where none fits: (1, 1, 1, the largest cluster),
-    which the domain check refuses."""
+    rows that fit; else, from N = ``GLOBAL_TILE`` on, the global tier
+    (:func:`is_global`): 8 samples, 4 limbs and min(J, ``GLOBAL_ROWS``) rows
+    a pass.  Every plan keeps a pass's limb sums in int32: over
+    the whole ring (:func:`max_rows`), or, in the global tier, over a
+    contraction chunk (:func:`chunk_rows`).  Where none fits: (1, 1, 1, the
+    largest cluster), which the domain check refuses."""
     return _plan(U, N, J, halfBg)[:4]
 
 
@@ -161,6 +197,24 @@ def is_staged(U: int, N: int, J: int, halfBg: int) -> bool:
     share, so that shared memory holds the share's digit rows alone.  It is
     taken only where no other plan fits."""
     return _plan(U, N, J, halfBg)[5]
+
+
+def is_global(U: int, N: int, J: int, halfBg: int) -> bool:
+    """Whether the launcher takes the global tier: the accumulators in device
+    memory, (B, U, N) int32 (the output, updated in place), each step's
+    digits written once to a device scratch (B, J, N) int8 by one kernel and
+    a block of ``GLOBAL_SAMPLES`` samples and ``GLOBAL_TILE`` outputs of one
+    polynomial streaming key windows and digit chunks through shared memory
+    in a second, one launch of each a step.  It is taken only where no other
+    plan fits (from N = 32768 on, where a sample's share of the accumulators
+    outgrows a block of a cluster of 8)."""
+    return _plan(U, N, J, halfBg)[6]
+
+
+def scratch_bytes(B: int, U: int, N: int, J: int, halfBg: int) -> int:
+    """Device scratch of a launch: the global tier's digits (B, J, N) int8;
+    no other plan has any."""
+    return B * J * N if is_global(U, N, J, halfBg) else 0
 
 
 def check_kernel_domain(params: GateBootstrappingParams) -> None:
@@ -175,12 +229,9 @@ def check_kernel_domain(params: GateBootstrappingParams) -> None:
                          f"got N={N} {where}")
     if tg.l * tg.Bgbit > 32:
         raise ValueError(f"K2 (blind_rotate_compact) takes l*Bgbit <= 32 {where}")
-    if max_rows(N, tg.halfBg) < 1:
-        raise ValueError(f"K2 (blind_rotate_compact) limb sum of one digit row reaches "
-                         f"{N * tg.halfBg * 128:,} >= 2^31 {where}")
     plan = _plan(U, N, J, tg.halfBg)
     if not _fits(U, N, J, tg.halfBg, plan):
-        samples, limbs, rows, cluster, general, staged = plan
+        samples, limbs, rows, cluster, general, staged, _ = plan
         smem = smem_bytes(U, N, J, *plan[:4], general, staged)
         raise ValueError(f"K2 (blind_rotate_compact) needs {smem:,} bytes of shared memory "
                          f"for U={U}, N={N}, J={J} at {samples} samples, {limbs} key limb "
@@ -236,6 +287,20 @@ def _shapes(acc0: torch.Tensor, bara: torch.Tensor, key: torch.Tensor,
 #: come) instead of each row's negacyclic Toeplitz, whose float64 block (U N^2
 #: words) is 4.3 GB a row at N = 16384 and the slower of the two from N = 4096.
 NTT_PLAIN_FROM_N = 4096
+#: From this N on that product runs over ``ntt.wide_context`` (three primes,
+#: inner length 2048), where the "ntt_scan" form's context has no root.
+WIDE_PLAIN_FROM_N = 32768
+
+
+def plain_context(params: GateBootstrappingParams, device=None) -> ntt.NttContext:
+    """The exact plan of the plain version's product from N =
+    ``NTT_PLAIN_FROM_N`` on: the "ntt_scan" form's context over
+    ``DEFAULT_PRIMES``, and from ``WIDE_PLAIN_FROM_N`` on ``ntt.wide_context``
+    (the "ntt_scan" form keeps raising there, as the reference's does)."""
+    tg = params.tgsw_params
+    if tg.tlwe_params.N >= WIDE_PLAIN_FROM_N:
+        return ntt.wide_context(tg.tlwe_params.N, tg.kpl, tg.halfBg, device=device)
+    return ntt.context_for_params(params, device=device)
 
 
 def cmux_rotate_step(acc: torch.Tensor, bk_row: torch.Tensor, bara_i: torch.Tensor,
@@ -246,15 +311,15 @@ def cmux_rotate_step(acc: torch.Tensor, bk_row: torch.Tensor, bara_i: torch.Tens
 
     Args:
       acc: (..., k+1, N) int32; bk_row: (kpl, k+1, N) int32;
-      bara_i: (...) int32 in [0, 2N); ctx: the exact context over
-      ``DEFAULT_PRIMES`` for N >= ``NTT_PLAIN_FROM_N`` (made here if None).
+      bara_i: (...) int32 in [0, 2N); ctx: :func:`plain_context` for N >=
+      ``NTT_PLAIN_FROM_N`` (made here if None).
     """
     tg = params.tgsw_params
     rot = rotate.mul_by_xai(acc, bara_i[..., None])
     d = wrap32(rot.to(torch.int64) - acc.to(torch.int64))
     digits = decompose_h(d, tg)
     if tg.tlwe_params.N >= NTT_PLAIN_FROM_N:
-        ctx = ntt.context_for_params(params, device=acc.device) if ctx is None else ctx
+        ctx = plain_context(params, device=acc.device) if ctx is None else ctx
         key_step = ntt.kernel_key_residues(bk_row[None], ctx)[0]
         delta = ntt.external_product_ntt(digits.reshape(-1, *digits.shape[-2:]), key_step,
                                          ctx).reshape(acc.shape)
@@ -268,7 +333,8 @@ def blind_rotate_compact_plain(acc0: torch.Tensor, bara: torch.Tensor, key: torc
     """Plain PyTorch blind rotation: the reference's rows scan
     (``core/bootstrap.blind_rotate``) over the stored key; from N =
     ``NTT_PLAIN_FROM_N`` on, each step's exact product through the CRT-NTT
-    stages instead of the Toeplitz blocks (the same bits).
+    stages of :func:`plain_context` instead of the Toeplitz blocks (the same
+    bits).
 
     Args:
       acc0: (B, k+1, N) int32; bara: (n, B) int32 in [0, 2N);
@@ -276,12 +342,21 @@ def blind_rotate_compact_plain(acc0: torch.Tensor, bara: torch.Tensor, key: torc
     Returns (B, k+1, N) int32.
     """
     _, _, N, n = _shapes(acc0, bara, key, params)
-    ctx = (ntt.context_for_params(params, device=acc0.device) if N >= NTT_PLAIN_FROM_N
-           else None)
+    ctx = plain_context(params, device=acc0.device) if N >= NTT_PLAIN_FROM_N else None
     acc = acc0
     for i in range(n):
         acc = cmux_rotate_step(acc, key[i], bara[i], params, ctx)
     return acc
+
+
+def _check_device_memory(nbytes: int, device: torch.device, what: str) -> None:
+    """Raise, naming K2 and the bytes, where the card cannot hold ``nbytes``
+    more (the free memory and what PyTorch's allocator holds unused)."""
+    free, _ = torch.cuda.mem_get_info(device)
+    free += torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
+    if nbytes > free:
+        raise ValueError(f"K2 (blind_rotate_compact) needs {nbytes:,} bytes of device memory "
+                         f"for {what}; the card has {free:,} free")
 
 
 def _launch(acc0: torch.Tensor, bara: torch.Tensor, key: torch.Tensor,
@@ -296,14 +371,20 @@ def _launch(acc0: torch.Tensor, bara: torch.Tensor, key: torch.Tensor,
                 or x.data_ptr() % 4):
             raise ValueError(f"{name} must be a contiguous, 4-byte aligned int32 "
                              f"tensor on {acc0.device}, got {x.dtype} on {x.device}")
-    out = torch.empty_like(acc0)
     tg = params.tgsw_params
+    nscratch = scratch_bytes(B, U, N, tg.kpl, tg.halfBg)
+    if nscratch:
+        _check_device_memory(acc0.numel() * 4 + nscratch, acc0.device,
+                             f"the global tier's accumulators (B={B}, U={U}, N={N}) and "
+                             f"digits (J={tg.kpl})")
+    out = torch.empty_like(acc0)
+    scratch = torch.empty(nscratch, dtype=torch.int8, device=acc0.device)
     lib = build.load("blind_rotate_compact")
     stream = torch.cuda.current_stream(acc0.device).cuda_stream
     with torch.cuda.device(acc0.device):
         err = lib.blind_rotate_compact_launch(
-            acc0.data_ptr(), bara.data_ptr(), key.data_ptr(), out.data_ptr(),
-            B, n, U, N, tg.l, tg.Bgbit, stream)
+            acc0.data_ptr(), bara.data_ptr(), key.data_ptr(), scratch.data_ptr(), nscratch,
+            out.data_ptr(), B, n, U, N, tg.l, tg.Bgbit, stream)
     if err != 0:
         raise RuntimeError(f"blind_rotate_compact launch failed: CUDA error {err} "
                            f"({lib.kernel_error_string(err).decode()})")

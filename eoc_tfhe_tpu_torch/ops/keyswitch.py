@@ -18,15 +18,24 @@ from . import polymul
 #: Batch rows per one-hot product: bounds the (rows, n_in*t*base) float32
 #: one-hot at 128 MiB for the 128-bit set (n_in*t*base = 32768).
 _CHUNK = 1024
+#: Input rows of the table split into limbs at once: the split's int64
+#: temporaries are some six times the rows' words, 64 GB for the whole table
+#: at n_in = k N = 65536 (N = 32768, k = 2) against the prepared table's 21 GB.
+_PREP_ROWS = 1024
+
 
 def prepare_keyswitch_matmul(ks: KeySwitchKey) -> torch.Tensor:
     """(n_in * t * base, (n_out+1) * LIMBS) float32 signed byte limbs of the
-    table, with the u=0 plane zeroed (upstream skips zero digits)."""
+    table, with the u=0 plane zeroed (upstream skips zero digits), split
+    ``_PREP_ROWS`` input rows at a time."""
     n_in, t, base, m = ks.ks.shape
-    table = ks.ks.clone()
-    table[:, :, 0, :] = 0
-    limbs = polymul.decompose_signed_limbs(table)          # (n_in, t, base, m, L)
-    return limbs.to(torch.float32).reshape(n_in * t * base, m * polymul.LIMBS)
+    out = torch.empty((n_in, t, base, m, polymul.LIMBS), dtype=torch.float32,
+                      device=ks.ks.device)
+    for i in range(0, n_in, _PREP_ROWS):
+        table = ks.ks[i:i + _PREP_ROWS].clone()
+        table[:, :, 0, :] = 0
+        out[i:i + _PREP_ROWS] = polymul.decompose_signed_limbs(table)   # (rows, t, base, m, L)
+    return out.reshape(n_in * t * base, m * polymul.LIMBS)
 
 
 def keyswitch_digits(a: torch.Tensor, t: int, basebit: int) -> torch.Tensor:

@@ -9,7 +9,9 @@ computed as in the reference:
 1. Nussbaumer split: p(X) = sum_{r<R} X^r p_r(Z), Z = X^R, inner ring
    Z[Z]/(Z^F + 1) with F = N/R.
 2. A single-stage negacyclic NTT of length F per prime (one F x F matrix).
-3. CRT over two primes whose product bounds the exact integer convolution.
+3. CRT over two primes whose product bounds the exact integer convolution
+   (three in :func:`wide_context`, the compact form's plain plan from
+   N = 32768 on).
 4. The 32-bit key split into signed limbs of ``key_limb_bits`` bits so that
    the bound in 3 holds; limb results are recombined with shifts mod 2^32.
 
@@ -51,6 +53,12 @@ DEFAULT_PRIMES = (40961, 61441)
 
 #: Outer split width; 8 keeps the inner NTT length at 128 for N=1024.
 DEFAULT_R = 8
+
+#: The compact form's exact plain product past the "ntt_scan" form's contexts
+#: (:func:`wide_context`): ``DEFAULT_PRIMES`` and a third prime, 12289 = 3 *
+#: 2^12 + 1, each with a 2F-th root at the inner length ``WIDE_F``.
+WIDE_PRIMES = DEFAULT_PRIMES + (12289,)
+WIDE_F = 2048
 
 #: Version of the port's prepared-key layouts (the "ntt_kernel" form's
 #: fragment-order byte planes, the "ntt_scan" form's v1 byte pairs).  The
@@ -192,8 +200,10 @@ class NttContext:
     W: torch.Tensor      # (P, F, F) int16, W[p, t, f]
     Winv: torch.Tensor   # (P, F, F) int16, Winv[p, f, t]
     omega: torch.Tensor  # (P, F) int32, psi^{2f+1} balanced
-    W_mma: torch.Tensor      # (P, FP/8, FP/32, 32, 4, 8) int8, mma_b_fragments of W
-    Winv_mma: torch.Tensor   # the same of Winv
+    #: (P, FP/8, FP/32, 32, 4, 8) int8, mma_b_fragments of W (None in the
+    #: plain-only :func:`wide_context`, which no kernel reads)
+    W_mma: torch.Tensor | None
+    Winv_mma: torch.Tensor | None   # the same of Winv
     N: int
     R: int
     F: int
@@ -228,11 +238,36 @@ def make_context(N: int, J: int, halfBg: int, primes: tuple[int, int],
     """NTT context for degree N, gadget width J = kpl, digit bound halfBg over
     a CRT prime pair, with the reference's default outer split R.
     ``key_round_bits > 0`` selects the rounded-key plan."""
-    dev = resolve_device(device)
     primes = tuple(primes)
     if len(primes) != 2:
         raise ValueError("the CRT step takes exactly two primes")
-    R = _outer_split(N)
+    return _context(N, _outer_split(N), J, halfBg, primes, device, key_round_bits)
+
+
+def wide_context(N: int, J: int, halfBg: int, device=None) -> NttContext:
+    """The exact plan of the compact form's plain product from N = 32768 on,
+    where the "ntt_scan" form's context has no root (F = N/8 = 4096: "8192
+    does not divide 61441-1", in both packages): inner length ``WIDE_F`` and
+    outer split R = N / WIDE_F over the three ``WIDE_PRIMES``.
+
+    Why a third prime and not a larger R over ``DEFAULT_PRIMES`` alone: the
+    CRT bound 2 J N halfBg limb_max < prod(primes) grows with N, and the two
+    primes' 2.5e9 needs 8 key limbs at N = 65536, J = 15, halfBg = 128 and
+    has no split at J = 20 (k = 4, l = 4, Bgbit = 8).  Three primes (3.1e13)
+    meet it with three 11-bit limbs up to N = 2^22 at every k <= 4, l Bgbit
+    <= 32 and halfBg <= 128 (J halfBg <= 2560), and with more limbs past
+    that, so the product has no ring ceiling.  Exact by construction: every
+    float64 product sums integers below 2^53 (forward F 2^7 2^15, pointwise
+    J R 2^30, inverse and the key's transform F 2^30, with F = 2048), the
+    CRT is in int64 (:func:`crt`, |V| < 2^45) and the limb sum mod 2^32
+    (:func:`limb_sum`).  Plain only: it carries no MMA fragments."""
+    return _context(N, max(1, N // WIDE_F), J, halfBg, WIDE_PRIMES, device, 0,
+                    fragments=False)
+
+
+def _context(N: int, R: int, J: int, halfBg: int, primes: tuple[int, ...], device,
+             key_round_bits: int, fragments: bool = True) -> NttContext:
+    dev = resolve_device(device)
     F = N // R
     limbs, bits = _choose_key_limbs(J, N, halfBg, primes, cover_bits=32 - key_round_bits)
     mats = [_ntt_matrices_np(p, F) for p in primes]
@@ -246,6 +281,8 @@ def make_context(N: int, J: int, halfBg: int, primes: tuple[int, int],
         return torch.from_numpy(np.stack(x).astype(np.int16)).to(dev)
 
     def frags(i):
+        if not fragments:
+            return None
         return torch.stack([mma_b_fragments(torch.from_numpy(m[i]), p)
                             for m, p in zip(mats, primes)]).to(dev)
 
@@ -356,20 +393,28 @@ def ntt_inverse_prime(xhat: torch.Tensor, ctx: NttContext, prime_idx: int) -> to
     return mod_matmul(xhat, ctx.Winv[prime_idx], ctx.primes[prime_idx])
 
 
-def crt_pair(r0: torch.Tensor, r1: torch.Tensor, ctx: NttContext) -> torch.Tensor:
-    """The exact integer (|V| < p1 p2 / 2) of balanced residues mod p1, p2, int64."""
-    p1, p2 = ctx.primes
-    return r0 + balanced_mod((r1 - r0) * ctx.crt_inv, p2) * p1
+def crt(res: list[torch.Tensor], ctx: NttContext) -> torch.Tensor:
+    """The exact integer (|V| < prod(primes) / 2) of balanced residues over
+    any number of primes, int64: Garner's mixed radix with balanced digits
+    (for two primes r0 + balanced_mod((r1 - r0) crt_inv, p2) p1)."""
+    V, m = res[0], 1
+    for p_prev, p, r in zip(ctx.primes, ctx.primes[1:], res[1:]):
+        m *= p_prev
+        inv = pow(m, -1, p)
+        V = V + m * balanced_mod(balanced_mod(r - V, p) * inv, p)
+    return V
 
 
 def limb_sum(V: torch.Tensor, ctx: NttContext, dim: int) -> torch.Tensor:
     """sum_l V[l] * 2^(key_round_bits + key_limb_bits * l) mod 2^32 over the
     key-limb axis ``dim`` of the CRT'd values: the product with the whole
-    (rounded) 32-bit key."""
+    (rounded) 32-bit key.  Each part is taken mod 2^32 before its shift, so
+    no int64 product leaves int64 (three primes' values reach 2^44)."""
     parts = torch.movedim(V, dim, 0)
     out = torch.zeros_like(parts[0])
     for li in range(parts.shape[0]):
-        out = out + (parts[li] << (ctx.key_round_bits + ctx.key_limb_bits * li))
+        shift = ctx.key_round_bits + ctx.key_limb_bits * li
+        out = out + (((parts[li] & 0xFFFFFFFF) << shift) & 0xFFFFFFFF)
     return wrap32(out)
 
 
@@ -401,7 +446,7 @@ def external_product_ntt(digits: torch.Tensor, key_step: torch.Tensor,
         dhat = mod_matmul(sub, ctx.W[pi], p).reshape(B, K, F).permute(2, 0, 1)   # (F,B,K)
         chat = mod_matmul(dhat, key_step[pi], p).permute(1, 2, 0)      # (B,M,F)
         res.append(ntt_inverse_prime(chat, ctx, pi))
-    V = crt_pair(res[0], res[1], ctx).reshape(B, L, U, R, F)
+    V = crt(res, ctx).reshape(B, L, U, R, F)
     return from_subpolys(limb_sum(V, ctx, dim=1))                      # index m = t*R + s
 
 
@@ -413,7 +458,7 @@ def kernel_key_residues(bk_rows: torch.Tensor, ctx: NttContext) -> torch.Tensor:
     contraction tensor the blind rotation multiplies the digit transforms by.
     A rounded plan (``ctx.key_round_bits``) rounds the rows first
     (:func:`round_key`).  Runs on the rows' device.  Every float64 step holds
-    exact integers (|limb| <= 2^15 + 1, |W| < 2^15, F <= 512 => |sum| < 2^40).
+    exact integers (|limb| <= 2^15 + 1, |W| < 2^15, F <= 2048 => |sum| < 2^42).
     """
     n, J, U, N = bk_rows.shape
     R, F, L, bits = ctx.R, ctx.F, ctx.key_limbs, ctx.key_limb_bits

@@ -41,24 +41,33 @@ def recombine_limbs(z: torch.Tensor, dim: int) -> torch.Tensor:
     return wrap32(out)
 
 
-def negacyclic_toeplitz(y: torch.Tensor) -> torch.Tensor:
+def negacyclic_toeplitz(y: torch.Tensor, cols: tuple[int, int] | None = None) -> torch.Tensor:
     """(..., N) -> (..., N, N) with M[..., r, c] = ext[(c - r) mod 2N], ext = [y, -y],
-    so that (x * y)[c] = sum_r x[r] M[r, c] in Z[X]/(X^N + 1)."""
+    so that (x * y)[c] = sum_r x[r] M[r, c] in Z[X]/(X^N + 1).  ``cols`` =
+    (c0, c1) gives the columns c0 <= c < c1 alone, (..., N, c1 - c0)."""
     N = y.shape[-1]
+    c0, c1 = (0, N) if cols is None else cols
     ext = torch.cat([y, -y], dim=-1)
     r = torch.arange(N, device=y.device)[:, None]
-    c = torch.arange(N, device=y.device)[None, :]
+    c = torch.arange(c0, c1, device=y.device)[None, :]
     return ext[..., (c - r) % (2 * N)]
+
+
+#: Output coefficients of :func:`torus_by_small_shared_matmul` a float64
+#: Toeplitz block holds: the whole (J N, N) block is 34 GB at N = 65536 (and
+#: its int64 index as much), past the card's memory.
+TOEPLITZ_COLS = 4096
 
 
 def torus_by_small_shared_matmul(a_torus: torch.Tensor,
                                  key_small: torch.Tensor) -> torch.Tensor:
     """Exact  out[..., :] = sum_j a_torus[..., j, :] (negacyclic*) key_small[j, :].
 
-    The keygen-side product (upstream ``tLweSymEncryptZero``).  One float64
-    matmul against the negacyclic Toeplitz of the binary key: every term is
-    an int32 times 0 or +-1, so |sum| <= J*N*2^31 < 2^53 and float64 holds
-    it exactly in any summation order; the result is reduced mod 2^32.
+    The keygen-side product (upstream ``tLweSymEncryptZero``).  Float64
+    matmuls against the negacyclic Toeplitz of the binary key, a block of
+    ``TOEPLITZ_COLS`` output coefficients at a time: every term is an int32
+    times 0 or +-1, so |sum| <= J*N*2^31 < 2^53 and float64 holds it
+    exactly in any summation order; the result is reduced mod 2^32.
 
     Args:
       a_torus:  (..., J, N) int32 torus polynomials.
@@ -70,9 +79,12 @@ def torus_by_small_shared_matmul(a_torus: torch.Tensor,
     assert a_torus.shape[-2:] == (J, N)
     if J * N * 2**31 >= 2**53:
         raise ValueError(f"J*N = {J * N} too large for an exact float64 product")
-    M = negacyclic_toeplitz(key_small).to(torch.float64).reshape(J * N, N)
     x = a_torus.reshape(-1, J * N).to(torch.float64)
-    z = (x @ M).to(torch.int64)
+    z = torch.empty((x.shape[0], N), dtype=torch.int64, device=x.device)
+    for c0 in range(0, N, TOEPLITZ_COLS):
+        c1 = min(N, c0 + TOEPLITZ_COLS)
+        M = negacyclic_toeplitz(key_small, (c0, c1)).to(torch.float64).reshape(J * N, c1 - c0)
+        z[:, c0:c1] = (x @ M).to(torch.int64)
     return wrap32(z).reshape(a_torus.shape[:-2] + (N,))
 
 

@@ -237,7 +237,7 @@ def _freq_local_rotate(acc0_l: torch.Tensor, bara_l: torch.Tensor, key_l: torch.
         chat = mesh.all_to_all(chat, axis, split_dim=4, concat_dim=1)  # (P, F, B, L, UR_loc)
         res = [ntt.ntt_inverse_prime(chat[pi].permute(1, 2, 3, 0), ctx, pi)
                for pi in range(len(ctx.primes))]                       # (B, L, UR_loc, F)
-        out_l = ntt.limb_sum(ntt.crt_pair(res[0], res[1], ctx), ctx, dim=1)
+        out_l = ntt.limb_sum(ntt.crt(res, ctx), ctx, dim=1)
         upd = mesh.all_gather(out_l, axis, 1)                         # (B, UR, F)
         upd = ntt.from_subpolys(upd.reshape(B, U, R, F))
         acc = wrap32(acc.to(torch.int64) + upd.to(torch.int64))

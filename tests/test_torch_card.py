@@ -485,6 +485,64 @@ def test_kernels_match_plain_at_the_c11_shapes(case, kernel, B, cuda_device):
     _check_shape(C11_CASES[case](), kernel, B, cuda_device)
 
 
+#: ROADMAP C12: the rings past N = 16384 (n = 8) for K2: N = 32768 at k = 1
+#: (its staged tier in a cluster of 8) and k = 2, 3, 4, N = 65536 at k = 1 and
+#: 2 (its global tier), and the rows form's exact key at N = 32768 Bgbit = 3.
+#: K1 and K3 have no context there, in both packages.
+C12_CASES = {
+    **{f"N{N}_k{k}_l3_bg8": (lambda N=N, k=k: params.test_params(N=N, k=k, l=3, Bgbit=8, n=8))
+       for N, k in ((32768, 1), (32768, 2), (32768, 3), (32768, 4), (65536, 1), (65536, 2))},
+    "N32768_k2_l3_bg3_rows": lambda: params.test_params(N=32768, k=2, l=3, Bgbit=3, n=8),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [7, 13])
+@pytest.mark.parametrize("case", list(C12_CASES))
+def test_k2_matches_plain_at_the_c12_shapes(case, B, cuda_device):
+    """K2 takes the C12 shapes (all 8 steps; B = 13 a ragged last block of 8
+    samples), bit for bit against its plain version (over the three-prime
+    plan), and a shape in a cluster or in the global tier does so
+    CLUSTER_REPEATS times in a row with the same words."""
+    p = C12_CASES[case]()
+    tg = p.tgsw_params
+    U, N = tg.tlwe_params.k + 1, tg.tlwe_params.N
+    if case.endswith("rows"):
+        blind_rotate_compact.check_rows_domain(p)        # the rows form takes it
+    in_memory = blind_rotate_compact.is_global(U, N, tg.kpl, tg.halfBg)
+    assert in_memory == (case != "N32768_k1_l3_bg8")
+    module, run, plain = _shape_rotation("K2", p, cuda_device, B)
+    before = module.launches
+    out = run()
+    torch.cuda.synchronize()
+    assert module.launches == before + 1
+    assert torch.equal(out, plain())
+    if in_memory or blind_rotate_compact.kernel_plan(U, N, tg.kpl, tg.halfBg)[3] > 1:
+        for _ in range(CLUSTER_REPEATS):
+            assert torch.equal(run(), out)
+
+
+@pytest.mark.gpu
+def test_c12_nand_at_n65536_runs_through_the_global_tier(cuda_device):
+    """ROADMAP C12: a NAND at N = 65536 (k = 1 l = 4 Bgbit = 8, a shape the
+    noise rail takes at n = 630; here 8 steps) over the compact key, keys
+    made on the card, runs through K2's global tier in one launch and
+    decrypts right."""
+    p = params.test_params(N=65536, k=1, l=4, Bgbit=8, n=8)
+    tg = p.tgsw_params
+    assert blind_rotate_compact.is_global(2, 65536, tg.kpl, tg.halfBg)
+    gen = torch.Generator(device=cuda_device).manual_seed(65)
+    ks = keys.new_random_gate_bootstrapping_secret_keyset(gen, p)
+    ek = bootstrap.prepare_eval_key_fused(ks.cloud, p)
+    a = torch.randint(0, 2, (13,), generator=gen, device=cuda_device).bool()
+    b = torch.randint(0, 2, (13,), generator=gen, device=cuda_device).bool()
+    ca, cb = (gates.encrypt_bit(gen, x, ks.lwe_key, p) for x in (a, b))
+    before = blind_rotate_compact.launches
+    out = gates.nand(ca, cb, ek, p)
+    assert blind_rotate_compact.launches == before + 1
+    assert torch.equal(gates.decrypt_bit(out, ks.lwe_key), ~(a & b))
+
+
 @pytest.mark.gpu
 def test_kernels_refuse_by_name_before_any_launch(cuda_device):
     """Shapes outside the domains after C11 raise by name, before any
