@@ -20,7 +20,7 @@ reference's module layout and names:
   api.tfhe / api.jwt               the ``Tfhe.*`` string API and its JWT gate
   serving                          the batching gate server (GateServer)
   lua / process                    the Lua interpreter and the AO process runtime (Process, Router)
-  utils.profiling                  per-op timers and torch.profiler regions
+  utils.profiling                  per-op timers and spans on the profiler's clock
   config                           FrameworkConfig: parameter set, eval-key form, JWT, echo,
                                    serving, mesh
   kernels.build                    builds ``csrc/*.cu`` with nvcc at first use

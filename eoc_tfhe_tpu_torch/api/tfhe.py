@@ -33,7 +33,7 @@ from ..core.params import GateBootstrappingParams
 from ..device import resolve_device
 from ..io import tfhe_io
 from ..io.tfhe_io import to_numpy
-from ..utils.profiling import op_timer
+from ..utils.profiling import op_timer, span
 from .jwt import validate_jwt
 
 #: The reference wrapper's constants (eoc-tfhe-run.cpp:34-36).
@@ -97,7 +97,8 @@ class TfheSession:
     # -- integers (leveled) ------------------------------------------------
 
     def _tensor(self, x, dtype) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(x), dtype=dtype, device=self.device)
+        with span("tfhe.api.upload"):
+            return torch.as_tensor(np.asarray(x), dtype=dtype, device=self.device)
 
     def encrypt_integer(self, value: int) -> str:
         ks = self._require_key()
@@ -112,8 +113,9 @@ class TfheSession:
             return int(mod_switch_from_torus32_np(np.int32(phase), MSIZE))
 
     def _import_lwe(self, b64_ct: str) -> lwe.LweCiphertext:
-        f = _io.BytesIO(tfhe_io.b64decode(b64_ct))
-        a, b, var = tfhe_io.read_lwe_sample(f, self.params.n)
+        with span("tfhe.api.decode"):
+            f = _io.BytesIO(tfhe_io.b64decode(b64_ct))
+            a, b, var = tfhe_io.read_lwe_sample(f, self.params.n)
         return lwe.LweCiphertext(a=self._tensor(a, torch.int32), b=self._tensor(b, torch.int32),
                                  current_variance=self._tensor(np.float32(var), torch.float32))
 
@@ -190,30 +192,38 @@ class TfheSession:
                 to_numpy(ct.current_variance).astype(np.float64)))
 
     def _import_bits(self, b64_ct: str) -> lwe.LweCiphertext:
-        data = tfhe_io.b64decode(b64_ct)
-        uid = int.from_bytes(data[:4], "little") if len(data) >= 4 else -1
-        if uid == tfhe_io.SEEDED_LWE_SAMPLE_UID:
-            seed, b, v = tfhe_io.unpack_seeded_lwe_samples(data, 8)
+        with span("tfhe.api.decode"):
+            data = tfhe_io.b64decode(b64_ct)
+            uid = int.from_bytes(data[:4], "little") if len(data) >= 4 else -1
+            seeded = uid == tfhe_io.SEEDED_LWE_SAMPLE_UID
+            if seeded:
+                seed, b, v = tfhe_io.unpack_seeded_lwe_samples(data, 8)
+            else:
+                a, b, v = tfhe_io.unpack_lwe_samples(data, 8, self.params.n)
+        if seeded:
             return lwe.lwe_seeded_expand(lwe.SeededLweCiphertext(
                 seed=self._tensor(seed.astype(np.int64), torch.int64),
                 b=self._tensor(b, torch.int32),
                 current_variance=self._tensor(v.astype(np.float32), torch.float32)),
                 self.params.n)
-        a, b, v = tfhe_io.unpack_lwe_samples(data, 8, self.params.n)
         return lwe.LweCiphertext(a=self._tensor(a, torch.int32), b=self._tensor(b, torch.int32),
                                  current_variance=self._tensor(v.astype(np.float32),
                                                                torch.float32))
 
     def _export_samples(self, ct: lwe.LweCiphertext) -> str:
         """The one LWE-batch export: pack_lwe_samples + base64."""
-        return tfhe_io.b64encode(tfhe_io.pack_lwe_samples(
-            to_numpy(ct.a), to_numpy(ct.b), to_numpy(ct.current_variance).astype(np.float64)))
+        with span("tfhe.api.export"):
+            return tfhe_io.b64encode(tfhe_io.pack_lwe_samples(
+                to_numpy(ct.a), to_numpy(ct.b),
+                to_numpy(ct.current_variance).astype(np.float64)))
 
     def _circuit_binop(self, fn, b64_a: str, b64_b: str) -> str:
         self._require_key()
         api = self.gate_api()
-        out, _flag = fn(self._import_bits(b64_a), self._import_bits(b64_b), api.eval_key,
-                        api.params, rotation_impl=self.config.rotation_impl)
+        a, b = self._import_bits(b64_a), self._import_bits(b64_b)
+        with span("tfhe.api.circuit"):
+            out, _flag = fn(a, b, api.eval_key, api.params,
+                            rotation_impl=self.config.rotation_impl)
         return self._export_samples(out)
 
     def add_uint8_bits(self, b64_a: str, b64_b: str) -> str:
@@ -243,9 +253,10 @@ class TfheSession:
         self._require_key()
         api = self.gate_api()
         with op_timer("lessThanUint8Bits"):
-            lt = adder.compare_lt(self._import_bits(b64_a), self._import_bits(b64_b),
-                                  api.eval_key, api.params,
-                                  rotation_impl=self.config.rotation_impl)
+            a, b = self._import_bits(b64_a), self._import_bits(b64_b)
+            with span("tfhe.api.circuit"):
+                lt = adder.compare_lt(a, b, api.eval_key, api.params,
+                                      rotation_impl=self.config.rotation_impl)
             return self._pack_bit_as_u8(lt)
 
     def equals_uint8_bits(self, b64_a: str, b64_b: str) -> str:
@@ -253,8 +264,10 @@ class TfheSession:
         self._require_key()
         api = self.gate_api()
         with op_timer("equalsUint8Bits"):
-            eq = adder.equals(self._import_bits(b64_a), self._import_bits(b64_b),
-                              api.eval_key, api.params, rotation_impl=self.config.rotation_impl)
+            a, b = self._import_bits(b64_a), self._import_bits(b64_b)
+            with span("tfhe.api.circuit"):
+                eq = adder.equals(a, b, api.eval_key, api.params,
+                                  rotation_impl=self.config.rotation_impl)
             return self._pack_bit_as_u8(eq)
 
     def select_uint8_bits(self, b64_c: str, b64_a: str, b64_b: str) -> str:
@@ -262,10 +275,10 @@ class TfheSession:
         self._require_key()
         api = self.gate_api()
         with op_timer("selectUint8Bits"):
-            cc = self._import_bits(b64_c)
-            out = adder.select_word(lwe.lwe_index(cc, 0), self._import_bits(b64_a),
-                                    self._import_bits(b64_b), api.eval_key, api.params,
-                                    rotation_impl=self.config.rotation_impl)
+            cc, a, b = (self._import_bits(x) for x in (b64_c, b64_a, b64_b))
+            with span("tfhe.api.circuit"):
+                out = adder.select_word(lwe.lwe_index(cc, 0), a, b, api.eval_key, api.params,
+                                        rotation_impl=self.config.rotation_impl)
             return self._export_samples(out)
 
 

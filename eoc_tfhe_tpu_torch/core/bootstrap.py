@@ -40,6 +40,7 @@ from ..ops.blind_rotate import blind_rotate_ntt, check_kernel_domain as check_k1
 from ..ops.blind_rotate_v1 import blind_rotate_ntt_v1, check_kernel_domain as check_k3_domain
 from ..ops.blind_rotate_compact import cmux_rotate_step  # noqa: F401  (the reference's name)
 from ..ops.keyswitch import keyswitch_apply, prepare_keyswitch_matmul
+from ..utils.profiling import span
 
 #: Eval-key forms of the port (the reference's; its "rows" form is the compact
 #: form with the exact key).
@@ -255,23 +256,26 @@ def bootstrap_woKS(mu: int, ct: LweCiphertext, ek: EvalKey,
     check_rotation_impl(rotation_impl)
     tl = params.tgsw_params.tlwe_params
     batch_shape = tuple(ct.b.shape)
-    acc0, bara = blind_rotate_inputs(mu, ct, params)
-    if ek.form == "ntt_kernel":
-        acc = blind_rotate_ntt(acc0, bara, ek.bk_ntt_kernel, ek.ntt_ctx, params)
-    elif ek.form == "ntt_scan":
-        acc = blind_rotate_ntt_v1(acc0, bara, ek.bk_ntt, ek.ntt_ctx, params)
-    else:
-        acc = blind_rotate_compact.blind_rotate_compact(acc0, bara, ek.bk_compact, params)
-    acc = acc.reshape(batch_shape + (tl.k + 1, tl.N))
-    zeros = torch.zeros(batch_shape, dtype=torch.float32, device=acc.device)
-    out = tlwe_extract_lwe_sample(TLweCiphertext(a=acc, current_variance=zeros))
-    var = blind_rotate_output_variance(
-        params, ek.bk_variance,
-        key_round_bits=ek.ntt_ctx.key_round_bits if ek.ntt_ctx is not None else 0)
-    if ek.compact_limbs < polymul.LIMBS:
-        var = var + torch.tensor(compact_round_variance(params, ek.compact_limbs),
-                                 dtype=torch.float32, device=var.device)
-    return LweCiphertext(a=out.a, b=out.b, current_variance=var.expand(batch_shape))
+    with span("tfhe.bootstrap.mod_switch"):
+        acc0, bara = blind_rotate_inputs(mu, ct, params)
+    with span("tfhe.bootstrap.rotate", B=acc0.shape[0], form=ek.form):
+        if ek.form == "ntt_kernel":
+            acc = blind_rotate_ntt(acc0, bara, ek.bk_ntt_kernel, ek.ntt_ctx, params)
+        elif ek.form == "ntt_scan":
+            acc = blind_rotate_ntt_v1(acc0, bara, ek.bk_ntt, ek.ntt_ctx, params)
+        else:
+            acc = blind_rotate_compact.blind_rotate_compact(acc0, bara, ek.bk_compact, params)
+    with span("tfhe.bootstrap.extract"):
+        acc = acc.reshape(batch_shape + (tl.k + 1, tl.N))
+        zeros = torch.zeros(batch_shape, dtype=torch.float32, device=acc.device)
+        out = tlwe_extract_lwe_sample(TLweCiphertext(a=acc, current_variance=zeros))
+        var = blind_rotate_output_variance(
+            params, ek.bk_variance,
+            key_round_bits=ek.ntt_ctx.key_round_bits if ek.ntt_ctx is not None else 0)
+        if ek.compact_limbs < polymul.LIMBS:
+            var = var + torch.tensor(compact_round_variance(params, ek.compact_limbs),
+                                     dtype=torch.float32, device=var.device)
+        return LweCiphertext(a=out.a, b=out.b, current_variance=var.expand(batch_shape))
 
 
 def compact_round_variance(params: GateBootstrappingParams, limbs: int) -> float:

@@ -13,6 +13,7 @@ from ..core.keys import KeySwitchKey
 from ..core.lwe import LweCiphertext
 from ..core.numeric import as_u32, wrap32
 from ..device import exact_matmuls
+from ..utils.profiling import span
 from . import polymul
 
 #: Batch rows per one-hot product: bounds the (rows, n_in*t*base) float32
@@ -89,21 +90,22 @@ def keyswitch_apply(ct_extracted: LweCiphertext, ks: KeySwitchKey, t: int, baseb
 
     result = (0, b) - sum_{i,j} ks[i, j, digit_ij(a)].
     """
-    n_in, tt, base, m = ks.ks.shape
-    assert tt == t and base == (1 << basebit)
-    n_out = m - 1
-    if prepared is None:
-        prepared = prepare_keyswitch_matmul(ks)
+    with span("tfhe.keyswitch"):
+        n_in, tt, base, m = ks.ks.shape
+        assert tt == t and base == (1 << basebit)
+        n_out = m - 1
+        if prepared is None:
+            prepared = prepare_keyswitch_matmul(ks)
 
-    digits = keyswitch_digits(ct_extracted.a, t, basebit)      # (..., n_in, t)
-    delta = keyswitch_delta(digits, prepared, base).to(torch.int64)   # (..., m)
+        digits = keyswitch_digits(ct_extracted.a, t, basebit)      # (..., n_in, t)
+        delta = keyswitch_delta(digits, prepared, base).to(torch.int64)   # (..., m)
 
-    a = wrap32(-delta[..., :n_out])
-    b = wrap32(ct_extracted.b.to(torch.int64) - delta[..., n_out])
-    # Each nonzero digit subtracts one table entry and adds its variance;
-    # the digit rounding adds n_in * E[s^2] * 2^(-2*t*basebit) / 12.
-    nnz = (digits != 0).to(torch.float32).sum(dim=(-2, -1))
-    round_var = torch.tensor(n_in * 2.0 ** (-2 * t * basebit) / 24.0,
-                             dtype=torch.float32, device=nnz.device)
-    var = ct_extracted.current_variance + nnz * ks.variance + round_var
-    return LweCiphertext(a=a, b=b, current_variance=var)
+        a = wrap32(-delta[..., :n_out])
+        b = wrap32(ct_extracted.b.to(torch.int64) - delta[..., n_out])
+        # Each nonzero digit subtracts one table entry and adds its variance;
+        # the digit rounding adds n_in * E[s^2] * 2^(-2*t*basebit) / 12.
+        nnz = (digits != 0).to(torch.float32).sum(dim=(-2, -1))
+        round_var = torch.tensor(n_in * 2.0 ** (-2 * t * basebit) / 24.0,
+                                 dtype=torch.float32, device=nnz.device)
+        var = ct_extracted.current_variance + nnz * ks.variance + round_var
+        return LweCiphertext(a=a, b=b, current_variance=var)

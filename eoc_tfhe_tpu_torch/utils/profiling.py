@@ -1,20 +1,42 @@
-"""Per-op timing and structured counters.
+"""Per-op timing and spans on the profiler's clock.
 
 Port of ``eoc_tfhe_tpu/utils/profiling.py``: ``Profiler``, ``PROFILER`` and
 ``op_timer`` give per-op host wall time and call counts, with opt-in echo
 lines like the reference wrapper's.  An op's time is what its caller waits
 for: the API methods end in a host copy of their result, which waits for the
-card.  :func:`trace` is the reference's ``jax.profiler`` region on
-``torch.profiler``.
+card.
+
+:func:`span` names a stretch of the calling thread's work for a
+``torch.profiler`` run: while a profiler records, it is a
+``record_function`` range, one of the profiler's own events, so it shares
+the clock of the device operations in the same trace; while none records, it
+costs one check of the profiler's state.  ``op_timer`` opens the span
+``tfhe.api.<op>`` beside its timer.
 """
 
 from __future__ import annotations
 
 import contextlib
-import json
 import time
 from collections import defaultdict
 from dataclasses import dataclass
+
+import torch
+
+#: True while a profiler is recording on this process (its C check).
+_profiler_enabled = torch._C._autograd._profiler_enabled
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str, **attrs):
+    """A context: a ``torch.profiler.record_function`` range named
+    ``"<name> k=v k=v"`` (the profiler keeps no arguments of a range, so the
+    attributes ride in its name) while a profiler records, else nothing."""
+    if not _profiler_enabled():
+        return _NO_SPAN
+    if attrs:
+        name = " ".join([name] + [f"{k}={v}" for k, v in attrs.items()])
+    return torch.profiler.record_function(name)
 
 
 @dataclass
@@ -28,7 +50,7 @@ class OpStats:
 
 
 class Profiler:
-    """Process-wide op profiler.  Enabled by default (cheap); JSON-dumpable."""
+    """Process-wide op profiler.  Enabled by default (cheap)."""
 
     def __init__(self) -> None:
         self.stats: dict[str, OpStats] = defaultdict(OpStats)
@@ -55,9 +77,6 @@ class Profiler:
     def summary(self) -> dict:
         return {k: v.as_dict() for k, v in sorted(self.stats.items())}
 
-    def dump_json(self) -> str:
-        return json.dumps(self.summary())
-
     def reset(self) -> None:
         self.stats.clear()
 
@@ -65,27 +84,9 @@ class Profiler:
 PROFILER = Profiler()
 
 
-def op_timer(name: str):
-    return PROFILER.op(name)
-
-
 @contextlib.contextmanager
-def trace(name: str, tensorboard_dir: str | None = None):
-    """A named ``torch.profiler`` region.  Without ``tensorboard_dir`` it only
-    labels the region for a profiler the caller runs; with it, it profiles
-    the region (the CPU, and the card when there is one) and writes a trace
-    file into ``tensorboard_dir`` for TensorBoard."""
-    import torch
-
-    if tensorboard_dir is None:
-        with torch.profiler.record_function(name):
-            yield
-        return
-    activities = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(torch.profiler.ProfilerActivity.CUDA)
-    with torch.profiler.profile(
-            activities=activities,
-            on_trace_ready=torch.profiler.tensorboard_trace_handler(tensorboard_dir)):
-        with torch.profiler.record_function(name):
-            yield
+def op_timer(name: str):
+    """``PROFILER``'s timer of the op ``name`` inside the span
+    ``tfhe.api.<name>``."""
+    with span("tfhe.api." + name), PROFILER.op(name):
+        yield
