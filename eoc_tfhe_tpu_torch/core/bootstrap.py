@@ -36,7 +36,8 @@ from .lwe import LweCiphertext
 from .tlwe import TLweCiphertext, tlwe_noiseless_trivial, tlwe_extract_lwe_sample
 from .keys import CloudKeySet, KeySwitchKey
 from ..ops import blind_rotate_compact, ntt, polymul, rotate
-from ..ops.blind_rotate import blind_rotate_ntt, check_kernel_domain as check_k1_domain
+from ..ops.blind_rotate import (blind_rotate_ntt, check_kernel_domain as check_k1_domain,
+                                cluster_blocks)
 from ..ops.blind_rotate_v1 import blind_rotate_ntt_v1, check_kernel_domain as check_k3_domain
 from ..ops.blind_rotate_compact import cmux_rotate_step  # noqa: F401  (the reference's name)
 from ..ops.keyswitch import keyswitch_apply, prepare_keyswitch_matmul
@@ -258,7 +259,8 @@ def bootstrap_woKS(mu: int, ct: LweCiphertext, ek: EvalKey,
     batch_shape = tuple(ct.b.shape)
     with span("tfhe.bootstrap.mod_switch"):
         acc0, bara = blind_rotate_inputs(mu, ct, params)
-    with span("tfhe.bootstrap.rotate", B=acc0.shape[0], form=ek.form):
+    with span("tfhe.bootstrap.rotate", B=acc0.shape[0], form=ek.form,
+              **_cluster_attr(acc0, ek, params)):
         if ek.form == "ntt_kernel":
             acc = blind_rotate_ntt(acc0, bara, ek.bk_ntt_kernel, ek.ntt_ctx, params)
         elif ek.form == "ntt_scan":
@@ -276,6 +278,14 @@ def bootstrap_woKS(mu: int, ct: LweCiphertext, ek: EvalKey,
             var = var + torch.tensor(compact_round_variance(params, ek.compact_limbs),
                                      dtype=torch.float32, device=var.device)
         return LweCiphertext(a=out.a, b=out.b, current_variance=var.expand(batch_shape))
+
+
+def _cluster_attr(acc0: torch.Tensor, ek: EvalKey, params) -> dict:
+    """The rotate span's ``C`` (blocks a cluster of K1's launch, from its
+    memoised plan) where it is more than 1; nothing else, so that a span
+    off K1's clusters keeps its label."""
+    C = cluster_blocks(acc0, ek.ntt_ctx, params) if ek.form == "ntt_kernel" else 1
+    return {"C": C} if C > 1 else {}
 
 
 def compact_round_variance(params: GateBootstrappingParams, limbs: int) -> float:

@@ -33,6 +33,7 @@ struct PackedKey {
   using Elem = int8_t;
   static constexpr int kStageBytes = 0;     // read in fragment order: no staging
   static constexpr bool kReduceC2 = false;  // KERNEL_PRIMES: |c16| = 1023
+  static constexpr bool kNarrow = true;     // the narrow tier: a share of a step is contiguous
   __device__ static uint4 load(const int8_t* key, const crt_mma::Shape& S, int i, int pi,
                                int f, int mt, int kt, int lane, int8_t*) {
     const size_t tile = ((static_cast<size_t>(i * 2 + pi) * S.F + f) * (S.Mp / 16) + mt) *
@@ -56,6 +57,14 @@ extern "C" int blind_rotate_ntt_launch(const void* acc0, const void* bara, const
                                        int p0, int p1, int crt_inv, void* stream) {
   return crt_mma::launch<PackedKey>(acc0, bara, key, Wf, Wi, scratch, scratch_bytes, out, B,
                                     n, U, N, R, l, Bgbit, L, kbits, rb, p0, p1, crt_inv, stream);
+}
+
+// Clusters of C blocks of the narrow tier (digit limbs DL, `smem` bytes of
+// shared memory a block) that the current device holds at once, into
+// *clusters: the launcher's query, for ops/blind_rotate.narrow_plan.
+// Returns a cudaError_t.
+extern "C" int blind_rotate_ntt_narrow_clusters(int DL, int C, long long smem, int* clusters) {
+  return crt_mma::narrow_clusters<PackedKey>(DL, C, static_cast<size_t>(smem), clusters);
 }
 
 #ifdef CRT_MMA_PROFILE

@@ -58,6 +58,7 @@ struct V1Key {
   static constexpr int kPlane = 16 * 16 + 16;        // [m][16 k] + 16 bytes: bank spread
   static constexpr int kStageBytes = 2 * kPlane;     // lo and hi planes, per warp
   static constexpr bool kReduceC2 = true;            // DEFAULT_PRIMES: |c16| = 16386
+  static constexpr bool kNarrow = false;             // no narrow tier (its key needs a transpose)
   __device__ static uint4 load(const int8_t* key, const crt_mma::Shape& S, int i, int pi,
                                int f, int mt, int kt, int lane, int8_t* stage) {
     const int q = lane >> 4, r = lane & 15, k = 16 * kt + r, m0 = 16 * mt;

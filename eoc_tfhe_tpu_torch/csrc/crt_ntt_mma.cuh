@@ -164,6 +164,12 @@
 // forward tiles the block's warps hold in registers), so a large Kp streams
 // them more often (Kp = 1280: fs = 8).
 //
+// The narrow tier (K1 only) replaces none of these: it takes the shipped
+// shapes at a batch whose sample groups leave most SMs idle (B <= 8 is one
+// block of 132 SMs): clusters of up to 16 blocks, split by frequency and by
+// row, the accumulator in the blocks' shared memory for the whole launch and
+// each step's key share staged by bulk copies (its section below).
+//
 // Shared memory, per block of kS samples (128-bit set: F = 128, K = M = 48,
 // kS = 8): dig [DL][s][k][t] and chat [2][s][m][f] share one buffer, rows
 // padded to FP + 16 bytes so that fragment loads hit 32 banks: 110,592
@@ -197,9 +203,12 @@
 
 #pragma once
 
+#include <array>
 #include <cstddef>
 #include <cstdint>
 #include <cstdlib>
+#include <mutex>
+#include <vector>
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -1379,6 +1388,551 @@ __global__ void __launch_bounds__(kThreads, 1) rotate_kernel_stream(
   }
 }
 
+// --- The narrow tier -------------------------------------------------------
+// Where the batch's sample groups leave most SMs idle (B <= 8 is one group:
+// one block on 1 of 132 SMs, each step streaming 1.18 MB of key through it),
+// K1's shipped shapes (F from 32 to 128, Kp <= 64, rb = 0) take clusters of
+// C blocks, each holding a group of ns samples (C = 16, 8, 4 or 2 dividing U
+// R, the largest for which some ns, the fewest first, gives G = ceil(B/ns)
+// groups with G C <= SMs that fit and that the card holds at once; 16 is the
+// non-portable size: plan_narrow_tier), with no global memory in the step
+// loop except the key and bara. The forward and pointwise products are split
+// by frequency, the inverse and the accumulator by row:
+// - block `rank` owns the pairs (u, r) = rank P .. rank P + P - 1, P = U R /
+//   C: the coefficients t R + r of u, every t (own [s][P][F]), loaded once
+//   and written once, and the inverse's rows m = (limb, u, r) of its pairs;
+// - after a cluster barrier (every slice holds the last update) each block
+//   gathers the whole accumulator, r-major (accf [s][u][r][t]: the owners'
+//   slices side by side), through DSMEM (16-byte reads, contiguous in each
+//   owner) and forms the digits of X^a acc - acc itself (dig, the layout of
+//   the shipped instantiations; four columns t a thread, so that loads and
+//   stores are whole words), a = bara read one step ahead;
+// - both primes at once: the forward of the block's Fc = F/C frequencies
+//   (warps by prime and n8 tile, then by (sample, m-tile)) and the pointwise
+//   product over them from the key share staged in shared memory (warps by
+//   (prime, frequency quad, m-tile)), whose chat words each go to the block
+//   that owns their row (a DSMEM store); a cluster barrier; the inverse of
+//   the block's rows over all F from its own shared memory (transposed: t
+//   the MMA's rows, the block's (sample, own row) pairs its columns), then
+//   the CRT and the limb sum update its slice. So chat crosses the cluster
+//   once a step, and every other read is local;
+// - the key share of a prime and step (Fc (Mp/16) (Kp/16) 512 bytes,
+//   contiguous in the packed key: 36,864 at the 128-bit set and C = 16) is
+//   copied by one cp.async.bulk on an mbarrier a slot: four slots (the next
+//   step's key is in flight while this step's is read) where shared memory
+//   allows, else two (step i + 1's copies start after step i's pointwise);
+//   where they fit (one sample a cluster, two slots) Winv's fragments of
+//   both primes (128 KB at F = 128), which every block's inverse reads
+//   whole each step, are staged in shared memory once a launch.
+// Every int32 sum is the shipped instantiation's, over the same F and Kp
+// (the contraction only runs across blocks), so its bounds hold unchanged.
+// Two cluster barriers a step: after the update (before the gather) and
+// after the pointwise (before the inverse); the key slots of step i are free
+// once the second has passed, and a last one keeps every block's shared
+// memory alive until no block reads it.
+
+// Byte offsets of the narrow tier's buffers in shared memory, and its key
+// slots (ops/blind_rotate.narrow_smem_bytes).
+struct Narrow {
+  int slots;       // key slots of one prime-step each: 4 or 2
+  int key_bytes;   // a block's key share of one prime and step
+  int pairs;       // pairs (u, r) a block owns: U R / C
+  int rows;        // the inverse's rows a sample and block: L pairs
+  int nr;          // n8 tiles of the block's rows (samples x rows, rounded up)
+  int accf;        // the gathered accumulator [s][u][r][F] uint32, then res [prime][8 nr][F]
+  int dig;         // the digits [DL][s][Kp][F + 16]
+  int own;         // the block's slice [s][pairs][F] uint32
+  int x;           // dhat [prime][fl][plane][s][Kp] (+16 a frequency)
+  int y;           // chat of the block's rows [prime][8 nr][plane][F] (+16 a row)
+  int bar;         // one mbarrier a slot, then bara of two steps [2][8] int32
+  int wi;          // Winv's fragments (Wi) staged once a launch where they fit, else -1
+  int smem;        // bytes in all
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Arms `bar` for `bytes` and copies them from global memory into shared
+// memory with one bulk copy that completes on it.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+               "[%0], [%1], %2, [%3];\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar)) : "memory");
+}
+
+// Waits until phase `parity` of `bar` has completed.
+__device__ __forceinline__ void bar_wait(uint64_t* bar, int parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile("{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+                 " selp.u32 %0, 1, 0, p;\n}\n"
+                 : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
+  }
+}
+
+// The key shares of step i (both primes) into slots `slot` and slot + 1.
+__device__ __forceinline__ void narrow_key_load(const Shape& S, const Narrow& P,
+                                                const int8_t* key, int8_t* keys, uint64_t* bar,
+                                                int i, int slot, int rank) {
+  for (int pi = 0; pi < 2; ++pi) {
+    const int8_t* src = key + (static_cast<size_t>(i * 2 + pi) * S.F + rank * S.Fc) *
+                                  (S.Mp / 16) * (S.Kp / 16) * 512;
+    bulk_load(keys + static_cast<size_t>(slot + pi) * P.key_bytes, src, P.key_bytes,
+              bar + slot + pi);
+  }
+}
+
+// Digits of d = X^a acc - acc (offset trick) from the r-major accumulator
+// into dig [DL][s][k][t], k = (u l + li) R + r: a thread takes columns t =
+// 4 tq .. 4 tq + 3 of one (s, u, r), so it reads a word of acc and stores a
+// word of each digit plane. a: bara of this step; dead samples get digit 0.
+template <int DL>
+__device__ __forceinline__ void digits_narrow(const Shape& S, const uint32_t* accf,
+                                              const int* a_s, int nvalid, int8_t* dig, int tid) {
+  const int F = S.F, FQ = F / 4, twoN = 2 * S.N;
+  for (int x = tid; x < S.ns * S.U * S.R * FQ; x += kThreads) {
+    const int sur = x / FQ, tq = x - sur * FQ, s = sur / (S.U * S.R);
+    const int ur = sur - s * S.U * S.R, u = ur >> S.log_r, r = ur & (S.R - 1);
+    uint32_t du[4] = {S.offset, S.offset, S.offset, S.offset};
+    if (s < nvalid) {
+      const int a = a_s[s];
+      const uint4 cur =
+          *reinterpret_cast<const uint4*>(accf + static_cast<size_t>(sur) * F + 4 * tq);
+      const uint32_t* as = accf + static_cast<size_t>(s * S.U + u) * S.R * F;
+      const uint32_t c4[4] = {cur.x, cur.y, cur.z, cur.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int src = (((4 * tq + j) << S.log_r) + r - a + twoN) & (twoN - 1);   // a in [0, 2N)
+        const int st = src >> S.log_r;
+        const uint32_t v = as[(src & (S.R - 1)) * F + (st & (F - 1))];
+        du[j] = (st < F ? v : 0u - v) - c4[j] + S.offset;
+      }
+    }
+    for (int li = 0; li < S.l; ++li) {
+      const int shift = 32 - (li + 1) * S.Bgbit;
+      uint32_t wlo = 0, whi = 0;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int d = static_cast<int>((du[j] >> shift) & S.mask) - S.halfBg;
+        int lo = d, hi = 0;
+        if (DL == 2) split8(d, lo, hi);
+        wlo |= static_cast<uint32_t>(lo & 255) << (8 * j);
+        whi |= static_cast<uint32_t>(hi & 255) << (8 * j);
+      }
+      int8_t* row = dig + static_cast<size_t>(s * S.Kp + (u * S.l + li) * S.R + r) * S.DS + 4 * tq;
+      *reinterpret_cast<uint32_t*>(row) = wlo;
+      if (DL == 2) *reinterpret_cast<uint32_t*>(row + S.dig_plane) = whi;
+    }
+  }
+}
+
+// The W fragments of this warp's forward group (prime, n8 tile of the
+// block's frequencies): loaded at the start of a step, so that their latency
+// overlaps the gather and the digit pass.
+template <int DL>
+__device__ __forceinline__ void load_w_narrow(const Shape& S, const uint4* __restrict__ Wf,
+                                              uint4 (&w)[kMaxKT][DL], int rank, int warp,
+                                              int lane) {
+  const int FN = S.Fc / 8, grp = warp / (kWarps / (2 * FN)), PI = grp / FN;
+  const int NT = S.F / 8, KT = S.F / 32;
+  const size_t nt = PI * NT + rank * FN + grp - PI * FN;   // this group's n8 tile of F
+  const uint4* wp = Wf + (nt * KT * 32 + lane) * 2;
+#pragma unroll
+  for (int kt = 0; kt < kMaxKT; ++kt) {
+    if (kt >= KT) continue;
+#pragma unroll
+    for (int q = 0; q < DL; ++q) w[kt][q] = __ldg(wp + kt * 64 + q);
+  }
+}
+
+// Forward NTT of the block's Fc frequencies for both primes: dhat[pi][fl]
+// [plane][s][k]. Warps take a (prime, n8 tile) group each (16 / (2 Fc/8)
+// warps a group), with its W fragments `w`, and walk its (sample, m-tile)
+// pairs. The sum is the shipped forward's: |C0 + 256 C1| <= 257 F 128 (128 +
+// |d_hi|).
+template <int DL>
+__device__ __forceinline__ void forward_narrow(const Shape& S, const int8_t* dig, int8_t* X,
+                                               const uint4 (&w)[kMaxKT][DL], int nvalid,
+                                               int warp, int lane) {
+  const int g = lane >> 2, tig = lane & 3;
+  const int FN = S.Fc / 8, wpg = kWarps / (2 * FN);
+  const int grp = warp / wpg, PI = grp / FN, nt = grp - PI * FN;
+  const int p = PI ? S.p1 : S.p0, half = PI ? S.half1 : S.half0;
+  const float inv_p = PI ? S.finv1 : S.finv0;
+  const int MT = S.Kp / 16, KT = S.F / 32, ns = S.ns;
+  int8_t* Xp = X + PI * S.Fc * S.xs;
+  for (int u = warp - grp * wpg; u < nvalid * MT; u += wpg) {
+    const int s = u / MT, mt = u - s * MT;
+    const int8_t* ds = dig + static_cast<size_t>(s) * S.Kp * S.DS + (mt * 16 + g) * S.DS + 4 * tig;
+    int c0[4] = {}, c1[4] = {};
+#pragma unroll
+    for (int kt = 0; kt < kMaxKT; ++kt) {
+      if (kt >= KT) continue;
+#pragma unroll
+      for (int q = 0; q < DL; ++q) {
+        const int8_t* base = ds + q * S.dig_plane + kt * 32;
+        const uint32_t a[4] = {lds32(base), lds32(base + 8 * S.DS), lds32(base + 16),
+                               lds32(base + 8 * S.DS + 16)};
+        mma_k32(c0, a, w[kt][q].x, w[kt][q].y);
+        mma_k32(c1, a, w[kt][q].z, w[kt][q].w);
+      }
+    }
+#pragma unroll
+    for (int r4 = 0; r4 < 4; ++r4) {
+      const int k = mt * 16 + g + 8 * (r4 >> 1), f = nt * 8 + 2 * tig + (r4 & 1);
+      int lo, hi;
+      split8(reduce32(c0[r4] + c1[r4] * 256, p, half, inv_p), lo, hi);
+      int8_t* xf = Xp + static_cast<size_t>(f) * S.xs + s * S.Kp + k;
+      xf[0] = static_cast<int8_t>(lo);
+      xf[ns * S.Kp] = static_cast<int8_t>(hi);
+    }
+  }
+}
+
+// Pushes the chat words of row m (four frequencies rank Fc + 4 q4 .., sample
+// s, prime pi; planes lo, hi) to the block that owns (u, r) of m = (limb, u,
+// r), at its row s L P + limb P + pair % P (a DSMEM store).
+__device__ __forceinline__ void push_chat(const Shape& S, const Narrow& P,
+                                          cg::cluster_group& cluster, int8_t* Y, int pi, int s,
+                                          int m, int q4, int rank, uint32_t wlo, uint32_t whi) {
+  const int limb = m / S.UR, pair = m - limb * S.UR, owner = pair / P.pairs;
+  const int row = s * P.rows + limb * P.pairs + pair - owner * P.pairs;
+  int8_t* y = cluster.map_shared_rank(Y, owner) + (pi * 8 * P.nr + row) * (2 * S.F + 16) +
+              rank * S.Fc + 4 * q4;
+  *reinterpret_cast<uint32_t*>(y) = wlo;
+  *reinterpret_cast<uint32_t*>(y + S.F) = whi;
+}
+
+// Pointwise product of the block's frequencies for both primes from the
+// staged key shares (`kslot`: prime 0's, prime 1's key_bytes further), four
+// frequencies a unit so that a thread has whole words, units (prime, quad,
+// m-tile) over the warps; each word goes to its row's owner (push_chat). C2
+// is not reduced: K1's sum C0 + 256 C1 + c16 C2 <= Kp 2^14 (513 + 1023) <
+// 2^31 at Kp <= 64.
+__device__ __forceinline__ void pointwise_narrow(const Shape& S, const Narrow& P,
+                                                 cg::cluster_group& cluster, const int8_t* kslot,
+                                                 const int8_t* X, int8_t* Y, int rank, int warp,
+                                                 int lane) {
+  const int g = lane >> 2, tig = lane & 3;
+  const int ns = S.ns, gs = g < ns ? g : 0;   // columns past the samples: sample 0
+  const int MT = S.Mp / 16, KT = S.Kp / 16, nq = S.Fc / 4;
+  for (int u = warp; u < 2 * nq * MT; u += kWarps) {
+    const int PI = u / (nq * MT), q4 = (u - PI * nq * MT) / MT, mt = u % MT;
+    const int p = PI ? S.p1 : S.p0, half = PI ? S.half1 : S.half0;
+    const int c16 = PI ? S.c16_1 : S.c16_0;
+    const float inv_p = PI ? S.finv1 : S.finv0;
+    const int8_t* kp = kslot + PI * P.key_bytes + lane * 16;
+    int c[4][3][4] = {};
+#pragma unroll
+    for (int fi = 0; fi < 4; ++fi) {
+      const int8_t* xf = X + static_cast<size_t>(PI * S.Fc + 4 * q4 + fi) * S.xs + gs * S.Kp +
+                         4 * tig;
+#pragma unroll
+      for (int kt = 0; kt < 4; ++kt) {
+        if (kt >= KT) continue;
+        const uint4 a = *reinterpret_cast<const uint4*>(
+            kp + (((4 * q4 + fi) * MT + mt) * KT + kt) * 512);
+        const uint32_t blo = lds32(xf + kt * 16), bhi = lds32(xf + ns * S.Kp + kt * 16);
+        mma_k16(c[fi][0], a.x, a.y, blo);
+        mma_k16(c[fi][1], a.x, a.y, bhi);
+        mma_k16(c[fi][1], a.z, a.w, blo);
+        mma_k16(c[fi][2], a.z, a.w, bhi);
+      }
+    }
+#pragma unroll
+    for (int r4 = 0; r4 < 4; ++r4) {
+      const int m = mt * 16 + g + 8 * (r4 >> 1), s = 2 * tig + (r4 & 1);
+      if (s >= ns || m >= S.M) continue;
+      uint32_t wlo = 0, whi = 0;
+#pragma unroll
+      for (int fi = 0; fi < 4; ++fi) {
+        int lo, hi;
+        split8(reduce32(c[fi][0][r4] + c[fi][1][r4] * 256 + c[fi][2][r4] * c16, p, half, inv_p),
+               lo, hi);
+        wlo |= static_cast<uint32_t>(lo & 255) << (8 * fi);
+        whi |= static_cast<uint32_t>(hi & 255) << (8 * fi);
+      }
+      push_chat(S, P, cluster, Y, PI, s, m, q4, rank, wlo, whi);
+    }
+  }
+}
+
+// Inverse NTT of the block's rows for both primes, after the cluster
+// barrier, from its own shared memory, transposed so that the rows are the
+// MMA's columns: res[pi][row][t] = balanced residue of sum_f Winv[f][t]
+// chat[row][f], units (prime, m-tile of t, n8 tile of rows) over the warps.
+// The A fragments of Winv^T over t = 16 mt .. are the B fragments of Winv's
+// n8 tiles 2 mt and 2 mt + 1 (ntt.NttContext.Winv_mma), read from shared
+// memory where they are staged, else from L1/L2. |C0 + 256 C1| <= 257 F
+// 2^15, as shipped.
+__device__ __forceinline__ void inverse_narrow(const Shape& S, const Narrow& P, const int8_t* Y,
+                                               const uint4* Wi, int16_t* res, int warp,
+                                               int lane) {
+  const int g = lane >> 2, tig = lane & 3;
+  const int NT = S.F / 8, KT = S.F / 32, MT = S.F / 16, RS = 2 * S.F + 16;
+  for (int u = warp; u < 2 * MT * P.nr; u += kWarps) {
+    const int PI = u / (MT * P.nr), mt = u / P.nr % MT, nr = u % P.nr;
+    const int p = PI ? S.p1 : S.p0, half = PI ? S.half1 : S.half0;
+    const float inv_p = PI ? S.finv1 : S.finv0;
+    const int8_t* y = Y + (PI * 8 * P.nr + nr * 8 + g) * RS + 4 * tig;
+    const uint4* wa = Wi + ((static_cast<size_t>(PI * NT + 2 * mt) * KT) * 32 + lane) * 2;
+    const uint4* wb = wa + KT * 64;   // n8 tile 2 mt + 1
+    int c0[4] = {}, c1[4] = {};
+#pragma unroll
+    for (int kt = 0; kt < kMaxKT; ++kt) {
+      if (kt >= KT) continue;
+      const uint4 w0a = wa[kt * 64], w1a = wa[kt * 64 + 1];
+      const uint4 w0b = wb[kt * 64], w1b = wb[kt * 64 + 1];
+      const uint32_t alo[4] = {w0a.x, w0b.x, w0a.y, w0b.y}, ahi[4] = {w0a.z, w0b.z, w0a.w, w0b.w};
+      const uint32_t vlo[4] = {w1a.x, w1b.x, w1a.y, w1b.y}, vhi[4] = {w1a.z, w1b.z, w1a.w, w1b.w};
+      const int8_t* yk = y + kt * 32;
+      const uint32_t b0 = lds32(yk), b1 = lds32(yk + 16);
+      const uint32_t h0 = lds32(yk + S.F), h1 = lds32(yk + S.F + 16);
+      mma_k32(c0, alo, b0, b1);
+      mma_k32(c0, vlo, h0, h1);
+      mma_k32(c1, ahi, b0, b1);
+      mma_k32(c1, vhi, h0, h1);
+    }
+#pragma unroll
+    for (int r4 = 0; r4 < 4; ++r4) {
+      const int t = mt * 16 + g + 8 * (r4 >> 1), row = nr * 8 + 2 * tig + (r4 & 1);
+      res[(PI * 8 * P.nr + row) * S.F + t] =
+          static_cast<int16_t>(reduce32(c0[r4] + c1[r4] * 256, p, half, inv_p));
+    }
+  }
+}
+
+// The CRT of the two primes' residues and the key-limb sum into the block's
+// slice: own[s][pair][t] += sum_limb V(s, limb P + pair, t) << (kbits limb).
+__device__ __forceinline__ void update_narrow(const Shape& S, const Narrow& P, const int16_t* res,
+                                              uint32_t* own, int nvalid, int tid) {
+  const int F = S.F, prime1 = 8 * P.nr * F;
+  for (int x = tid; x < nvalid * P.pairs * F; x += kThreads) {
+    const int sp = x / F, t = x - sp * F, s = sp / P.pairs, pair = sp - s * P.pairs;
+    uint32_t upd = 0;
+    for (int limb = 0; limb < S.L; ++limb) {
+      const int at = (s * P.rows + limb * P.pairs + pair) * F + t;
+      const int v0 = res[at], v1 = res[prime1 + at];
+      const int q = reduce32((v1 - v0) * S.crt_inv, S.p1, S.half1, S.finv1);
+      upd += static_cast<uint32_t>(v0 + q * S.p0) << (S.kbits * limb);   // |V| < p0 p1 / 2
+    }
+    own[x] += upd;
+  }
+}
+
+// The narrow tier (see above): cluster blockIdx.x / C holds samples b0 .. b0
+// + ns - 1, block `rank` of it their frequencies [rank Fc, (rank + 1) Fc)
+// and their pairs (u, r) rank P .. rank P + P - 1.
+template <class Key, int DL>
+__global__ void __launch_bounds__(kThreads, 1) rotate_kernel_narrow(
+    const int32_t* __restrict__ acc0, const int32_t* __restrict__ bara,
+    const typename Key::Elem* __restrict__ key, const uint4* __restrict__ Wf,
+    const uint4* __restrict__ Wi, int32_t* __restrict__ out, const Shape S, const Narrow P) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int ns = S.ns, F = S.F, UN = S.U * S.N;
+  const int b0 = (blockIdx.x / S.C) * ns, nvalid = min(ns, S.B - b0);
+  int8_t* keys = reinterpret_cast<int8_t*>(smem);
+  uint32_t* accf = reinterpret_cast<uint32_t*>(smem + P.accf);
+  int8_t* dig = reinterpret_cast<int8_t*>(smem + P.dig);
+  uint32_t* own = reinterpret_cast<uint32_t*>(smem + P.own);
+  int8_t* X = reinterpret_cast<int8_t*>(smem + P.x);
+  int16_t* res = reinterpret_cast<int16_t*>(smem + P.accf);   // accf is dead by then
+  int8_t* Y = reinterpret_cast<int8_t*>(smem + P.y);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + P.bar);
+  int* a_s = reinterpret_cast<int*>(bar + P.slots);          // [2][kMaxSamples]
+  const int ahead = P.slots / 2;   // steps whose key shares are in flight
+  const int own_n = ns * P.pairs * F;   // the slice: pairs (u, r) = rank P + pair
+
+  // own[s][pair][t] = acc[b0 + s][u][t R + r]
+  for (int x = tid; x < own_n; x += kThreads) {
+    const int sp = x / F, s = sp / P.pairs, ur = rank * P.pairs + sp - s * P.pairs;
+    own[x] = s < nvalid ? static_cast<uint32_t>(acc0[static_cast<size_t>(b0 + s) * UN +
+                                                     (ur >> S.log_r) * S.N +
+                                                     ((x - sp * F) << S.log_r) + (ur & (S.R - 1))])
+                        : 0u;
+  }
+  // the padding rows K <= k < Kp of dig read as zero; the digit pass never writes them
+  const int pad = S.Kp - S.K, w16 = S.DS / 16;
+  for (int x = tid; x < DL * ns * pad * w16; x += kThreads) {
+    const int row = x / w16, q = row / (ns * pad), sr = row - q * ns * pad;
+    const int s = sr / pad, k = S.K + sr - s * pad;
+    *reinterpret_cast<uint4*>(dig + q * S.dig_plane + (s * S.Kp + k) * S.DS +
+                              16 * (x - row * w16)) = make_uint4(0, 0, 0, 0);
+  }
+  if (tid < nvalid) a_s[tid] = __ldg(bara + b0 + tid);
+  const uint4* wi = Wi;
+  if (P.wi >= 0) {   // both primes' Winv fragments, 4 F^2 bytes each
+    uint4* staged = reinterpret_cast<uint4*>(smem + P.wi);
+    for (int x = tid; x < F * F / 2; x += kThreads) staged[x] = __ldg(Wi + x);
+    wi = staged;
+  }
+  if (tid == 0) {
+    for (int k = 0; k < P.slots; ++k)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
+                   :: "r"(smem_addr(bar + k)) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int i = 0; i < ahead && i < S.n; ++i)
+      narrow_key_load(S, P, key, keys, bar, i, 2 * i, rank);
+  }
+#ifdef CRT_MMA_PROFILE
+  long long t0 = clock64();
+#endif
+
+  for (int i = 0; i < S.n; ++i) {
+    cluster.sync();   // every slice holds the last update
+    CRT_MMA_PHASE(0);
+    uint4 w[kMaxKT][DL];
+    load_w_narrow<DL>(S, Wf, w, rank, warp, lane);
+    // bara of the next step, stored at the end of this one
+    const int a_next =
+        tid < nvalid && i + 1 < S.n ? __ldg(bara + static_cast<size_t>(i + 1) * S.B + b0 + tid) : 0;
+    for (int x = tid; x < ns * UN / 4; x += kThreads) {   // owner by owner, 16 bytes a thread
+      const int owner = x / (own_n / 4), w = 4 * x - owner * own_n, s = w / (P.pairs * F);
+      reinterpret_cast<uint4*>(accf)[(s * S.U * S.R + owner * P.pairs) * F / 4 +
+                                     (w - s * P.pairs * F) / 4] =
+          *reinterpret_cast<const uint4*>(cluster.map_shared_rank(own, owner) + w);
+    }
+    __syncthreads();
+    CRT_MMA_PHASE(1);
+    digits_narrow<DL>(S, accf, a_s + (i & 1) * kMaxSamples, nvalid, dig, tid);
+    __syncthreads();
+    CRT_MMA_PHASE(2);
+    forward_narrow<DL>(S, dig, X, w, nvalid, warp, lane);
+    const int slot = (i % ahead) * 2, parity = (i / ahead) & 1;
+    bar_wait(bar + slot, parity);
+    bar_wait(bar + slot + 1, parity);
+    __syncthreads();
+    CRT_MMA_PHASE(3);
+    pointwise_narrow(S, P, cluster, keys + static_cast<size_t>(slot) * P.key_bytes, X, Y, rank,
+                     warp, lane);
+    CRT_MMA_PHASE(4);
+    cluster.sync();   // every block's rows of chat are written, and its key slots read
+    CRT_MMA_PHASE(5);
+    if (tid == 0 && i + ahead < S.n) narrow_key_load(S, P, key, keys, bar, i + ahead, slot, rank);
+    inverse_narrow(S, P, Y, wi, res, warp, lane);
+    __syncthreads();
+    CRT_MMA_PHASE(6);
+    update_narrow(S, P, res, own, nvalid, tid);
+    if (tid < nvalid && i + 1 < S.n) a_s[((i + 1) & 1) * kMaxSamples + tid] = a_next;
+    CRT_MMA_PHASE(7);
+  }
+  cluster.sync();   // no block reads or writes another's shared memory any more
+  for (int x = tid; x < nvalid * P.pairs * F; x += kThreads) {
+    const int sp = x / F, s = sp / P.pairs, ur = rank * P.pairs + sp - s * P.pairs;
+    out[static_cast<size_t>(b0 + s) * UN + (ur >> S.log_r) * S.N + ((x - sp * F) << S.log_r) +
+        (ur & (S.R - 1))] = static_cast<int32_t>(own[x]);
+  }
+}
+
+// The narrow tier's layout for `ns` samples a cluster of C blocks, `slots`
+// key slots and Winv staged or not (`wi`); sets S's fields of that plan and
+// returns the shared memory (ops/blind_rotate.narrow_smem_bytes).
+inline size_t plan_narrow(Shape& S, Narrow& P, int DL, int ns, int C, int slots, bool wi) {
+  S.ns = ns;
+  S.C = C;
+  S.Fc = S.F / C;
+  S.dig_plane = ns * S.Kp * S.DS;
+  S.xs = 2 * ns * S.Kp + 16;
+  P.slots = slots;
+  P.key_bytes = S.Fc * (S.Mp / 16) * (S.Kp / 16) * 512;
+  P.pairs = S.UR / C;
+  P.rows = S.L * P.pairs;
+  P.nr = (ns * P.rows + 7) / 8;
+  const int accf = ns * S.U * S.N * 4, res = 2 * 8 * P.nr * S.F * 2;
+  P.accf = slots * P.key_bytes;
+  P.dig = P.accf + (accf > res ? accf : res);
+  P.own = P.dig + DL * S.dig_plane;
+  P.x = P.own + ns * P.pairs * S.F * 4;
+  P.y = P.x + 2 * S.Fc * S.xs;
+  P.bar = P.y + 2 * 8 * P.nr * (2 * S.F + 16);
+  P.wi = wi ? P.bar + 8 * slots + 8 * kMaxSamples : -1;
+  P.smem = P.bar + 8 * slots + 8 * kMaxSamples + (wi ? 8 * S.F * S.F : 0);
+  return static_cast<size_t>(P.smem);
+}
+
+// Clusters of C blocks of the narrow tier at `smem` bytes that the card
+// holds at once (cudaOccupancyMaxActiveClusters).
+template <class Key, int DL>
+int narrow_clusters_dl(int C, size_t smem, int* clusters) {
+  auto kernel = rotate_kernel_narrow<Key, DL>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return static_cast<int>(cudaOccupancyMaxActiveClusters(clusters, kernel, &cfg));
+}
+
+// The same, asked of the card once for each (device, DL, C, smem).
+template <class Key>
+int narrow_clusters(int DL, int C, size_t smem, int* clusters) {
+  static std::mutex mu;
+  static std::vector<std::array<long long, 5>> asked;   // device, DL, C, smem, clusters
+  int device = 0;
+  const cudaError_t e = cudaGetDevice(&device);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const std::array<long long, 4> at = {device, DL, C, static_cast<long long>(smem)};
+  std::lock_guard<std::mutex> lock(mu);
+  for (const auto& q : asked)
+    if (q[0] == at[0] && q[1] == at[1] && q[2] == at[2] && q[3] == at[3]) {
+      *clusters = static_cast<int>(q[4]);
+      return 0;
+    }
+  const int err = DL == 1 ? narrow_clusters_dl<Key, 1>(C, smem, clusters)
+                          : narrow_clusters_dl<Key, 2>(C, smem, clusters);
+  if (err == 0) asked.push_back({at[0], at[1], at[2], at[3], *clusters});
+  return err;
+}
+
+// The narrow tier's plan for S.B samples (ops/blind_rotate.narrow_plan): C
+// the largest of 16, 8, 4, 2 (F/C a multiple of 8, C dividing U R) for
+// which some ns of 1, 2, 4, 8 (the fewest first, so that the most clusters
+// run side by side; at most the power of two that holds B) gives G =
+// ceil(B/ns) groups with G C <= SMs, blocks that fit shared memory with two
+// slots (more samples need more: the next C then), and G clusters that the
+// card holds at once; then the first that fits of four slots and Winv
+// staged, two slots and Winv, four slots, two. Sets S and P and returns
+// true where it is taken; `err` carries a failed query.
+template <class Key>
+bool plan_narrow_tier(Shape& S, Narrow& P, int DL, int sms, size_t optin, int& err) {
+  int top = 1;
+  while (top < S.B && top < kMaxSamples) top *= 2;
+  for (int C = 16; C >= 2; C /= 2) {
+    if (S.F % (8 * C) != 0 || S.UR % C != 0) continue;
+    for (int ns = 1; ns <= top; ns *= 2) {
+      const int G = (S.B + ns - 1) / ns;
+      if (static_cast<long long>(G) * C > sms) continue;
+      const size_t smem = plan_narrow(S, P, DL, ns, C, 2, false);
+      if (smem > optin) break;
+      int clusters = 0;
+      err = narrow_clusters<Key>(DL, C, smem, &clusters);
+      if (err != 0) return false;
+      if (clusters < G) continue;
+      for (int k = 0; k < 4; ++k)
+        if (plan_narrow(S, P, DL, ns, C, k % 2 ? 2 : 4, k < 2) <= optin) return true;
+    }
+  }
+  return false;
+}
+
 // Shared memory of a block of `ns` samples (S.DS, Kp, Mp, F set): dig and
 // chat in one buffer, dhat, and Key::kStageBytes per warp. Sets the layout
 // fields of S that depend on ns. (ops/blind_rotate.crt_mma_smem_bytes.)
@@ -1449,6 +2003,37 @@ size_t plan_stream(Shape& S, int DL, int C, size_t optin) {
   return SIZE_MAX;
 }
 
+// Launches the narrow tier's plan (S, P) on `stream`: a grid of ceil(B/ns)
+// clusters of C blocks.
+template <class Key, int DL>
+int launch_narrow(const Shape& S, const Narrow& P, const void* acc0, const void* bara,
+                  const void* key, const void* Wf, const void* Wi, void* out, void* stream) {
+  auto kernel = rotate_kernel_narrow<Key, DL>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, P.smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = S.C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((S.B + S.ns - 1) / S.ns * S.C);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = P.smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const int32_t*>(acc0),
+                           static_cast<const int32_t*>(bara),
+                           static_cast<const typename Key::Elem*>(key),
+                           static_cast<const uint4*>(Wf), static_cast<const uint4*>(Wi),
+                           static_cast<int32_t*>(out), S, P);
+  if (err == cudaSuccess) err = cudaGetLastError();
+  return static_cast<int>(err);
+}
+
 // Checks the shape and the stated bounds, sizes shared memory and launches
 // rotate_kernel<Key, ...> on `stream`. rb: the key's rounding bits (0 for
 // the exact plan; the L limbs of kbits bits cover 32 - rb bits once).
@@ -1459,7 +2044,9 @@ size_t plan_stream(Shape& S, int DL, int C, size_t optin) {
 // memory, 16-byte aligned, at least ceil(B/ns) * C * (2*ns*Mp*Fr + DL*ns*Kp*(FP+16))
 // rounded up per part to 16 bytes, ns the samples a block or cluster (8, or
 // 4, 2 or 1 where 8 do not fit in shared memory), C the blocks a cluster (1
-// without one), Fr = F/C (8 at F = 4). Returns a cudaError_t (0 on success);
+// without one), Fr = F/C (8 at F = 4); none for the narrow tier (a key
+// with Key::kNarrow, K1), which a batch whose groups leave most SMs idle
+// takes (plan_narrow_tier). Returns a cudaError_t (0 on success);
 // allocates nothing and does not sync. The Python wrappers refuse the same
 // shapes first, by name (ops/blind_rotate.check_crt_mma_domain), and size
 // the scratch by the same plan (ops/blind_rotate.crt_mma_plan).
@@ -1562,6 +2149,20 @@ int launch(const void* acc0, const void* bara, const void* key, const void* Wf,
       static_cast<long long>(S.half0 + S.half1) * abs(crt_inv) >= (1LL << 31) ||
       static_cast<long long>(S.half1) * p0 + S.half0 >= (1LL << 31))
     return static_cast<int>(cudaErrorInvalidValue);
+  if constexpr (Key::kNarrow) {
+    int sms = 0;
+    if (!general && S.F >= 32) {
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      Shape T = S;
+      Narrow P;
+      int qerr = 0;
+      if (plan_narrow_tier<Key>(T, P, DL, sms, static_cast<size_t>(optin), qerr))
+        return DL == 1 ? launch_narrow<Key, 1>(T, P, acc0, bara, key, Wf, Wi, out, stream)
+                       : launch_narrow<Key, 2>(T, P, acc0, bara, key, Wf, Wi, out, stream);
+      if (qerr != 0) return qerr;
+    }
+  }
   const int grid = (B + S.ns - 1) / S.ns * S.C;
   S.res0_16 = (S.ns * S.Mp * (S.Fc > 8 ? S.Fc : 8) * 2 + 15) / 16;
   S.dig16 = (DL * S.dig_plane + 15) / 16;

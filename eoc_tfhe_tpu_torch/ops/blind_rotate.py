@@ -11,8 +11,10 @@ dataflow gives the same bits.
 hand-written int8 tensor-core kernel in ``csrc/blind_rotate_ntt.cu`` or
 raises: :func:`check_kernel_domain` refuses, by name and before any launch,
 a shape the kernel does not take.  ``launches`` counts kernel launches and
-nothing else.  The key is ``ntt.prepare_kernel_key``'s byte planes; the
-plain version reads the same key.
+nothing else, ``cluster_launches`` those that took the narrow tier (a batch
+whose sample groups leave most SMs idle: :func:`narrow_plan`).  The key is
+``ntt.prepare_kernel_key``'s byte planes; the plain version reads the same
+key.
 """
 
 from __future__ import annotations
@@ -24,11 +26,15 @@ from ..core.tgsw import decompose_h
 from . import rotate
 from .ntt import NttContext, external_product_ntt, pad16, unpack_kernel_key
 
-#: Number of launches of the CUDA kernel in this process.
+#: Number of launches of the CUDA kernel in this process, and of those that
+#: took the narrow tier (:func:`narrow_plan`).
 launches = 0
+cluster_launches = 0
 
-#: Shared memory a block may use on the H100 (its opt-in limit per block).
+#: Shared memory a block may use on the H100 (its opt-in limit per block),
+#: and its streaming multiprocessors (``cudaDevAttrMultiProcessorCount``).
 SMEM_PER_BLOCK = 232_448
+SMS = 132
 
 
 def cmux_ntt_step(acc: torch.Tensor, key_step: torch.Tensor, bara_i: torch.Tensor,
@@ -115,12 +121,23 @@ STREAM_TILES = 8
 STREAM_SLABS = (2, 1)
 
 
+#: The narrow tier (``crt_mma::rotate_kernel_narrow``, K1 alone): blocks a
+#: cluster, the largest first (16 is the card's non-portable size), and key
+#: slots of one prime-step each (four: the next step's key in flight while
+#: this step's is read; else two).
+NARROW_CLUSTERS = (16, 8, 4, 2)
+NARROW_SLOTS = (4, 2)
+
+
 def kernel_scratch_bytes(B: int, U: int, ctx: NttContext, tg, samples: int,
-                         cluster: int = 1) -> int:
+                         cluster: int = 1, narrow: bool = False) -> int:
     """Device scratch of the kernels on ``crt_ntt_mma.cuh`` (K1, K3): per block
     of ``samples`` samples (``cluster`` blocks for each ``samples``), the first
     prime's inverse residues (samples, Mp, F/cluster, at least 8) int16 and the
-    digits (DL, samples, Kp, FP + 16) int8, each rounded up to 16 bytes."""
+    digits (DL, samples, Kp, FP + 16) int8, each rounded up to 16 bytes; none
+    for the narrow tier (``narrow``), which keeps both on the chip."""
+    if narrow:
+        return 0
     Kp, Mp, F = pad16(tg.kpl * ctx.R), pad16(ctx.key_limbs * U * ctx.R), ctx.F
     DL = 1 if tg.halfBg <= 128 else 2
     per_block = (-(-samples * Mp * max(F // cluster, 8) * 2 // 16) * 16
@@ -181,9 +198,72 @@ def _plan(U: int, ctx: NttContext, tg, stage_bytes: int):
     return 1, True, tried[-1] if tried else 1, None
 
 
-def crt_mma_plan(U: int, ctx: NttContext, tg, stage_bytes: int = 0) -> tuple[int, bool, int]:
+def narrow_smem_bytes(U: int, ctx: NttContext, tg, samples: int, cluster: int,
+                      slots: int, winv: bool = False) -> int:
+    """Shared memory of a block of the narrow tier (``crt_mma::plan_narrow``):
+    ``slots`` key shares of a prime and step (Fc (Mp/16) (Kp/16) 512 bytes,
+    Fc = F/cluster); the gathered accumulator (samples, U, N) uint32 or, in
+    the same bytes, the inverse residues (2, 8 nr, F) int16, nr the n8 tiles
+    of the block's rows (samples x L P rows, P = U R / cluster pairs (u, r)
+    a block); the digits (DL, samples, Kp, F + 16) int8; the block's slice of
+    the accumulator (samples, P, F) uint32; dhat of both primes (2, Fc, 2
+    samples Kp + 16) int8; chat of its rows (2, 8 nr, 2 F + 16) int8; an
+    8-byte mbarrier a slot and bara of two steps (2, 8) int32; with
+    ``winv``, the inverse's fragments of both primes (``NttContext.
+    Winv_mma``, 8 F^2 bytes), staged once a launch."""
+    Kp, Mp, F, N = pad16(tg.kpl * ctx.R), pad16(ctx.key_limbs * U * ctx.R), ctx.F, ctx.N
+    DL = 1 if tg.halfBg <= 128 else 2
+    Fc, pairs = F // cluster, U * ctx.R // cluster
+    nr = -(-samples * ctx.key_limbs * pairs // 8)
+    return (slots * Fc * (Mp // 16) * (Kp // 16) * 512 + max(samples * U * N * 4, 32 * nr * F)
+            + DL * samples * Kp * (F + 16) + samples * pairs * F * 4
+            + 2 * Fc * (2 * samples * Kp + 16) + 16 * nr * (2 * F + 16)
+            + 8 * slots + 2 * SAMPLES[0] * 4 + (8 * F * F if winv else 0))
+
+
+def narrow_plan(B: int, U: int, ctx: NttContext, tg, sms: int = SMS,
+                clusters=None) -> tuple[int, int, int, bool] | None:
+    """(samples a cluster, blocks a cluster, key slots, Winv staged) of K1's
+    narrow tier for a batch of B, or None where it is not taken (``crt_mma::
+    plan_narrow_tier``).  Only the shipped instantiations' shapes with F >= 32
+    (every k32 column of the inverse then has an owning block) take it.  The
+    cluster is the largest C of ``NARROW_CLUSTERS`` (F/C a multiple of 8, C
+    dividing U R: each block owns U R / C pairs (u, r)) for which some
+    samples of 1, 2, 4, 8 (the fewest first, so that the most clusters run
+    side by side; at most the power of two that holds B) gives G = ceil(B /
+    samples) groups with G C <= ``sms``, blocks that fit with two slots (more
+    samples need more: the next C then), and G clusters that the card holds
+    at once, ``clusters(C, smem)`` (the launcher's
+    ``cudaOccupancyMaxActiveClusters``; ``sms // C`` where not given); then
+    the first that fits of four slots and Winv staged, two slots and Winv,
+    four slots, two (``NARROW_SLOTS``)."""
+    if ctx.F < 32 or crt_mma_plan(U, ctx, tg)[1]:
+        return None
+    top = min(SAMPLES[0], 1 << (B - 1).bit_length())
+    for C in NARROW_CLUSTERS:
+        if ctx.F % (8 * C) or U * ctx.R % C:
+            continue
+        for samples in sorted(s for s in SAMPLES if s <= top):
+            G = -(-B // samples)
+            if G * C > sms:
+                continue
+            smem = narrow_smem_bytes(U, ctx, tg, samples, C, NARROW_SLOTS[-1])
+            if smem > SMEM_PER_BLOCK:
+                break
+            if (sms // C if clusters is None else clusters(C, smem)) < G:
+                continue
+            return next((samples, C, n, w) for w in (True, False) for n in NARROW_SLOTS
+                        if narrow_smem_bytes(U, ctx, tg, samples, C, n, w) <= SMEM_PER_BLOCK)
+    return None
+
+
+def crt_mma_plan(U: int, ctx: NttContext, tg, stage_bytes: int = 0, batch: int | None = None,
+                 sms: int = SMS, clusters=None) -> tuple[int, bool, int]:
     """The instantiation ``crt_mma::launch`` picks: (samples a block or
-    cluster, general, blocks a cluster).
+    cluster, general, blocks a cluster).  With ``batch`` (K1's launches: the
+    narrow tier reads the packed key), a batch that :func:`narrow_plan` takes
+    gives (its samples a cluster, False, its blocks a cluster); every other
+    plan is independent of the batch.
 
     The shipped sets (F <= 128, Kp <= 64, an exact key, 8 samples within the
     card's shared memory) take their compile-time instantiations; every
@@ -196,6 +276,9 @@ def crt_mma_plan(U: int, ctx: NttContext, tg, stage_bytes: int = 0) -> tuple[int
     Where nothing fits, the plan is (1, True, the largest cluster tried, or
     1), which the domain check refuses.
     """
+    narrow = None if batch is None else narrow_plan(batch, U, ctx, tg, sms, clusters)
+    if narrow is not None:
+        return narrow[0], False, narrow[1]
     return _plan(U, ctx, tg, stage_bytes)[:3]
 
 
@@ -301,10 +384,58 @@ def check_kernel_domain(U: int, ctx: NttContext, tg) -> None:
     check_crt_mma_domain("K1 (blind_rotate_ntt)", U, ctx, tg, reduce_c2=False, stage_bytes=0)
 
 
+#: K1's plans on a card, by batch, shape and device (:func:`launch_plan`).
+_PLANS: dict = {}
+
+
+def launch_plan(B: int, U: int, ctx: NttContext, tg, device: torch.device) -> tuple[int, bool, int]:
+    """:func:`crt_mma_plan` of a K1 launch of B samples on ``device``, its SM
+    count and cluster occupancy read from the card (memoised: one dictionary
+    lookup after the first).  CPU tensors take the plain version: (0, False,
+    1) there."""
+    if device.type != "cuda":
+        return 0, False, 1
+    at = (B, U, ctx.N, ctx.R, ctx.key_limbs, ctx.key_limb_bits, ctx.key_round_bits, ctx.primes,
+          tg.l, tg.Bgbit, device.index)
+    plan = _PLANS.get(at)
+    if plan is None:
+        DL = 1 if tg.halfBg <= 128 else 2
+        plan = _PLANS[at] = crt_mma_plan(
+            U, ctx, tg, batch=B, sms=torch.cuda.get_device_properties(device).multi_processor_count,
+            clusters=lambda C, smem: _narrow_clusters(device, DL, C, smem))
+    return plan
+
+
+def cluster_blocks(acc0: torch.Tensor, ctx: NttContext, params) -> int:
+    """Blocks a cluster of the K1 launch that rotates ``acc0`` (1 off the
+    narrow tier and the cluster instantiations, and on the CPU)."""
+    tg = params.tgsw_params
+    return launch_plan(acc0.shape[0], acc0.shape[1], ctx, tg, acc0.device)[2]
+
+
+def _narrow_clusters(device: torch.device, DL: int, C: int, smem: int) -> int:
+    """The launcher's ``cudaOccupancyMaxActiveClusters`` of the narrow tier."""
+    import ctypes
+
+    from ..kernels import build
+
+    lib = build.load("blind_rotate_ntt")
+    fn = lib.blind_rotate_ntt_narrow_clusters
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        err = fn(DL, C, smem, ctypes.byref(out))
+    if err != 0:
+        raise launch_error("blind_rotate_ntt_narrow_clusters", lib, err)
+    return out.value
+
+
 def _launch(acc0: torch.Tensor, bara: torch.Tensor, key: torch.Tensor,
-            ctx: NttContext, params) -> torch.Tensor:
+            ctx: NttContext, params) -> tuple[torch.Tensor, bool]:
     """Launch ``csrc/blind_rotate_ntt.cu`` on CUDA tensors and return its
-    output; raises on a bad operand or a refused launch."""
+    output and whether it took the narrow tier; raises on a bad operand or a
+    refused launch."""
     from ..kernels import build
 
     B, U, N, n = kernel_key_shapes(acc0, bara, key, ctx, params)
@@ -314,8 +445,9 @@ def _launch(acc0: torch.Tensor, bara: torch.Tensor, key: torch.Tensor,
                            ("key", key, torch.int8), ("W_mma", ctx.W_mma, torch.int8),
                            ("Winv_mma", ctx.Winv_mma, torch.int8)))
     out = torch.empty_like(acc0)
-    samples, _, cluster = crt_mma_plan(U, ctx, tg)
-    scratch = torch.empty(kernel_scratch_bytes(B, U, ctx, tg, samples, cluster),
+    samples, general, cluster = launch_plan(B, U, ctx, tg, acc0.device)
+    narrow = cluster > 1 and not general
+    scratch = torch.empty(kernel_scratch_bytes(B, U, ctx, tg, samples, cluster, narrow),
                           dtype=torch.uint8, device=acc0.device)
     lib = build.load("blind_rotate_ntt")
     stream = torch.cuda.current_stream(acc0.device).cuda_stream
@@ -327,18 +459,19 @@ def _launch(acc0: torch.Tensor, bara: torch.Tensor, key: torch.Tensor,
             ctx.key_round_bits, ctx.primes[0], ctx.primes[1], ctx.crt_inv, stream)
     if err != 0:
         raise launch_error("blind_rotate_ntt", lib, err)
-    return out
+    return out, narrow
 
 
 def blind_rotate_ntt(acc0: torch.Tensor, bara: torch.Tensor, key: torch.Tensor,
                      ctx: NttContext, params) -> torch.Tensor:
     """All n CMux steps of the blind rotation.  CPU tensors take the plain
     version; CUDA tensors launch the kernel (no fallback)."""
-    global launches
+    global launches, cluster_launches
     if acc0.device.type == "cpu":
         return blind_rotate_ntt_plain(acc0, bara, key, ctx, params)
     if acc0.device.type != "cuda":
         raise ValueError(f"unsupported device {acc0.device}")
-    out = _launch(acc0, bara, key, ctx, params)
+    out, narrow = _launch(acc0, bara, key, ctx, params)
     launches += 1
+    cluster_launches += narrow
     return out

@@ -7,18 +7,23 @@ Imports ``eoc_tfhe_tpu_torch`` from the working directory (ahead of the
 script's own), so one command can time two checkouts on the same card: run
 it from the root of each.  Each checkout builds its own kernels and prepares its own
 keys (from the same random TGSW rows) through its own functions.  Shapes:
-the 128-bit set over all 630 steps; K1 (``blind_rotate_ntt``) at B=1 (the
-API's batch) and B=8192 (the NAND path's), K2 (``blind_rotate_compact``,
-exact key) at B=1024 (the circuit path's) and B=8192, K3
+the 128-bit set over all 630 steps; K1 (``blind_rotate_ntt``) at B=1 and
+B=8 (the API's batches, which take its narrow tier) and B=8192 (the NAND
+path's), K2 (``blind_rotate_compact``, exact key) at B=1024 (the circuit
+path's) and B=8192, K3
 (``blind_rotate_ntt_v1``, over ``DEFAULT_PRIMES``) at B=1024 and B=8192.
 Times are CUDA-event means over several launches after one warm launch.
 Prints the card and one JSON line.
 
 ``--stages`` also builds ``csrc/blind_rotate_ntt.cu`` and
 ``csrc/blind_rotate_ntt_v1.cu`` with ``-DCRT_MMA_PROFILE`` (diagnostic
-libraries beside the others in ``_build/``), runs each once at B=1 and at
-B=8192 and prints the share of block 0's clock cycles in each stage of a
-step (for K3 the pointwise stages include its key loader's transpose).
+libraries beside the others in ``_build/``), runs K1 once at B=1, 8 and
+8192 and K3 at B=1 and 8192, and prints block 0's clock cycles a step in
+each stage (for K3 the pointwise stages include its key loader's transpose;
+in K1's narrow tier block 0 is rank 0 of the first cluster, its stages the
+step's first cluster barrier, the gather, the digits, the forward with the
+wait for the key, the pointwise, the second barrier, the inverse and the
+update).
 """
 
 from __future__ import annotations
@@ -82,9 +87,10 @@ def main() -> int:
     ctx = ntt.kernel_context_for_params(p, device=dev)
     key = ntt.prepare_kernel_key(rows, ctx)
     if args.stages:
-        stages(build, blind_rotate, "blind_rotate_ntt", acc, bara, key, ctx, p)
+        stages(build, blind_rotate, "blind_rotate_ntt", acc, bara, key, ctx, p, (1, 8, 8192))
     k1 = lambda a, b: blind_rotate.blind_rotate_ntt(a, b, key, ctx, p)  # noqa: E731
     times["blind_rotate_ntt B=1"] = ms(k1, 1, 10)
+    times["blind_rotate_ntt B=8"] = ms(k1, 8, 10)
     times["blind_rotate_ntt B=8192"] = ms(k1, 8192, 2)
     del key
     ckey = blind_rotate_compact.prepare_compact_bk(rows, 4)
@@ -94,7 +100,7 @@ def main() -> int:
     sctx = ntt.context_for_params(p, device=dev)
     skey = ntt.prepare_key_ntt(rows, sctx)
     if args.stages:
-        stages(build, blind_rotate_v1, "blind_rotate_ntt_v1", acc, bara, skey, sctx, p)
+        stages(build, blind_rotate_v1, "blind_rotate_ntt_v1", acc, bara, skey, sctx, p, (1, 8192))
     k3 = lambda a, b: blind_rotate_v1.blind_rotate_ntt_v1(a, b, skey, sctx, p)  # noqa: E731
     times["blind_rotate_ntt_v1 B=1024"] = ms(k3, 1024, 3)
     times["blind_rotate_ntt_v1 B=8192"] = ms(k3, 8192, 2)
@@ -103,9 +109,10 @@ def main() -> int:
     return 0
 
 
-def stages(build, module, name, acc, bara, key, ctx, p) -> None:
+def stages(build, module, name, acc, bara, key, ctx, p, batches) -> None:
     """Clock cycles by stage of kernel ``name`` (K1 or K3, whose wrapper
-    module's ``_launch`` is called), from its -DCRT_MMA_PROFILE build."""
+    module's ``_launch`` is called), from its -DCRT_MMA_PROFILE build, at
+    each of ``batches``."""
     out = build.BUILD_DIR / f"lib{name}-stages.so"
     cmd = build._command(name, out)
     subprocess.run(cmd[:1] + ["-DCRT_MMA_PROFILE"] + cmd[1:], check=True, capture_output=True)
@@ -119,9 +126,14 @@ def stages(build, module, name, acc, bara, key, ctx, p) -> None:
     phase_clocks.argtypes = [ctypes.c_void_p]
     load = build.load
     build.load = lambda _: lib
-    names = ["digits0", "fwd0", "pw0", "inv0", "digits1", "fwd1", "pw1", "inv1"]
+    tg = p.tgsw_params
     try:
-        for B in (1, 8192):
+        for B in batches:
+            _, general, cluster = (module.launch_plan(B, tg.tlwe_params.k + 1, ctx, tg, acc.device)
+                                   if name == "blind_rotate_ntt" else (0, True, 1))
+            names = (["barrier_a", "gather", "digits", "fwd+key", "pw", "barrier_c", "inv",
+                      "update"] if cluster > 1 and not general
+                     else ["digits0", "fwd0", "pw0", "inv0", "digits1", "fwd1", "pw1", "inv1"])
             clocks = (ctypes.c_ulonglong * 8)()
             phase_clocks(ctypes.addressof(clocks))
             before = list(clocks)
@@ -130,8 +142,8 @@ def stages(build, module, name, acc, bara, key, ctx, p) -> None:
             phase_clocks(ctypes.addressof(clocks))
             d = [x - y for x, y in zip(clocks, before)]
             print(f"{name} B={B} stages: {sum(d) / p.n:.0f} clocks per step of "
-                  "block 0; " + ", ".join(f"{k} {100 * x / sum(d):.1f}%" for k, x in zip(names, d)),
-                  flush=True)
+                  "block 0; " + ", ".join(f"{k} {x / p.n:.0f} ({100 * x / sum(d):.1f}%)"
+                                          for k, x in zip(names, d)), flush=True)
     finally:
         build.load = load
 

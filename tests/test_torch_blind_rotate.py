@@ -353,6 +353,61 @@ def test_kernel_domains_take_the_shipped_sets_and_the_c5_shapes(case):
         (*K2_PLAN.get(case, (8, 4)), tg.kpl, 1)    # all J digit rows a pass, no cluster
 
 
+#: K1's plan on the H100 by batch: (samples a cluster, blocks a cluster, key
+#: slots, Winv staged) of the narrow tier, or None for the plan without it.
+#: An H100 80GB HBM3 holds 7 clusters of 16 blocks and 15 of 8 at once
+#: (``cudaOccupancyMaxActiveClusters``).  Clusters of 16
+#: come first, then the fewest samples a cluster: B <= 7 is a cluster a
+#: sample (one sample leaves room for the inverse's fragments), B = 8 and 9
+#: clusters of two samples, and B = 64 would need 8 clusters of 16 or 8
+#: samples in a cluster of 8, whose key share does not fit beside their
+#: digits: from there the plan without the tier.
+H100_CLUSTERS = {16: 7, 8: 15}
+NARROW_PLANS = {
+    "128": {1: (1, 16, 2, True), 5: (1, 16, 2, True), 8: (2, 16, 4, False),
+            9: (2, 16, 4, False), 64: None, 128: None, 1024: None, 8192: None},
+    "80": {1: (1, 16, 2, True), 5: (1, 16, 2, True), 8: (2, 16, 4, False),
+           9: (2, 16, 4, False), 64: None, 128: None, 1024: None, 8192: None},
+}
+#: The plan's scratch at B = 8192 without the narrow tier: 1024 blocks of the
+#: first prime's residues (8, Mp, F) int16 and the digits (DL, 8, Kp, F + 16).
+SCRATCH_8192 = {"128": 1024 * (8 * 48 * 128 * 2 + 8 * 48 * 144),
+                "80": 1024 * (8 * 64 * 128 * 2 + 2 * 8 * 32 * 144)}
+
+
+@pytest.mark.parametrize("B", [1, 5, 8, 9, 64, 128, 1024, 8192])
+@pytest.mark.parametrize("bits", ["128", "80"])
+def test_k1_plan_takes_the_narrow_tier_at_small_batches(bits, B):
+    """K1's plan on the H100: the narrow tier (clusters of 16 blocks; no
+    device scratch; its shared memory within the card's) where the groups
+    leave most SMs idle and it fits, else the plan without a batch, which B
+    = 8192 keeps as (8, False, 1) with its scratch.  A card that schedules
+    no cluster of the sizes tried keeps that plan too; K3's plan takes no
+    batch."""
+    p = params.default_128bit_params() if bits == "128" else params.default_80bit_params()
+    tg = p.tgsw_params
+    U = tg.tlwe_params.k + 1
+    ctx = ntt.kernel_context_for_params(p, device="cpu")
+    want = NARROW_PLANS[bits][B]
+    clusters = lambda C, smem: H100_CLUSTERS.get(C, 132 // C)  # noqa: E731
+    plan = blind_rotate.crt_mma_plan(U, ctx, tg, batch=B, sms=132, clusters=clusters)
+    narrow = blind_rotate.narrow_plan(B, U, ctx, tg, sms=132, clusters=clusters)
+    if want is None:
+        assert narrow is None and plan == (8, False, 1) == blind_rotate.crt_mma_plan(U, ctx, tg)
+        scratch = blind_rotate.kernel_scratch_bytes(B, U, ctx, tg, 8, 1)
+        assert scratch == -(-B // 8) * SCRATCH_8192[bits] // 1024
+    else:
+        samples, cluster, slots, winv = narrow
+        assert narrow == want and plan == (samples, False, cluster)
+        assert blind_rotate.kernel_scratch_bytes(B, U, ctx, tg, samples, cluster, True) == 0
+        assert blind_rotate.narrow_smem_bytes(U, ctx, tg, samples, cluster, slots,
+                                              winv) <= blind_rotate.SMEM_PER_BLOCK
+    assert blind_rotate.crt_mma_plan(U, ctx, tg, batch=B, sms=132,
+                                     clusters=lambda C, smem: 0) == (8, False, 1)
+    sctx = ntt.context_for_params(p, device="cpu")
+    assert blind_rotate.crt_mma_plan(U, sctx, tg, blind_rotate_v1.STAGE_BYTES) == (8, False, 1)
+
+
 def test_kernel_domains_refuse_by_name():
     """What stays outside the domains after C11 is refused by name: no
     context (K1 at N >= 4096), l*Bgbit > 32,

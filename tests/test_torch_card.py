@@ -180,6 +180,58 @@ def test_ntt_kernel_matches_plain_at_ragged_batches(case, B, cuda_device):
     assert torch.equal(out, blind_rotate.blind_rotate_ntt_plain(acc0, bara, key, ctx, p))
 
 
+#: Batches around K1's narrow tier: one sample group (B <= 8), two (9, 16),
+#: and 16 groups (128), which the shipped sets' plan leaves to one block each.
+NARROW_BATCHES = [1, 2, 5, 8, 9, 16, 128]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", NARROW_BATCHES)
+@pytest.mark.parametrize("case", list(CASES))
+def test_ntt_kernel_takes_the_narrow_tier_where_the_plan_says(case, B, cuda_device):
+    """K1 against its plain version at small batches; ``cluster_launches``
+    moves, and the launch runs ``rotate_kernel_narrow``, exactly where the
+    plan (with the card's SMs and cluster occupancy) takes the narrow tier."""
+    p = CASES[case]()
+    tg = p.tgsw_params
+    rows, acc0, bara = _rotation_inputs(p, B, 81, cuda_device)
+    ctx = ntt.kernel_context_for_params(p, device=cuda_device)
+    key = ntt.prepare_kernel_key(rows, ctx)
+    samples, general, cluster = blind_rotate.launch_plan(B, tg.tlwe_params.k + 1, ctx, tg,
+                                                         cuda_device)
+    narrow = cluster > 1 and not general
+    before = blind_rotate.launches, blind_rotate.cluster_launches
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        out = blind_rotate.blind_rotate_ntt(acc0, bara, key, ctx, p)
+        torch.cuda.synchronize()
+    assert (blind_rotate.launches, blind_rotate.cluster_launches) == (before[0] + 1,
+                                                                      before[1] + narrow)
+    kernels = [e.key for e in prof.key_averages() if "rotate_kernel" in e.key]
+    assert len(kernels) == 1 and ("rotate_kernel_narrow" in kernels[0]) == narrow, kernels
+    assert torch.equal(out, blind_rotate.blind_rotate_ntt_plain(acc0, bara, key, ctx, p))
+
+
+@pytest.mark.gpu
+def test_uint8_add_and_subtract_at_batch_1_take_the_narrow_tier(cuda_device):
+    """``addUint8`` and ``subtractUint8`` of the 128-bit API at batch 1:
+    every rotation of the two calls takes the narrow tier, each rotate span
+    says so (``C=16``), and the decoded values are the plaintext sum and
+    difference mod 256."""
+    from eoc_tfhe_tpu_torch.api.tfhe import Tfhe
+
+    t = Tfhe(seed=12)
+    t.generateSecretKey()
+    a, b = t.encryptUint8(200), t.encryptUint8Seeded(77)
+    before = blind_rotate.launches, blind_rotate.cluster_launches
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        total, diff = t.addUint8(a, b), t.subtractUint8(a, b)
+    runs = blind_rotate.launches - before[0]
+    assert runs > 0 and blind_rotate.cluster_launches - before[1] == runs
+    spans = [e.name for e in prof.events() if e.name.startswith("tfhe.bootstrap.rotate")]
+    assert len(spans) == runs and all(n.endswith(" form=ntt_kernel C=16") for n in spans), spans
+    assert (t.decryptUint8(total), t.decryptUint8(diff)) == (277 % 256, 200 - 77)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("B", RAGGED)
 @pytest.mark.parametrize("limbs", [4, 3])

@@ -108,3 +108,24 @@ def test_api_call_spans():
     form = s.gate_api().eval_key.form
     assert count[f"tfhe.bootstrap.rotate B=1 form={form}"] == 8
     assert count[f"tfhe.bootstrap.rotate B=8 form={form}"] == 1
+
+
+@pytest.mark.parametrize("blocks", [16, 1])
+def test_rotate_span_names_k1_cluster(keyset, monkeypatch, blocks):
+    """The rotate span carries ``C=<blocks a cluster>`` where K1's plan
+    (``blind_rotate.cluster_blocks``; on the card, the narrow tier at small
+    batches) takes a cluster, and keeps its label where it takes one block."""
+    from eoc_tfhe_tpu_torch.core import bootstrap
+
+    ek = config.FrameworkConfig(param_set="test").prepare_eval_key(keyset.cloud, P)
+    assert ek.form == "ntt_kernel"
+    seen = []
+    monkeypatch.setattr(bootstrap, "cluster_blocks",
+                        lambda acc0, ctx, params: seen.append(acc0.shape[0]) or blocks)
+    cts = [gates.encrypt_bit(torch.Generator().manual_seed(i), torch.tensor([True, False]),
+                             keyset.lwe_key, P) for i in range(2)]
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        gates.nand(*cts, ek, P)
+    rotate = [r[0] for r in _ranges(prof, "tfhe.bootstrap.rotate")]
+    assert seen == [2] and rotate == ["tfhe.bootstrap.rotate B=2 form=ntt_kernel"
+                                      + (f" C={blocks}" if blocks > 1 else "")]

@@ -620,6 +620,128 @@ def emulate_k3_cluster_step(acc, key8_step, bara_i, ctx, params, cluster):
     return wrap32(acc.to(torch.int64) + upd.transpose(-1, -2).reshape(B, U, N))
 
 
+def _digits_r_major(accf: torch.Tensor, bara_i: torch.Tensor, tg, R: int) -> torch.Tensor:
+    """The narrow tier's digit pass: d = X^a acc - acc from the r-major
+    accumulator accf (B, U, R, F), coefficient c = t R + r, each source
+    coefficient src = c - a mod 2N read at row src mod R, column src // R
+    mod F, negated from column F on; digits (B, J, N) as ``_digits``."""
+    B, U, _, F = accf.shape
+    N = R * F
+    c = torch.arange(N)
+    src = (c[None, :] - bara_i[:, None].to(torch.int64)) % (2 * N)        # (B, N)
+    st, sr = src // R, src % R
+    flat = accf.to(torch.int64).reshape(B, U, R * F)
+    v = torch.gather(flat, 2, (sr * F + st % F)[:, None, :].expand(B, U, N))
+    v = torch.where((st < F)[:, None, :], v, -v)
+    d = wrap32(v - flat[..., (c % R) * F + c // R])
+    half, mask = 1 << (tg.Bgbit - 1), (1 << tg.Bgbit) - 1
+    offset = sum(half << (32 - (p + 1) * tg.Bgbit) for p in range(tg.l))
+    du = (d.to(torch.int64) + offset) & 0xFFFFFFFF
+    dig = torch.stack([((du >> (32 - (li + 1) * tg.Bgbit)) & mask) - half
+                       for li in range(tg.l)], dim=2)          # (B, U, l, N)
+    return dig.reshape(B, U * tg.l, N)
+
+
+def emulate_k1_narrow_step(acc, key_step, bara_i, ctx, params, cluster, samples):
+    """One CMux step of K1's narrow tier (``rotate_kernel_narrow`` in
+    ``crt_ntt_mma.cuh``), block by block: ``cluster`` blocks a group of
+    ``samples`` samples; block c owns the frequencies [c Fc, (c + 1) Fc), Fc
+    = F/cluster, and the pairs (u, r) c P .. c P + P - 1, P = U R / cluster:
+    the accumulator's coefficients t R + r of u (its slice, (P, F) a sample)
+    and the inverse's rows m = (limb, u, r) of its pairs.  Each block gathers
+    the whole accumulator, r-major, from the slices and forms every digit
+    from it; its forward over its columns of W and its pointwise product
+    over the key share that one bulk copy stages (bytes [(pi F + c Fc) T, (pi
+    F + (c + 1) Fc) T) of the step's packed key, T = (Mp/16)(Kp/16)512) keep
+    the shipped sums, nothing reduced before the products by 256 and c16;
+    each row of its chat goes to the row's owner, which contracts its rows
+    over every f, then takes the CRT and the limb sum into its slice."""
+    tg = params.tgsw_params
+    B, U, N = acc.shape
+    R, F, L = ctx.R, ctx.F, ctx.key_limbs
+    Kp, Mp = ntt.pad16(tg.kpl * R), ntt.pad16(L * U * R)
+    Fc, P = F // cluster, U * R // cluster
+    T = (Mp // 16) * (Kp // 16) * 512
+    by_pair = acc.reshape(B, U, F, R).transpose(-1, -2).reshape(B, U * R, F)
+    slices = [by_pair[:, c * P:(c + 1) * P] for c in range(cluster)]      # (B, P, F)
+    accf = torch.cat(slices, dim=1).reshape(B, U, R, F)                   # the gather
+    dig = _digits_r_major(accf, bara_i, tg, R)
+    dig = dig.reshape(B, -1, F, R).transpose(-1, -2).reshape(B, -1, F)
+    dig = torch.nn.functional.pad(dig, (0, 0, 0, Kp - dig.shape[1]))   # (B, Kp, t)
+    dplanes = ([dig.to(torch.int8)] if tg.halfBg <= 128
+               else [x.to(torch.int8) for x in ntt.split_bytes(dig)])
+    flat = key_step.reshape(-1)
+    rows = [[li * U * R + c * P + pair for li in range(L) for pair in range(P)]
+            for c in range(cluster)]                                  # block c's rows m
+    res = []
+    for pi, p in enumerate(ctx.primes):
+        c16 = int(ntt.balanced_mod(torch.tensor(1 << 16), p))
+        Wp = _b_planes(ctx.W_mma[pi])[:, :F, :F]              # (4, t, f)
+        Vp = _b_planes(ctx.Winv_mma[pi])[:, :F, :F]           # (4, f, t)
+        chats = []
+        for c in range(cluster):
+            fs = slice(c * Fc, (c + 1) * Fc)
+            c0 = _mma(dplanes[0], Wp[0, :, fs], "bkt,tf->bkf")
+            c1 = _mma(dplanes[0], Wp[1, :, fs], "bkt,tf->bkf")
+            if len(dplanes) == 2:
+                c0 = c0 + _mma(dplanes[1], Wp[2, :, fs], "bkt,tf->bkf")
+                c1 = c1 + _mma(dplanes[1], Wp[3, :, fs], "bkt,tf->bkf")
+            dhat = ntt.balanced_mod(_int32_sum(_int32_sum(c0) + 256 * _int32_sum(c1)), p)
+            share = flat[(pi * F + c * Fc) * T:(pi * F + (c + 1) * Fc) * T]   # the bulk copy
+            keyp = _key_planes(share.reshape(1, Fc, Mp // 16, Kp // 16, 32, 16))[:, 0]
+            eq = "nbkf,fkm->nbmf"
+            lo, hi = (_mma_columns(x.to(torch.int8), samples) for x in ntt.split_bytes(dhat))
+            c0 = _int32_sum(_mma(lo, keyp[0], eq))
+            c1 = _int32_sum(_mma(hi, keyp[0], eq) + _mma(lo, keyp[1], eq))
+            c2 = _int32_sum(_mma(hi, keyp[1], eq))
+            z = _int32_sum(_int32_sum(c0 + 256 * _int32_sum(c1)) + _int32_sum(c16 * c2))
+            chats.append(ntt.balanced_mod(z, p)[:, :samples].reshape(-1, Mp, Fc)[:B])
+        out = []
+        for c in range(cluster):                              # the rows' owner
+            mine = torch.cat([x[:, rows[c]] for x in chats], dim=-1)   # (B, L P, F)
+            clo, chi = (x.to(torch.int8) for x in ntt.split_bytes(mine))
+            eq = "bjf,ft->bjt"
+            c0 = _int32_sum(_mma(clo, Vp[0], eq) + _mma(chi, Vp[2], eq))
+            c1 = _int32_sum(_mma(clo, Vp[1], eq) + _mma(chi, Vp[3], eq))
+            out.append(ntt.balanced_mod(_int32_sum(c0 + 256 * c1), p))   # (B, L P, t)
+        res.append(out)
+    p0, p1 = ctx.primes
+    own = []
+    for c in range(cluster):
+        q = ntt.balanced_mod(_int32_sum((res[1][c] - res[0][c]) * ctx.crt_inv), p1)
+        V = _int32_sum(res[0][c] + q * p0).reshape(B, L, P, F)
+        upd = sum((V[:, li] << (ctx.key_limb_bits * li)) for li in range(L))
+        own.append(wrap32(slices[c].to(torch.int64) + upd))
+    return torch.cat(own, dim=1).reshape(B, U, R, F).transpose(-1, -2).reshape(B, U, N)
+
+
+@pytest.mark.parametrize("samples", [1, 8])
+@pytest.mark.parametrize("cluster", [8, 16])
+@pytest.mark.parametrize("case", ["full_width_128", "full_width_80"])
+def test_k1_narrow_emulation_matches_reference_scan(case, cluster, samples):
+    """K1's narrow tier at the shipped sets, split over 8 and 16 blocks (Fc
+    = 16, 8), at a batch of 3 in clusters of one sample (the plan's at B <=
+    7) and of eight (its from B = 33: three live columns of the pointwise
+    MMA, the rest repeating sample 0), gives
+    the reference's scan bit for bit with every int32 sum of the shipped
+    instantiation inside int32."""
+    p = CASES[case]()
+    tg = p.tgsw_params
+    U = tg.tlwe_params.k + 1
+    rows, acc0, bara = _inputs(p, K1_STEPS[case], 3, seed=31)
+    sctx = jntt.context_for_params(p)
+    want = np.asarray(jntt.blind_rotate_ntt(
+        jnp.asarray(acc0), jnp.asarray(bara), jntt.prepare_key_ntt_np(rows, sctx), p, sctx))
+    ctx = ntt.kernel_context_for_params(p, device="cpu")
+    assert blind_rotate.crt_mma_plan(U, ctx, tg, batch=3) == (1, False, 16)
+    key = ntt.prepare_kernel_key(torch.from_numpy(rows), ctx)
+    acc = torch.from_numpy(acc0)
+    for i in range(K1_STEPS[case]):
+        acc = emulate_k1_narrow_step(acc, key[i], torch.from_numpy(bara[i]), ctx, p, cluster,
+                                     samples)
+    np.testing.assert_array_equal(acc.numpy(), want)
+
+
 #: N = 8192 k = 1 l = 3 (F = 1024): K3's plan is a cluster of 2; 4 is the
 #: next size the launcher would take.
 C10_CLUSTER = {"N8192_k1_l3": lambda: jparams.test_params(N=8192, k=1, l=3, Bgbit=7)}
