@@ -17,6 +17,13 @@ a :class:`Sharded`: this rank's block, its spec and the whole shape.
 Collectives on CUDA tensors go through the group's backend; gloo is given
 a host copy of a CUDA tensor (explicitly, for that backend only), which is
 how several ranks share one card, where NCCL refuses two ranks on one GPU.
+
+Each collective that reaches the backend opens the span
+``tfhe.mesh.<op> axis=<axis> bytes=<bytes>`` (``utils/profiling.span``) and
+adds its bytes to :data:`collective_bytes`: the bytes of the operand this
+rank hands to it (its whole tensor for psum, all_gather and all_to_all; the
+source's tensor for broadcast).  A collective over one rank is the identity
+and opens nothing.
 """
 
 from __future__ import annotations
@@ -29,8 +36,13 @@ import torch.distributed as dist
 
 from ..core.numeric import wrap32
 from ..device import resolve_device
+from ..utils.profiling import span
 
 AXES = ("dp", "tp")
+
+#: Bytes this process's collectives have been handed (see the module doc),
+#: a process-wide count like ``ops.blind_rotate.launches``.
+collective_bytes = 0
 
 
 def local_rank(rank: int) -> int:
@@ -92,14 +104,14 @@ class Mesh:
     # -- collectives over one axis, in the group's rank order ----------------
 
     def psum(self, x: torch.Tensor, axis: str) -> torch.Tensor:
-        return psum(x, self.group(axis))
+        return psum(x, self.group(axis), axis=axis)
 
     def all_gather(self, x: torch.Tensor, axis: str, dim: int = 0) -> torch.Tensor:
-        return all_gather(x, self.group(axis), dim)
+        return all_gather(x, self.group(axis), dim, axis=axis)
 
     def all_to_all(self, x: torch.Tensor, axis: str, split_dim: int,
                    concat_dim: int) -> torch.Tensor:
-        return all_to_all(x, self.group(axis), split_dim, concat_dim)
+        return all_to_all(x, self.group(axis), split_dim, concat_dim, axis=axis)
 
 
 def make_mesh(dp: int | None = None, tp: int = 1, device=None) -> Mesh:
@@ -145,31 +157,43 @@ def _on_backend(group, x: torch.Tensor) -> torch.Tensor:
     return x.contiguous()
 
 
-def psum(x: torch.Tensor, group) -> torch.Tensor:
+def _collective(op: str, axis: str, x: torch.Tensor):
+    """The span of one collective on ``x``, its bytes counted."""
+    global collective_bytes
+    nbytes = x.numel() * x.element_size()
+    collective_bytes += nbytes
+    return span(f"tfhe.mesh.{op}", axis=axis, bytes=nbytes)
+
+
+def psum(x: torch.Tensor, group, axis: str = "world") -> torch.Tensor:
     """Sum over the group.  int32 is summed exactly mod 2^32 (in int64, then
     wrapped), whatever the backend does with signed overflow; a float sum is
-    the backend's, exact for integer values below 2^24 in float32."""
+    the backend's, exact for integer values below 2^24 in float32.  ``axis``
+    names the group in the span."""
     if _size(group) == 1:
         return x
-    y = _on_backend(group, x.to(torch.int64) if x.dtype == torch.int32 else x.clone())
-    dist.all_reduce(y, group=group)          # in place: never on the caller's tensor
-    y = y.to(x.device)
-    return wrap32(y) if x.dtype == torch.int32 else y
+    with _collective("psum", axis, x):
+        y = _on_backend(group, x.to(torch.int64) if x.dtype == torch.int32 else x.clone())
+        dist.all_reduce(y, group=group)          # in place: never on the caller's tensor
+        y = y.to(x.device)
+        return wrap32(y) if x.dtype == torch.int32 else y
 
 
-def all_gather(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+def all_gather(x: torch.Tensor, group, dim: int = 0, axis: str = "world") -> torch.Tensor:
     """The group's tensors concatenated along ``dim`` in group-rank order
     (``all_gather(..., tiled=True)``)."""
     n = _size(group)
     if n == 1:
         return x
-    y = _on_backend(group, x)
-    out = [torch.empty_like(y) for _ in range(n)]
-    dist.all_gather(out, y, group=group)
-    return torch.cat(out, dim=dim).to(x.device)
+    with _collective("all_gather", axis, x):
+        y = _on_backend(group, x)
+        out = [torch.empty_like(y) for _ in range(n)]
+        dist.all_gather(out, y, group=group)
+        return torch.cat(out, dim=dim).to(x.device)
 
 
-def all_to_all(x: torch.Tensor, group, split_dim: int, concat_dim: int) -> torch.Tensor:
+def all_to_all(x: torch.Tensor, group, split_dim: int, concat_dim: int,
+               axis: str = "world") -> torch.Tensor:
     """``all_to_all(x, split_axis, concat_axis, tiled=True)``: chunk j of
     ``split_dim`` goes to group rank j, and the chunks received are
     concatenated along ``concat_dim`` in group-rank order."""
@@ -178,21 +202,23 @@ def all_to_all(x: torch.Tensor, group, split_dim: int, concat_dim: int) -> torch
         return x
     if x.shape[split_dim] % n:
         raise ValueError(f"axis {split_dim} of {tuple(x.shape)} does not split over {n} ranks")
-    y = _on_backend(group, x.movedim(split_dim, 0))     # chunk j = rows of rank j
-    out = torch.empty_like(y)
-    dist.all_to_all_single(out, y, group=group)
-    out = out.to(x.device).reshape((n, y.shape[0] // n) + tuple(y.shape[1:]))
-    return torch.cat([blk.movedim(0, split_dim) for blk in out.unbind(0)], dim=concat_dim)
+    with _collective("all_to_all", axis, x):
+        y = _on_backend(group, x.movedim(split_dim, 0))     # chunk j = rows of rank j
+        out = torch.empty_like(y)
+        dist.all_to_all_single(out, y, group=group)
+        out = out.to(x.device).reshape((n, y.shape[0] // n) + tuple(y.shape[1:]))
+        return torch.cat([blk.movedim(0, split_dim) for blk in out.unbind(0)], dim=concat_dim)
 
 
-def broadcast(x: torch.Tensor, group=None, src: int = 0) -> torch.Tensor:
+def broadcast(x: torch.Tensor, group=None, src: int = 0, axis: str = "world") -> torch.Tensor:
     """A copy of group rank ``src``'s ``x`` (same shape and dtype on every rank)."""
     if not dist.is_initialized() or dist.get_world_size(group) == 1:
         return x
-    y = _on_backend(group, x.clone())
-    dist.broadcast(y, src=dist.get_global_rank(group, src) if group is not None else src,
-                   group=group)
-    return y.to(x.device)
+    with _collective("broadcast", axis, x):
+        y = _on_backend(group, x.clone())
+        dist.broadcast(y, src=dist.get_global_rank(group, src) if group is not None else src,
+                       group=group)
+        return y.to(x.device)
 
 
 # ---------------------------------------------------------------------------

@@ -5,11 +5,14 @@ each ``shard_map`` body is the code of one rank, on its own slice, and its
 collectives over "dp" and "tp" are the mesh's (``parallel/mesh.py``).
 
   * blind rotation — local per dp slice (no collectives; the key whole on
-    every rank): the compact key's rotation, so on the card every rank
-    launches kernel K2 (``ops/blind_rotate_compact``);
+    every rank): ``bootstrap_woKS`` on the eval key as
+    ``FrameworkConfig.prepare_eval_key`` gives it, so on the card every rank
+    launches the form's kernel (K1 for "ntt"), or, where the reference's
+    compact rows are given, kernel K2 (``ops/blind_rotate_compact``);
   * key switching — the (n_in*t*base) contraction rows are cut over tp; each
     rank contracts its row slice and the partial results are summed over tp
-    exactly mod 2^32;
+    exactly mod 2^32 (at tp = 1 an eval key's gate runs the one-card
+    ``keyswitch_apply``);
   * the TGSW-row and the frequency split of the external product over tp,
     on the "ntt_scan" key's residues, with a sum, or an all_to_all and an
     all_gather, in every CMux step.  A fused n-step kernel cannot split a
@@ -23,6 +26,12 @@ out_specs ``P("dp")``).  A key cut over tp is passed as this rank's block
 (:class:`~.mesh.Sharded`, from :func:`shard_ntt_key_rows` or
 :func:`shard_ntt_key_freq`), so each rank holds 1/tp of it; the keyswitch
 table is passed whole and sliced here.
+
+Spans (``utils/profiling.span``): ``tfhe.parallel.inputs dp= rank=`` around
+this rank's dp slice and the gate's linear combination, and
+``tfhe.parallel.gather dp= bytes=`` around the output's all_gather over dp
+and its concatenation (``bytes``: this rank's slice of the output); the
+collectives inside open their own (``parallel/mesh``).
 """
 
 from __future__ import annotations
@@ -38,7 +47,8 @@ from ..core.params import GateBootstrappingParams
 from ..core.tgsw import decompose_h
 from ..core.tlwe import TLweCiphertext, tlwe_extract_lwe_sample
 from ..ops import blind_rotate_compact, ntt, rotate
-from ..ops.keyswitch import keyswitch_delta, keyswitch_digits
+from ..ops.keyswitch import keyswitch_apply, keyswitch_delta, keyswitch_digits
+from ..utils.profiling import span
 from .mesh import Mesh, Sharded, batch_slice, shard
 
 
@@ -81,13 +91,17 @@ def _f32(x, device) -> torch.Tensor:
 
 def _dp_inputs(mesh: Mesh, offset_t32, sa, sb, ca_a, ca_b, ca_var, cb_a, cb_b, cb_var):
     """This rank's dp slice of the gate's bootstrap input (0, offset) + sa*ca + sb*cb."""
-    ca = LweCiphertext(*(batch_slice(x, mesh) for x in (ca_a, ca_b, ca_var)))
-    cb = LweCiphertext(*(batch_slice(x, mesh) for x in (cb_a, cb_b, cb_var)))
-    return gates.linear_input(offset_t32, ca, cb, sa, sb)
+    with span("tfhe.parallel.inputs", dp=mesh.dp, rank=mesh.rank):
+        ca = LweCiphertext(*(batch_slice(x, mesh) for x in (ca_a, ca_b, ca_var)))
+        cb = LweCiphertext(*(batch_slice(x, mesh) for x in (cb_a, cb_b, cb_var)))
+        return gates.linear_input(offset_t32, ca, cb, sa, sb)
 
 
 def _dp_outputs(out: LweCiphertext, mesh: Mesh):
-    return tuple(mesh.all_gather(x, "dp", 0) for x in (out.a, out.b, out.current_variance))
+    parts = (out.a, out.b, out.current_variance)
+    with span("tfhe.parallel.gather", dp=mesh.dp,
+              bytes=sum(x.numel() * x.element_size() for x in parts)):
+        return tuple(mesh.all_gather(x, "dp", 0) for x in parts)
 
 
 def make_sharded_gate(mesh: Mesh, params: GateBootstrappingParams,
@@ -95,26 +109,46 @@ def make_sharded_gate(mesh: Mesh, params: GateBootstrappingParams,
                       rotation_impl: str = "auto"):
     """Build a sharded two-input bootstrapped gate (e.g. NAND).
 
-    Returns fn(ca_a, ca_b, ca_var, cb_a, cb_b, cb_var, bk_rows, bk_var,
-    ks_prepared, ks_var) -> (a, b, var), the ciphertext batch sharded over
-    dp and the keyswitch contraction over tp.  ``bk_rows`` is the compact
-    key (the TGSW rows, which is the reference's "rows" key).  The variance
-    rail matches the unsharded path bit for bit: input variances propagate
-    through the linear part, the bootstrap term uses the real bk variance,
-    and the keyswitch term counts nonzero digits; the static gate budget
-    rail runs at build time like ``gates._gate``.  The rows' int8 digits are
-    exact only for halfBg <= 128 (ROADMAP C1): other sets are refused here.
+    Returns fn(ca_a, ca_b, ca_var, cb_a, cb_b, cb_var, key) -> (a, b, var),
+    the ciphertext batch sharded over dp and the keyswitch contraction over
+    tp.  ``key`` is this rank's eval key as ``FrameworkConfig.prepare_eval_key``
+    gives it, in any form: each rank bootstraps its dp slice through
+    ``bootstrap_woKS`` on it (K1 for "ntt", at halfBg = 512 too).
+
+    The reference's signature stays: fn(ca_a, ca_b, ca_var, cb_a, cb_b,
+    cb_var, bk_rows, bk_var, ks_prepared, ks_var), the compact key's TGSW
+    rows (the reference's "rows" key) in ``key``'s place, rotated by K2.
+    The rows' int8 digits are exact only for halfBg <= 128 (ROADMAP C1):
+    other sets are refused when rows are given.
+
+    The variance rail matches the unsharded path bit for bit: input
+    variances propagate through the linear part, the bootstrap term uses the
+    real bk variance, and the keyswitch term counts nonzero digits; the
+    static gate budget rail runs at build time like ``gates._gate``.
     """
     n_in = params.N * params.k
     gates.check_noise_budget(params, sa, sb)
     check_rotation_impl(rotation_impl)
-    blind_rotate_compact.check_digit_domain(params)
 
-    def gate_fn(ca_a, ca_b, ca_var, cb_a, cb_b, cb_var, bk_rows, bk_var,
-                ks_prepared, ks_var):
+    def gate_fn(ca_a, ca_b, ca_var, cb_a, cb_b, cb_var, key, bk_var=None,
+                ks_prepared=None, ks_var=None):
+        if isinstance(key, EvalKey):
+            if (bk_var, ks_prepared, ks_var) != (None, None, None):
+                raise ValueError("an EvalKey carries its variances and keyswitch table: "
+                                 "pass it alone")
+            temp = _dp_inputs(mesh, offset_t32, sa, sb, ca_a, ca_b, ca_var, cb_a, cb_b, cb_var)
+            u = bootstrap_woKS(gates.MU_BOOL, temp, key, params, rotation_impl)
+            if mesh.tp == 1:
+                out = keyswitch_apply(u, key.ks, t=params.ks.t, basebit=params.ks.basebit,
+                                      prepared=key.ks_prepared)
+            else:
+                out = _keyswitch_tp(u, key.ks_prepared, key.ks.variance, params.ks.t,
+                                    params.ks.basebit, n_in, mesh)
+            return _dp_outputs(out, mesh)
+        blind_rotate_compact.check_digit_domain(params)
         temp = _dp_inputs(mesh, offset_t32, sa, sb, ca_a, ca_b, ca_var, cb_a, cb_b, cb_var)
         dev = mesh.device
-        bk_rows = bk_rows.to(dev).contiguous()
+        bk_rows = key.to(dev).contiguous()
         ek_local = EvalKey(bk_rows=bk_rows, bk_variance=_f32(bk_var, dev),
                            ks_prepared=ks_prepared, ks=None, form="compact",
                            bk_compact=bk_rows)

@@ -147,6 +147,50 @@ def _job_parallel(inp, out) -> None:
                                pt["scaling_efficiency"]])
 
 
+def _job_parallel_form(inp, out) -> None:
+    """The dp NAND on the eval key that FrameworkConfig prepares ("ntt": K1's
+    plain version here), per parameter set and layout: rank 0 holds the
+    keyset and hands the cloud key to the others through ``mesh.replicate``;
+    each rank prepares its own eval key.  One call of the (4, 1) layout runs
+    again under a profiler for its spans and collective bytes."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from eoc_tfhe_tpu_torch.config import FrameworkConfig
+    from eoc_tfhe_tpu_torch.core import gates, keys, lwe, params
+    from eoc_tfhe_tpu_torch.parallel import mesh, sharded
+
+    for s in inp["sets"]:
+        p = params.test_params(Bgbit=int(inp[f"{s}_Bgbit"]))
+        host = [inp[f"{s}_{k}"] for k in ("lwe", "ring", "bk", "bk_var", "ks", "ks_var")]
+        m0 = mesh.make_mesh(device="cpu")
+        if m0.rank:     # only rank 0 holds the keyset: the others take its shapes
+            host = [np.zeros_like(x) for x in host]
+        ks = keys.keyset_from_numpy(*host, device="cpu")
+        cloud = mesh.replicate(ks.cloud, m0)
+        ca, cb = (lwe.LweCiphertext(*(torch.from_numpy(inp[f"{s}_{c}_{f}"])
+                                      for f in ("a", "b", "var"))) for c in ("ca", "cb"))
+        args = (ca.a, ca.b, ca.current_variance, cb.a, cb.b, cb.current_variance)
+        for dp, tp in ((4, 1), (2, 2)):
+            cfg = FrameworkConfig(param_set="test", eval_key_form="ntt", mesh_dp=dp,
+                                  mesh_tp=tp)
+            m = cfg.make_mesh(device="cpu")
+            ek = cfg.prepare_eval_key(cloud, p)
+            fn = sharded.make_sharded_nand(m, p)
+            for f, x in zip(("a", "b", "var"), fn(*args, ek)):
+                out[f"{s}_{dp}x{tp}_{f}"] = x.numpy()
+            out[f"{s}_form"] = np.array(ek.form)
+            if (dp, tp) == (4, 1) and s == inp["sets"][0]:
+                sent = mesh.collective_bytes
+                with profile(activities=[ProfilerActivity.CPU]) as prof:
+                    fn(*args, ek)
+                out["collective_bytes"] = np.array(mesh.collective_bytes - sent)
+                out["spans"] = np.array(sorted({e.name for e in prof.events()
+                                                if e.name.startswith("tfhe.")}))
+        one = gates.nand(ca, cb, cfg.prepare_eval_key(cloud, p), p)
+        for f, x in zip(("a", "b", "var"), (one.a, one.b, one.current_variance)):
+            out[f"{s}_one_{f}"] = x.numpy()
+
+
 def _job_native_keys(inp, out) -> None:
     """Row-sharded key and dp-sharded batch round trips, and the directory
     the JAX package wrote: read, rewritten, and read back."""
@@ -230,8 +274,8 @@ def _main(job: str, rank: int, world: int, workdir: str) -> None:
     with np.load(os.path.join(workdir, "inputs.npz")) as f:
         inp = dict(f)
     out = {}
-    {"parallel": _job_parallel, "native_keys": _job_native_keys, "llama": _job_llama}[job](
-        inp, out)
+    {"parallel": _job_parallel, "parallel_form": _job_parallel_form,
+     "native_keys": _job_native_keys, "llama": _job_llama}[job](inp, out)
     out["imported_jax"] = np.array(any(name == "jax" or name.startswith(("jax.", "eoc_tfhe_tpu."))
                                        or name == "eoc_tfhe_tpu" for name in sys.modules))
     np.savez(os.path.join(workdir, f"out{rank}.npz"), **out)
