@@ -244,8 +244,8 @@ class TfheSession:
     def _pack_bit_as_u8(self, bit_ct: lwe.LweCiphertext) -> str:
         """One bit as a uint8 blob (value 0/1): the bit in slot 0, trivial
         false above it."""
-        pad = gates.constant(torch.zeros(tuple(bit_ct.b.shape), dtype=torch.bool),
-                             self.params, device=self.device)
+        pad = gates.constant(torch.zeros(tuple(bit_ct.b.shape), dtype=torch.bool,
+                                         device=self.device), self.params, device=self.device)
         return self._export_samples(lwe.lwe_stack([bit_ct] + [pad] * 7))
 
     def less_than_uint8_bits(self, b64_a: str, b64_b: str) -> str:

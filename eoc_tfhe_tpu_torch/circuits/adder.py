@@ -30,9 +30,11 @@ RIPPLE_MODES = ("fast", "raw", "classic")
 
 
 def _false(like: LweCiphertext, params: GateBootstrappingParams) -> LweCiphertext:
-    """The constant 0 bit for each sample of a (nbits, ...) batch, on its device."""
-    return gates.constant(torch.zeros(tuple(like.b.shape[1:]), dtype=torch.bool),
-                          params, device=like.b.device)
+    """The constant 0 bit for each sample of a (nbits, ...) batch, on its device:
+    ``gates.constant(False)``'s words, filled there (no host copy)."""
+    return lwe_noiseless_trivial(
+        torch.full(tuple(like.b.shape[1:]), -gates.MU_BOOL, dtype=torch.int32,
+                   device=like.b.device), params.n)
 
 
 def _check_mode(mode: str) -> None:

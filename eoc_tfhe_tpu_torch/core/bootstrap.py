@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from ..config import ROTATION_IMPL_CHOICES
+from ..device import device_constant
 from .params import GateBootstrappingParams
 from .numeric import mod_switch_from_torus32
 from .lwe import LweCiphertext
@@ -65,6 +66,11 @@ class EvalKey:
     bk_ntt_kernel: torch.Tensor | None = None  # (n, P, F, Mp/16, Kp/16, 32, 16) int8 byte planes
     bk_ntt: torch.Tensor | None = None  # (n, P, F, K, 2M) int8 byte pairs, "ntt_scan"
     ntt_ctx: ntt.NttContext | None = None
+    #: The key's gate-path constants on its device, by parameter set
+    #: (:func:`rotation_variance`); not an argument, so every copy of a key
+    #: (``dataclasses.replace``, ``parallel.mesh``) builds its own.
+    constants: dict = dataclasses.field(default_factory=dict, init=False, repr=False,
+                                        compare=False)
 
     @property
     def n(self) -> int:
@@ -271,13 +277,25 @@ def bootstrap_woKS(mu: int, ct: LweCiphertext, ek: EvalKey,
         acc = acc.reshape(batch_shape + (tl.k + 1, tl.N))
         zeros = torch.zeros(batch_shape, dtype=torch.float32, device=acc.device)
         out = tlwe_extract_lwe_sample(TLweCiphertext(a=acc, current_variance=zeros))
+        var = rotation_variance(ek, params)
+        return LweCiphertext(a=out.a, b=out.b, current_variance=var.expand(batch_shape))
+
+
+def rotation_variance(ek: EvalKey, params: GateBootstrappingParams) -> torch.Tensor:
+    """The output variance of a blind rotation under ``ek`` (a float32
+    scalar on its device): :func:`blind_rotate_output_variance` of its
+    ``bk_variance`` and key rounding, plus :func:`compact_round_variance`
+    for a rounded compact key.  Built at the key's first bootstrap and kept
+    in ``ek.constants``, so that a gate makes no host-to-device copy."""
+    def build():
         var = blind_rotate_output_variance(
             params, ek.bk_variance,
             key_round_bits=ek.ntt_ctx.key_round_bits if ek.ntt_ctx is not None else 0)
         if ek.compact_limbs < polymul.LIMBS:
             var = var + torch.tensor(compact_round_variance(params, ek.compact_limbs),
                                      dtype=torch.float32, device=var.device)
-        return LweCiphertext(a=out.a, b=out.b, current_variance=var.expand(batch_shape))
+        return var
+    return device_constant(ek.constants, ("rotation_variance", params), build)
 
 
 def _cluster_attr(acc0: torch.Tensor, ek: EvalKey, params) -> dict:

@@ -1,5 +1,6 @@
-"""Device selection for the port's entry points, and the matmul precision
-scope their products run in."""
+"""Device selection for the port's entry points, the matmul precision
+scope their products run in, and the gate path's constants built once on a
+device."""
 
 from __future__ import annotations
 
@@ -13,6 +14,11 @@ import torch
 #: server's worker, its callers, a llama decode).  Re-entrant, so a scope may
 #: call code that opens its own.
 _PRECISION_LOCK = threading.RLock()
+
+#: Gate-path constants built on a device (:func:`device_constant`) in this
+#: process, a count like ``ops.blind_rotate.launches``: it grows in a key's
+#: first calls and never again.
+gate_constants = 0
 
 
 def resolve_device(device=None) -> torch.device:
@@ -44,3 +50,21 @@ def exact_matmuls():
             yield
         finally:
             flags.allow_tf32, flags.allow_bf16_reduced_precision_reduction = prev
+
+
+def device_constant(cache: dict, key, build) -> torch.Tensor:
+    """``cache[key]``, built by ``build()`` on its first use.
+
+    The gate path keeps its scalars and small index tensors (the output
+    variance of a key's blind rotation, the keyswitch's digit shifts and
+    rounding variance) on the device this way: a tensor made from Python
+    numbers on each call is a pageable copy that makes the host wait for the
+    stream, while a memoised one lets the host queue the next gate during
+    the current rotation.  ``key`` names the device, and everything the
+    tensor is computed from that is not fixed by ``cache``'s owner."""
+    global gate_constants
+    x = cache.get(key)
+    if x is None:
+        x = cache[key] = build()
+        gate_constants += 1
+    return x

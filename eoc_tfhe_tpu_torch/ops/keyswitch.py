@@ -12,7 +12,7 @@ import torch
 from ..core.keys import KeySwitchKey
 from ..core.lwe import LweCiphertext
 from ..core.numeric import as_u32, wrap32
-from ..device import exact_matmuls
+from ..device import device_constant, exact_matmuls
 from ..utils.profiling import span
 from . import polymul
 
@@ -23,6 +23,9 @@ _CHUNK = 1024
 #: temporaries are some six times the rows' words, 64 GB for the whole table
 #: at n_in = k N = 65536 (N = 32768, k = 2) against the prepared table's 21 GB.
 _PREP_ROWS = 1024
+#: The keyswitch's device constants (:func:`digit_shifts`,
+#: :func:`round_variance`), by what each is built from and the device.
+_CONSTANTS: dict = {}
 
 
 def prepare_keyswitch_matmul(ks: KeySwitchKey) -> torch.Tensor:
@@ -49,9 +52,26 @@ def keyswitch_digits(a: torch.Tensor, t: int, basebit: int) -> torch.Tensor:
     """
     prec_offset = 1 << (32 - (1 + basebit * t))
     aibar = (as_u32(a) + prec_offset) & 0xFFFFFFFF
-    shifts = torch.tensor([32 - (j + 1) * basebit for j in range(t)],
-                          dtype=torch.int64, device=a.device)
+    shifts = digit_shifts(t, basebit, a.device)
     return ((aibar[..., None] >> shifts) & ((1 << basebit) - 1)).to(torch.int32)
+
+
+def digit_shifts(t: int, basebit: int, device: torch.device) -> torch.Tensor:
+    """(t,) int64 right shifts of the t digits, 32 - (j+1)*basebit, on
+    ``device`` (built on its first use there)."""
+    return device_constant(
+        _CONSTANTS, ("shifts", t, basebit, device),
+        lambda: torch.tensor([32 - (j + 1) * basebit for j in range(t)], dtype=torch.int64,
+                             device=device))
+
+
+def round_variance(n_in: int, t: int, basebit: int, device: torch.device) -> torch.Tensor:
+    """() float32 variance of the digits' rounding, n_in * 2^(-2 t basebit) / 24,
+    on ``device`` (built on its first use there)."""
+    return device_constant(
+        _CONSTANTS, ("round_var", n_in, t, basebit, device),
+        lambda: torch.tensor(n_in * 2.0 ** (-2 * t * basebit) / 24.0, dtype=torch.float32,
+                             device=device))
 
 
 def _onehot_product(digits: torch.Tensor, prepared: torch.Tensor, base: int) -> torch.Tensor:
@@ -105,7 +125,6 @@ def keyswitch_apply(ct_extracted: LweCiphertext, ks: KeySwitchKey, t: int, baseb
         # Each nonzero digit subtracts one table entry and adds its variance;
         # the digit rounding adds n_in * E[s^2] * 2^(-2*t*basebit) / 12.
         nnz = (digits != 0).to(torch.float32).sum(dim=(-2, -1))
-        round_var = torch.tensor(n_in * 2.0 ** (-2 * t * basebit) / 24.0,
-                                 dtype=torch.float32, device=nnz.device)
-        var = ct_extracted.current_variance + nnz * ks.variance + round_var
+        var = (ct_extracted.current_variance + nnz * ks.variance
+               + round_variance(n_in, t, basebit, nnz.device))
         return LweCiphertext(a=a, b=b, current_variance=var)

@@ -47,7 +47,7 @@ from ..core.params import GateBootstrappingParams
 from ..core.tgsw import decompose_h
 from ..core.tlwe import TLweCiphertext, tlwe_extract_lwe_sample
 from ..ops import blind_rotate_compact, ntt, rotate
-from ..ops.keyswitch import keyswitch_apply, keyswitch_delta, keyswitch_digits
+from ..ops.keyswitch import keyswitch_apply, keyswitch_delta, keyswitch_digits, round_variance
 from ..utils.profiling import span
 from .mesh import Mesh, Sharded, batch_slice, shard
 
@@ -78,9 +78,7 @@ def _keyswitch_tp(u: LweCiphertext, ks_prepared: torch.Tensor, ks_variance,
     # counted over the tp row slices (integers: exact in float32 in any
     # order), plus the same digit-rounding term.
     nnz = mesh.psum((digits != 0).to(torch.float32).sum(dim=(-2, -1)), axis)
-    round_var = torch.tensor(n_in * 2.0 ** (-2 * t * basebit) / 24.0,
-                             dtype=torch.float32, device=nnz.device)
-    var = u.current_variance + nnz * ks_variance + round_var
+    var = u.current_variance + nnz * ks_variance + round_variance(n_in, t, basebit, nnz.device)
     return LweCiphertext(a=a, b=b, current_variance=var)
 
 

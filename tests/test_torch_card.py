@@ -233,6 +233,56 @@ def test_uint8_add_and_subtract_at_batch_1_take_the_narrow_tier(cuda_device):
 
 
 @pytest.mark.gpu
+def test_gate_path_queues_without_a_host_wait(cuda_device, monkeypatch):
+    """On a warmed 128-bit key, ``addUint8`` and ``subtractUint8`` at batch 1
+    and a NAND at B = 64 make no synchronizing call between the operands'
+    upload and the export: ``torch.cuda.set_sync_debug_mode("error")`` is on
+    over that stretch (a pageable host-to-device copy or a stream wait
+    raises), and the outputs decrypt to the plaintext results."""
+    from eoc_tfhe_tpu_torch.api.tfhe import Tfhe
+
+    t = Tfhe(seed=14)
+    t.generateSecretKey()
+    s = t._s
+    a, b = t.encryptUint8(200), t.encryptUint8(77)
+    t.addUint8(a, b), t.subtractUint8(a, b)                 # warm: the key's first calls
+    import_bits, export_samples, imported = s._import_bits, s._export_samples, []
+
+    def import_then_guard(blob):
+        ct = import_bits(blob)
+        imported.append(ct)
+        if len(imported) % 2 == 0:                          # both operands uploaded
+            torch.cuda.set_sync_debug_mode("error")
+        return ct
+
+    def unguard_then_export(ct):
+        torch.cuda.set_sync_debug_mode("default")
+        return export_samples(ct)
+
+    monkeypatch.setattr(s, "_import_bits", import_then_guard)
+    monkeypatch.setattr(s, "_export_samples", unguard_then_export)
+    try:
+        total, diff = t.addUint8(a, b), t.subtractUint8(a, b)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert len(imported) == 4
+    monkeypatch.undo()
+    assert (t.decryptUint8(total), t.decryptUint8(diff)) == (277 % 256, 200 - 77)
+
+    api, gen = s.gate_api(), torch.Generator(device=cuda_device).manual_seed(15)
+    x, y = (torch.randint(0, 2, (64,), generator=gen, device=cuda_device).bool()
+            for _ in range(2))
+    cx, cy = (gates.encrypt_bit(gen, v, s.keyset.lwe_key, api.params) for v in (x, y))
+    gates.nand(cx, cy, api.eval_key, api.params)            # warm: the shape's first call
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = gates.nand(cx, cy, api.eval_key, api.params)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(gates.decrypt_bit(out, s.keyset.lwe_key), ~(x & y))
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("B", RAGGED)
 @pytest.mark.parametrize("limbs", [4, 3])
 @pytest.mark.parametrize("case", list(COMPACT_CASES))
