@@ -9,14 +9,12 @@ and the kernels' domain checks; the C7 cases the shapes that the kernels took
 only after C7 (N = 2048, k = 3, k = 2 at N = 1024, l = 5), each against the
 reference's NAND or its scan and Pallas kernels; the C8 cases the shapes the
 kernels took only after C8 (N = 4096, K up to 256, k = 4, K2's wide shapes),
-the C9 cases the reference's rounded-key NTT plans, and the C10 cases the
-shapes the kernels took only after C10 (N = 8192 and 16384, F = 512 at Kp =
-144, K = 288, k = 5, N = 16).
+and the C9 cases the reference's rounded-key NTT plans.  The C10 cases are
+``tests/test_torch_blind_rotate_c10.py``.  Each NAND is held against one
+reference NAND of its shape (``tests/torch_reference.py``), on a keyset of
+the port's keygen.
 """
 
-import functools
-
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -24,32 +22,23 @@ import torch
 
 from eoc_tfhe_tpu.core import bootstrap as jboot
 from eoc_tfhe_tpu.core import gates as jgates
-from eoc_tfhe_tpu.core import keys as jkeys
 from eoc_tfhe_tpu.core import params as jparams
 from eoc_tfhe_tpu.ops import ntt as jntt
 from eoc_tfhe_tpu.ops import pallas_blindrot as jpb
 from eoc_tfhe_tpu.ops import pallas_ntt_blindrot2 as jpnb2
 
-from eoc_tfhe_tpu_torch.core import bootstrap, gates, keys, lwe, params
+from eoc_tfhe_tpu_torch.core import bootstrap, gates, params
 from eoc_tfhe_tpu_torch.ops import blind_rotate, blind_rotate_compact, blind_rotate_v1, ntt
 
-from torch_reference_ntt import fast_reference_matrices, table_matrices
+from torch_emulation import check_kernel_domains
+from torch_reference import (assert_nand_matches, assert_port_nand_matches, keyset_pair,
+                             reference_nand, reference_scan, rotation_inputs, to_port)
 
 CASES = {
     "toy": lambda: jparams.test_params(n=16, N=64, k=1, l=3, Bgbit=7),
     "bgbit10": lambda: jparams.test_params(n=8, N=64, k=1, l=2, Bgbit=10),
     "full_width_8_steps": lambda: jparams.default_128bit_params(),
 }
-
-
-def _inputs(p, n_steps, B, seed):
-    tg = p.tgsw_params
-    N, U = tg.tlwe_params.N, tg.tlwe_params.k + 1
-    rng = np.random.default_rng(seed)
-    rows = rng.integers(-2**31, 2**31, (n_steps, tg.kpl, U, N), dtype=np.int64).astype(np.int32)
-    acc0 = rng.integers(-2**31, 2**31, (B, U, N), dtype=np.int64).astype(np.int32)
-    bara = rng.integers(0, 2 * N, (n_steps, B), dtype=np.int64).astype(np.int32)
-    return rows, acc0, bara
 
 
 def _jctx(p):
@@ -62,7 +51,7 @@ def test_prepare_key_ntt_goes_a_chunk_of_steps_at_a_time(monkeypatch):
     times that); chunks of one step give the bytes of one chunk, which are
     the reference's."""
     p = jparams.test_params(n=5)
-    rows, _, _ = _inputs(p, 5, 1, seed=97)
+    rows, _, _ = rotation_inputs(p, 5, 1, seed=97)
     ctx = ntt.context_for_params(p, device="cpu")
     whole = ntt.prepare_key_ntt(torch.from_numpy(rows), ctx)
     jctx = jntt.context_for_params(p)
@@ -89,7 +78,7 @@ def test_context_matches_reference(case):
 @pytest.mark.parametrize("case", list(CASES))
 def test_prepared_key_matches_reference(case):
     p = CASES[case]()
-    rows, _, _ = _inputs(p, 3, 1, seed=1)
+    rows, _, _ = rotation_inputs(p, 3, 1, seed=1)
     T8k = jntt.prepare_kernel_key_fast_np(rows, _jctx(p)).astype(np.int64)
     M = T8k.shape[-1] // 2
     key = ntt.prepare_kernel_key(torch.from_numpy(rows),
@@ -104,14 +93,11 @@ def test_plain_blind_rotation_matches_reference(case):
     p = CASES[case]()
     n_steps = min(p.n, 8)
     B = 3
-    rows, acc0, bara = _inputs(p, n_steps, B, seed=2)
+    rows, acc0, bara, ref_scan = reference_scan(p, n_steps, B, 2)
     jctx = _jctx(p)
     ref_kernel = np.asarray(jpnb2.blind_rotate_ntt_pallas2(
         jnp.asarray(acc0), jnp.asarray(bara), jnp.asarray(jntt.prepare_kernel_key_fast_np(rows, jctx)),
         jctx, p, block_b=B, interpret=True, expanded=False))
-    sctx = jntt.context_for_params(p)
-    ref_scan = np.asarray(jntt.blind_rotate_ntt(
-        jnp.asarray(acc0), jnp.asarray(bara), jntt.prepare_key_ntt_np(rows, sctx), p, sctx))
     np.testing.assert_array_equal(ref_kernel, ref_scan)
 
     ctx = ntt.kernel_context_for_params(p, device="cpu")
@@ -123,7 +109,7 @@ def test_plain_blind_rotation_matches_reference(case):
 
 def test_wrapper_takes_the_plain_version_on_the_cpu():
     p = CASES["toy"]()
-    rows, acc0, bara = _inputs(p, 4, 2, seed=3)
+    rows, acc0, bara = rotation_inputs(p, 4, 2, seed=3)
     ctx = ntt.kernel_context_for_params(p, device="cpu")
     key = ntt.prepare_kernel_key(torch.from_numpy(rows), ctx)
     before = blind_rotate.launches
@@ -151,7 +137,7 @@ C5_CASES = {
 def test_packed_key_round_trips_with_padding(case):
     p = C5_CASES[case]()
     tg = p.tgsw_params
-    rows, _, _ = _inputs(p, 2, 1, seed=5)
+    rows, _, _ = rotation_inputs(p, 2, 1, seed=5)
     ctx = ntt.kernel_context_for_params(p, device="cpu")
     res = ntt.kernel_key_residues(torch.from_numpy(rows), ctx)
     K, M = tg.kpl * ctx.R, ctx.key_limbs * (tg.tlwe_params.k + 1) * ctx.R
@@ -165,10 +151,7 @@ def test_packed_key_round_trips_with_padding(case):
 @pytest.mark.parametrize("case", list(C5_CASES))
 def test_plain_rotation_over_the_padded_key_matches_reference_scan(case):
     p = C5_CASES[case]()
-    rows, acc0, bara = _inputs(p, min(p.n, 6), 3, seed=6)
-    sctx = jntt.context_for_params(p)
-    want = np.asarray(jntt.blind_rotate_ntt(
-        jnp.asarray(acc0), jnp.asarray(bara), jntt.prepare_key_ntt_np(rows, sctx), p, sctx))
+    rows, acc0, bara, want = reference_scan(p, min(p.n, 6), 3, 6)
     ctx = ntt.kernel_context_for_params(p, device="cpu")
     key = ntt.prepare_kernel_key(torch.from_numpy(rows), ctx)
     out = blind_rotate.blind_rotate_ntt(torch.from_numpy(acc0), torch.from_numpy(bara),
@@ -179,28 +162,11 @@ def test_plain_rotation_over_the_padded_key_matches_reference_scan(case):
 def test_c5_default_eval_key_at_k2_matches_reference_nand():
     """ROADMAP C5: the default ("auto") eval key at k = 2 (M = 72) used to
     raise in ``pack_kernel_key``; its NAND now has the reference's words."""
-    p = C5_CASES["k2_l2_N64"]()
-    jk = jkeys.new_random_gate_bootstrapping_secret_keyset(jax.random.key(31), p)
-    bk = jk.cloud.bk
-    tk = keys.keyset_from_numpy(
-        np.asarray(jk.lwe_key.s), np.asarray(jk.tgsw_key.key), np.asarray(bk.bk),
-        np.asarray(bk.bk_variance), np.asarray(bk.ks.ks), np.asarray(bk.ks.variance),
-        device="cpu")
-    ek = bootstrap.prepare_eval_key_ntt(tk.cloud, p, kernel="auto")
+    ref = reference_nand(C5_CASES["k2_l2_N64"](), 31)
+    ek = bootstrap.prepare_eval_key_ntt(ref.keys.port.cloud, ref.params, kernel="auto")
     assert ek.form == "ntt_kernel" and ek.bk_ntt_kernel.shape[3] == 80 // 16
-    bits = np.array([True, False, True])
-    ct = jgates.encrypt_bit(jax.random.key(32), jnp.asarray(bits), jk.lwe_key, p)
-    ref = jgates.nand(ct, ct, jboot.prepare_eval_key_ntt(jk.cloud, p), p)
-
-    def t(x):
-        return torch.from_numpy(np.array(x))
-    pct = lwe.LweCiphertext(a=t(ct.a), b=t(ct.b), current_variance=t(ct.current_variance))
-    out = gates.nand(pct, pct, ek, p)
-    np.testing.assert_array_equal(out.a.numpy(), np.asarray(ref.a))
-    np.testing.assert_array_equal(out.b.numpy(), np.asarray(ref.b))
-    np.testing.assert_allclose(out.current_variance.numpy(), np.asarray(ref.current_variance),
-                               rtol=1e-6)        # both sides compute it in float32
-    np.testing.assert_array_equal(gates.decrypt_bit(out, tk.lwe_key).numpy(), [False, True, False])
+    assert_nand_matches(gates.nand(to_port(ref.ca), to_port(ref.cb), ek, ref.params), ref.out,
+                        ref.keys.port, ref.a, ref.b)
 
 
 # --- C7: the shapes the reference computes that the card refused --------------
@@ -218,49 +184,15 @@ C7_CASES = {
 C7_NAND = ("N2048_k1_l3", "N512_k3_l3")
 
 
-def _torch_keyset(jk):
-    bk = jk.cloud.bk
-    return keys.keyset_from_numpy(
-        np.asarray(jk.lwe_key.s), np.asarray(jk.tgsw_key.key), np.asarray(bk.bk),
-        np.asarray(bk.bk_variance), np.asarray(bk.ks.ks), np.asarray(bk.ks.variance),
-        device="cpu")
-
-
-@pytest.fixture(scope="module", params=C7_NAND)
-def c7_nand(request):
-    """One JAX keyset per C7 NAND shape, carried to the port, two encrypted
-    bit vectors and the reference's NAND of them over its exact "ntt_scan"
-    form (its "ntt_kernel" form gives the same words: the forms are exact)."""
-    p = C7_CASES[request.param]()
-    jk = jkeys.new_random_gate_bootstrapping_secret_keyset(jax.random.key(71), p)
-    a = np.array([False, False, True, True, False])
-    b = np.array([False, True, False, True, True])
-    ca = jgates.encrypt_bit(jax.random.key(72), jnp.asarray(a), jk.lwe_key, p)
-    cb = jgates.encrypt_bit(jax.random.key(73), jnp.asarray(b), jk.lwe_key, p)
-    ref = jgates.nand(ca, cb, jboot.prepare_eval_key_ntt(jk.cloud, p, kernel=False), p)
-    return p, _torch_keyset(jk), (a, ca), (b, cb), ref
-
-
 @pytest.mark.parametrize("kernel", ["auto", False])
-def test_c7_nand_matches_reference_word_for_word(c7_nand, kernel):
+@pytest.mark.parametrize("shape", C7_NAND)
+def test_c7_nand_matches_reference_word_for_word(shape, kernel):
     """ROADMAP C7: at N = 2048 (F = 256) and at k = 3 (K = 96) the port's NAND
-    over both "ntt" forms has the reference's words, its variance rail and
-    its decryption."""
-    p, tk, (a, ca), (b, cb), ref = c7_nand
-    ek = bootstrap.prepare_eval_key_ntt(tk.cloud, p, kernel=kernel)
-    assert ek.form == ("ntt_kernel" if kernel == "auto" else "ntt_scan")
-
-    def t(x):
-        return torch.from_numpy(np.array(x))
-
-    def ct(c):
-        return lwe.LweCiphertext(a=t(c.a), b=t(c.b), current_variance=t(c.current_variance))
-    out = gates.nand(ct(ca), ct(cb), ek, p)
-    np.testing.assert_array_equal(out.a.numpy(), np.asarray(ref.a))
-    np.testing.assert_array_equal(out.b.numpy(), np.asarray(ref.b))
-    np.testing.assert_allclose(out.current_variance.numpy(), np.asarray(ref.current_variance),
-                               rtol=1e-6)        # both sides compute it in float32
-    np.testing.assert_array_equal(gates.decrypt_bit(out, tk.lwe_key).numpy(), ~(a & b))
+    over both "ntt" forms ("auto": ntt_kernel) has the words, the variance
+    rail and the decryption of the shape's one reference NAND, over its
+    cheapest exact form (every exact form gives these words)."""
+    ref = reference_nand(C7_CASES[shape](), 71)
+    assert_port_nand_matches(ref, "ntt_kernel" if kernel == "auto" else "ntt_scan")
 
 
 def test_c7_k3_shape_at_full_depth_needs_more_gadget_bits():
@@ -286,10 +218,7 @@ def test_c7_plain_rotations_match_reference_scan_and_kernels(case):
     interpret mode."""
     p = {**C7_CASES, **C8_CASES}[case]()
     tg = p.tgsw_params
-    rows, acc0, bara = _inputs(p, 2, 3, seed=74)
-    sctx = jntt.context_for_params(p)
-    want = np.asarray(jntt.blind_rotate_ntt(
-        jnp.asarray(acc0), jnp.asarray(bara), jntt.prepare_key_ntt_np(rows, sctx), p, sctx))
+    rows, acc0, bara, want = reference_scan(p, 2, 3, 74)
     acc, ba, rw = (torch.from_numpy(x) for x in (acc0, bara, rows))
     kctx = ntt.kernel_context_for_params(p, device="cpu")
     np.testing.assert_array_equal(blind_rotate.blind_rotate_ntt(
@@ -509,79 +438,28 @@ C8_CASES = {
     "N2048_k3_l3": lambda: jparams.test_params(N=2048, k=3, l=3, Bgbit=7, n=4),
     "N512_k3_l8_bg4": lambda: jparams.test_params(N=512, k=3, l=8, Bgbit=4, n=4),
 }
-#: The C8 NANDs held word for word: (shape, the port's form, the reference's).
-C8_NAND = [("N4096_k1_l3", "ntt_scan", "scan"), ("N4096_k1_l3", "compact", "fused"),
-           ("N1024_k3_l5", "ntt_kernel", "kernel"), ("N1024_k3_l5", "ntt_scan", "scan"),
-           ("N1024_k3_l5", "compact", "fused"), ("N512_k4_l3", "compact", "fused")]
+#: The C8 NANDs held word for word: (shape, the port's form), each shape's
+#: against its one reference NAND.
+C8_NAND = [("N4096_k1_l3", "ntt_scan"), ("N4096_k1_l3", "compact"),
+           ("N1024_k3_l5", "ntt_kernel"), ("N1024_k3_l5", "ntt_scan"),
+           ("N1024_k3_l5", "compact"), ("N512_k4_l3", "compact")]
 
 
-@functools.lru_cache(maxsize=None)
-def _shape_reference(fault, shape):
-    """A JAX keyset at a C8 or C10 (``fault``) shape (``jax.random.key(71)``),
-    carried to the port, two encrypted bit vectors, and the reference's NAND
-    of them in each form the fault's table holds the shape in (its NTT
-    matrices at F >= 1024 from ``tests/torch_reference_ntt.py``)."""
-    cases, nands = {"C8": (C8_CASES, C8_NAND), "C10": (C10_CASES, C10_NAND)}[fault]
-    p = cases[shape]()
-    with fast_reference_matrices():
-        jk = jkeys.new_random_gate_bootstrapping_secret_keyset(jax.random.key(71), p)
-        a = np.array([False, False, True, True, False])
-        b = np.array([False, True, False, True, True])
-        ca = jgates.encrypt_bit(jax.random.key(72), jnp.asarray(a), jk.lwe_key, p)
-        cb = jgates.encrypt_bit(jax.random.key(73), jnp.asarray(b), jk.lwe_key, p)
-        refs = {}
-        for _, form, ref_form in nands:
-            if _ != shape:
-                continue
-            ek = (jboot.prepare_eval_key_fused(jk.cloud) if ref_form == "fused" else
-                  jboot.prepare_eval_key_ntt(jk.cloud, p, kernel=ref_form == "kernel"))
-            refs[form] = jgates.nand(ca, cb, ek, p)
-    return p, jk, _torch_keyset(jk), (a, ca), (b, cb), refs
-
-
-def _c8_reference(shape):
-    return _shape_reference("C8", shape)
-
-
-def _check_nand(reference, form):
-    """The port's NAND over ``form``'s eval key against the reference's."""
-    p, _, tk, (a, ca), (b, cb), refs = reference
-    if form == "compact":
-        ek = bootstrap.prepare_eval_key_fused(tk.cloud, p)
-    else:
-        ek = bootstrap.prepare_eval_key_ntt(tk.cloud, p, kernel=form == "ntt_kernel")
-    assert ek.form == form
-    _assert_nand(gates.nand(_port_ct(ca), _port_ct(cb), ek, p), refs[form], tk, a, b)
-
-
-def _port_ct(c):
-    def t(x):
-        return torch.from_numpy(np.array(x))
-    return lwe.LweCiphertext(a=t(c.a), b=t(c.b), current_variance=t(c.current_variance))
-
-
-def _assert_nand(out, ref, tk, a, b):
-    np.testing.assert_array_equal(out.a.numpy(), np.asarray(ref.a))
-    np.testing.assert_array_equal(out.b.numpy(), np.asarray(ref.b))
-    np.testing.assert_allclose(out.current_variance.numpy(), np.asarray(ref.current_variance),
-                               rtol=1e-6)        # both sides compute it in float32
-    np.testing.assert_array_equal(gates.decrypt_bit(out, tk.lwe_key).numpy(), ~(a & b))
-
-
-@pytest.mark.parametrize("shape,form,ref_form", C8_NAND)
-def test_c8_nand_matches_reference_word_for_word(shape, form, ref_form):
+@pytest.mark.parametrize("shape,form", C8_NAND)
+def test_c8_nand_matches_reference_word_for_word(shape, form):
     """ROADMAP C8: at N = 4096 (F = 512; the ntt_scan form, K3, and the
     compact form, K2), at k = 3 l = 5 (K = 160; both ntt forms and compact)
     and at k = 4 (U = 5; compact) the port's NAND has the words, the variance
-    rail and the decryption of the reference's NAND in the matching form."""
-    _check_nand(_c8_reference(shape), form)
+    rail and the decryption of the shape's one reference NAND."""
+    assert_port_nand_matches(reference_nand(C8_CASES[shape](), 71), form)
 
 
 def test_c8_k1_refuses_n4096_as_the_reference_does():
     """At N = 4096 the default ("auto") eval key, the ntt_kernel form, has no
     context over KERNEL_PRIMES in either package; the port names K1 and the
     prime, the reference the root of unity."""
-    p, jk, tk, *_ = _c8_reference("N4096_k1_l3")
+    p = C8_CASES["N4096_k1_l3"]()
+    jk, tk = keyset_pair(p, 71)
     with pytest.raises(ValueError, match=r"K1 \(blind_rotate_ntt\) has no context at N=4096"):
         bootstrap.prepare_eval_key_ntt(tk.cloud, p)
     with pytest.raises(ValueError, match=r"1024 does not divide 32257-1"):
@@ -598,110 +476,11 @@ C8_DOMAIN = {
 }
 
 
-def _check_domains(p, k1, k3, k2):
-    """``p`` is in K3's and K2's domains, and in K1's where it has a context
-    (``k1`` None: the refusal by name), at the plans given; each plan's
-    shared memory a block within the card's."""
-    tg = p.tgsw_params
-    U, N = tg.tlwe_params.k + 1, tg.tlwe_params.N
-    sctx = ntt.context_for_params(p, device="cpu")
-    blind_rotate_v1.check_kernel_domain(U, sctx, tg)
-    assert blind_rotate.crt_mma_plan(U, sctx, tg, blind_rotate_v1.STAGE_BYTES) == k3
-    assert blind_rotate.crt_mma_smem_bytes(U, sctx, tg, blind_rotate_v1.STAGE_BYTES, k3[0],
-                                           k3[2]) <= blind_rotate.SMEM_PER_BLOCK
-    if k1 is None:
-        with pytest.raises(ValueError, match=f"K1 .* has no context at N={N}"):
-            ntt.kernel_context_for_params(p, device="cpu")
-    else:
-        kctx = ntt.kernel_context_for_params(p, device="cpu")
-        blind_rotate.check_kernel_domain(U, kctx, tg)
-        assert blind_rotate.crt_mma_plan(U, kctx, tg) == k1
-    blind_rotate_compact.check_kernel_domain(p)
-    assert blind_rotate_compact.kernel_plan(U, N, tg.kpl, tg.halfBg) == k2
-    assert blind_rotate_compact.smem_bytes(
-        U, N, tg.kpl, *k2, blind_rotate_compact.is_general(U, N, k2)) <= \
-        blind_rotate.SMEM_PER_BLOCK
-
-
 @pytest.mark.parametrize("case", list(C8_DOMAIN))
 def test_kernel_domains_take_the_c8_shapes(case):
     """The C8 shapes are in every domain that has a context there, at the
     plans the launchers pick (each plan's shared memory within the card's)."""
-    _check_domains(C8_CASES[case](), *C8_DOMAIN[case])
-
-
-# --- C10: one sample past a block (N = 8192, 16384; F = 512 at Kp = 144), K =
-# 288, k = 5 and N = 16, each of which the card refused -------------------------
-
-#: ROADMAP C10: a shape of each class the card refused after C8 (n = 4).
-C10_CASES = {
-    "N8192_k1_l3": lambda: jparams.test_params(N=8192, k=1, l=3, Bgbit=7, n=4),
-    "N16384_k1_l3": lambda: jparams.test_params(N=16384, k=1, l=3, Bgbit=7, n=4),
-    "N4096_k2_l6_bg4": lambda: jparams.test_params(N=4096, k=2, l=6, Bgbit=4, n=4),
-    "N1024_k3_l9_bg3": lambda: jparams.test_params(N=1024, k=3, l=9, Bgbit=3, n=4),
-    "N256_k5_l3": lambda: jparams.test_params(N=256, k=5, l=3, Bgbit=7, n=4),
-    "N16_k1_l3": lambda: jparams.test_params(N=16, k=1, l=3, Bgbit=7, n=4),
-    "N8_k1_l2": lambda: jparams.test_params(N=8, k=1, l=2, Bgbit=8, n=4),
-}
-#: The C10 NANDs held word for word: every shape over ntt_scan (the
-#: reference's scan) and compact (its fused form), and ntt_kernel (its Pallas
-#: K1 in interpret mode) where K1 has a context (N < 4096).
-C10_NAND = ([(c, "ntt_scan", "scan") for c in C10_CASES]
-            + [(c, "compact", "fused") for c in C10_CASES]
-            + [(c, "ntt_kernel", "kernel") for c in ("N1024_k3_l9_bg3", "N16_k1_l3", "N8_k1_l2")])
-
-
-@pytest.mark.parametrize("shape,form,ref_form", C10_NAND)
-def test_c10_nand_matches_reference_word_for_word(shape, form, ref_form):
-    """ROADMAP C10: at N = 8192 and 16384 (F = 1024 and 2048: K3 and K2 in a
-    cluster or at one sample a block), at k = 2 l = 6 (Kp = 144 at F = 512),
-    K = 288, k = 5 (U = 6) and N = 16 and 8 (F = 4) the port's NAND has the words,
-    the variance rail and the decryption of the reference's NAND in the
-    matching form."""
-    _check_nand(_shape_reference("C10", shape), form)
-
-
-C10_DOMAIN = {
-    # shape: (K1 plan or None where K1 has no context, K3 plan, K2 plan); the
-    # last entry of each plan is the blocks a cluster
-    "N8192_k1_l3": (None, (1, True, 2), (1, 1, 3, 1)),
-    "N16384_k1_l3": (None, (1, True, 4), (1, 1, 1, 2)),
-    "N4096_k2_l6_bg4": (None, (1, True, 2), (1, 1, 4, 1)),
-    "N1024_k3_l9_bg3": ((2, True, 1), (1, True, 1), (4, 1, 2, 1)),
-    "N256_k5_l3": ((8, True, 1), (8, True, 1), (8, 1, 18, 1)),
-    "N16_k1_l3": ((8, True, 1), (8, True, 1), (8, 4, 6, 1)),
-    "N8_k1_l2": ((8, True, 1), (8, True, 1), (8, 4, 4, 1)),
-}
-
-
-@pytest.mark.parametrize("case", list(C10_DOMAIN))
-def test_kernel_domains_take_the_c10_shapes(case):
-    """The C10 shapes are in every domain that has a context there, at the
-    plans the launchers pick: K3 in a cluster of 2 at N = 8192 and at F =
-    512 with Kp = 144 and of 4 at N = 16384, K2 at one sample a block (N =
-    8192, k = 2 l = 6) and in a cluster of 2 (N = 16384), K = 288 in the
-    general instantiations, U = 6 and N = 16 in K2's general kernel; each
-    block's shared memory within the card's."""
-    _check_domains(C10_CASES[case](), *C10_DOMAIN[case])
-
-
-def test_fast_ntt_matrices_match_the_references():
-    """The port's NTT matrices (a table of the 2F powers of psi) and the
-    tests' stand-in for the reference's at F >= 1024 equal the reference's
-    ``pow``-built ones at every F up to 256 of every prime with a root, and
-    the port's equal the stand-in's at F = 1024 and 2048."""
-    for prime in (*ntt.DEFAULT_PRIMES, *ntt.KERNEL_PRIMES):
-        for F in (4, 8, 16, 32, 64, 128, 256):
-            if (prime - 1) % (2 * F):
-                continue
-            want = jntt._ntt_matrices_np(prime, F)
-            for got in (ntt._ntt_matrices_np(prime, F), table_matrices(prime, F)):
-                np.testing.assert_array_equal(got[0], want[0])
-                np.testing.assert_array_equal(got[1], want[1])
-    for F in (1024, 2048):
-        for prime in ntt.DEFAULT_PRIMES:
-            for got, want in zip(ntt._ntt_matrices_np(prime, F), table_matrices(prime, F)):
-                np.testing.assert_array_equal(got, want)
+    check_kernel_domains(C8_CASES[case](), *C8_DOMAIN[case])
 
 
 # --- C9: the reference's rounded-key NTT plans --------------------------------
@@ -714,17 +493,6 @@ C9_CASES = {
 }
 
 
-@functools.lru_cache(maxsize=None)
-def _c9_reference(case):
-    p = C9_CASES[case]()
-    jk = jkeys.new_random_gate_bootstrapping_secret_keyset(jax.random.key(91), p)
-    a = np.array([False, False, True, True, False, True])
-    b = np.array([False, True, False, True, True, True])
-    ca = jgates.encrypt_bit(jax.random.key(92), jnp.asarray(a), jk.lwe_key, p)
-    cb = jgates.encrypt_bit(jax.random.key(93), jnp.asarray(b), jk.lwe_key, p)
-    return p, jk, _torch_keyset(jk), (a, ca), (b, cb)
-
-
 @pytest.mark.parametrize("kernel", [True, False])
 @pytest.mark.parametrize("case", list(C9_CASES))
 def test_c9_rounded_nand_matches_reference(case, kernel):
@@ -732,8 +500,9 @@ def test_c9_rounded_nand_matches_reference(case, kernel):
     reference's rounded plan of the form's prime pair (its Pallas K1 in
     interpret mode for ``kernel=True``, its scan otherwise): the same key
     rounding, words, variance rail and decryption.  Where the plan rounds
-    (rb > 0), the exact plan's variance differs from it."""
-    p, jk, tk, (a, ca), (b, cb) = _c9_reference(case)
+    (rb > 0), the exact plan's variance differs from it; the exact plan
+    gives the reference's exact NAND."""
+    p, (jk, tk), a, b, ca, cb, ref_exact, _ = reference_nand(C9_CASES[case](), 91)
     jek = jboot.prepare_eval_key_ntt(jk.cloud, p, kernel=kernel, rounded=True)
     ref = jgates.nand(ca, cb, jek, p)
     ek = bootstrap.prepare_eval_key_ntt(tk.cloud, p, kernel=kernel, rounded=True,
@@ -743,16 +512,17 @@ def test_c9_rounded_nand_matches_reference(case, kernel):
     assert (rb, ek.ntt_ctx.key_limbs, ek.ntt_ctx.key_limb_bits) == (
         jek.ntt_ctx.key_round_bits, jek.ntt_ctx.key_limbs, jek.ntt_ctx.key_limb_bits)
     assert rb == (0 if case == "N128_n4" and kernel else 2)   # the pairs' plans differ at N=128
-    out = gates.nand(_port_ct(ca), _port_ct(cb), ek, p)
-    _assert_nand(out, ref, tk, a, b)
-    exact = gates.nand(_port_ct(ca), _port_ct(cb),
+    out = gates.nand(to_port(ca), to_port(cb), ek, p)
+    assert_nand_matches(out, ref, tk, a, b)
+    exact = gates.nand(to_port(ca), to_port(cb),
                        bootstrap.prepare_eval_key_ntt(tk.cloud, p, kernel=kernel), p)
+    assert_nand_matches(exact, ref_exact, tk, a, b)
     assert (float(exact.current_variance[0]) != float(out.current_variance[0])) == (rb > 0)
 
 
 def test_c9_small_batch_is_checked_and_changes_no_bits():
-    p, _, tk, (a, ca), (b, cb) = _c9_reference("n4")
-    outs = [gates.nand(_port_ct(ca), _port_ct(cb), bootstrap.prepare_eval_key_ntt(
+    p, (_, tk), a, b, ca, cb, *_ = reference_nand(C9_CASES["n4"](), 91)
+    outs = [gates.nand(to_port(ca), to_port(cb), bootstrap.prepare_eval_key_ntt(
         tk.cloud, p, rounded=True, small_batch=sb), p) for sb in ("auto", True, False)]
     for out in outs[1:]:
         assert torch.equal(out.a, outs[0].a) and torch.equal(out.b, outs[0].b)
@@ -767,7 +537,7 @@ def test_c9_config_ntt_rounded_matches_reference():
     ``test_params(n=4)`` the reference's config NAND words."""
     from eoc_tfhe_tpu import config as jconfig
     from eoc_tfhe_tpu_torch import config
-    p, jk, tk, (a, ca), (b, cb) = _c9_reference("n4")
+    p, (jk, tk), a, b, ca, cb, *_ = reference_nand(C9_CASES["n4"](), 91)
     ek = config.FrameworkConfig(param_set="test", eval_key_form="ntt_rounded").prepare_eval_key(
         tk.cloud, p)
     jek = jconfig.FrameworkConfig(param_set="test", eval_key_form="ntt_rounded").prepare_eval_key(
@@ -776,8 +546,8 @@ def test_c9_config_ntt_rounded_matches_reference():
     assert jek.ntt_ctx.key_round_bits == 2
     assert ek.ntt_ctx.key_round_bits == jboot.prepare_eval_key_ntt(
         jk.cloud, p, kernel=True, rounded=True).ntt_ctx.key_round_bits
-    _assert_nand(gates.nand(_port_ct(ca), _port_ct(cb), ek, p), jgates.nand(ca, cb, jek, p),
-                 tk, a, b)
+    assert_nand_matches(gates.nand(to_port(ca), to_port(cb), ek, p),
+                        jgates.nand(ca, cb, jek, p), tk, a, b)
     exact = config.FrameworkConfig(param_set="test", eval_key_form="ntt").prepare_eval_key(
         tk.cloud, p)
     assert exact.ntt_ctx.key_round_bits == 0
@@ -831,7 +601,7 @@ def test_c9_rounded_key_matches_reference_key(kernel):
     """The rounded plan's prepared key equals the reference's, byte for byte
     (the residues of the rows rounded to their top 32 - rb bits)."""
     p = C9_CASES["n4"]()
-    rows, _, _ = _inputs(p, 2, 1, seed=95)
+    rows, _, _ = rotation_inputs(p, 2, 1, seed=95)
     if kernel:
         jctx = jpnb2.kernel_context_for_params(p, rounded=True)
         ctx = ntt.kernel_context_for_params(p, True, device="cpu")

@@ -18,21 +18,15 @@ versions on the card in ``tests/test_torch_card.py``.
 import functools
 import types
 
-import jax
 import jax.numpy as jnp
-import numpy as np
 import pytest
-import torch
 
-from eoc_tfhe_tpu.core import bootstrap as jboot
-from eoc_tfhe_tpu.core import gates as jgates
-from eoc_tfhe_tpu.core import keys as jkeys
 from eoc_tfhe_tpu.core import params as jparams
 
-from eoc_tfhe_tpu_torch.core import bootstrap, gates, keys, lwe, params
+from eoc_tfhe_tpu_torch.core import bootstrap, params
 from eoc_tfhe_tpu_torch.ops import blind_rotate, blind_rotate_compact, blind_rotate_v1, ntt
 
-from torch_reference_ntt import fast_reference_matrices
+from torch_reference import assert_port_nand_matches, keyset_pair, reference_nand
 
 #: The grid: every power-of-two N from 8 to 16384, k = 1 to 4, Bgbit = 1 to
 #: 15 and every l with l*Bgbit <= 32.
@@ -153,70 +147,27 @@ def test_kernel_domains_are_closed_up_to_n16384():
 
 # --- The reference's NAND at two formerly refused shapes -----------------------
 
-#: (N, k, l, Bgbit) of each shape, and the (port form, reference form) pairs
-#: held word for word: K2's limb sum per pass (N = 16384 k = 2 l = 3 Bgbit =
-#: 8, refused at 2,415,919,104), K2's staged tier and K3's stream tier (N =
-#: 8192 k = 2 l = 8 Bgbit = 4).
-C11_NAND = {"N16384_k2_l3_bg8": ((16384, 2, 3, 8), (("compact", "fused"),)),
-            "N8192_k2_l8_bg4": ((8192, 2, 8, 4), (("compact", "fused"), ("ntt_scan", "scan")))}
+#: (N, k, l, Bgbit) of each shape and the port's forms held word for word
+#: against the shape's one reference NAND (its fused form, the reference's
+#: cheapest exact one here): K2's limb sum per pass (N = 16384 k = 2 l = 3
+#: Bgbit = 8, refused at 2,415,919,104), K2's staged tier and K3's stream
+#: tier (N = 8192 k = 2 l = 8 Bgbit = 4).
+C11_NAND = {"N16384_k2_l3_bg8": ((16384, 2, 3, 8), ("compact",)),
+            "N8192_k2_l8_bg4": ((8192, 2, 8, 4), ("compact", "ntt_scan"))}
 
 
-def _torch_keyset(jk):
-    bk = jk.cloud.bk
-    return keys.keyset_from_numpy(
-        np.asarray(jk.lwe_key.s), np.asarray(jk.tgsw_key.key), np.asarray(bk.bk),
-        np.asarray(bk.bk_variance), np.asarray(bk.ks.ks), np.asarray(bk.ks.variance),
-        device="cpu")
-
-
-def _port_ct(c):
-    def t(x):
-        return torch.from_numpy(np.array(x))
-    return lwe.LweCiphertext(a=t(c.a), b=t(c.b), current_variance=t(c.current_variance))
-
-
-@functools.lru_cache(maxsize=None)
-def _reference(shape):
-    """A JAX keyset at ``shape`` (``jax.random.key(71)``), carried to the
-    port, two encrypted bit vectors, and the reference's NAND of them in each
-    of the shape's forms (its NTT matrices at F >= 1024 from
-    ``tests/torch_reference_ntt.py``)."""
-    (N, k, l, bg), forms = C11_NAND[shape]
-    p = jparams.test_params(N=N, k=k, l=l, Bgbit=bg, n=4)
-    with fast_reference_matrices():
-        jk = jkeys.new_random_gate_bootstrapping_secret_keyset(jax.random.key(71), p)
-        a = np.array([False, False, True, True, False])
-        b = np.array([False, True, False, True, True])
-        ca = jgates.encrypt_bit(jax.random.key(72), jnp.asarray(a), jk.lwe_key, p)
-        cb = jgates.encrypt_bit(jax.random.key(73), jnp.asarray(b), jk.lwe_key, p)
-        refs = {}
-        for form, ref_form in forms:
-            ek = (jboot.prepare_eval_key_fused(jk.cloud) if ref_form == "fused"
-                  else jboot.prepare_eval_key_ntt(jk.cloud, p, kernel=False))
-            refs[form] = jgates.nand(ca, cb, ek, p)
-    return p, _torch_keyset(jk), (a, ca), (b, cb), refs
+def _params(shape):
+    N, k, l, bg = C11_NAND[shape][0]
+    return jparams.test_params(N=N, k=k, l=l, Bgbit=bg, n=4)
 
 
 @pytest.mark.parametrize("shape,form", [(s, f) for s, (_, forms) in C11_NAND.items()
-                                        for f, _ in forms])
+                                        for f in forms])
 def test_c11_nand_matches_reference_word_for_word(shape, form):
     """At N = 16384 k = 2 l = 3 Bgbit = 8 (compact) and N = 8192 k = 2 l = 8
     Bgbit = 4 (compact and ntt_scan) the port's NAND has the words, the
-    variance rail and the decryption of the reference's NAND in the matching
-    form (its Pallas K2 in interpret mode as the fused form, its scan as
-    ntt_scan)."""
-    p, tk, (a, ca), (b, cb), refs = _reference(shape)
-    if form == "compact":
-        ek = bootstrap.prepare_eval_key_fused(tk.cloud, p)
-    else:
-        ek = bootstrap.prepare_eval_key_ntt(tk.cloud, p, kernel=False)
-    assert ek.form == form
-    out, ref = gates.nand(_port_ct(ca), _port_ct(cb), ek, p), refs[form]
-    np.testing.assert_array_equal(out.a.numpy(), np.asarray(ref.a))
-    np.testing.assert_array_equal(out.b.numpy(), np.asarray(ref.b))
-    np.testing.assert_allclose(out.current_variance.numpy(), np.asarray(ref.current_variance),
-                               rtol=1e-6)        # both sides compute it in float32
-    np.testing.assert_array_equal(gates.decrypt_bit(out, tk.lwe_key).numpy(), ~(a & b))
+    variance rail and the decryption of the shape's one reference NAND."""
+    assert_port_nand_matches(reference_nand(_params(shape), 71), form)
 
 
 def test_c11_rows_form_refuses_where_the_reference_asserts():
@@ -224,7 +175,8 @@ def test_c11_rows_form_refuses_where_the_reference_asserts():
     2 l = 3 Bgbit = 8 the reference's rows scan asserts (J N halfBg 128 =
     2,415,919,104) and the port's rows key refuses by name, while the fused
     (compact) form, bounded per pass, takes the shape."""
-    p, tk, *_ = _reference("N16384_k2_l3_bg8")
+    p = _params("N16384_k2_l3_bg8")
+    tk = keyset_pair(p, 71).port
     with pytest.raises(ValueError, match=r"rows eval-key form's int32 sum reaches "
                                          r"2,415,919,104 >= 2\^31"):
         bootstrap.prepare_eval_key(tk.cloud, p)

@@ -16,30 +16,24 @@ replayed pass by pass.  The kernel is held against the plain version on the
 card in ``tests/test_torch_card.py``.
 """
 
-import functools
 import re
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from eoc_tfhe_tpu.core import bootstrap as jboot
-from eoc_tfhe_tpu.core import gates as jgates
-from eoc_tfhe_tpu.core import keys as jkeys
 from eoc_tfhe_tpu.core import params as jparams
 from eoc_tfhe_tpu.ops import ntt as jntt
 from eoc_tfhe_tpu.ops import pallas_blindrot as jpb
 
-from eoc_tfhe_tpu_torch.core import bootstrap, gates, keys, lwe, params
+from eoc_tfhe_tpu_torch.core import keys, params
 from eoc_tfhe_tpu_torch.core.numeric import wrap32
 from eoc_tfhe_tpu_torch.ops import blind_rotate, blind_rotate_compact, keyswitch, ntt, polymul
 
-from test_torch_tensor_core_emulation import _byte_limbs, _digits, _inputs, _int32_sum
+from torch_emulation import I32, byte_limbs, cmux_digits, int32_sum
+from torch_reference import assert_port_nand_matches, reference_nand, reference_scan
 from torch_reference_ntt import fast_reference_matrices
-
-I32 = 1 << 31
 
 #: The C12 grid: N = 32768 and 65536, k = 1 to 4, Bgbit = 1 to 8 (halfBg <=
 #: 128, K2's domain) and every l with l*Bgbit <= 32.
@@ -80,34 +74,10 @@ def test_c12_grid_passes_k2s_domain():
 
 # --- The reference's fused NAND at N = 32768 ------------------------------------
 
-def _torch_keyset(jk):
-    bk = jk.cloud.bk
-    return keys.keyset_from_numpy(
-        np.asarray(jk.lwe_key.s), np.asarray(jk.tgsw_key.key), np.asarray(bk.bk),
-        np.asarray(bk.bk_variance), np.asarray(bk.ks.ks), np.asarray(bk.ks.variance),
-        device="cpu")
-
-
-def _port_ct(c):
-    def t(x):
-        return torch.from_numpy(np.array(x))
-    return lwe.LweCiphertext(a=t(c.a), b=t(c.b), current_variance=t(c.current_variance))
-
-
-@functools.lru_cache(maxsize=None)
-def _reference():
-    """A JAX keyset at N = 32768 k = 1 l = 3 Bgbit = 8 (``jax.random.key(71)``),
-    carried to the port, two encrypted bit vectors (keys 72 and 73) and the
-    reference's NAND of them over its fused key (its Pallas K2 in interpret
-    mode)."""
-    p = jparams.test_params(N=32768, k=1, l=3, Bgbit=8, n=4)
-    jk = jkeys.new_random_gate_bootstrapping_secret_keyset(jax.random.key(71), p)
-    a = np.array([False, False, True, True, False])
-    b = np.array([False, True, False, True, True])
-    ca = jgates.encrypt_bit(jax.random.key(72), jnp.asarray(a), jk.lwe_key, p)
-    cb = jgates.encrypt_bit(jax.random.key(73), jnp.asarray(b), jk.lwe_key, p)
-    ref = jgates.nand(ca, cb, jboot.prepare_eval_key_fused(jk.cloud), p)
-    return p, _torch_keyset(jk), (a, ca), (b, cb), ref
+#: The shape and the keyset's seed (the port's keygen) of the reference's NAND
+#: at N = 32768, where it computes one form, the fused one (its Pallas K2 in
+#: interpret mode).
+C12_NAND = (jparams.test_params(N=32768, k=1, l=3, Bgbit=8, n=4), 71)
 
 
 def test_c12_nand_matches_reference_word_for_word():
@@ -115,15 +85,10 @@ def test_c12_nand_matches_reference_word_for_word():
     version over ``ntt.wide_context``) has the words, the variance rail and
     the decryption of the reference's fused NAND; the "ntt_scan" form raises
     there in both packages."""
-    p, tk, (a, ca), (b, cb), ref = _reference()
-    ek = bootstrap.prepare_eval_key_fused(tk.cloud, p)
-    assert ek.form == "compact"
-    out = gates.nand(_port_ct(ca), _port_ct(cb), ek, p)
-    np.testing.assert_array_equal(out.a.numpy(), np.asarray(ref.a))
-    np.testing.assert_array_equal(out.b.numpy(), np.asarray(ref.b))
-    np.testing.assert_allclose(out.current_variance.numpy(), np.asarray(ref.current_variance),
-                               rtol=1e-6)        # both sides compute it in float32
-    np.testing.assert_array_equal(gates.decrypt_bit(out, tk.lwe_key).numpy(), ~(a & b))
+    ref = reference_nand(*C12_NAND)
+    assert ref.form == "fused"
+    p = ref.params
+    assert_port_nand_matches(ref, "compact")
     with pytest.raises(ValueError, match="8192 does not divide 61441-1"):
         ntt.context_for_params(p, device="cpu")
     with fast_reference_matrices(), pytest.raises(ValueError,
@@ -241,8 +206,8 @@ def emulate_k2_global_step(acc, key_step, bara_i, params, tile, chunk, rows):
     tg = params.tgsw_params
     B, U, N = acc.shape
     J = tg.kpl
-    dig = _digits(acc, bara_i, tg).to(torch.float64)              # (B, J, N)
-    pos, neg = _byte_limbs(key_step), _byte_limbs(-key_step.to(torch.int64))   # (4, J, U, N)
+    dig = cmux_digits(acc, bara_i, tg).to(torch.float64)              # (B, J, N)
+    pos, neg = byte_limbs(key_step), byte_limbs(-key_step.to(torch.int64))   # (4, J, U, N)
     rev = torch.cat([pos.flip(-1), neg.flip(-1)], dim=-1).to(torch.float64)     # (4, J, U, 2N)
     size = 1 << (tile + 2 * chunk - 1).bit_length()
     out = acc.to(torch.int64)
@@ -259,7 +224,7 @@ def emulate_k2_global_step(acc, key_step, bara_i, params, tile, chunk, rows):
                 assert float((corr - corr.round()).abs().max()) < 0.25
                 s = corr.round().to(torch.int64).flip(-1).sum(2)         # (B, 4, U, tile)
                 for t in range(4):
-                    sums = wrap32(sums + (_int32_sum(s[:, t]) << (8 * t)))
+                    sums = wrap32(sums + (int32_sum(s[:, t]) << (8 * t)))
         out[..., c0:c0 + tile] = wrap32(out[..., c0:c0 + tile] + sums)
     return out
 
@@ -272,10 +237,7 @@ def test_k2_global_emulation_matches_reference_scan(tile, chunk, rows):
     instantiation), gives the reference's exact scan bit for bit, every pass's
     limb sums inside int32."""
     p = jparams.test_params(N=1024, k=2, l=4, Bgbit=6)
-    rows_, acc0, bara = _inputs(p, 2, 3, seed=34)
-    sctx = jntt.context_for_params(p)
-    want = np.asarray(jntt.blind_rotate_ntt(
-        jnp.asarray(acc0), jnp.asarray(bara), jntt.prepare_key_ntt_np(rows_, sctx), p, sctx))
+    rows_, acc0, bara, want = reference_scan(p, 2, 3, 34)
     key = blind_rotate_compact.prepare_compact_bk(torch.from_numpy(rows_))
     acc = torch.from_numpy(acc0)
     for i in range(2):

@@ -1,7 +1,7 @@
 """The port's integer circuits and linear LWE ops against the JAX package.
 
-Both sides compute with one JAX-made keyset (carried across with
-``keyset_from_numpy``) and the same ciphertexts.  The JAX side uses its
+Both sides compute with one keyset of the port's keygen (carried to the
+reference by ``tests/torch_reference.py``) and the same ciphertexts.  The JAX side uses its
 "rows" eval key, the port its "compact" key; the reference's own tests hold
 its two forms bit-identical.  Ciphertexts must agree bit for bit, the
 variance to float32 rounding, and the decryptions with the integers.
@@ -11,17 +11,17 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
 from eoc_tfhe_tpu.circuits import adder as jadder
 from eoc_tfhe_tpu.core import bootstrap as jboot
 from eoc_tfhe_tpu.core import gates as jgates
-from eoc_tfhe_tpu.core import keys as jkeys
 from eoc_tfhe_tpu.core import lwe as jlwe
 from eoc_tfhe_tpu.core import params as jparams
 
 from eoc_tfhe_tpu_torch.circuits import adder
-from eoc_tfhe_tpu_torch.core import bootstrap, gates, keys, lwe
+from eoc_tfhe_tpu_torch.core import bootstrap, gates, lwe
+
+from torch_reference import assert_same_ct, keyset_pair, to_port
 
 BATCH = 3
 
@@ -34,36 +34,17 @@ def _from_bits(bits):
     return sum(bits[i].astype(np.int64) << i for i in range(bits.shape[0]))
 
 
-def _port_ct(ct):
-    def t(x):
-        return torch.from_numpy(np.array(x))
-    return lwe.LweCiphertext(a=t(ct.a), b=t(ct.b), current_variance=t(ct.current_variance))
-
-
-def _assert_same_ct(ref, out):
-    np.testing.assert_array_equal(np.asarray(ref.a), out.a.numpy())
-    np.testing.assert_array_equal(np.asarray(ref.b), out.b.numpy())
-    # both sides compute the variance in float32
-    np.testing.assert_allclose(out.current_variance.numpy(),
-                               np.asarray(ref.current_variance), rtol=1e-6)
-
-
 @pytest.fixture(scope="module")
 def env():
     p = jparams.test_params()
-    jk = jkeys.new_random_gate_bootstrapping_secret_keyset(jax.random.key(5), p)
-    bk = jk.cloud.bk
-    tk = keys.keyset_from_numpy(
-        np.asarray(jk.lwe_key.s), np.asarray(jk.tgsw_key.key), np.asarray(bk.bk),
-        np.asarray(bk.bk_variance), np.asarray(bk.ks.ks), np.asarray(bk.ks.variance),
-        device="cpu")
+    jk, tk = keyset_pair(p, 5)
     seed = iter(range(100, 200))
 
     def words(nbits, seed_np):
         vals = np.random.default_rng(seed_np).integers(0, 1 << nbits, BATCH)
         ct = jgates.encrypt_bit(jax.random.key(next(seed)), jnp.asarray(_bits(vals, nbits)),
                                 jk.lwe_key, p)
-        return vals, ct, _port_ct(ct)
+        return vals, ct, to_port(ct)
 
     return dict(p=p, jk=jk, tk=tk, words=words, jek=jboot.prepare_eval_key(jk.cloud),
                 tek=bootstrap.prepare_eval_key_fused(tk.cloud, p))
@@ -84,12 +65,12 @@ def test_linear_ops_match_reference(env):
     _, x, tx = env["words"](3, 1)
     _, y, ty = env["words"](3, 2)
     for jf, tf in ((jlwe.lwe_sub, lwe.lwe_sub), (jlwe.lwe_add, lwe.lwe_add)):
-        _assert_same_ct(jf(x, y), tf(tx, ty))
-    _assert_same_ct(jlwe.lwe_sub_mul(x, 3, y), lwe.lwe_sub_mul(tx, 3, ty))
-    _assert_same_ct(jlwe.lwe_clear(x), lwe.lwe_clear(tx))
-    _assert_same_ct(jlwe.lwe_copy(x), lwe.lwe_copy(tx))
-    _assert_same_ct(jlwe.lwe_index(x, slice(1, 3)), lwe.lwe_index(tx, slice(1, 3)))
-    _assert_same_ct(jlwe.lwe_stack([jlwe.lwe_index(x, 0), jlwe.lwe_index(y, 2)]),
+        assert_same_ct(jf(x, y), tf(tx, ty))
+    assert_same_ct(jlwe.lwe_sub_mul(x, 3, y), lwe.lwe_sub_mul(tx, 3, ty))
+    assert_same_ct(jlwe.lwe_clear(x), lwe.lwe_clear(tx))
+    assert_same_ct(jlwe.lwe_copy(x), lwe.lwe_copy(tx))
+    assert_same_ct(jlwe.lwe_index(x, slice(1, 3)), lwe.lwe_index(tx, slice(1, 3)))
+    assert_same_ct(jlwe.lwe_stack([jlwe.lwe_index(x, 0), jlwe.lwe_index(y, 2)]),
                     lwe.lwe_stack([lwe.lwe_index(tx, 0), lwe.lwe_index(ty, 2)]))
 
 
@@ -102,7 +83,7 @@ def test_add_sub_match_reference(env, op, mode):
     ref = getattr(jadder, op)(a[1], b[1], env["jek"], env["p"], mode=mode)
     out = getattr(adder, op)(a[2], b[2], env["tek"], env["p"], mode=mode)
     for r, o in zip(ref, out):
-        _assert_same_ct(r, o)
+        assert_same_ct(r, o)
     want = a[0] + b[0] if op == "ripple_carry_add" else a[0] - b[0]
     np.testing.assert_array_equal(_from_bits(_decrypt(env, out[0])), want % (1 << nbits))
     flag = want >= (1 << nbits) if op == "ripple_carry_add" else want < 0
@@ -113,7 +94,7 @@ def test_ripple_mul_matches_reference(env):
     a, b = env["words"](3, 12), env["words"](3, 13)
     (ref, _), (out, none) = _run(env, "ripple_mul", a, b)
     assert none is None
-    _assert_same_ct(ref, out)
+    assert_same_ct(ref, out)
     np.testing.assert_array_equal(_from_bits(_decrypt(env, out)), (a[0] * b[0]) % 8)
 
 
@@ -128,18 +109,18 @@ def test_16bit_add_matches_reference(env):
     a, b = env["words"](16, 6), env["words"](16, 7)
     ref, out = _run(env, "ripple_carry_add", a, b)
     for r, o in zip(ref, out):
-        _assert_same_ct(r, o)
+        assert_same_ct(r, o)
     np.testing.assert_array_equal(_from_bits(_decrypt(env, out[0])), (a[0] + b[0]) % 65536)
 
 
 def test_compare_lt_and_select_word_match_reference(env):
     a, b = env["words"](3, 8), env["words"](3, 9)
     ref, lt = _run(env, "compare_lt", a, b)
-    _assert_same_ct(ref, lt)
+    assert_same_ct(ref, lt)
     np.testing.assert_array_equal(_decrypt(env, lt), a[0] < b[0])
     c = (None, ref, lt)
     ref, out = _run(env, "select_word", c, a, b)
-    _assert_same_ct(ref, out)
+    assert_same_ct(ref, out)
     np.testing.assert_array_equal(_from_bits(_decrypt(env, out)),
                                   np.where(a[0] < b[0], a[0], b[0]))
 
@@ -149,7 +130,7 @@ def test_equals_matches_reference(env, nbits):
     a, b = env["words"](nbits, 10), env["words"](nbits, 11)
     for other in (b, a):
         ref, out = _run(env, "equals", a, other)
-        _assert_same_ct(ref, out)
+        assert_same_ct(ref, out)
         np.testing.assert_array_equal(_decrypt(env, out), a[0] == other[0])
 
 
@@ -158,6 +139,6 @@ def test_half_adder_fast_matches_reference(env):
     ref = jadder.half_adder_fast(a[1], b[1], env["jek"], env["p"])
     out = adder.half_adder_fast(a[2], b[2], env["tek"], env["p"])
     for r, o in zip(ref, out):
-        _assert_same_ct(r, o)
+        assert_same_ct(r, o)
     np.testing.assert_array_equal(_decrypt(env, out[0])[0], (a[0] ^ b[0]) & 1)
     np.testing.assert_array_equal(_decrypt(env, out[1])[0], (a[0] & b[0]) & 1)

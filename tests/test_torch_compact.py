@@ -4,8 +4,8 @@ The blind rotation over the stored key (the plain version of the CUDA
 kernel, which the wrapper runs on CPU tensors) is held bit for bit against
 the reference's Pallas kernel in interpret mode and its rows scan; the
 exact products, the eval-key forms, MUX/MAJ/refresh and FrameworkConfig
-likewise.  Keysets are made by the JAX package and carried across with
-``keyset_from_numpy``.
+likewise.  The gates' keyset is made by the port's keygen and carried to the
+reference by ``tests/torch_reference.py``.
 """
 
 import dataclasses
@@ -19,44 +19,25 @@ import torch
 from eoc_tfhe_tpu import config as jconfig
 from eoc_tfhe_tpu.core import bootstrap as jboot
 from eoc_tfhe_tpu.core import gates as jgates
-from eoc_tfhe_tpu.core import keys as jkeys
 from eoc_tfhe_tpu.core import params as jparams
 from eoc_tfhe_tpu.ops import ntt as jntt
 from eoc_tfhe_tpu.ops import pallas_blindrot as jpb
 from eoc_tfhe_tpu.ops import polymul as jpoly
 
 from eoc_tfhe_tpu_torch import config
-from eoc_tfhe_tpu_torch.core import bootstrap, gates, keys, lwe
+from eoc_tfhe_tpu_torch.core import bootstrap, gates
 from eoc_tfhe_tpu_torch.ops import blind_rotate_compact as brc
 from eoc_tfhe_tpu_torch.ops import polymul
+
+from torch_reference import assert_same_ct, keyset_pair, rotation_inputs, to_port
 
 
 def _i32(rng, shape):
     return rng.integers(-2**31, 2**31, shape, dtype=np.int64).astype(np.int32)
 
 
-def _rotation_inputs(p, n_steps, B, seed):
-    tg = p.tgsw_params
-    N, U = tg.tlwe_params.N, tg.tlwe_params.k + 1
-    rng = np.random.default_rng(seed)
-    return (_i32(rng, (n_steps, tg.kpl, U, N)), _i32(rng, (B, U, N)),
-            rng.integers(0, 2 * N, (n_steps, B)).astype(np.int32))
-
-
 def _t(x):
     return torch.from_numpy(np.array(x))
-
-
-def _port_ct(ct):
-    return lwe.LweCiphertext(a=_t(ct.a), b=_t(ct.b), current_variance=_t(ct.current_variance))
-
-
-def _assert_same_ct(ref, out):
-    np.testing.assert_array_equal(np.asarray(ref.a), out.a.numpy())
-    np.testing.assert_array_equal(np.asarray(ref.b), out.b.numpy())
-    # both sides compute the variance in float32
-    np.testing.assert_allclose(out.current_variance.numpy(),
-                               np.asarray(ref.current_variance), rtol=1e-6)
 
 
 # --- exact products ----------------------------------------------------------
@@ -84,7 +65,7 @@ def test_polymul_matches_reference():
 @pytest.mark.parametrize("limbs", [4, 3])
 def test_compact_key_matches_reference(limbs):
     p = jparams.test_params()
-    rows, _, _ = _rotation_inputs(p, 3, 1, seed=1)
+    rows, _, _ = rotation_inputs(p, 3, 1, 1)
     n, J, U, N = rows.shape
     T = np.asarray(jpb.prepare_compact_bk(jnp.asarray(rows), limbs=limbs)).astype(np.int64)
     Jp = jpb._padded_rows(J)
@@ -98,7 +79,7 @@ def test_compact_key_matches_reference(limbs):
 @pytest.mark.parametrize("chunk,limbs", [(64, 4), (32, 4), (16, 4), (32, 3)])
 def test_plain_rotation_matches_pallas_interpret(chunk, limbs):
     p = jparams.test_params()
-    rows, acc0, bara = _rotation_inputs(p, p.n, 5, seed=2)
+    rows, acc0, bara = rotation_inputs(p, p.n, 5, 2)
     want = np.asarray(jpb.blind_rotate_pallas(
         jnp.asarray(acc0), jnp.asarray(bara),
         jpb.prepare_compact_bk(jnp.asarray(rows), limbs=limbs), p, chunk=chunk,
@@ -112,7 +93,7 @@ def test_plain_rotation_matches_pallas_interpret(chunk, limbs):
 
 def test_plain_rotation_matches_rows_scan_at_128bit_width():
     p = jparams.default_128bit_params()
-    rows, acc0, bara = _rotation_inputs(p, 2, 3, seed=3)
+    rows, acc0, bara = rotation_inputs(p, 2, 3, 3)
     want = np.asarray(jboot.blind_rotate(jnp.asarray(acc0), jnp.asarray(bara.T),
                                          jnp.asarray(rows), p, rotation_impl="gather"))
     out = brc.blind_rotate_compact_plain(_t(acc0), _t(bara), _t(rows), p)
@@ -125,7 +106,7 @@ def test_plain_rotation_matches_rows_scan_at_128bit_width():
 
 def test_wrapper_checks_its_inputs():
     p = jparams.test_params()
-    rows, acc0, bara = _rotation_inputs(p, 4, 2, seed=4)
+    rows, acc0, bara = rotation_inputs(p, 4, 2, 4)
     with pytest.raises(ValueError, match="shape mismatch"):
         brc.blind_rotate_compact(_t(acc0), _t(bara[:, :1]), _t(rows), p)
     with pytest.raises(ValueError, match="limbs"):
@@ -138,7 +119,7 @@ def test_reference_int8_digit_fault_is_refused():
     at Bg=2^8 they agree.  The port raises where the reference is wrong."""
     for Bgbit, agrees in ((8, True), (10, False)):
         p = jparams.test_params(n=4, N=64, l=2, Bgbit=Bgbit)
-        rows, acc0, bara = _rotation_inputs(p, p.n, 3, seed=Bgbit)
+        rows, acc0, bara = rotation_inputs(p, p.n, 3, Bgbit)
         scan = np.asarray(jboot.blind_rotate(jnp.asarray(acc0), jnp.asarray(bara.T),
                                              jnp.asarray(rows), p, rotation_impl="gather"))
         ctx = jntt.context_for_params(p)
@@ -161,12 +142,7 @@ def test_reference_int8_digit_fault_is_refused():
 @pytest.fixture(scope="module")
 def shared():
     p = jparams.test_params()
-    jk = jkeys.new_random_gate_bootstrapping_secret_keyset(jax.random.key(3), p)
-    bk = jk.cloud.bk
-    tk = keys.keyset_from_numpy(
-        np.asarray(jk.lwe_key.s), np.asarray(jk.tgsw_key.key), np.asarray(bk.bk),
-        np.asarray(bk.bk_variance), np.asarray(bk.ks.ks), np.asarray(bk.ks.variance),
-        device="cpu")
+    jk, tk = keyset_pair(p, 3)
     rng = np.random.default_rng(6)
     bits = rng.integers(0, 2, (3, 7)).astype(bool)
     cts = [jgates.encrypt_bit(jax.random.key(10 + i), jnp.asarray(x), jk.lwe_key, p)
@@ -211,22 +187,22 @@ def test_bootstrap_wo_ks_matches_reference(shared, limbs):
     ref = jboot.bootstrap_woKS(jnp.int32(jgates.MU_BOOL), ct, jek, p)
     for tek in (bootstrap.prepare_eval_key_fused(shared["tk"].cloud, p, limbs=limbs),) + (
             (bootstrap.prepare_eval_key(shared["tk"].cloud, p),) if limbs == 4 else ()):
-        _assert_same_ct(ref, bootstrap.bootstrap_woKS(gates.MU_BOOL, _port_ct(ct), tek, p))
+        assert_same_ct(ref, bootstrap.bootstrap_woKS(gates.MU_BOOL, to_port(ct), tek, p))
 
 
 def test_mux_maj_refresh_match_reference(shared):
     p, (ca, cb, cc), bits = shared["p"], shared["cts"], shared["bits"]
     jek, tek, sk = shared["jek"], shared["tek"], shared["tk"].lwe_key
-    tca, tcb, tcc = (_port_ct(c) for c in (ca, cb, cc))
+    tca, tcb, tcc = (to_port(c) for c in (ca, cb, cc))
     out = gates.mux(tca, tcb, tcc, tek, p)
-    _assert_same_ct(jgates.mux(ca, cb, cc, jek, p), out)
+    assert_same_ct(jgates.mux(ca, cb, cc, jek, p), out)
     np.testing.assert_array_equal(gates.decrypt_bit(out, sk).numpy(),
                                   np.where(bits[0], bits[1], bits[2]))
     out = gates.maj(tca, tcb, tcc, tek, p)
-    _assert_same_ct(jgates.maj(ca, cb, cc, jek, p), out)
+    assert_same_ct(jgates.maj(ca, cb, cc, jek, p), out)
     np.testing.assert_array_equal(gates.decrypt_bit(out, sk).numpy(), bits.sum(0) >= 2)
     out = gates.refresh(tca, tek, p)
-    _assert_same_ct(jgates.refresh(ca, jek, p), out)
+    assert_same_ct(jgates.refresh(ca, jek, p), out)
     np.testing.assert_array_equal(gates.decrypt_bit(out, sk).numpy(), bits[0])
 
 
@@ -240,7 +216,7 @@ def test_config_dispatch_and_gate_api(shared):
         assert ek.form == expect
     api = config.FrameworkConfig(param_set="test", eval_key_form="fused").make_gate_api(tk, p)
     assert api.eval_key.form == "compact" and api.params is p
-    ca, cb = (_port_ct(c) for c in shared["cts"][:2])
+    ca, cb = (to_port(c) for c in shared["cts"][:2])
     a, b = shared["bits"][:2]
     np.testing.assert_array_equal(gates.decrypt_bit(api.nand(ca, cb), tk.lwe_key).numpy(),
                                   ~(a & b))

@@ -27,6 +27,8 @@ from eoc_tfhe_tpu_torch.core import lwe, numeric, params, tgsw, tlwe
 from eoc_tfhe_tpu_torch.core import keys
 from eoc_tfhe_tpu_torch.ops import polymul, rotate
 
+from torch_reference import keyset_pair, to_port
+
 
 def _i32(rng, shape):
     x = rng.integers(-2**31, 2**31, shape, dtype=np.int64).astype(np.int32)
@@ -207,24 +209,18 @@ def test_dataclass_accessors_match_reference():
     """The reference's dataclass accessors (``KeySwitchKey.n_in/t/base/n_out``,
     ``BootstrappingKey.n``, ``n`` and ``batch_shape`` of the LWE samples,
     ``kpl/k/N`` of a TGSW sample, ``k/N`` of a TLWE sample and key) on a
-    JAX-made keyset carried across with ``keys.keyset_from_numpy``, and
+    JAX-made keyset carried across (``tests/torch_reference.py``), and
     ``native.b64encode`` against the reference's encoder (binascii's bytes)."""
     import base64
 
     import jax
     from eoc_tfhe_tpu import native as jnative
     from eoc_tfhe_tpu.core import gates as jgates
-    from eoc_tfhe_tpu.core import keys as jkeys
     from eoc_tfhe_tpu_torch import native
 
     p = jparams.test_params(k=2, l=2, N=64, n=8)     # k, N, kpl and n all differ
-    jk = jkeys.new_random_gate_bootstrapping_secret_keyset(jax.random.key(5), p)
-    jbk = jk.cloud.bk
-    tk = keys.keyset_from_numpy(
-        np.asarray(jk.lwe_key.s), np.asarray(jk.tgsw_key.key), np.asarray(jbk.bk),
-        np.asarray(jbk.bk_variance), np.asarray(jbk.ks.ks), np.asarray(jbk.ks.variance),
-        device="cpu")
-    bk = tk.cloud.bk
+    jk, tk = keyset_pair(p, 5, keygen="reference")
+    jbk, bk = jk.cloud.bk, tk.cloud.bk
     for name in ("n_in", "t", "base", "n_out"):
         assert getattr(bk.ks, name) == getattr(jbk.ks, name), name
     assert bk.n == jbk.n == 8
@@ -234,11 +230,10 @@ def test_dataclass_accessors_match_reference():
         return torch.from_numpy(np.array(x))
     bits = jnp.asarray(np.array([[True, False, True], [False, False, True]]))
     jct = jgates.encrypt_bit(jax.random.key(6), bits, jk.lwe_key, p)
-    ct = lwe.LweCiphertext(a=t(jct.a), b=t(jct.b), current_variance=t(jct.current_variance))
+    ct = to_port(jct)
     assert (ct.n, tuple(ct.batch_shape)) == (jct.n, tuple(jct.batch_shape)) == (8, (2, 3))
     jsd = jgates.encrypt_bit_seeded(jax.random.key(7), bits, jk.lwe_key, p)
-    sd = lwe.SeededLweCiphertext(seed=t(np.asarray(jsd.seed).astype(np.int64)), b=t(jsd.b),
-                                 current_variance=t(jsd.current_variance))
+    sd = to_port(jsd)
     assert tuple(sd.batch_shape) == tuple(jsd.batch_shape) == (2, 3)
     var = np.zeros(jbk.bk.shape[:1], np.float32)
     jg = jtgsw.TGswCiphertext(rows=jbk.bk, current_variance=jnp.asarray(var))

@@ -1,8 +1,8 @@
 """The port's key switching and bootstrapped gates against the JAX package.
 
-Keys are made by the JAX package and carried across with
-``keyset_from_numpy``, so both compute with the same keys; the reference
-runs its ``kernel=True`` eval key (the Pallas kernel in interpret mode).
+Both packages compute with one keyset of the port's keygen, carried to the
+reference by ``tests/torch_reference.py``; the reference runs its
+``kernel=True`` eval key (the Pallas kernel in interpret mode).
 """
 
 import jax
@@ -13,13 +13,14 @@ import torch
 
 from eoc_tfhe_tpu.core import bootstrap as jboot
 from eoc_tfhe_tpu.core import gates as jgates
-from eoc_tfhe_tpu.core import keys as jkeys
 from eoc_tfhe_tpu.core import lwe as jlwe
 from eoc_tfhe_tpu.core import params as jparams
 from eoc_tfhe_tpu.ops import keyswitch as jks
 
-from eoc_tfhe_tpu_torch.core import bootstrap, gates, keys, lwe, params
+from eoc_tfhe_tpu_torch.core import bootstrap, gates, keys, params
 from eoc_tfhe_tpu_torch.ops import blind_rotate, keyswitch
+
+from torch_reference import keyset_pair, to_port
 
 GATES = ["nand", "and_", "or_", "nor", "xor_", "xnor", "andny", "andyn", "orny", "oryn"]
 
@@ -30,14 +31,9 @@ def toy_params():
 
 @pytest.fixture(scope="module")
 def shared():
-    """A JAX keyset and both packages' eval keys, plus encrypted inputs."""
+    """A keyset in both packages and their eval keys, plus encrypted inputs."""
     p = toy_params()
-    jk = jkeys.new_random_gate_bootstrapping_secret_keyset(jax.random.key(0), p)
-    bk = jk.cloud.bk
-    tk = keys.keyset_from_numpy(
-        np.asarray(jk.lwe_key.s), np.asarray(jk.tgsw_key.key), np.asarray(bk.bk),
-        np.asarray(bk.bk_variance), np.asarray(bk.ks.ks), np.asarray(bk.ks.variance),
-        device="cpu")
+    jk, tk = keyset_pair(p, 0)
     rng = np.random.default_rng(1)
     B = 6
     a, b = rng.integers(0, 2, B).astype(bool), rng.integers(0, 2, B).astype(bool)
@@ -46,12 +42,6 @@ def shared():
     return dict(p=p, jk=jk, tk=tk, a=a, b=b, ca=ca, cb=cb,
                 jek=jboot.prepare_eval_key_ntt(jk.cloud, p, kernel=True),
                 tek=bootstrap.prepare_eval_key_ntt(tk.cloud, p))
-
-
-def _port_ct(ct):
-    return lwe.LweCiphertext(a=torch.from_numpy(np.array(ct.a)),
-                             b=torch.from_numpy(np.array(ct.b)),
-                             current_variance=torch.from_numpy(np.array(ct.current_variance)))
 
 
 def test_keyswitch_matches_reference(shared):
@@ -63,7 +53,7 @@ def test_keyswitch_matches_reference(shared):
     v = rng.uniform(0, 1e-6, 2100).astype(np.float32)
     jct = jlwe.LweCiphertext(a=jnp.asarray(a), b=jnp.asarray(b), current_variance=jnp.asarray(v))
     ref = jks.keyswitch_apply(jct, jk.cloud.bk.ks, t=p.ks.t, basebit=p.ks.basebit)
-    out = keyswitch.keyswitch_apply(_port_ct(jct), shared["tk"].cloud.bk.ks,
+    out = keyswitch.keyswitch_apply(to_port(jct), shared["tk"].cloud.bk.ks,
                                     t=p.ks.t, basebit=p.ks.basebit)
     np.testing.assert_array_equal(np.asarray(ref.a), out.a.numpy())
     np.testing.assert_array_equal(np.asarray(ref.b), out.b.numpy())
@@ -78,7 +68,7 @@ def test_keyswitch_matches_reference(shared):
 def test_gate_matches_reference(shared, gate):
     p = shared["p"]
     ref = getattr(jgates, gate)(shared["ca"], shared["cb"], shared["jek"], p)
-    out = getattr(gates, gate)(_port_ct(shared["ca"]), _port_ct(shared["cb"]),
+    out = getattr(gates, gate)(to_port(shared["ca"]), to_port(shared["cb"]),
                                shared["tek"], p)
     np.testing.assert_array_equal(np.asarray(ref.a), out.a.numpy())
     np.testing.assert_array_equal(np.asarray(ref.b), out.b.numpy())
@@ -96,7 +86,7 @@ def test_gate_matches_reference(shared, gate):
 
 def test_linear_gates_match_reference(shared):
     p, ca = shared["p"], shared["ca"]
-    ref, out = jgates.not_(ca), gates.not_(_port_ct(ca))
+    ref, out = jgates.not_(ca), gates.not_(to_port(ca))
     np.testing.assert_array_equal(np.asarray(ref.a), out.a.numpy())
     np.testing.assert_array_equal(np.asarray(ref.b), out.b.numpy())
     assert gates.copy(out) is out

@@ -13,32 +13,27 @@ informational ``"treedef"``.
 import json
 import os
 
-import jax
 import numpy as np
 import pytest
 import torch
 
 from eoc_tfhe_tpu.core import bootstrap as jboot
-from eoc_tfhe_tpu.core import keys as jkeys
 from eoc_tfhe_tpu.core.params import test_params as jtest_params
 from eoc_tfhe_tpu.io import native_keys as jnative_keys
 from eoc_tfhe_tpu.parallel import mesh as jmesh
 from eoc_tfhe_tpu.parallel import sharded as jsharded
 
-from eoc_tfhe_tpu_torch.core import bootstrap, keys
+from eoc_tfhe_tpu_torch.core import bootstrap
 from eoc_tfhe_tpu_torch.io import native_keys
 from torch_parallel_worker import run_ranks
+from torch_reference import keyset_pair
 
 P = jtest_params()
 
 
 @pytest.fixture(scope="module")
 def shared(tmp_path_factory):
-    jk = jkeys.new_random_gate_bootstrapping_secret_keyset(jax.random.key(8), P)
-    bk = jk.cloud.bk
-    tk = keys.keyset_from_numpy(np.asarray(jk.lwe_key.s), np.asarray(jk.tgsw_key.key),
-                                np.asarray(bk.bk), np.asarray(bk.bk_variance),
-                                np.asarray(bk.ks.ks), np.asarray(bk.ks.variance), device="cpu")
+    jk, tk = keyset_pair(P, 8, keygen="reference")
     jek = jboot.prepare_eval_key_ntt(jk.cloud, P)
     m42 = jmesh.make_mesh(dp=4, tp=2)
     jtree = {"T8": jsharded.shard_ntt_key_rows(jek.bk_ntt.T8, m42),

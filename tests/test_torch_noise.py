@@ -19,8 +19,6 @@ import torch
 from scipy import stats
 
 from eoc_tfhe_tpu.core import bootstrap as jboot
-from eoc_tfhe_tpu.core import gates as jgates
-from eoc_tfhe_tpu.core import keys as jkeys
 from eoc_tfhe_tpu.core import lwe as jlwe
 from eoc_tfhe_tpu.core import numeric as jnumeric
 from eoc_tfhe_tpu.core import params as jparams
@@ -31,23 +29,13 @@ from eoc_tfhe_tpu_torch import config
 from eoc_tfhe_tpu_torch.circuits import adder
 from eoc_tfhe_tpu_torch.core import bootstrap, gates, keys, lwe, numeric, params, tgsw, tlwe
 
+from torch_reference import keyset_pair, to_port
+
 GATES = ("nand", "and_", "or_", "nor", "xor_", "xnor", "andny", "andyn", "orny", "oryn")
 
 
 def _t(x):
     return torch.from_numpy(np.array(x))
-
-
-def _port_keyset(jk):
-    bk = jk.cloud.bk
-    return keys.keyset_from_numpy(
-        np.asarray(jk.lwe_key.s), np.asarray(jk.tgsw_key.key), np.asarray(bk.bk),
-        np.asarray(bk.bk_variance), np.asarray(bk.ks.ks), np.asarray(bk.ks.variance),
-        device="cpu")
-
-
-def _port_ct(ct):
-    return lwe.LweCiphertext(a=_t(ct.a), b=_t(ct.b), current_variance=_t(ct.current_variance))
 
 
 # --- bit-exact leftovers -------------------------------------------------------
@@ -87,8 +75,7 @@ def keyset42():
     """The reference's bootstrap-test keyset (``jax.random.key(42)`` at
     ``test_params()``) in both packages, with each package's rows eval key."""
     p = jparams.test_params()
-    jk = jkeys.new_random_gate_bootstrapping_secret_keyset(jax.random.key(42), p)
-    tk = _port_keyset(jk)
+    jk, tk = keyset_pair(p, 42, keygen="reference")
     return dict(p=p, jk=jk, tk=tk, jek=jboot.prepare_eval_key(jk.cloud),
                 tek=bootstrap.prepare_eval_key(tk.cloud, p))
 
@@ -136,7 +123,7 @@ def test_bootstrap_sign_matches_reference(keyset42, rotation_impl):
         ct = jlwe.lwe_sym_encrypt(jax.random.key(9 + seed), jnp.int32(msg_mu),
                                   p.in_out_params.alpha_min, jk.lwe_key)
         want = jboot.bootstrap(jnp.int32(mu), ct, keyset42["jek"], p, "gather")
-        got = bootstrap.bootstrap(mu, _port_ct(ct), keyset42["tek"], p, rotation_impl)
+        got = bootstrap.bootstrap(mu, to_port(ct), keyset42["tek"], p, rotation_impl)
         np.testing.assert_array_equal(got.a.numpy(), np.asarray(want.a))
         np.testing.assert_array_equal(got.b.numpy(), np.asarray(want.b))
         np.testing.assert_allclose(got.current_variance.numpy(),

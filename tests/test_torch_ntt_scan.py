@@ -6,7 +6,8 @@ held bit for bit against the reference's XLA scan (``ntt.blind_rotate_ntt``)
 and, where that kernel is right, against its Pallas kernel in interpret
 mode.  For halfBg > 128 the reference's kernel is wrong (ROADMAP C3) and the
 port must give the scan's bits.  Gates and circuits over the form use a
-JAX-made keyset carried across with ``keyset_from_numpy``.
+keyset of the port's keygen, carried to the reference by
+``tests/torch_reference.py``.
 """
 
 import jax
@@ -18,15 +19,16 @@ import torch
 from eoc_tfhe_tpu.circuits import adder as jadder
 from eoc_tfhe_tpu.core import bootstrap as jboot
 from eoc_tfhe_tpu.core import gates as jgates
-from eoc_tfhe_tpu.core import keys as jkeys
 from eoc_tfhe_tpu.core import params as jparams
 from eoc_tfhe_tpu.ops import ntt as jntt
 from eoc_tfhe_tpu.ops import pallas_ntt_blindrot as jpnb
 
 from eoc_tfhe_tpu_torch.circuits import adder
-from eoc_tfhe_tpu_torch.core import bootstrap, gates, keys, lwe
+from eoc_tfhe_tpu_torch.core import bootstrap, gates
 from eoc_tfhe_tpu_torch.kernels import build
 from eoc_tfhe_tpu_torch.ops import blind_rotate, blind_rotate_v1, ntt
+
+from torch_reference import assert_same_ct, keyset_pair, rotation_inputs, to_port
 
 CASES = {
     "toy": lambda: jparams.test_params(n=16, N=64, k=1, l=3, Bgbit=7),
@@ -34,16 +36,6 @@ CASES = {
     "full_width_8_steps": lambda: jparams.default_128bit_params(),
 }
 PRIMES = {"default": ntt.DEFAULT_PRIMES, "kernel": ntt.KERNEL_PRIMES}
-
-
-def _inputs(p, n_steps, B, seed):
-    tg = p.tgsw_params
-    N, U = tg.tlwe_params.N, tg.tlwe_params.k + 1
-    rng = np.random.default_rng(seed)
-    rows = rng.integers(-2**31, 2**31, (n_steps, tg.kpl, U, N), dtype=np.int64).astype(np.int32)
-    acc0 = rng.integers(-2**31, 2**31, (B, U, N), dtype=np.int64).astype(np.int32)
-    bara = rng.integers(0, 2 * N, (n_steps, B), dtype=np.int64).astype(np.int32)
-    return rows, acc0, bara
 
 
 def _contexts(p, primes):
@@ -70,7 +62,7 @@ def test_scan_context_matches_reference():
 @pytest.mark.parametrize("case", list(CASES))
 def test_scan_key_and_relayouts_match_reference(case, primes):
     p = CASES[case]()
-    rows, _, _ = _inputs(p, 3, 1, seed=1)
+    rows, _, _ = rotation_inputs(p, 3, 1, 1)
     jctx, ctx = _contexts(p, PRIMES[primes])
     T8 = jntt.prepare_key_ntt_np(rows, jctx, as_numpy=True).T8
     want = jpnb.prepare_kernel_key_np(T8)
@@ -89,7 +81,7 @@ def test_scan_key_and_relayouts_match_reference(case, primes):
 def test_plain_v1_rotation_matches_reference(case, primes):
     p = CASES[case]()
     n_steps, B = min(p.n, 8), 3
-    rows, acc0, bara = _inputs(p, n_steps, B, seed=2)
+    rows, acc0, bara = rotation_inputs(p, n_steps, B, 2)
     jctx, ctx = _contexts(p, PRIMES[primes])
     jkey = jntt.prepare_key_ntt_np(rows, jctx)
     ref_scan = np.asarray(jntt.blind_rotate_ntt(jnp.asarray(acc0), jnp.asarray(bara), jkey,
@@ -112,7 +104,7 @@ def test_c3_reference_kernel_is_wrong_for_wide_digits_and_the_port_is_not():
     halfBg = 512 it leaves the scan form's bits; the port keeps them."""
     p = jparams.test_params(n=4, N=64, k=1, l=2, Bgbit=10)
     assert p.tgsw_params.halfBg == 512
-    rows, acc0, bara = _inputs(p, p.n, 4, seed=3)
+    rows, acc0, bara = rotation_inputs(p, p.n, 4, 3)
     jctx = jntt.context_for_params(p)
     ctx = ntt.context_for_params(p, device="cpu")
     jkey = jntt.prepare_key_ntt_np(rows, jctx, as_numpy=True)
@@ -131,7 +123,7 @@ def test_c3_reference_kernel_is_wrong_for_wide_digits_and_the_port_is_not():
 
 def test_wrapper_checks_shapes_and_devices():
     p = CASES["toy"]()
-    rows, acc0, bara = _inputs(p, 4, 2, seed=4)
+    rows, acc0, bara = rotation_inputs(p, 4, 2, 4)
     ctx = ntt.context_for_params(p, device="cpu")
     key = ntt.prepare_key_ntt(torch.from_numpy(rows), ctx)
     with pytest.raises(ValueError, match="shape mismatch"):
@@ -168,12 +160,7 @@ def test_kernel_build_hashes_included_headers(tmp_path, monkeypatch):
 @pytest.fixture(scope="module")
 def env():
     p = jparams.test_params()
-    jk = jkeys.new_random_gate_bootstrapping_secret_keyset(jax.random.key(11), p)
-    bk = jk.cloud.bk
-    tk = keys.keyset_from_numpy(
-        np.asarray(jk.lwe_key.s), np.asarray(jk.tgsw_key.key), np.asarray(bk.bk),
-        np.asarray(bk.bk_variance), np.asarray(bk.ks.ks), np.asarray(bk.ks.variance),
-        device="cpu")
+    jk, tk = keyset_pair(p, 11)
     rng = np.random.default_rng(12)
     bits = rng.integers(0, 2, (3, 4)).astype(bool)
     cts = [jgates.encrypt_bit(jax.random.key(20 + i), jnp.asarray(b), jk.lwe_key, p)
@@ -182,20 +169,6 @@ def env():
     assert jek.form == "ntt_scan"
     return dict(p=p, jk=jk, tk=tk, bits=bits, cts=cts, jek=jek,
                 tek=bootstrap.prepare_eval_key_ntt(tk.cloud, p, kernel=False))
-
-
-def _port_ct(ct):
-    def t(x):
-        return torch.from_numpy(np.array(x))
-    return lwe.LweCiphertext(a=t(ct.a), b=t(ct.b), current_variance=t(ct.current_variance))
-
-
-def _assert_same_ct(ref, out):
-    np.testing.assert_array_equal(np.asarray(ref.a), out.a.numpy())
-    np.testing.assert_array_equal(np.asarray(ref.b), out.b.numpy())
-    # both sides compute the variance in float32
-    np.testing.assert_allclose(out.current_variance.numpy(),
-                               np.asarray(ref.current_variance), rtol=1e-6)
 
 
 def test_eval_key_forms(env):
@@ -220,12 +193,12 @@ def test_gates_over_the_scan_key_match_reference(env):
     a, b, c = env["bits"]
     before = (blind_rotate_v1.launches, blind_rotate.launches)
     ref = jgates.nand(ca, cb, jek, p)
-    out = gates.nand(_port_ct(ca), _port_ct(cb), tek, p)
-    _assert_same_ct(ref, out)
+    out = gates.nand(to_port(ca), to_port(cb), tek, p)
+    assert_same_ct(ref, out)
     np.testing.assert_array_equal(gates.decrypt_bit(out, env["tk"].lwe_key).numpy(), ~(a & b))
     ref = jgates.mux(ca, cb, cc, jek, p)
-    out = gates.mux(_port_ct(ca), _port_ct(cb), _port_ct(cc), tek, p)
-    _assert_same_ct(ref, out)
+    out = gates.mux(to_port(ca), to_port(cb), to_port(cc), tek, p)
+    assert_same_ct(ref, out)
     np.testing.assert_array_equal(gates.decrypt_bit(out, env["tk"].lwe_key).numpy(),
                                   np.where(a, b, c))
     assert (blind_rotate_v1.launches, blind_rotate.launches) == before
@@ -241,8 +214,8 @@ def test_fast_add_over_the_scan_key_matches_reference(env):
         return jgates.encrypt_bit(jax.random.key(seed), jnp.asarray(bits), jk.lwe_key, p)
     ca, cb = word(av, 30), word(bv, 31)
     ref_s, ref_c = jadder.ripple_carry_add(ca, cb, jek, p)
-    out_s, out_c = adder.ripple_carry_add(_port_ct(ca), _port_ct(cb), tek, p)
-    _assert_same_ct(ref_s, out_s)
-    _assert_same_ct(ref_c, out_c)
+    out_s, out_c = adder.ripple_carry_add(to_port(ca), to_port(cb), tek, p)
+    assert_same_ct(ref_s, out_s)
+    assert_same_ct(ref_c, out_c)
     bits = gates.decrypt_bit(out_s, env["tk"].lwe_key).numpy().astype(np.int64)
     np.testing.assert_array_equal(sum(bits[i] << i for i in range(8)), (av + bv) % 256)

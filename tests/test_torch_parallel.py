@@ -18,16 +18,16 @@ import torch
 
 from eoc_tfhe_tpu.core import bootstrap as jboot
 from eoc_tfhe_tpu.core import gates as jgates
-from eoc_tfhe_tpu.core import keys as jkeys
 from eoc_tfhe_tpu.core.params import test_params as jtest_params
 from eoc_tfhe_tpu.io import tfhe_io as jtfhe_io
 from eoc_tfhe_tpu.ops import ntt as jntt
 from eoc_tfhe_tpu.parallel import mesh as jmesh
 from eoc_tfhe_tpu.parallel import sharded as jsharded
 
-from eoc_tfhe_tpu_torch.core import gates, keys, lwe
+from eoc_tfhe_tpu_torch.core import gates, lwe
 from eoc_tfhe_tpu_torch.parallel import distributed, mesh
 from torch_parallel_worker import run_ranks
+from torch_reference import keyset_pair
 
 P = jtest_params()
 WORLD = 4
@@ -38,7 +38,7 @@ B = np.tile(np.array([0, 1, 0, 1], bool), 2)
 @pytest.fixture(scope="module")
 def ref():
     """The reference's keyset, inputs and sharded results on its virtual devices."""
-    jk = jkeys.new_random_gate_bootstrapping_secret_keyset(jax.random.key(3), P)
+    jk, tk = keyset_pair(P, 3, keygen="reference")
     ek = jboot.prepare_eval_key(jk.cloud)
     ca = jgates.encrypt_bit(jax.random.key(31), jnp.asarray(A), jk.lwe_key, P)
     cb = jgates.encrypt_bit(jax.random.key(32), jnp.asarray(B), jk.lwe_key, P)
@@ -73,8 +73,6 @@ def ref():
     for name, ct in (("ca", ca), ("cb", cb)):
         for f, x in (("a", ct.a), ("b", ct.b), ("var", ct.current_variance)):
             inputs[f"{name}_{f}"] = np.asarray(x)
-    tk = keys.keyset_from_numpy(*(inputs[k] for k in ("lwe_s", "tgsw_key", "bk", "bk_var",
-                                                      "ks", "ks_var")), device="cpu")
     return dict(out=out, inputs=inputs, tk=tk)
 
 

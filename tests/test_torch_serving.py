@@ -1,10 +1,10 @@
 """The port's batching gate server against the JAX package's.
 
 Each case of ``tests/test_serving.py`` has a twin here: the same requests,
-made by the JAX package from the same keyset (``jax.random.key(3)`` at
-``test_params()``, carried across with ``keyset_from_numpy``), go to the
-reference's ``GateServer`` and to the port's, and the results must be equal
-word for word (``current_variance`` to float32 rounding).  The port's server
+made by the JAX package under one keyset (the port's keygen at seed 3 and
+``test_params()``, carried to the reference by ``tests/torch_reference.py``),
+go to the reference's ``GateServer`` and to the port's, and the results must
+be equal word for word (``current_variance`` to float32 rounding).  The port's server
 runs on the CPU here (``device="cpu"``) over the default config's "ntt"
 eval key, whose plain version stands in for kernel K1.
 """
@@ -21,15 +21,16 @@ import torch
 
 from eoc_tfhe_tpu.core import bootstrap as jboot
 from eoc_tfhe_tpu.core import gates as jgates
-from eoc_tfhe_tpu.core import keys as jkeys
 from eoc_tfhe_tpu.core.lwe import SeededLweCiphertext as JSeeded
 from eoc_tfhe_tpu.core.params import test_params as make_test_params
 from eoc_tfhe_tpu.serving import GateServer as JGateServer
 
 from eoc_tfhe_tpu_torch import config
-from eoc_tfhe_tpu_torch.core import gates, keys, lwe, params
+from eoc_tfhe_tpu_torch.core import gates, lwe, params
 from eoc_tfhe_tpu_torch.kernels import build
 from eoc_tfhe_tpu_torch.serving import GateServer
+
+from torch_reference import keyset_pair, to_port
 
 P = make_test_params()
 CFG = config.FrameworkConfig(param_set="test")
@@ -37,12 +38,7 @@ CFG = config.FrameworkConfig(param_set="test")
 
 @pytest.fixture(scope="module")
 def setup():
-    jk = jkeys.new_random_gate_bootstrapping_secret_keyset(jax.random.key(3), P)
-    bk = jk.cloud.bk
-    tk = keys.keyset_from_numpy(
-        np.asarray(jk.lwe_key.s), np.asarray(jk.tgsw_key.key), np.asarray(bk.bk),
-        np.asarray(bk.bk_variance), np.asarray(bk.ks.ks), np.asarray(bk.ks.variance),
-        device="cpu")
+    jk, tk = keyset_pair(P, 3)
     tek = CFG.prepare_eval_key(tk.cloud, P)
     assert tek.form == "ntt_kernel"
     return dict(jk=jk, tk=tk, jek=jboot.prepare_eval_key(jk.cloud), tek=tek)
@@ -56,14 +52,10 @@ def _enc(setup, bits, seed, seeded=False):
 def _row(ct, i):
     """Request i of a JAX batch: (the reference's operand, the port's)."""
     if isinstance(ct, JSeeded):
-        seed, b, v = (np.asarray(x)[i] for x in (ct.seed, ct.b, ct.current_variance))
-        return (JSeeded(seed=seed, b=b, current_variance=v),
-                lwe.SeededLweCiphertext(seed=torch.from_numpy(seed.astype(np.int64)),
-                                        b=torch.from_numpy(np.array(b)),
-                                        current_variance=torch.from_numpy(np.array(v))))
-    ref = jax.tree.map(lambda x: x[i], ct)
-    return ref, lwe.LweCiphertext(*(torch.from_numpy(np.array(x))
-                                    for x in (ref.a, ref.b, ref.current_variance)))
+        ref = JSeeded(*(np.asarray(x)[i] for x in (ct.seed, ct.b, ct.current_variance)))
+    else:
+        ref = jax.tree.map(lambda x: x[i], ct)
+    return ref, to_port(ref)
 
 
 def _serve(jsrv, tsrv, requests, flush=True):
@@ -141,9 +133,7 @@ def test_seeded_requests_match_plain(setup):
     _assert_same(jouts, touts)
     np.testing.assert_array_equal(_bits(setup, touts), ~(a & b))
     # the seeded uploads give the words of the same gate on the expanded masks
-    expanded = [lwe.lwe_seeded_expand(lwe.SeededLweCiphertext(
-        torch.from_numpy(np.asarray(c.seed).astype(np.int64)), torch.from_numpy(np.array(c.b)),
-        torch.from_numpy(np.array(c.current_variance))), P.n) for c in (sca, scb)]
+    expanded = [lwe.lwe_seeded_expand(to_port(c), P.n) for c in (sca, scb)]
     direct = gates.nand(*expanded, setup["tek"], P)
     assert torch.equal(lwe.lwe_stack(touts).b, direct.b)
     # mixed representations in one submit are refused
@@ -208,12 +198,7 @@ def test_uint8_circuit_serving(setup, seeded):
 
     def enc_u8(v, seed, seeded=False):
         ct = _enc(setup, np.array([(v >> i) & 1 for i in range(8)], bool), seed, seeded)
-        if seeded:
-            return (ct, lwe.SeededLweCiphertext(
-                torch.from_numpy(np.asarray(ct.seed).astype(np.int64)),
-                torch.from_numpy(np.array(ct.b)), torch.from_numpy(np.array(ct.current_variance))))
-        return ct, lwe.LweCiphertext(*(torch.from_numpy(np.array(x))
-                                       for x in (ct.a, ct.b, ct.current_variance)))
+        return ct, to_port(ct)
 
     requests = [(op, enc_u8(a, s0 + i, rep), enc_u8(b, s0 + 10 + i, rep))
                 for op, s0, rep in zip(("add", "sub", "mul"), (60, 80, 110), seeded)
@@ -242,8 +227,7 @@ def test_uint8_circuit_serving(setup, seeded):
 def test_errors_and_validation(setup):
     ca = _enc(setup, np.array([1], bool), 6)
     ref, one = _row(ca, 0)
-    batched = lwe.LweCiphertext(*(torch.from_numpy(np.array(x))
-                                  for x in (ca.a, ca.b, ca.current_variance)))
+    batched = to_port(ca)
     jsrv, srv = JGateServer(setup["jek"], P), GateServer(setup["tek"], P, device="cpu")
     for s, op, many in ((jsrv, ref, ca), (srv, one, batched)):
         with pytest.raises(ValueError, match="unknown gate kind"):
@@ -316,9 +300,7 @@ def test_concurrent_clients_and_flushes(setup):
     finally:
         sys.setswitchinterval(old)
     assert srv.stats["gates"] == R
-    direct = gates.nand(*(lwe.LweCiphertext(*(torch.from_numpy(np.array(x))
-                                              for x in (c.a, c.b, c.current_variance)))
-                          for c in (ca, cb)), setup["tek"], P)
+    direct = gates.nand(to_port(ca), to_port(cb), setup["tek"], P)
     got = lwe.lwe_stack(outs)
     assert torch.equal(got.a, direct.a) and torch.equal(got.b, direct.b)
     np.testing.assert_array_equal(_bits(setup, outs), ~(a & b))

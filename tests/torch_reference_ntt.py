@@ -9,7 +9,7 @@ their entries at random (t, f) against the reference's own ``pow`` formula;
 below F = 1024 the reference's function runs unchanged.  The two
 constructions agree entry for entry at every smaller F that the tests use
 (``tests/test_torch_blind_rotate.py::test_context_matches_reference`` and
-``::test_fast_ntt_matrices_match_the_references``).
+``tests/test_torch_blind_rotate_c10.py::test_fast_ntt_matrices_match_the_references``).
 """
 
 import contextlib
