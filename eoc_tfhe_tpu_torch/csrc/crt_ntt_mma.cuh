@@ -1401,21 +1401,24 @@ __global__ void __launch_bounds__(kThreads, 1) rotate_kernel_stream(
 // - block `rank` owns the pairs (u, r) = rank P .. rank P + P - 1, P = U R /
 //   C: the coefficients t R + r of u, every t (own [s][P][F]), loaded once
 //   and written once, and the inverse's rows m = (limb, u, r) of its pairs;
-// - after a cluster barrier (every slice holds the last update) each block
-//   gathers the whole accumulator, r-major (accf [s][u][r][t]: the owners'
-//   slices side by side), through DSMEM (16-byte reads, contiguous in each
-//   owner) and forms the digits of X^a acc - acc itself (dig, the layout of
-//   the shipped instantiations; four columns t a thread, so that loads and
-//   stores are whole words), a = bara read one step ahead;
+// - after its update each owner pushes its slice to every block of the
+//   cluster, itself included, into the r-major accumulator (accf [s][u][r]
+//   [t]: the owners' slices side by side), one bulk copy from shared memory
+//   to shared memory a block and sample; each block forms the digits of X^a
+//   acc - acc from accf (dig, the layout of the shipped instantiations; four
+//   columns t a thread, so that loads and stores are whole words), a = bara
+//   read one step ahead;
 // - both primes at once: the forward of the block's Fc = F/C frequencies
 //   (warps by prime and n8 tile, then by (sample, m-tile)) and the pointwise
 //   product over them from the key share staged in shared memory (warps by
-//   (prime, frequency quad, m-tile)), whose chat words each go to the block
-//   that owns their row (a DSMEM store); a cluster barrier; the inverse of
-//   the block's rows over all F from its own shared memory (transposed: t
-//   the MMA's rows, the block's (sample, own row) pairs its columns), then
-//   the CRT and the limb sum update its slice. So chat crosses the cluster
-//   once a step, and every other read is local;
+//   (prime, frequency quad, m-tile)), whose chat words are staged by the
+//   owner of their row (z [owner][prime][s L P rows][plane][Fc]), so that one
+//   bulk copy sends each owner its share; the owner receives them by sender
+//   (y, the same layout with the sender for the owner) and runs the inverse
+//   of its rows over all F from its own shared memory (transposed: t the
+//   MMA's rows, the block's (sample, own row) pairs its columns), then the
+//   CRT and the limb sum update its slice. So the accumulator and chat each
+//   cross the cluster once a step, and every other read is local;
 // - the key share of a prime and step (Fc (Mp/16) (Kp/16) 512 bytes,
 //   contiguous in the packed key: 36,864 at the 128-bit set and C = 16) is
 //   copied by one cp.async.bulk on an mbarrier a slot: four slots (the next
@@ -1426,25 +1429,44 @@ __global__ void __launch_bounds__(kThreads, 1) rotate_kernel_stream(
 //   whole each step, are staged in shared memory once a launch.
 // Every int32 sum is the shipped instantiation's, over the same F and Kp
 // (the contraction only runs across blocks), so its bounds hold unchanged.
-// Two cluster barriers a step: after the update (before the gather) and
-// after the pointwise (before the inverse); the key slots of step i are free
-// once the second has passed, and a last one keeps every block's shared
-// memory alive until no block reads it.
+// No cluster barrier in the step: a block learns that the accumulator and
+// its chat have arrived from two mbarriers of its own ("acc", "chat"), each
+// armed by the block for the bytes it expects a step (acc_tx, chat_tx) and
+// completed by the senders' copies, its phase the step's parity. The step's
+// data dependence orders each buffer's reuse: an owner pushes step i + 1's
+// accumulator after it has every block's chat of step i, which each block
+// sends after its digit pass has read accf and after every owner's step i
+// accumulator, pushed after that owner's inverse of step i - 1 read y, has
+// arrived; so accf, z, y and own (the push's source) are rewritten only after
+// the copies that read or wrote them have completed. z and, after it, res
+// (which a block still reads while an early owner pushes into accf) share
+// the digits' bytes, dead from the forward until the next step's
+// accumulator has arrived, which comes after the block's update and after
+// z's copies have completed (the digit pass clears the padding rows each
+// step). The key slots of step i are free after the block's own barrier
+// past its pointwise. One cluster barrier after the mbarriers' initialisation (no
+// block signals one before it is initialised) and one after the loop (every
+// block's shared memory lives until no copy reads or writes it).
 
-// Byte offsets of the narrow tier's buffers in shared memory, and its key
-// slots (ops/blind_rotate.narrow_smem_bytes).
+// Byte offsets of the narrow tier's buffers in shared memory, its key
+// slots and the bytes of its exchanges (ops/blind_rotate.narrow_smem_bytes,
+// narrow_exchange).
 struct Narrow {
   int slots;       // key slots of one prime-step each: 4 or 2
   int key_bytes;   // a block's key share of one prime and step
   int pairs;       // pairs (u, r) a block owns: U R / C
   int rows;        // the inverse's rows a sample and block: L pairs
   int nr;          // n8 tiles of the block's rows (samples x rows, rounded up)
-  int accf;        // the gathered accumulator [s][u][r][F] uint32, then res [prime][8 nr][F]
-  int dig;         // the digits [DL][s][Kp][F + 16]
+  int share;       // chat one block sends one owner a step: [prime][s rows][plane][Fc] int8
+  int acc_tx;      // bytes a block receives on "acc" a step: ns U N 4 (C ns copies)
+  int chat_tx;     // bytes a block receives on "chat" a step: C share (C copies)
+  int accf;        // the pushed accumulator [s][u][r][F] uint32, acc_tx bytes
+  int dig;         // the digits [DL][s][Kp][F + 16]; then chat staged by owner [C][share]
+                   // and, chat_tx bytes on, the inverse's residues [prime][8 nr][F] int16
   int own;         // the block's slice [s][pairs][F] uint32
   int x;           // dhat [prime][fl][plane][s][Kp] (+16 a frequency)
-  int y;           // chat of the block's rows [prime][8 nr][plane][F] (+16 a row)
-  int bar;         // one mbarrier a slot, then bara of two steps [2][8] int32
+  int y;           // chat received by sender [C][share], chat_tx bytes
+  int bar;         // one mbarrier a slot, "acc", "chat", then bara of two steps [2][8] int32
   int wi;          // Winv's fragments (Wi) staged once a launch where they fit, else -1
   int smem;        // bytes in all
 };
@@ -1453,15 +1475,45 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
+// The shared::cluster address of the bytes at `p` in block `rank` of the
+// cluster (every block has the same layout).
+__device__ __forceinline__ uint32_t peer_addr(const void* p, int rank) {
+  uint32_t a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(a) : "r"(smem_addr(p)), "r"(rank));
+  return a;
+}
+
+// One arrival on `bar` that expects `bytes` more in its current phase.
+__device__ __forceinline__ void bar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+
 // Arms `bar` for `bytes` and copies them from global memory into shared
 // memory with one bulk copy that completes on it.
 __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
                                           uint64_t* bar) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+  bar_expect(bar, bytes);
   asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
                "[%0], [%1], %2, [%3];\n"
                :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar)) : "memory");
+}
+
+// Copies `bytes` of this block's shared memory at `src` to `dst` in block
+// `rank` with one bulk copy that completes on `bar` in that block. The
+// block's generic writes of `src` come first (fence_async, then a barrier).
+__device__ __forceinline__ void bulk_push(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar, int rank) {
+  asm volatile("cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes "
+               "[%0], [%1], %2, [%3];\n"
+               :: "r"(peer_addr(dst, rank)), "r"(smem_addr(src)), "r"(bytes),
+                  "r"(peer_addr(bar, rank)) : "memory");
+}
+
+// Orders this thread's generic writes to shared memory before the bulk
+// copies that read them.
+__device__ __forceinline__ void fence_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // Waits until phase `parity` of `bar` has completed.
@@ -1593,30 +1645,27 @@ __device__ __forceinline__ void forward_narrow(const Shape& S, const int8_t* dig
   }
 }
 
-// Pushes the chat words of row m (four frequencies rank Fc + 4 q4 .., sample
-// s, prime pi; planes lo, hi) to the block that owns (u, r) of m = (limb, u,
-// r), at its row s L P + limb P + pair % P (a DSMEM store).
-__device__ __forceinline__ void push_chat(const Shape& S, const Narrow& P,
-                                          cg::cluster_group& cluster, int8_t* Y, int pi, int s,
-                                          int m, int q4, int rank, uint32_t wlo, uint32_t whi) {
+// Stages the chat words of row m (four frequencies 4 q4 .. of the block's,
+// sample s, prime pi; planes lo, hi) in the share of the block that owns (u,
+// r) of m = (limb, u, r), at its row s L P + limb P + pair % P.
+__device__ __forceinline__ void stage_chat(const Shape& S, const Narrow& P, int8_t* Z, int pi,
+                                           int s, int m, int q4, uint32_t wlo, uint32_t whi) {
   const int limb = m / S.UR, pair = m - limb * S.UR, owner = pair / P.pairs;
   const int row = s * P.rows + limb * P.pairs + pair - owner * P.pairs;
-  int8_t* y = cluster.map_shared_rank(Y, owner) + (pi * 8 * P.nr + row) * (2 * S.F + 16) +
-              rank * S.Fc + 4 * q4;
-  *reinterpret_cast<uint32_t*>(y) = wlo;
-  *reinterpret_cast<uint32_t*>(y + S.F) = whi;
+  int8_t* z = Z + owner * P.share + (pi * S.ns * P.rows + row) * 2 * S.Fc + 4 * q4;
+  *reinterpret_cast<uint32_t*>(z) = wlo;
+  *reinterpret_cast<uint32_t*>(z + S.Fc) = whi;
 }
 
 // Pointwise product of the block's frequencies for both primes from the
 // staged key shares (`kslot`: prime 0's, prime 1's key_bytes further), four
 // frequencies a unit so that a thread has whole words, units (prime, quad,
-// m-tile) over the warps; each word goes to its row's owner (push_chat). C2
+// m-tile) over the warps; each word is staged for its row's owner (stage_chat). C2
 // is not reduced: K1's sum C0 + 256 C1 + c16 C2 <= Kp 2^14 (513 + 1023) <
 // 2^31 at Kp <= 64.
 __device__ __forceinline__ void pointwise_narrow(const Shape& S, const Narrow& P,
-                                                 cg::cluster_group& cluster, const int8_t* kslot,
-                                                 const int8_t* X, int8_t* Y, int rank, int warp,
-                                                 int lane) {
+                                                 const int8_t* kslot, const int8_t* X, int8_t* Z,
+                                                 int warp, int lane) {
   const int g = lane >> 2, tig = lane & 3;
   const int ns = S.ns, gs = g < ns ? g : 0;   // columns past the samples: sample 0
   const int MT = S.Mp / 16, KT = S.Kp / 16, nq = S.Fc / 4;
@@ -1656,29 +1705,32 @@ __device__ __forceinline__ void pointwise_narrow(const Shape& S, const Narrow& P
         wlo |= static_cast<uint32_t>(lo & 255) << (8 * fi);
         whi |= static_cast<uint32_t>(hi & 255) << (8 * fi);
       }
-      push_chat(S, P, cluster, Y, PI, s, m, q4, rank, wlo, whi);
+      stage_chat(S, P, Z, PI, s, m, q4, wlo, whi);
     }
   }
 }
 
-// Inverse NTT of the block's rows for both primes, after the cluster
-// barrier, from its own shared memory, transposed so that the rows are the
-// MMA's columns: res[pi][row][t] = balanced residue of sum_f Winv[f][t]
+// Inverse NTT of the block's rows for both primes, once every block's chat
+// has arrived, from its own shared memory, transposed so that the rows are
+// the MMA's columns: res[pi][row][t] = balanced residue of sum_f Winv[f][t]
 // chat[row][f], units (prime, m-tile of t, n8 tile of rows) over the warps.
-// The A fragments of Winv^T over t = 16 mt .. are the B fragments of Winv's
-// n8 tiles 2 mt and 2 mt + 1 (ntt.NttContext.Winv_mma), read from shared
-// memory where they are staged, else from L1/L2. |C0 + 256 C1| <= 257 F
-// 2^15, as shipped.
+// Frequency f of a row is in sender f / Fc's share, four consecutive ones in
+// one plane (Fc >= 8); the columns past the block's rows read its last row,
+// and their residues are never read. The A fragments of Winv^T over t = 16
+// mt .. are the B fragments of Winv's n8 tiles 2 mt and 2 mt + 1
+// (ntt.NttContext.Winv_mma), read from shared memory where they are staged,
+// else from L1/L2. |C0 + 256 C1| <= 257 F 2^15, as shipped.
 __device__ __forceinline__ void inverse_narrow(const Shape& S, const Narrow& P, const int8_t* Y,
                                                const uint4* Wi, int16_t* res, int warp,
                                                int lane) {
   const int g = lane >> 2, tig = lane & 3;
-  const int NT = S.F / 8, KT = S.F / 32, MT = S.F / 16, RS = 2 * S.F + 16;
+  const int NT = S.F / 8, KT = S.F / 32, MT = S.F / 16, rows = S.ns * P.rows;
+  const int lfc = __ffs(S.Fc) - 1;
   for (int u = warp; u < 2 * MT * P.nr; u += kWarps) {
     const int PI = u / (MT * P.nr), mt = u / P.nr % MT, nr = u % P.nr;
     const int p = PI ? S.p1 : S.p0, half = PI ? S.half1 : S.half0;
     const float inv_p = PI ? S.finv1 : S.finv0;
-    const int8_t* y = Y + (PI * 8 * P.nr + nr * 8 + g) * RS + 4 * tig;
+    const int8_t* y = Y + (PI * rows + min(nr * 8 + g, rows - 1)) * 2 * S.Fc;
     const uint4* wa = Wi + ((static_cast<size_t>(PI * NT + 2 * mt) * KT) * 32 + lane) * 2;
     const uint4* wb = wa + KT * 64;   // n8 tile 2 mt + 1
     int c0[4] = {}, c1[4] = {};
@@ -1689,9 +1741,11 @@ __device__ __forceinline__ void inverse_narrow(const Shape& S, const Narrow& P, 
       const uint4 w0b = wb[kt * 64], w1b = wb[kt * 64 + 1];
       const uint32_t alo[4] = {w0a.x, w0b.x, w0a.y, w0b.y}, ahi[4] = {w0a.z, w0b.z, w0a.w, w0b.w};
       const uint32_t vlo[4] = {w1a.x, w1b.x, w1a.y, w1b.y}, vhi[4] = {w1a.z, w1b.z, w1a.w, w1b.w};
-      const int8_t* yk = y + kt * 32;
-      const uint32_t b0 = lds32(yk), b1 = lds32(yk + 16);
-      const uint32_t h0 = lds32(yk + S.F), h1 = lds32(yk + S.F + 16);
+      const int f0 = kt * 32 + 4 * tig, f1 = f0 + 16;
+      const int8_t* y0 = y + (f0 >> lfc) * P.share + (f0 & (S.Fc - 1));
+      const int8_t* y1 = y + (f1 >> lfc) * P.share + (f1 & (S.Fc - 1));
+      const uint32_t b0 = lds32(y0), b1 = lds32(y1);
+      const uint32_t h0 = lds32(y0 + S.Fc), h1 = lds32(y1 + S.Fc);
       mma_k32(c0, alo, b0, b1);
       mma_k32(c0, vlo, h0, h1);
       mma_k32(c1, ahi, b0, b1);
@@ -1724,6 +1778,24 @@ __device__ __forceinline__ void update_narrow(const Shape& S, const Narrow& P, c
   }
 }
 
+// Pushes the block's slice of the accumulator, every sample, into accf of
+// every block of the cluster, itself included, at the owner's place in the
+// r-major layout: one bulk copy a block and sample (P pairs F words), each
+// completing on that block's "acc" mbarrier, issued by lane 0 of the warps in
+// turn (the copies of one warp's lanes issue one after another). After
+// fence_async and a barrier past the slice's last generic write.
+__device__ __forceinline__ void push_acc(const Shape& S, const Narrow& P, const uint32_t* own,
+                                         uint32_t* accf, uint64_t* acc_bar, int rank, int warp,
+                                         int lane) {
+  if (lane != 0) return;
+  const int words = P.pairs * S.F;
+  for (int j = warp; j < S.C * S.ns; j += kWarps) {
+    const int to = j % S.C, s = j / S.C;
+    bulk_push(accf + static_cast<size_t>(s * S.UR + rank * P.pairs) * S.F, own + s * words,
+              4 * words, acc_bar, to);
+  }
+}
+
 // The narrow tier (see above): cluster blockIdx.x / C holds samples b0 .. b0
 // + ns - 1, block `rank` of it their frequencies [rank Fc, (rank + 1) Fc)
 // and their pairs (u, r) rank P .. rank P + P - 1.
@@ -1743,10 +1815,13 @@ __global__ void __launch_bounds__(kThreads, 1) rotate_kernel_narrow(
   int8_t* dig = reinterpret_cast<int8_t*>(smem + P.dig);
   uint32_t* own = reinterpret_cast<uint32_t*>(smem + P.own);
   int8_t* X = reinterpret_cast<int8_t*>(smem + P.x);
-  int16_t* res = reinterpret_cast<int16_t*>(smem + P.accf);   // accf is dead by then
+  int8_t* Z = reinterpret_cast<int8_t*>(smem + P.dig);   // the digits are dead by then
+  int16_t* res = reinterpret_cast<int16_t*>(smem + P.dig + P.chat_tx);
   int8_t* Y = reinterpret_cast<int8_t*>(smem + P.y);
   uint64_t* bar = reinterpret_cast<uint64_t*>(smem + P.bar);
-  int* a_s = reinterpret_cast<int*>(bar + P.slots);          // [2][kMaxSamples]
+  uint64_t* acc_bar = bar + P.slots;         // the accumulator has arrived
+  uint64_t* chat_bar = bar + P.slots + 1;    // chat of this block's rows has arrived
+  int* a_s = reinterpret_cast<int*>(bar + P.slots + 2);   // [2][kMaxSamples]
   const int ahead = P.slots / 2;   // steps whose key shares are in flight
   const int own_n = ns * P.pairs * F;   // the slice: pairs (u, r) = rank P + pair
 
@@ -1758,14 +1833,6 @@ __global__ void __launch_bounds__(kThreads, 1) rotate_kernel_narrow(
                                                      ((x - sp * F) << S.log_r) + (ur & (S.R - 1))])
                         : 0u;
   }
-  // the padding rows K <= k < Kp of dig read as zero; the digit pass never writes them
-  const int pad = S.Kp - S.K, w16 = S.DS / 16;
-  for (int x = tid; x < DL * ns * pad * w16; x += kThreads) {
-    const int row = x / w16, q = row / (ns * pad), sr = row - q * ns * pad;
-    const int s = sr / pad, k = S.K + sr - s * pad;
-    *reinterpret_cast<uint4*>(dig + q * S.dig_plane + (s * S.Kp + k) * S.DS +
-                              16 * (x - row * w16)) = make_uint4(0, 0, 0, 0);
-  }
   if (tid < nvalid) a_s[tid] = __ldg(bara + b0 + tid);
   const uint4* wi = Wi;
   if (P.wi >= 0) {   // both primes' Winv fragments, 4 F^2 bytes each
@@ -1774,56 +1841,75 @@ __global__ void __launch_bounds__(kThreads, 1) rotate_kernel_narrow(
     wi = staged;
   }
   if (tid == 0) {
-    for (int k = 0; k < P.slots; ++k)
+    for (int k = 0; k < P.slots + 2; ++k)
       asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
                    :: "r"(smem_addr(bar + k)) : "memory");
+    if (S.n > 0) {   // step 0's phases
+      bar_expect(acc_bar, P.acc_tx);
+      bar_expect(chat_bar, P.chat_tx);
+    }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     for (int i = 0; i < ahead && i < S.n; ++i)
       narrow_key_load(S, P, key, keys, bar, i, 2 * i, rank);
   }
+  fence_async();
+  cluster.sync();   // every block's mbarriers are initialised, and every slice loaded
+  if (S.n > 0) push_acc(S, P, own, accf, acc_bar, rank, warp, lane);
 #ifdef CRT_MMA_PROFILE
   long long t0 = clock64();
 #endif
 
   for (int i = 0; i < S.n; ++i) {
-    cluster.sync();   // every slice holds the last update
-    CRT_MMA_PHASE(0);
     uint4 w[kMaxKT][DL];
     load_w_narrow<DL>(S, Wf, w, rank, warp, lane);
     // bara of the next step, stored at the end of this one
     const int a_next =
         tid < nvalid && i + 1 < S.n ? __ldg(bara + static_cast<size_t>(i + 1) * S.B + b0 + tid) : 0;
-    for (int x = tid; x < ns * UN / 4; x += kThreads) {   // owner by owner, 16 bytes a thread
-      const int owner = x / (own_n / 4), w = 4 * x - owner * own_n, s = w / (P.pairs * F);
-      reinterpret_cast<uint4*>(accf)[(s * S.U * S.R + owner * P.pairs) * F / 4 +
-                                     (w - s * P.pairs * F) / 4] =
-          *reinterpret_cast<const uint4*>(cluster.map_shared_rank(own, owner) + w);
+    bar_wait(acc_bar, i & 1);   // every owner's slice of the last update is in accf
+    if (tid == 0 && i + 1 < S.n) bar_expect(acc_bar, P.acc_tx);
+    CRT_MMA_PHASE(0);
+    digits_narrow<DL>(S, accf, a_s + (i & 1) * kMaxSamples, nvalid, dig, tid);
+    // the padding rows K <= k < Kp of dig read as zero (z and res wrote over them)
+    const int pad = S.Kp - S.K, w16 = S.DS / 16;
+    for (int x = tid; x < DL * ns * pad * w16; x += kThreads) {
+      const int row = x / w16, q = row / (ns * pad), sr = row - q * ns * pad;
+      const int s = sr / pad, k = S.K + sr - s * pad;
+      *reinterpret_cast<uint4*>(dig + q * S.dig_plane + (s * S.Kp + k) * S.DS +
+                                16 * (x - row * w16)) = make_uint4(0, 0, 0, 0);
     }
     __syncthreads();
     CRT_MMA_PHASE(1);
-    digits_narrow<DL>(S, accf, a_s + (i & 1) * kMaxSamples, nvalid, dig, tid);
-    __syncthreads();
-    CRT_MMA_PHASE(2);
     forward_narrow<DL>(S, dig, X, w, nvalid, warp, lane);
     const int slot = (i % ahead) * 2, parity = (i / ahead) & 1;
     bar_wait(bar + slot, parity);
     bar_wait(bar + slot + 1, parity);
     __syncthreads();
+    CRT_MMA_PHASE(2);
+    pointwise_narrow(S, P, keys + static_cast<size_t>(slot) * P.key_bytes, X, Z, warp, lane);
+    fence_async();
+    __syncthreads();   // chat is staged, and the key slots are read
+    if (tid == kThreads - 32 && i + ahead < S.n)   // lane 0 of the last warp
+      narrow_key_load(S, P, key, keys, bar, i + ahead, slot, rank);
+    if (lane == 0 && warp < S.C)   // to owner `warp` (C <= kWarps)
+      bulk_push(Y + rank * P.share, Z + warp * P.share, P.share, chat_bar, warp);
     CRT_MMA_PHASE(3);
-    pointwise_narrow(S, P, cluster, keys + static_cast<size_t>(slot) * P.key_bytes, X, Y, rank,
-                     warp, lane);
+    bar_wait(chat_bar, i & 1);   // every block's chat of this block's rows is in Y
+    if (tid == 0 && i + 1 < S.n) bar_expect(chat_bar, P.chat_tx);
     CRT_MMA_PHASE(4);
-    cluster.sync();   // every block's rows of chat are written, and its key slots read
-    CRT_MMA_PHASE(5);
-    if (tid == 0 && i + ahead < S.n) narrow_key_load(S, P, key, keys, bar, i + ahead, slot, rank);
     inverse_narrow(S, P, Y, wi, res, warp, lane);
     __syncthreads();
-    CRT_MMA_PHASE(6);
+    CRT_MMA_PHASE(5);
     update_narrow(S, P, res, own, nvalid, tid);
     if (tid < nvalid && i + 1 < S.n) a_s[((i + 1) & 1) * kMaxSamples + tid] = a_next;
+    CRT_MMA_PHASE(6);
+    if (i + 1 < S.n) {
+      fence_async();
+      __syncthreads();   // the slice holds this step's update
+      push_acc(S, P, own, accf, acc_bar, rank, warp, lane);
+    }
     CRT_MMA_PHASE(7);
   }
-  cluster.sync();   // no block reads or writes another's shared memory any more
+  cluster.sync();   // no copy reads or writes any block's shared memory any more
   for (int x = tid; x < nvalid * P.pairs * F; x += kThreads) {
     const int sp = x / F, s = sp / P.pairs, ur = rank * P.pairs + sp - s * P.pairs;
     out[static_cast<size_t>(b0 + s) * UN + (ur >> S.log_r) * S.N + ((x - sp * F) << S.log_r) +
@@ -1845,15 +1931,19 @@ inline size_t plan_narrow(Shape& S, Narrow& P, int DL, int ns, int C, int slots,
   P.pairs = S.UR / C;
   P.rows = S.L * P.pairs;
   P.nr = (ns * P.rows + 7) / 8;
-  const int accf = ns * S.U * S.N * 4, res = 2 * 8 * P.nr * S.F * 2;
+  P.share = 2 * ns * P.rows * 2 * S.Fc;
+  P.acc_tx = ns * S.U * S.N * 4;
+  P.chat_tx = C * P.share;
+  const int dig = DL * S.dig_plane, zres = P.chat_tx + 2 * 8 * P.nr * S.F * 2;
   P.accf = slots * P.key_bytes;
-  P.dig = P.accf + (accf > res ? accf : res);
-  P.own = P.dig + DL * S.dig_plane;
+  P.dig = P.accf + P.acc_tx;
+  P.own = P.dig + (dig > zres ? dig : zres);
   P.x = P.own + ns * P.pairs * S.F * 4;
   P.y = P.x + 2 * S.Fc * S.xs;
-  P.bar = P.y + 2 * 8 * P.nr * (2 * S.F + 16);
-  P.wi = wi ? P.bar + 8 * slots + 8 * kMaxSamples : -1;
-  P.smem = P.bar + 8 * slots + 8 * kMaxSamples + (wi ? 8 * S.F * S.F : 0);
+  P.bar = P.y + P.chat_tx;
+  const int end = P.bar + 8 * (slots + 2) + 8 * kMaxSamples;
+  P.wi = wi ? end : -1;
+  P.smem = end + (wi ? 8 * S.F * S.F : 0);
   return static_cast<size_t>(P.smem);
 }
 

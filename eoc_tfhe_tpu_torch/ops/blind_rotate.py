@@ -198,27 +198,53 @@ def _plan(U: int, ctx: NttContext, tg, stage_bytes: int):
     return 1, True, tried[-1] if tried else 1, None
 
 
+def narrow_exchange(U: int, ctx: NttContext, samples: int, cluster: int) -> dict:
+    """What a block of the narrow tier receives a step on each of its two
+    mbarriers (``crt_mma::rotate_kernel_narrow``): ``{"acc": (bytes armed,
+    pieces), "chat": (bytes armed, pieces)}``, each piece (sender's rank,
+    byte offset in the receiving buffer, bytes) a bulk copy that completes on
+    it.  "acc": from each owner c and sample s, c's slice of the sample (P
+    pairs (u, r) of F uint32, P = U R / cluster) at its place in the r-major
+    accumulator (samples, U, R, F); armed for the whole accumulator.  "chat":
+    from each sender c, its share for this block, (2 primes, samples L P
+    rows, lo and hi planes, Fc = F/cluster frequencies) int8, at c times the
+    share; armed for the block's rows over both primes, both planes and all
+    F frequencies."""
+    F, R = ctx.F, ctx.R
+    Fc, pairs = F // cluster, U * R // cluster
+    rows = samples * ctx.key_limbs * pairs
+    share = 2 * rows * 2 * Fc
+    acc = [(c, (s * U * R + c * pairs) * F * 4, pairs * F * 4)
+           for s in range(samples) for c in range(cluster)]
+    chat = [(c, c * share, share) for c in range(cluster)]
+    return {"acc": (samples * U * ctx.N * 4, acc), "chat": (2 * rows * 2 * F, chat)}
+
+
 def narrow_smem_bytes(U: int, ctx: NttContext, tg, samples: int, cluster: int,
                       slots: int, winv: bool = False) -> int:
     """Shared memory of a block of the narrow tier (``crt_mma::plan_narrow``):
     ``slots`` key shares of a prime and step (Fc (Mp/16) (Kp/16) 512 bytes,
-    Fc = F/cluster); the gathered accumulator (samples, U, N) uint32 or, in
-    the same bytes, the inverse residues (2, 8 nr, F) int16, nr the n8 tiles
-    of the block's rows (samples x L P rows, P = U R / cluster pairs (u, r)
-    a block); the digits (DL, samples, Kp, F + 16) int8; the block's slice of
-    the accumulator (samples, P, F) uint32; dhat of both primes (2, Fc, 2
-    samples Kp + 16) int8; chat of its rows (2, 8 nr, 2 F + 16) int8; an
-    8-byte mbarrier a slot and bara of two steps (2, 8) int32; with
-    ``winv``, the inverse's fragments of both primes (``NttContext.
-    Winv_mma``, 8 F^2 bytes), staged once a launch."""
-    Kp, Mp, F, N = pad16(tg.kpl * ctx.R), pad16(ctx.key_limbs * U * ctx.R), ctx.F, ctx.N
+    Fc = F/cluster); the pushed accumulator (samples, U, N) uint32; the
+    digits (DL, samples, Kp, F + 16) int8 or, in the same bytes, chat staged
+    by owner and after it the inverse residues (2, 8 nr, F) int16, nr the n8
+    tiles of the block's rows (samples x L P rows, P = U R / cluster pairs
+    (u, r) a block); the block's slice of the accumulator (samples, P, F)
+    uint32; dhat of both primes (2, Fc, 2 samples Kp + 16) int8; chat
+    received by sender; each chat buffer the bytes armed on "chat"
+    (:func:`narrow_exchange`); an 8-byte mbarrier a slot, two more ("acc",
+    "chat") and bara of two steps (2, 8) int32; with ``winv``, the inverse's
+    fragments of both primes (``NttContext.Winv_mma``, 8 F^2 bytes), staged
+    once a launch."""
+    Kp, Mp, F = pad16(tg.kpl * ctx.R), pad16(ctx.key_limbs * U * ctx.R), ctx.F
     DL = 1 if tg.halfBg <= 128 else 2
     Fc, pairs = F // cluster, U * ctx.R // cluster
     nr = -(-samples * ctx.key_limbs * pairs // 8)
-    return (slots * Fc * (Mp // 16) * (Kp // 16) * 512 + max(samples * U * N * 4, 32 * nr * F)
-            + DL * samples * Kp * (F + 16) + samples * pairs * F * 4
-            + 2 * Fc * (2 * samples * Kp + 16) + 16 * nr * (2 * F + 16)
-            + 8 * slots + 2 * SAMPLES[0] * 4 + (8 * F * F if winv else 0))
+    ex = narrow_exchange(U, ctx, samples, cluster)
+    chat = ex["chat"][0]
+    return (slots * Fc * (Mp // 16) * (Kp // 16) * 512 + ex["acc"][0]
+            + max(DL * samples * Kp * (F + 16), chat + 32 * nr * F) + samples * pairs * F * 4
+            + 2 * Fc * (2 * samples * Kp + 16) + chat
+            + 8 * (slots + 2) + 2 * SAMPLES[0] * 4 + (8 * F * F if winv else 0))
 
 
 def narrow_plan(B: int, U: int, ctx: NttContext, tg, sms: int = SMS,

@@ -9,21 +9,24 @@ it from the root of each.  Each checkout builds its own kernels and prepares its
 keys (from the same random TGSW rows) through its own functions.  Shapes:
 the 128-bit set over all 630 steps; K1 (``blind_rotate_ntt``) at B=1 and
 B=8 (the API's batches, which take its narrow tier) and B=8192 (the NAND
-path's), K2 (``blind_rotate_compact``, exact key) at B=1024 (the circuit
-path's) and B=8192, K3
-(``blind_rotate_ntt_v1``, over ``DEFAULT_PRIMES``) at B=1024 and B=8192.
+path's), and at the 80-bit set (500 steps) at B=1 and B=8, K2
+(``blind_rotate_compact``, exact key) at B=1024 (the circuit path's) and
+B=8192, K3 (``blind_rotate_ntt_v1``, over ``DEFAULT_PRIMES``) at B=1024 and
+B=8192.
 Times are CUDA-event means over several launches after one warm launch.
 Prints the card and one JSON line.
 
 ``--stages`` also builds ``csrc/blind_rotate_ntt.cu`` and
 ``csrc/blind_rotate_ntt_v1.cu`` with ``-DCRT_MMA_PROFILE`` (diagnostic
-libraries beside the others in ``_build/``), runs K1 once at B=1, 8 and
-8192 and K3 at B=1 and 8192, and prints block 0's clock cycles a step in
+libraries beside the others in ``_build/``, named by the sources' hash and
+built once), runs K1 once at B=1, 8 and 8192 and at the 80-bit set at B=1
+and 8, and K3 at B=1 and 8192, and prints block 0's clock cycles a step in
 each stage (for K3 the pointwise stages include its key loader's transpose;
 in K1's narrow tier block 0 is rank 0 of the first cluster, its stages the
-step's first cluster barrier, the gather, the digits, the forward with the
-wait for the key, the pointwise, the second barrier, the inverse and the
-update).
+wait for the accumulator on the "acc" mbarrier, the digits, the forward
+with the wait for the key, the pointwise with chat's copies, the wait for
+chat on the "chat" mbarrier, the inverse, the update and the accumulator's
+copies).
 """
 
 from __future__ import annotations
@@ -93,6 +96,17 @@ def main() -> int:
     times["blind_rotate_ntt B=8"] = ms(k1, 8, 10)
     times["blind_rotate_ntt B=8192"] = ms(k1, 8192, 2)
     del key
+    p80 = params.default_80bit_params()
+    tg80 = p80.tgsw_params
+    ctx80 = ntt.kernel_context_for_params(p80, device=dev)
+    key80 = ntt.prepare_kernel_key(i32((p80.n, tg80.kpl, U, N)), ctx80)
+    if args.stages:
+        stages(build, blind_rotate, "blind_rotate_ntt", acc, bara[:p80.n], key80, ctx80, p80,
+               (1, 8))
+    k1 = lambda a, b: blind_rotate.blind_rotate_ntt(a, b[:p80.n], key80, ctx80, p80)  # noqa: E731
+    times["blind_rotate_ntt 80-bit B=1"] = ms(k1, 1, 10)
+    times["blind_rotate_ntt 80-bit B=8"] = ms(k1, 8, 10)
+    del key80
     ckey = blind_rotate_compact.prepare_compact_bk(rows, 4)
     k2 = lambda a, b: blind_rotate_compact.blind_rotate_compact(a, b, ckey, p)  # noqa: E731
     times["blind_rotate_compact B=1024"] = ms(k2, 1024, 3)
@@ -113,9 +127,10 @@ def stages(build, module, name, acc, bara, key, ctx, p, batches) -> None:
     """Clock cycles by stage of kernel ``name`` (K1 or K3, whose wrapper
     module's ``_launch`` is called), from its -DCRT_MMA_PROFILE build, at
     each of ``batches``."""
-    out = build.BUILD_DIR / f"lib{name}-stages.so"
-    cmd = build._command(name, out)
-    subprocess.run(cmd[:1] + ["-DCRT_MMA_PROFILE"] + cmd[1:], check=True, capture_output=True)
+    out = build._target(name).with_name(build._target(name).name.replace(name, f"{name}-stages"))
+    if not out.exists():    # named by the sources' hash, as the shipped libraries are
+        cmd = build._command(name, out)
+        subprocess.run(cmd[:1] + ["-DCRT_MMA_PROFILE"] + cmd[1:], check=True, capture_output=True)
     lib = ctypes.CDLL(str(out))
     fn_name, argtypes = build.SIGNATURES[name]
     getattr(lib, fn_name).argtypes = argtypes
@@ -131,8 +146,8 @@ def stages(build, module, name, acc, bara, key, ctx, p, batches) -> None:
         for B in batches:
             _, general, cluster = (module.launch_plan(B, tg.tlwe_params.k + 1, ctx, tg, acc.device)
                                    if name == "blind_rotate_ntt" else (0, True, 1))
-            names = (["barrier_a", "gather", "digits", "fwd+key", "pw", "barrier_c", "inv",
-                      "update"] if cluster > 1 and not general
+            names = (["acc_wait", "digits", "fwd+key", "pw+send", "chat_wait", "inv", "update",
+                      "push"] if cluster > 1 and not general
                      else ["digits0", "fwd0", "pw0", "inv0", "digits1", "fwd1", "pw1", "inv1"])
             clocks = (ctypes.c_ulonglong * 8)()
             phase_clocks(ctypes.addressof(clocks))
@@ -141,7 +156,7 @@ def stages(build, module, name, acc, bara, key, ctx, p, batches) -> None:
             torch.cuda.synchronize()
             phase_clocks(ctypes.addressof(clocks))
             d = [x - y for x, y in zip(clocks, before)]
-            print(f"{name} B={B} stages: {sum(d) / p.n:.0f} clocks per step of "
+            print(f"{name} {p.n} steps B={B} stages: {sum(d) / p.n:.0f} clocks per step of "
                   "block 0; " + ", ".join(f"{k} {x / p.n:.0f} ({100 * x / sum(d):.1f}%)"
                                           for k, x in zip(names, d)), flush=True)
     finally:

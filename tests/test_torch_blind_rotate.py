@@ -337,6 +337,64 @@ def test_k1_plan_takes_the_narrow_tier_at_small_batches(bits, B):
     assert blind_rotate.crt_mma_plan(U, sctx, tg, blind_rotate_v1.STAGE_BYTES) == (8, False, 1)
 
 
+@pytest.mark.parametrize("bits,B", [("128", B) for B in range(1, 9)] + [("80", 1), ("80", 8)])
+def test_k1_narrow_plan_keeps_the_api_batches_on_16_blocks(bits, B):
+    """The API's batches on the H100 keep the narrow tier's plan now that the
+    inverse's residues and chat's staging have bytes of their own: B <= 7
+    one sample a cluster of 16 with two key slots and Winv staged, B = 8 two
+    samples a cluster of 16 with four slots."""
+    p = params.default_128bit_params() if bits == "128" else params.default_80bit_params()
+    tg = p.tgsw_params
+    U = tg.tlwe_params.k + 1
+    ctx = ntt.kernel_context_for_params(p, device="cpu")
+    clusters = lambda C, smem: H100_CLUSTERS.get(C, 132 // C)  # noqa: E731
+    want = (1, 16, 2, True) if B <= 7 else (2, 16, 4, False)
+    assert blind_rotate.narrow_plan(B, U, ctx, tg, sms=132, clusters=clusters) == want
+    assert blind_rotate.narrow_smem_bytes(U, ctx, tg, *want) <= blind_rotate.SMEM_PER_BLOCK
+
+
+#: Shapes whose narrow plans the exchange test walks: the shipped sets
+#: (clusters of 16), N = 512 k = 2 l = 2 (F = 64, clusters of 8) and N = 256
+#: (F = 32, clusters of 4).
+EXCHANGE_SETS = {
+    "128": lambda: params.default_128bit_params(),
+    "80": lambda: params.default_80bit_params(),
+    "N512_k2_l2": lambda: params.test_params(n=8, N=512, k=2, l=2, Bgbit=8),
+    "N256_k1_l3": lambda: params.test_params(n=8, N=256, k=1, l=3, Bgbit=7),
+}
+
+
+@pytest.mark.parametrize("case", list(EXCHANGE_SETS))
+def test_k1_narrow_exchange_delivers_the_bytes_each_mbarrier_expects(case):
+    """For every plan the narrow tier takes (B up to 128, with the H100's
+    cluster occupancy and without it), each block's "acc" and "chat"
+    mbarriers are armed for exactly the bytes the cluster's copies bring:
+    every sender's pieces (``samples`` slices a block on "acc", one share on
+    "chat") tile the receiving buffer without a gap or an overlap, each
+    16-byte aligned and a multiple of 16 bytes, as ``cp.async.bulk`` needs."""
+    p = EXCHANGE_SETS[case]()
+    tg = p.tgsw_params
+    U = tg.tlwe_params.k + 1
+    ctx = ntt.kernel_context_for_params(p, device="cpu")
+    plans = {blind_rotate.narrow_plan(B, U, ctx, tg, sms=132, clusters=clusters)
+             for B in range(1, 129)
+             for clusters in (None, lambda C, smem: H100_CLUSTERS.get(C, 132 // C))}
+    plans.discard(None)
+    assert len(plans) >= 3, plans
+    for samples, cluster, slots, winv in plans:
+        ex = blind_rotate.narrow_exchange(U, ctx, samples, cluster)
+        for name, per_sender in (("acc", samples), ("chat", 1)):
+            armed, pieces = ex[name]
+            assert sorted(c for c, _, _ in pieces) == sorted(list(range(cluster)) * per_sender)
+            assert sum(n for _, _, n in pieces) == armed
+            at = 0
+            for _, offset, n in sorted(pieces, key=lambda x: x[1]):
+                assert offset == at and offset % 16 == 0 and n % 16 == 0 and n > 0
+                at += n
+        assert blind_rotate.narrow_smem_bytes(U, ctx, tg, samples, cluster, slots,
+                                              winv) <= blind_rotate.SMEM_PER_BLOCK
+
+
 def test_kernel_domains_refuse_by_name():
     """What stays outside the domains after C11 is refused by name: no
     context (K1 at N >= 4096), l*Bgbit > 32,

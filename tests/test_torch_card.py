@@ -211,6 +211,59 @@ def test_ntt_kernel_takes_the_narrow_tier_where_the_plan_says(case, B, cuda_devi
     assert torch.equal(out, blind_rotate.blind_rotate_ntt_plain(acc0, bara, key, ctx, p))
 
 
+#: Launches a case of the exchange's stress test, back to back, and the steps
+#: of each (every step crosses the cluster twice).
+STRESS_LAUNCHES, STRESS_STEPS = 64, 32
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("alongside", [False, True])
+@pytest.mark.parametrize("B", [1, 2, 5, 8])
+@pytest.mark.parametrize("bits", ["128", "80"])
+def test_narrow_tier_exchange_holds_under_skew(bits, B, alongside, cuda_device):
+    """The narrow tier hands each step's accumulator and chat from block to
+    block on mbarriers, with no cluster barrier in the step, so a race would
+    show only under timing skew: 64 launches back to back at batch B, each
+    with its own accumulator and bara, and (``alongside``) a B = 8192 launch
+    of the shipped kernel over the same key on a second stream, queued
+    first, so that the clusters start while its blocks hold the SMs. Every
+    output equals the plain version's, bit for bit."""
+    p = params.default_128bit_params() if bits == "128" else params.default_80bit_params()
+    tg = p.tgsw_params
+    N, U, n = tg.tlwe_params.N, tg.tlwe_params.k + 1, STRESS_STEPS
+    gen = torch.Generator(device=cuda_device).manual_seed(300 + 10 * B + alongside)
+
+    def i32(shape):
+        return torch.randint(-2**31, 2**31, shape, generator=gen, dtype=torch.int64,
+                             device=cuda_device).to(torch.int32)
+
+    def bara(*batch):
+        return torch.randint(0, 2 * N, (*batch[:-1], n, batch[-1]), generator=gen,
+                             dtype=torch.int32, device=cuda_device)
+    ctx = ntt.kernel_context_for_params(p, device=cuda_device)
+    key = ntt.prepare_kernel_key(i32((n, tg.kpl, U, N)), ctx)
+    assert blind_rotate.launch_plan(B, U, ctx, tg, cuda_device)[1:] == (False, 16)
+    acc0, baras = i32((STRESS_LAUNCHES, B, U, N)), bara(STRESS_LAUNCHES, B)
+    if alongside:
+        big_acc, big_bara = i32((8192, U, N)), bara(8192)
+        side = torch.cuda.Stream(device=cuda_device)
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            big = blind_rotate.blind_rotate_ntt(big_acc, big_bara, key, ctx, p)
+    before = blind_rotate.cluster_launches
+    outs = [blind_rotate.blind_rotate_ntt(acc0[j], baras[j], key, ctx, p)
+            for j in range(STRESS_LAUNCHES)]
+    torch.cuda.synchronize()
+    assert blind_rotate.cluster_launches == before + STRESS_LAUNCHES
+    # one plain rotation over every launch's samples (each sample rotates alone)
+    want = blind_rotate.blind_rotate_ntt_plain(acc0.reshape(-1, U, N),
+                                               baras.transpose(0, 1).reshape(n, -1), key, ctx, p)
+    assert torch.equal(torch.stack(outs).reshape(-1, U, N), want)
+    if alongside:
+        assert torch.equal(big, blind_rotate.blind_rotate_ntt_plain(big_acc, big_bara, key,
+                                                                    ctx, p))
+
+
 @pytest.mark.gpu
 def test_uint8_add_and_subtract_at_batch_1_take_the_narrow_tier(cuda_device):
     """``addUint8`` and ``subtractUint8`` of the 128-bit API at batch 1:

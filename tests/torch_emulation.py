@@ -333,14 +333,15 @@ def emulate_k1_narrow_step(acc, key_step, bara_i, ctx, params, cluster, samples)
     ``samples`` samples; block c owns the frequencies [c Fc, (c + 1) Fc), Fc
     = F/cluster, and the pairs (u, r) c P .. c P + P - 1, P = U R / cluster:
     the accumulator's coefficients t R + r of u (its slice, (P, F) a sample)
-    and the inverse's rows m = (limb, u, r) of its pairs.  Each block gathers
-    the whole accumulator, r-major, from the slices and forms every digit
-    from it; its forward over its columns of W and its pointwise product
-    over the key share that one bulk copy stages (bytes [(pi F + c Fc) T, (pi
-    F + (c + 1) Fc) T) of the step's packed key, T = (Mp/16)(Kp/16)512) keep
-    the shipped sums, nothing reduced before the products by 256 and c16;
-    each row of its chat goes to the row's owner, which contracts its rows
-    over every f, then takes the CRT and the limb sum into its slice."""
+    and the inverse's rows m = (limb, u, r) of its pairs.  Each block
+    receives the whole accumulator, r-major, as the owners push their slices,
+    and forms every digit from it; its forward over its columns of W and its
+    pointwise product over the key share that one bulk copy stages (bytes
+    [(pi F + c Fc) T, (pi F + (c + 1) Fc) T) of the step's packed key, T =
+    (Mp/16)(Kp/16)512) keep the shipped sums, nothing reduced before the
+    products by 256 and c16; each row of its chat goes to the row's owner,
+    which contracts its rows over every f, then takes the CRT and the limb
+    sum into its slice."""
     tg = params.tgsw_params
     B, U, N = acc.shape
     R, F, L = ctx.R, ctx.F, ctx.key_limbs
@@ -349,7 +350,7 @@ def emulate_k1_narrow_step(acc, key_step, bara_i, ctx, params, cluster, samples)
     T = (Mp // 16) * (Kp // 16) * 512
     by_pair = acc.reshape(B, U, F, R).transpose(-1, -2).reshape(B, U * R, F)
     slices = [by_pair[:, c * P:(c + 1) * P] for c in range(cluster)]      # (B, P, F)
-    accf = torch.cat(slices, dim=1).reshape(B, U, R, F)                   # the gather
+    accf = torch.cat(slices, dim=1).reshape(B, U, R, F)                   # the pushes
     dig = _digits_r_major(accf, bara_i, tg, R)
     dig = dig.reshape(B, -1, F, R).transpose(-1, -2).reshape(B, -1, F)
     dig = torch.nn.functional.pad(dig, (0, 0, 0, Kp - dig.shape[1]))   # (B, Kp, t)
